@@ -14,11 +14,14 @@ Phases, in order; any failure exits non-zero:
               stated; kernel, plain and library times by CUDA events.
 3. main     — ``llama2_7b`` at full width and depth, bf16, random weights
               from a seed, served through the port's ``Engine``: sampled and
-              greedy requests, an int8-page pass, and a pool small enough to
-              force a preemption. The launch counters are zeroed just
-              before and read just after.
-4. greedy   — a 2-layer full-width f32 model: the engine's greedy streams
-              against the argmax of the port's own cacheless forward.
+              greedy requests, an int8-page pass, a pool small enough to
+              force a preemption, and the three modes that ride the verify
+              kernel (prefix cache, chunked prefill, n-gram speculative
+              decoding). Each pass zeroes the launch counters just before
+              it and reads them just after.
+4. greedy   — a 2-layer full-width f32 model: the engine's greedy streams,
+              plain and in each of the three modes, against the argmax of
+              the port's own cacheless forward.
 
 Opt-in: ``--phases build,profile`` times one 7B decode chain and lists
 the device kernels under torch.profiler (PERF.md "Where the time goes").
@@ -202,6 +205,80 @@ def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed):
     return rec
 
 
+def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
+                 atol, rtol, timed, seed=3):
+    """The verify kernel against its plain twin. Bound: q in, f32 out and
+    each row's min(base + m, cap) live K/V rows (plus their scales) over
+    HBM; 4*H*D*sum_b sum_j min(base_b + j + 1, cap) flops over the bf16
+    peak. Library: SDPA over each row's window gathered beforehand into
+    contiguous K/V, with the same boolean mask (the gather is not
+    timed)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    q, k, v, tables, _, sc = _decode_case(
+        torch, dtype, quant, B, H, Hkv, D, ps, max_pages, [0] * B, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.randn((B, m, H, D), generator=g, device="cuda").to(dtype)
+    base = torch.tensor(bases, dtype=torch.int32, device="cuda")
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base,
+                                         scale_pages=sc)
+    torch.cuda.synchronize()
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base,
+                                              scale_pages=sc)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"paged verify {dtype} quant={quant} m={m}: "
+                             f"max abs err {err} beyond atol={atol} "
+                             f"rtol={rtol}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("paged verify produced non-finite values")
+    rec = {"max_abs_err": err}
+    if not timed:
+        return rec
+    cap = max_pages * ps
+    live = [min(b + m, cap) for b in bases]
+    kv_elem = 1 if quant else k.element_size()
+    nbytes = (q.numel() * q.element_size() + got.numel() * 4
+              + 2 * sum(live) * Hkv * D * kv_elem
+              + (sum(live) * 2 * Hkv * 2 if quant else 0)
+              + tables.numel() * 4 + base.numel() * 4)
+    pairs = sum(min(b + j + 1, cap) for b in bases for j in range(m))
+    flops = 4 * H * D * pairs
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / BF16_FLOPS_PER_S * 1e3
+    # the library yardstick: SDPA on contiguous windows gathered up front
+    win = max(live)
+    bt = tables.long()
+
+    def window(pages, lanes):
+        w = pages[bt].reshape(B, cap, Hkv, D)[:, :win].float()
+        if sc is not None:
+            w = w * sc[bt].reshape(B, cap, 128)[:, :win, lanes].float()[
+                ..., None]
+        w = w.to(q.dtype).transpose(1, 2)
+        return w.repeat_interleave(H // Hkv, dim=1)
+
+    kw = window(k, slice(0, Hkv))
+    vw = window(v, slice(Hkv, 2 * Hkv))
+    lim = torch.clamp(base.long()[:, None] + torch.arange(
+        m, device="cuda")[None] + 1, max=cap)
+    mask = (torch.arange(win, device="cuda")[None, None] < lim[..., None])
+    qt = q.transpose(1, 2)
+    mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec.update(
+        ms=time_ms(lambda: pa.paged_verify_slab_attention(
+            q, k, v, tables, base, scale_pages=sc)),
+        plain_ms=time_ms(lambda: pa.paged_verify_slab_attention_ref(
+            q, k, v, tables, base, scale_pages=sc), warmup=1, reps=3),
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=time_ms(lambda: sdpa(qt, kw, vw, attn_mask=mask)))
+    del kw, vw, mask, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels():
     import torch
 
@@ -244,6 +321,40 @@ def phase_kernels():
                        timed=False)
     log(f"kernel flash_attention_fwd f32 S=77: max_abs_err="
         f"{rf32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
+    # llama2_7b verify shapes: spec verify (m = spec_k + 1; the last base
+    # overshoots the capacity), a chunked-prefill step (m = prefill_chunk)
+    # and a suffix-prefill wave (m = the pow2 bucket of the suffixes)
+    ver = dict(B=8, H=32, Hkv=32, D=128, ps=16, max_pages=256)
+    cases = [("spec verify", 5, [0, 1, 17, 300, 1000, 2049, 3333, 4094]),
+             ("chunked prefill", 256, [0, 0, 256, 512, 1000, 2048, 3000,
+                                       3840]),
+             ("suffix prefill", 512, [0, 512, 512, 1024, 1024, 2048, 0,
+                                      3072])]
+    log("kernel paged_verify_attention: library_ms is SDPA over windows "
+        "gathered beforehand into contiguous K/V with the same mask; the "
+        "gather is not timed")
+    for tag, m, bases in cases:
+        rv = check_verify(torch, bf16, False, m=m, bases=bases, timed=True,
+                          **ver, **tol)
+        log(f"kernel paged_verify_attention bf16 {tag} B=8 m={m} H=32 "
+            f"D=128 ps=16 bases={bases}: max_abs_err={rv['max_abs_err']:.3g}"
+            f" (atol 2e-2 rtol 2e-2) ms={rv['ms']:.4f} plain_ms="
+            f"{rv['plain_ms']:.3f} bound_ms={rv['bound_ms']:.4f} "
+            f"({rv['bound_by']}) library_ms(sdpa)={rv['library_ms']:.4f}")
+        if m == 5:
+            results["paged_verify_attention"] = rv  # the spec-verify shape
+    rv8 = check_verify(torch, bf16, True, m=5, bases=cases[0][2],
+                       timed=True, **ver, **tol)
+    log(f"kernel paged_verify_attention int8 pages, spec verify shape: "
+        f"max_abs_err={rv8['max_abs_err']:.3g} (atol 2e-2 rtol 2e-2) "
+        f"ms={rv8['ms']:.4f} plain_ms={rv8['plain_ms']:.3f} "
+        f"bound_ms={rv8['bound_ms']:.4f} ({rv8['bound_by']}) "
+        f"library_ms(sdpa)={rv8['library_ms']:.4f}")
+    rv32 = check_verify(torch, f32, False, B=2, m=7, H=32, Hkv=32, D=128,
+                        ps=16, max_pages=16, bases=[0, 200], atol=1e-4,
+                        rtol=1e-4, timed=False)
+    log(f"kernel paged_verify_attention f32 B=2 m=7: max_abs_err="
+        f"{rv32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
     return results
 
 
@@ -254,6 +365,9 @@ KERNELS = {
     "flash_attention_fwd": dict(
         source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:136"),
+    "paged_verify_attention": dict(
+        source="paddle_tpu_torch/csrc/paged_verify_attention.cu",
+        replaces="paddle_tpu/ops/pallas/paged_attention.py:661"),
 }
 
 
@@ -311,27 +425,38 @@ def main(argv=None):
     return 0
 
 
-def _serve(engine, specs, rng, vocab):
-    """Queue ``specs`` [(prompt_len, new_tokens, temperature, seed)] and
-    run the engine to completion; fail unless every request finished with
-    its full budget. Returns (requests, wall seconds)."""
+def _check_done(reqs, items):
+    """Fail unless every request finished with its full budget."""
+    for r, (p, m, t, _s) in zip(reqs, items):
+        if r.failed or not r.done or len(r.tokens) != m:
+            raise AssertionError(
+                f"request {r.rid} (prompt {len(p)}, temp {t}) ended "
+                f"{r.state} reason={r.failure_reason} with "
+                f"{len(r.tokens)}/{m} tokens")
+
+
+def _serve_items(engine, items):
+    """Queue ``items`` [(prompt, new_tokens, temperature, seed)] and run the
+    engine to completion; fail unless every request finished with its full
+    budget. Returns (requests, wall seconds)."""
     import torch
 
-    reqs = [engine.add_request(rng.integers(0, vocab, (n,)), m,
-                               temperature=t, seed=s)
-            for n, m, t, s in specs]
+    reqs = [engine.add_request(p, m, temperature=t, seed=s)
+            for p, m, t, s in items]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for r, (n, m, t, s) in zip(reqs, specs):
-        if r.failed or not r.done or len(r.tokens) != m:
-            raise AssertionError(
-                f"request {r.rid} (prompt {n}, temp {t}) ended "
-                f"{r.state} reason={r.failure_reason} with "
-                f"{len(r.tokens)}/{m} tokens")
+    _check_done(reqs, items)
     return reqs, wall
+
+
+def _serve(engine, specs, rng, vocab):
+    """``_serve_items`` over random prompts: ``specs`` [(prompt_len,
+    new_tokens, temperature, seed)]."""
+    return _serve_items(engine, [(rng.integers(0, vocab, (n,)), m, t, s)
+                                 for n, m, t, s in specs])
 
 
 def _report(tag, reqs, wall, ident):
@@ -342,16 +467,40 @@ def _report(tag, reqs, wall, ident):
         f"{statistics.median(ttft):.1f} max {ttft[-1]:.1f} [{ident}]")
 
 
+def _counters():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    return {"paged_decode_attention": pa.paged_slab_decode_attention,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "paged_verify_attention": pa.paged_verify_slab_attention}
+
+
+def _counted(run, needs=()):
+    """Zero every launch counter, ``run()``, read the counters. Fails if a
+    kernel in ``needs`` was never launched. Returns (run's result,
+    launches)."""
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
+    out = run()
+    got = {name: fn.launches for name, fn in fns.items()}
+    for name in needs:
+        if got[name] <= 0:
+            raise AssertionError(f"this pass never launched {name}")
+    return out, got
+
+
 def phase_main(ident):
-    """llama2_7b at full width and depth, bf16, through the Engine."""
+    """llama2_7b at full width and depth, bf16, through the Engine: three
+    vanilla passes, then one pass in each mode that rides the verify
+    kernel. Launches are counted per pass and summed."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.models.llama import llama2_7b
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     cfg = llama2_7b()
     t0 = time.perf_counter()
@@ -361,81 +510,147 @@ def phase_main(ident):
         f"initialised in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    pa.paged_slab_decode_attention.launches = 0
+    total = {name: 0 for name in _counters()}
 
+    def engine(**kw):
+        return Engine(model, max_slots=8, num_pages=1024, page_size=16,
+                      chunk_size=16, **kw)
+
+    def run_pass(tag, run, needs):
+        """``run()`` serves one pass on an engine of its own; the launch
+        counters are zeroed just before and read just after."""
+        got = _counted(run, needs)[1]  # the pass's engine is gone here
+        log(f"{tag}: launches {got}")
+        for name, n in got.items():
+            total[name] += n
+        torch.cuda.empty_cache()
+
+    def serve(tag, eng, items):
+        reqs, wall = _serve_items(eng, items)
+        _report(tag, reqs, wall, ident)
+        return eng
+
+    def rand(n):
+        return rng.integers(0, cfg.vocab_size, (n,))
+
+    def plain(specs):
+        return [(rand(n), m, t, s) for n, m, t, s in specs]
+
+    vanilla = ("paged_decode_attention", "flash_attention_fwd")
+    verify = ("paged_verify_attention",)
     # pass 1: 10 mixed requests, two of them sampled
-    specs = [(16, 64, 0.0, None), (1024, 32, 0.0, None),
-             (300, 128, 0.8, 11), (64, 96, 0.0, None),
-             (700, 48, 0.8, 12), (128, 128, 0.0, None),
-             (33, 40, 0.0, None), (512, 64, 0.0, None),
-             (900, 32, 0.0, None), (200, 80, 0.0, None)]
-    eng = Engine(model, max_slots=8, num_pages=1024, page_size=16,
-                 chunk_size=16)
-    reqs, wall = _serve(eng, specs, rng, cfg.vocab_size)
-    _report("main bf16 pages", reqs, wall, ident)
-    del eng
-    torch.cuda.empty_cache()
-
+    items = plain([(16, 64, 0.0, None), (1024, 32, 0.0, None),
+                   (300, 128, 0.8, 11), (64, 96, 0.0, None),
+                   (700, 48, 0.8, 12), (128, 128, 0.0, None),
+                   (33, 40, 0.0, None), (512, 64, 0.0, None),
+                   (900, 32, 0.0, None), (200, 80, 0.0, None)])
+    run_pass("main bf16 pages",
+             lambda: serve("main bf16 pages", engine(), items), vanilla)
     # pass 2: int8 KV pages
-    specs8 = [(100, 48, 0.0, None), (600, 32, 0.8, 21),
-              (250, 64, 0.0, None), (40, 64, 0.0, None)]
-    eng = Engine(model, max_slots=8, num_pages=1024, page_size=16,
-                 chunk_size=16, quantized_cache=True)
-    reqs, wall = _serve(eng, specs8, rng, cfg.vocab_size)
-    _report("main int8 pages", reqs, wall, ident)
-    del eng
-    torch.cuda.empty_cache()
+    items = plain([(100, 48, 0.0, None), (600, 32, 0.8, 21),
+                   (250, 64, 0.0, None), (40, 64, 0.0, None)])
+    run_pass("main int8 pages",
+             lambda: serve("main int8 pages",
+                           engine(quantized_cache=True), items), vanilla)
 
     # pass 3: a pool too small for the run, forcing recompute preemption
     # (each request needs up to 25 pages; 39 usable pages hold one and a
     # half of them)
-    specsp = [(256, 128, 0.0, None), (256, 128, 0.8, 31),
-              (200, 96, 0.0, None)]
-    eng = Engine(model, max_slots=4, num_pages=40, page_size=16,
-                 chunk_size=16)
-    reqs, wall = _serve(eng, specsp, rng, cfg.vocab_size)
-    _report("main small pool", reqs, wall, ident)
-    if eng.preemptions < 1:
-        raise AssertionError("the small pool forced no preemption")
-    log(f"main small pool: {eng.preemptions} preemptions")
-    del eng
+    def small_pool():
+        eng = Engine(model, max_slots=4, num_pages=40, page_size=16,
+                     chunk_size=16)
+        serve("main small pool", eng,
+              plain([(256, 128, 0.0, None), (256, 128, 0.8, 31),
+                     (200, 96, 0.0, None)]))
+        if eng.preemptions < 1:
+            raise AssertionError("the small pool forced no preemption")
+        log(f"main small pool: {eng.preemptions} preemptions")
 
-    launches = {"paged_decode_attention":
-                pa.paged_slab_decode_attention.launches,
-                "flash_attention_fwd": fa.flash_attention_fwd.launches}
-    log(f"main: launches {launches}; peak memory "
+    run_pass("main small pool", small_pool, vanilla)
+
+    # pass 4: prefix cache. A first wave publishes a shared 512-token
+    # preamble; the second wave splices it (the suffix program, through
+    # the verify kernel), and one request repeats a first-wave prompt of
+    # whole pages exactly (a full match: the copy-on-write path)
+    def prefix_cache():
+        pre = rand(512)
+        first = [(np.concatenate([pre, rand(48)]), 64, 0.0, None),
+                 (np.concatenate([pre, rand(77)]), 64, 0.0, None)]
+        second = [(np.concatenate([pre, rand(n)]), 64, t, s)
+                  for n, t, s in ((16, 0.0, None), (50, 0.8, 41),
+                                  (90, 0.0, None), (140, 0.0, None),
+                                  (200, 0.0, None))]
+        second.append((first[0][0], 64, 0.0, None))
+        eng = serve("main prefix cache, wave 1", engine(prefix_cache=True),
+                    first)
+        serve("main prefix cache, wave 2", eng, second)
+        hits, cached = eng._pcache.hits, eng._cache.cached_tokens
+        log(f"main prefix cache: {hits} hits, {eng._pcache.misses} misses, "
+            f"{cached} prefill tokens served from the cache")
+        if hits < len(second) or cached < len(second) * 512:
+            raise AssertionError(f"the second wave hit {hits} times and "
+                                 f"reused {cached} tokens")
+
+    run_pass("main prefix cache", prefix_cache, verify)
+
+    # pass 5: chunked prefill. Two short prompts are decoding when six
+    # long ones arrive and stream in 256 tokens a step
+    def chunked():
+        eng = engine(prefill_chunk=256)
+        short = plain([(20, 64, 0.0, None), (40, 64, 0.8, 51)])
+        long_ = plain([(300, 64, 0.0, None), (600, 64, 0.0, None),
+                       (900, 64, 0.8, 52), (1200, 64, 0.0, None),
+                       (1600, 64, 0.0, None), (2000, 64, 0.0, None)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, m, temperature=t, seed=s)
+                for p, m, t, s in short]
+        eng.step()  # binds both and runs their single chunk
+        if not all(len(r.tokens) == 1 for r in reqs):
+            raise AssertionError("the short prompts are not decoding")
+        reqs += [eng.add_request(p, m, temperature=t, seed=s)
+                 for p, m, t, s in long_]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_done(reqs, short + long_)
+        _report("main chunked prefill", reqs, wall, ident)
+
+    run_pass("main chunked prefill", chunked, verify)
+
+    # pass 6: n-gram speculative decoding over prompts that repeat a
+    # 64-token span, so the drafter finds matches
+    def spec():
+        items = [(np.tile(rand(64), -(-n // 64))[:n], 96, 0.0, None)
+                 for n in (200, 280, 360, 440, 520, 600)]
+        eng = serve("main spec ngram", engine(spec="ngram", spec_k=4), items)
+        st = eng._spec.stats()
+        steps = max(1, st["verify_steps"])
+        log(f"main spec ngram: {st['verify_steps']} verify steps, "
+            f"{eng._spec.drafts_accepted} of {eng._spec.drafts_proposed} "
+            f"drafts accepted ({eng._spec.drafts_accepted / steps:.2f} per "
+            f"verify step), {st['accept_per_step']:.2f} tokens per "
+            f"request-row per step")
+
+    run_pass("main spec ngram", spec, verify)
+
+    log(f"main: launches {total}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{ident}]")
-    for name, n in launches.items():
+    for name, n in total.items():
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     del model
     torch.cuda.empty_cache()
-    return launches
+    return total
 
 
-def phase_profile(ident):
-    """Opt-in (not in the default run): where one decode chain's time goes
-    at llama2_7b, 8 active slots, bf16. Host wall time of the chain against
-    the device's busy time under torch.profiler, and the top device
-    kernels by total time."""
-    import numpy as np
+def _profile_step(eng, tag, steps, ident):
+    """Host wall time of one ``eng.step()`` against the device's busy time
+    of the next one under torch.profiler, and the top device kernels.
+    ``steps`` token steps make up one engine step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.convert import init_llama
-    from paddle_tpu_torch.inference.engine import Engine
-    from paddle_tpu_torch.models.llama import llama2_7b
-
-    cfg = llama2_7b()
-    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    eng = Engine(model, max_slots=8, num_pages=1024, page_size=16,
-                 chunk_size=16, max_chain=1)
-    rng = np.random.default_rng(3)
-    for _ in range(8):
-        eng.add_request(rng.integers(0, cfg.vocab_size, (512,)), 200)
-    eng.step()  # admission wave + first chain (builds, warms up)
-    eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.step()
@@ -449,39 +664,68 @@ def phase_profile(ident):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    steps = eng.chunk_size
-    log(f"profile: one 16-step chain, 8 slots, ~512-token contexts: wall "
-        f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f} ms/token step); "
-        f"device busy {busy_ms:.1f} ms under the profiler "
-        f"({busy_ms / steps:.2f} ms/step); {launches} device kernels "
-        f"({launches / steps:.0f}/step) [{ident}]")
+    log(f"profile: {tag}: wall {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / steps:.2f} ms/token step); device busy "
+        f"{busy_ms:.1f} ms under the profiler ({busy_ms / steps:.2f} "
+        f"ms/step); {launches} device kernels ({launches / steps:.0f}/step)"
+        f" [{ident}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
             f"x{e.count:<6d} {e.key[:90]}")
-    del eng, model
-    torch.cuda.empty_cache()
 
 
-def phase_greedy(ident):
-    """2-layer full-width f32: engine greedy streams against the argmax of
-    the port's own cacheless forward, recomputed token by token. The
-    comparison of a request stops at the first position where the
-    reference's top-2 logit gap is under 1e-4."""
+def phase_profile(ident):
+    """Opt-in (not in the default run): where the time goes at llama2_7b,
+    8 active slots, bf16, in one decode chain, one chunked-prefill mixed
+    step and one spec-decode verify step."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
-    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama import llama2_7b
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
-    cfg = LlamaConfig(num_layers=2)
-    model = init_llama(cfg, seed=1, device="cuda", dtype=torch.float32)
-    eng = Engine(model, max_slots=2, num_pages=128, page_size=16,
-                 chunk_size=16)
-    rng = np.random.default_rng(1)
-    reqs, _ = _serve(eng, [(40, 24, 0.0, None), (150, 24, 0.0, None)],
-                     rng, cfg.vocab_size)
+    cfg = llama2_7b()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+
+    def engine(prompt_len, **kw):
+        eng = Engine(model, max_slots=8, num_pages=1024, page_size=16,
+                     chunk_size=16, **kw)
+        for _ in range(8):
+            eng.add_request(rng.integers(0, cfg.vocab_size, (prompt_len,)),
+                            200)
+        return eng
+
+    eng = engine(512, max_chain=1)
+    eng.step()  # admission wave + first chain (warms up)
+    eng.step()
+    _profile_step(eng, "one 16-step decode chain, ~512-token contexts",
+                  eng.chunk_size, ident)
+    del eng
+    # 8 prompts of 2048 tokens stream in 256-token chunks: each mixed step
+    # is one [8, 256] forward through the verify kernel
+    eng = engine(2048, prefill_chunk=256)
+    eng.step()
+    _profile_step(eng, "one chunked-prefill mixed step, 8 rows x 256 "
+                  "prompt tokens over 256 (wall) and 512 (profiled) cached "
+                  "tokens", 1, ident)
+    del eng
+    eng = engine(512, spec="ngram", spec_k=4)
+    eng.step()  # blocking admission + the first verify step
+    _profile_step(eng, "one spec verify step, 8 rows x 5 tokens, "
+                  "~512-token contexts", 1, ident)
+    del eng, model
+    torch.cuda.empty_cache()
+
+
+def _match_cacheless(model, reqs, tag):
+    """Each greedy stream against the argmax of the cacheless forward,
+    recomputed token by token; a request's comparison stops at the first
+    position where the reference's top-2 logit gap is under 1e-4, and at
+    least 16 tokens must be compared."""
+    import torch
+
     for r in reqs:
         seq = torch.as_tensor(r.prompt, dtype=torch.int64, device="cuda")
         compared = 0
@@ -494,15 +738,76 @@ def phase_greedy(ident):
                 want = int(torch.argmax(logits))
                 if want != tok:
                     raise AssertionError(
-                        f"request {r.rid}: token {compared} is {tok}, the "
-                        f"cacheless forward says {want}")
+                        f"{tag} request {r.rid}: token {compared} is {tok}, "
+                        f"the cacheless forward says {want}")
                 compared += 1
                 seq = torch.cat([seq, seq.new_tensor([tok])])
         if compared < 16:
-            raise AssertionError(f"request {r.rid}: only {compared} tokens "
-                                 "compared before a near-tie")
-        log(f"greedy: request {r.rid} (prompt {r.prompt.size}) matches the "
-            f"cacheless forward on {compared}/{len(r.tokens)} tokens")
+            raise AssertionError(f"{tag} request {r.rid}: only {compared} "
+                                 "tokens compared before a near-tie")
+        log(f"greedy {tag}: request {r.rid} (prompt {r.prompt.size}) "
+            f"matches the cacheless forward on {compared}/{len(r.tokens)} "
+            "tokens")
+
+
+def phase_greedy(ident):
+    """2-layer full-width f32: engine greedy streams (plain, prefix cache,
+    chunked prefill, n-gram spec) against the argmax of the port's own
+    cacheless forward."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    cfg = LlamaConfig(num_layers=2)
+    model = init_llama(cfg, seed=1, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(1)
+
+    def rand(n):
+        return rng.integers(0, cfg.vocab_size, (n,))
+
+    def engine(**kw):
+        return Engine(model, max_slots=4, num_pages=128, page_size=16,
+                      chunk_size=16, **kw)
+
+    reqs, _ = _serve(engine(), [(40, 24, 0.0, None), (150, 24, 0.0, None)],
+                     rng, cfg.vocab_size)
+    _match_cacheless(model, reqs, "plain")
+
+    # prefix cache: the second wave splices the first wave's 64-token
+    # preamble; one request repeats a whole-page prompt (copy-on-write)
+    eng = engine(prefix_cache=True)
+    pre = rand(64)
+    first = [(np.concatenate([pre, rand(32)]), 24, 0.0, None)]
+    second = [(np.concatenate([pre, rand(45)]), 24, 0.0, None),
+              (first[0][0], 24, 0.0, None)]
+    _serve_items(eng, first)
+    reqs, _ = _serve_items(eng, second)
+    if eng._pcache.hits < 2:
+        raise AssertionError("greedy prefix cache: the second wave missed")
+    _match_cacheless(model, reqs, "prefix cache")
+
+    # chunked prefill: prompts of several 32-token chunks
+    reqs, _ = _serve(engine(prefill_chunk=32),
+                     [(70, 24, 0.0, None), (150, 24, 0.0, None)], rng,
+                     cfg.vocab_size)
+    _match_cacheless(model, reqs, "chunked")
+
+    # n-gram spec over prompts that repeat a 16-token span
+    eng = engine(spec="ngram", spec_k=4)
+    reqs, _ = _serve_items(eng, [(np.tile(rand(16), 5), 24, 0.0, None),
+                                 (np.tile(rand(16), 8), 24, 0.0, None)])
+    if eng._spec.verify_steps < 1:
+        raise AssertionError("greedy spec: no verify step ran")
+    log(f"greedy spec ngram: {eng._spec.verify_steps} verify steps, "
+        f"{eng._spec.drafts_accepted} of {eng._spec.drafts_proposed} drafts "
+        "accepted")
+    _match_cacheless(model, reqs, "spec ngram")
+    del eng, model
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache, after
-``paddle_tpu/inference/engine.py`` reduced to its default configuration
-(no prefix cache, no chunked prefill, no speculative decoding, one device,
-dense models).
+``paddle_tpu/inference/engine.py`` on one device with dense models.
 
 * **Slots + pages.** ``max_slots`` sequence slots share one page pool per
   layer through block tables; a finished request's pages recycle at once.
@@ -29,16 +27,37 @@ dense models).
   preempts the longest request (recompute: it requeues at the front and
   re-prefills prompt plus generated tokens), then fails a lone request
   that still cannot fit. ``max_retries`` bounds requeues.
+* **Prefix cache** (``prefix_cache=True``). Full prompt pages are indexed
+  by block-chain hash (``prefix_cache.py``) when their prefill lands; a
+  later admission splices the cached prefix into its table (refcount per
+  shared page) and prefills only the uncached suffix. A wave with a hit
+  runs the suffix program (attention over the cached prefix through the
+  verify kernel); an all-miss wave keeps the classic flash prefill. A
+  full-prompt match copies its last page (copy-on-write) and recomputes
+  the last token. Idle cached pages are reclaimed (LRU, leaf first)
+  before anyone is preempted.
+* **Chunked prefill** (``prefill_chunk=N``). Admission binds queued
+  requests to slots without a prefill; one mixed step (the verify kernel
+  over per-row widths) then advances every active slot, prompts by up to
+  N tokens and decoding slots by one. Pure-decode phases take the chained
+  path. The sampled-key burn is gated to token-emitting rows, so streams
+  equal the unchunked ones.
+* **Speculative decoding** (``spec="ngram"``, ``spec_k=k``). The n-gram
+  drafter proposes up to k tokens per request, ONE verify forward (the
+  verify kernel) scores all k+1 positions, acceptance keeps 1..k+1 tokens
+  (``inference/spec/``), and rejected rows roll back (``_trim_pages``).
 * **Per-request faults.** Validation at ``add_request``; a non-finite
   logit row, a raising ``on_token`` callback or an unexpected error while
   harvesting one request fails that request only (``errors.py``).
 
-Left out of the reference (``ROADMAP.md`` queue A lists them): the prefix
-cache, chunked prefill, speculative decoding, pre-admission, the host KV
-tier, the watchdog and whole-step fault recovery (an exception inside a
-dispatch raises out of ``step``), fault injection, integrity audits,
-multi-step, metrics and tracing, deadlines and cancellation, tp/ep and MoE.
-Passing any of their constructor arguments raises ``TypeError``.
+The modes combine as in the reference: chunked with the prefix cache,
+chunked with spec, spec with the prefix cache. Left out of the reference
+(``ROADMAP.md`` queue A lists them): the draft-model drafter, pre-admission,
+the host KV tier, the watchdog and whole-step fault recovery (an exception
+inside a dispatch raises out of ``step``), fault injection, integrity
+audits, multi-step, metrics and tracing, deadlines and cancellation,
+``max_queue``, disaggregation, tp/ep and MoE. Passing any of their
+constructor arguments raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -59,7 +78,7 @@ from .errors import (AdmissionRejected, CallbackError, NumericsError,
 from .runner import ModelRunner
 from .sampling import advance_sample_key, key_from_seed, select_token
 
-__all__ = ["Engine", "Request"]
+__all__ = ["Engine", "Request", "make_mixed_step_fn"]
 
 
 def _pow2ceil(n: int) -> int:
@@ -67,6 +86,34 @@ def _pow2ceil(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def make_mixed_step_fn(engine, sampling):
+    """Chunked prefill's mixed chunk+decode step. ``ids [nb, chunk]``
+    carries, per row, either the next chunk of a streaming prompt (width
+    w <= chunk) or a decoding slot's last token (width 1);
+    ``paged_state_verify`` (``verify=True`` with per-row widths) writes each
+    row's w tokens at ``[len, len+w)`` and scores every position over the
+    cache plus the causal prefix. The token at position w-1 is the row's
+    next token: a decode row's, or a prompt's first generated token on its
+    final chunk (mid-prompt rows discard it). ``emit`` gates the sampled-key
+    burn to token-emitting rows, so a sampled stream burns one draw per
+    delivered token, as unchunked. Returns (tok, keys, bad)."""
+    model = engine.model
+
+    @torch.no_grad()
+    def mixed_chunk_step(ids, widths, emit, tables, lengths, temps, keys):
+        states = engine._states_from(tables, lengths, prefill_valid=widths,
+                                     verify=True)
+        logits, _ = model(ids, caches=states)
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        last = logits[rows, widths.long() - 1].float()
+        tok, burned, bad = engine._select(last, sampling, temps, keys)
+        if sampling:
+            burned = torch.where((emit > 0)[:, None], burned, keys)
+        return tok, burned, bad
+
+    return mixed_chunk_step
 
 
 @dataclass
@@ -115,7 +162,9 @@ class Engine:
                  chunk_size=16, eos_id: Optional[int] = None, dtype=None,
                  quantized_cache=False, max_chain=8,
                  top_k: Optional[int] = None, max_retries: int = 8,
-                 device=None):
+                 prefix_cache: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 spec: Optional[str] = None, spec_k: int = 4, device=None):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -127,8 +176,8 @@ class Engine:
         if self.dtype != model.dtype:
             raise ValueError(
                 f"page dtype {self.dtype} must match the model's "
-                f"{model.dtype}: the decode kernel reads pages in q's dtype "
-                "(or int8 with quantized_cache=True)")
+                f"{model.dtype}: the attention kernels read pages in q's "
+                "dtype (or int8 with quantized_cache=True)")
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         self.chunk_size = int(chunk_size)
@@ -142,8 +191,17 @@ class Engine:
         self.max_pages_per_seq = cfg.max_position // self.page_size
         self.num_pages = int(num_pages)
         self.max_retries = int(max_retries)
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if not 2 <= prefill_chunk <= cfg.max_position:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be in "
+                    f"[2, max_position={cfg.max_position}]")
+        self.prefill_chunk = prefill_chunk
+        # mid-prefill slot -> prompt tokens not yet written (chunked mode)
+        self._chunk_left: Dict[int, np.ndarray] = {}
         self.runner = ModelRunner(self)
-        self._cache = CacheCoordinator(self)
+        self._cache = CacheCoordinator(self, prefix_cache=prefix_cache)
         self._queue: List[Request] = []
         self._active: Dict[int, Request] = {}  # slot -> request
         self._last_tok = np.zeros((self.max_slots,), np.int64)
@@ -152,6 +210,11 @@ class Engine:
         self._next_rid = 0
         self._stall_steps = 0
         self.preemptions = 0
+        self._spec = None
+        if spec not in (None, "off"):
+            from .spec import SpecDecoder
+
+            self._spec = SpecDecoder(self, mode=spec, k=spec_k)
 
     # ------------------------------------------------ allocator delegation
     @property
@@ -170,6 +233,14 @@ class Engine:
     def _free_slots(self):
         return self._cache.free_slots
 
+    @property
+    def _page_ref(self):
+        return self._cache.page_ref
+
+    @property
+    def _pcache(self):
+        return self._cache.pcache
+
     # ------------------------------------------------------------ requests
     def add_request(self, prompt, max_new_tokens, on_token=None,
                     temperature=0.0, seed=None,
@@ -181,7 +252,8 @@ class Engine:
         ``resume_tokens`` are tokens the stream already emitted elsewhere:
         they count against ``max_new_tokens``, are never re-delivered, and
         admission re-prefills prompt plus them; a seeded sampled stream
-        replays one key split per emitted token."""
+        replays one key split per emitted token (not on a spec engine,
+        which burns keys per verify step)."""
         raw = np.asarray(prompt)
         if raw.dtype.kind not in "iu":
             raise ValidationError(
@@ -239,6 +311,11 @@ class Engine:
                     f"generation budget ({max_new_tokens})")
             if self.eos_id is not None and self.eos_id in resumed:
                 raise ValidationError("resume_tokens contain eos")
+            if float(temperature) > 0.0 and self._spec is not None:
+                raise ValidationError(
+                    "sampled resume on a spec engine: spec decode burns "
+                    "keys per verify step, not per token, so the key state "
+                    "cannot be rebuilt from the emitted tokens")
             if float(temperature) > 0.0 and seed is None:
                 raise ValidationError(
                     "sampled resume needs an explicit seed")
@@ -268,6 +345,8 @@ class Engine:
             req.slot = None
         if req in self._queue:
             self._queue.remove(req)
+        if self._spec is not None:
+            self._spec.controller.forget(req)
 
     def _note_stall(self):
         """Queued requests, nothing active, nothing admissible: after a
@@ -314,13 +393,15 @@ class Engine:
         return True
 
     def _trim_pages(self, slot, keep_len):
-        """Release a slot's headroom pages beyond ``keep_len``."""
+        """Release a slot's headroom pages beyond ``keep_len`` (a spliced
+        shared page merely loses this slot's reference)."""
         need = self._pages_needed(keep_len)
         have = int(np.count_nonzero(self.tables[slot]))
         for i in range(have - 1, need - 1, -1):
             self._cache.release_page(int(self.tables[slot, i]))
             self.tables[slot, i] = 0
 
+    # ------------------------------------------------------- preemption
     def _preempt(self, slot):
         """Evict a running request under pool pressure (recompute policy):
         its pages recycle, it requeues, and re-admission prefills prompt
@@ -345,12 +426,17 @@ class Engine:
     def _free_slot(self, slot):
         if slot in self._free_slots:
             return  # idempotent: a double free would hand a slot out twice
+        # a release decrements: shared pages survive for their other
+        # referents, cached pages stay resident at refcount 0
         for p in self.tables[slot]:
             if p:
                 self._cache.release_page(int(p))
         self.tables[slot, :] = 0
         self.lengths[slot] = 0
+        self._chunk_left.pop(slot, None)  # mid-prefill state dies too
         self._free_slots.append(slot)
+        if self._spec is not None:
+            self._spec.drafter.release(slot)
 
     def _reserve_step_pages(self, k, target_len):
         """Allocate this step's pages for every active slot — shrinking the
@@ -394,11 +480,13 @@ class Engine:
         return 0
 
     # ------------------------------------------------------ device programs
-    def _states_from(self, tables, lengths, prefill_valid=None):
+    def _states_from(self, tables, lengths, prefill_valid=None,
+                     verify=False):
         c = self._cache
         return [PagedCacheState(c.k_pages[i], c.v_pages[i],
                                 c.scale_pages[i], tables, lengths,
-                                self.page_size, prefill_valid=prefill_valid)
+                                self.page_size, prefill_valid=prefill_valid,
+                                verify=verify)
                 for i in range(self.cfg.num_layers)]
 
     def _select(self, lg, sampling, temps, keys):
@@ -410,14 +498,21 @@ class Engine:
         tok, keys = select_token(lg, greedy, temps, keys, self.top_k)
         return tok, keys, bad
 
-    def _make_prefill_raw(self, sampling):
+    def _make_prefill_raw(self, sampling, suffix=False):
         """The bucketed prefill: ids [nb, S] → (first token [nb], keys,
-        bad [nb]); the prompt's K/V land in the pages in place."""
+        bad [nb]); the prompt's K/V land in the pages in place.
+
+        ``suffix=True`` is the prefix cache's partial prefill: ``lengths``
+        carries each row's cached token count and ``verify=True`` routes
+        attention through the verify kernel over cache plus suffix, so hit
+        rows compute only their uncached suffix and miss rows (base 0)
+        prefill from scratch. All-miss waves keep ``suffix=False``."""
         model = self.model
 
         @torch.no_grad()
         def prefill(ids, valid, tables, lengths, temps, keys):
-            states = self._states_from(tables, lengths, prefill_valid=valid)
+            states = self._states_from(tables, lengths, prefill_valid=valid,
+                                       verify=suffix)
             logits, _ = model(ids, caches=states)
             rows = torch.arange(ids.shape[0], device=ids.device)
             last = logits[rows, valid.long() - 1].float()
@@ -464,37 +559,49 @@ class Engine:
                 [req.prompt, np.asarray(req.tokens, np.int32)])
         return req.prompt
 
+    def _seed_key(self, req):
+        """The request's threefry key, built on the host at first
+        admission."""
+        if req._key is None:
+            seed = int(req.seed if req.seed is not None else req.rid)
+            req._key = np.array(key_from_seed(seed), np.uint32)
+        return req._key
+
     def _admit_dispatch(self):
         """Launch one bucketed prefill for every admissible queued request
         without waiting for it. Returns ``(admits, tok, keys, bad)`` with
         device tensors the step fetches together with its decode chain."""
-        admits = []  # (req, slot, prefix)
+        admits = []  # (req, slot, prefix, base)
         while (self._queue and self._free_slots
                and len(self._active) + len(admits) < self.max_slots):
             req = self._queue[0]
             prefix = self._prefix(req)
-            need = self._pages_needed(prefix.size + self.chunk_size)
+            need = (self._pages_needed(prefix.size + self.chunk_size)
+                    - self._cache.peek(prefix)[1])
             if need > self._cache.available_pages():
                 break  # pool pressure: let running requests drain first
             slot = self._free_slots.pop()
             self._queue.pop(0)
+            base = self._cache.splice(self.tables[slot], prefix)
             try:
                 got = self._ensure_pages(slot, prefix.size)
             except RequestError as e:
+                self._cache.drop_cow(self.tables[slot])
                 self._free_slot(slot)
                 self._fail_request(req, e)
                 continue
             if not got:
+                self._cache.drop_cow(self.tables[slot])
                 self._free_slot(slot)
                 self._queue.insert(0, req)
                 break
-            admits.append((req, slot, prefix))
+            admits.append((req, slot, prefix, base))
         if not admits:
             return [], None, None, None
         tok, new_keys, bad = self._prefill_wave(
-            [(req, prefix, self.tables[slot]) for req, slot, prefix
-             in admits])
-        for req, slot, prefix in admits:
+            [(req, prefix, self.tables[slot], base)
+             for req, slot, prefix, base in admits])
+        for req, slot, prefix, _base in admits:
             self.lengths[slot] = prefix.size
             req.slot = slot
             self._active[slot] = req
@@ -505,35 +612,45 @@ class Engine:
 
     def _prefill_wave(self, rows):
         """Launch ONE bucketed prefill for ``rows`` of (req, prefix,
-        table_row): rows pad to the fixed max_slots pow2 bucket (padding
-        rows write one token to the trash page), prompts to a shared pow2
-        length capped at max_position."""
-        seq_bucket = min(_pow2ceil(max(p.size for _, p, _ in rows)),
+        table_row, base): rows pad to the fixed max_slots pow2 bucket
+        (padding rows write one token to the trash page), prompts (their
+        uncached suffixes) to a shared pow2 length capped at max_position.
+        A wave with any cache hit takes the suffix program; pending COW
+        copies flush first."""
+        self._cache.flush_cow()
+        suffix_mode = any(base for *_, base in rows)
+        seq_bucket = min(_pow2ceil(max(p.size - b for _, p, _, b in rows)),
                          self.cfg.max_position)
         nb = _pow2ceil(self.max_slots)
         ids = np.zeros((nb, seq_bucket), np.int64)
         valid = np.ones((nb,), np.int32)
+        bases = np.zeros((nb,), np.int32)
         tables = np.zeros((nb, self.max_pages_per_seq), np.int32)
         temps = np.zeros((nb,), np.float32)
         keys = np.zeros((nb, 2), np.int64)
-        for i, (req, prefix, table_row) in enumerate(rows):
-            ids[i, :prefix.size] = prefix
-            valid[i] = prefix.size
+        for i, (req, prefix, table_row, base) in enumerate(rows):
+            suf = prefix[base:]
+            ids[i, :suf.size] = suf
+            valid[i] = suf.size
+            bases[i] = base
             tables[i] = table_row
             temps[i] = req.temperature
-            if req._key is None:
-                seed = int(req.seed if req.seed is not None else req.rid)
-                req._key = np.array(key_from_seed(seed), np.uint32)
-            keys[i] = req._key
+            keys[i] = self._seed_key(req)
         prefill = self.runner.get_prefill((nb, seq_bucket),
-                                          bool(np.any(temps > 0.0)))
-        return prefill(self._dev(ids), self._dev(valid),
-                       self._dev(tables), self._dev(np.zeros((nb,),
-                                                             np.int32)),
-                       self._dev(temps), self._dev(keys))
+                                          bool(np.any(temps > 0.0)),
+                                          suffix_mode)
+        return prefill(self._dev(ids), self._dev(valid), self._dev(tables),
+                       self._dev(bases), self._dev(temps), self._dev(keys))
+
+    def _admit(self):
+        """Blocking admission: dispatch and harvest at once."""
+        admits, tok, keys, bad = self._admit_dispatch()
+        if admits:
+            self._harvest_admits(admits, tok.cpu().numpy(),
+                                 keys.cpu().numpy(), bad.cpu().numpy())
 
     def _harvest_admits(self, admits, first, new_keys, bad):
-        for i, (req, slot, _prefix) in enumerate(admits):
+        for i, (req, slot, prefix, _base) in enumerate(admits):
             try:
                 if bad[i]:
                     raise NumericsError(
@@ -547,6 +664,10 @@ class Engine:
                         self._queue.remove(req)
                     continue
                 self._keys[slot] = new_keys[i]
+                # the prefix K/V are valid now: publish their full pages
+                # (before the harvest, so even a request that finishes or
+                # fails here leaves its prompt cached)
+                self._cache.register(prefix, self.tables[slot])
                 self._harvest(req, [int(first[i])])
                 self._last_tok[slot] = int(first[i])
                 if req.done:  # single remaining token: finished at prefill
@@ -560,7 +681,8 @@ class Engine:
 
     def _harvest(self, req, toks) -> int:
         """Append generated tokens, honouring eos and the budget. Returns
-        how many were consumed."""
+        how many were consumed (a multi-token block truncates at an eos or
+        the budget)."""
         fresh = []
         for t in toks:
             if req.done or len(req.tokens) >= req.max_new_tokens:
@@ -631,7 +753,7 @@ class Engine:
         if admits:
             row_of = {s: i for i, s in enumerate(slots)}
             src, dst = [], []
-            for i, (_, slot, _p) in enumerate(admits):
+            for i, (_, slot, *_rest) in enumerate(admits):
                 if slot in row_of:  # an admitted-then-preempted row drops
                     src.append(i)
                     dst.append(row_of[slot])
@@ -674,11 +796,27 @@ class Engine:
                 self._fail_request(req, self._wrap_step_fault(e, req))
 
     def step(self) -> int:
-        """One scheduling round trip: launch the admission prefill and the
-        decode chain back to back, then fetch both once and harvest.
-        Request-scoped faults fail one request; an exception inside a
-        dispatch raises. Returns the number of live requests."""
-        admits, pre_tok, pre_keys, pre_bad = self._admit_dispatch()
+        """One scheduling round trip: the mixed step while a prompt streams
+        in chunked mode (or a queued request can take a slot there), a
+        spec-decode step on a spec engine, else the chained step. Request-
+        scoped faults fail one request; an exception inside a dispatch
+        raises. Returns the number of live requests."""
+        if self._wants_mixed():
+            self._mixed_step()
+        elif self._spec is not None:
+            self._spec_step()
+        else:
+            self._chained_step()
+        return len(self._queue) + len(self._active)
+
+    def _chained_step(self):
+        """Launch the admission prefill and the decode chain back to back,
+        then fetch both once and harvest. In chunked mode the mixed step
+        owns admission, so this runs pure decode chains."""
+        if self.prefill_chunk is None:
+            admits, pre_tok, pre_keys, pre_bad = self._admit_dispatch()
+        else:
+            admits, pre_tok, pre_keys, pre_bad = [], None, None, None
         chain = None
         if self._active:
             self._stall_steps = 0
@@ -700,7 +838,244 @@ class Engine:
             self._chain_harvest(slots, slot_reqs, toks.cpu().numpy(),
                                 lengths.cpu().numpy(), keys.cpu().numpy(),
                                 bad.cpu().numpy())
-        return len(self._queue) + len(self._active)
+
+    # ------------------------------------------------------ chunked prefill
+    def _wants_mixed(self) -> bool:
+        """Take the mixed step? Yes while a prompt is mid-stream, or when a
+        queued request could take a slot (the mixed step owns admission in
+        chunked mode). Pure-decode phases take the chained path, whose
+        deep chains amortise the round trip far better."""
+        if self.prefill_chunk is None:
+            return False
+        if self._chunk_left:
+            return True
+        return (bool(self._queue) and bool(self._free_slots)
+                and len(self._active) < self.max_slots)
+
+    def _bind_chunked(self):
+        """Chunked admission: bind queued requests to slots WITHOUT a
+        prefill; their first chunk rides the very next mixed step. Pages
+        are taken for the first chunk only."""
+        chunk = self.prefill_chunk
+        while (self._queue and self._free_slots
+               and len(self._active) < self.max_slots):
+            req = self._queue[0]
+            prefix = self._prefix(req)
+            # pages this admission needs now: its first chunk only
+            peeked, reuse = self._cache.peek(prefix)
+            need = max(0, self._pages_needed(
+                min(prefix.size, peeked + chunk)) - reuse)
+            if need > self._cache.available_pages():
+                break  # pool pressure: let running requests drain first
+            slot = self._free_slots.pop()
+            self._queue.pop(0)
+            base = self._cache.splice(self.tables[slot], prefix)
+            try:
+                got = self._ensure_pages(slot, min(prefix.size, base + chunk))
+            except RequestError as e:
+                self._cache.drop_cow(self.tables[slot])
+                self._free_slot(slot)
+                self._fail_request(req, e)
+                continue
+            if not got:
+                self._cache.drop_cow(self.tables[slot])
+                self._free_slot(slot)
+                self._queue.insert(0, req)
+                break
+            self.lengths[slot] = base
+            self._chunk_left[slot] = prefix[base:]
+            req.slot = slot
+            self._active[slot] = req
+            self._temps[slot] = req.temperature
+            self._keys[slot] = self._seed_key(req)
+
+    def _mixed_step(self):
+        """One chunked-prefill iteration: bind queued requests, reserve this
+        step's pages, run ONE mixed step over every active slot (decoding
+        slots by one token, prefilling slots by up to ``prefill_chunk``
+        prompt tokens) and harvest it with one fetch."""
+        chunk = self.prefill_chunk
+        self._bind_chunked()
+        if not self._active:
+            if self._queue:
+                self._note_stall()
+            return
+        self._stall_steps = 0
+
+        def target(slot, req, _k):
+            left = self._chunk_left.get(slot)
+            if left is not None:
+                return int(self.lengths[slot]) + min(left.size, chunk)
+            return min(int(self.lengths[slot]) + 1,
+                       req.prompt.size + req.max_new_tokens + 1)
+
+        # a preempted mid-prefill slot drops its _chunk_left with the slot
+        # and re-chunks from scratch on re-admission (recompute policy)
+        self._reserve_step_pages(1, target)
+        if not self._active:
+            return
+        slots, widths, tok, keys, bad = self._mixed_dispatch(
+            sorted(self._active))
+        self._mixed_harvest(slots, widths, tok.cpu().numpy(),
+                            keys.cpu().numpy(), bad.cpu().numpy())
+
+    def _mixed_dispatch(self, slots):
+        """Launch ONE mixed step over ``slots`` (rows pad to the fixed
+        max_slots bucket; pad rows have width 1 and write to the trash
+        page). Returns device tensors; never waits."""
+        chunk = self.prefill_chunk
+        n = len(slots)
+        nb = _pow2ceil(self.max_slots)
+        ids = np.zeros((nb, chunk), np.int64)
+        widths = np.ones((nb,), np.int32)
+        emit = np.zeros((nb,), np.int32)
+        tables_c = np.zeros((nb, self.max_pages_per_seq), np.int32)
+        lengths_c = np.zeros((nb,), np.int32)
+        temps_c = np.zeros((nb,), np.float32)
+        keys_c = np.zeros((nb, 2), np.int64)
+        tables_c[:n] = self.tables[slots]
+        lengths_c[:n] = self.lengths[slots]
+        temps_c[:n] = self._temps[slots]
+        keys_c[:n] = self._keys[slots]
+        for i, slot in enumerate(slots):
+            left = self._chunk_left.get(slot)
+            if left is not None:
+                w = min(left.size, chunk)
+                ids[i, :w] = left[:w]
+                widths[i] = w
+                emit[i] = int(w == left.size)
+            else:
+                ids[i, 0] = self._last_tok[slot]
+                emit[i] = 1
+        self._cache.flush_cow()
+        sampling = bool(np.any(temps_c > 0.0))
+        mixed = self.runner.get_mixed(nb, sampling)
+        tok, keys, bad = mixed(
+            self._dev(ids), self._dev(widths), self._dev(emit),
+            self._dev(tables_c), self._dev(lengths_c), self._dev(temps_c),
+            self._dev(keys_c))
+        return slots, widths, tok, keys, bad
+
+    def _mixed_harvest(self, slots, widths, tok, keys_h, bad_h):
+        """Host harvest of a mixed step: advance chunk state, take tokens
+        from emitting rows, one isolation domain per request."""
+        cap = self.max_pages_per_seq * self.page_size
+        for i, slot in enumerate(slots):
+            req = self._active.get(slot)
+            if req is None or req.slot != slot:
+                continue  # failed between dispatch and harvest
+            try:
+                if bad_h[i]:
+                    raise NumericsError(
+                        "non-finite logits in mixed chunk step", rid=req.rid)
+                self.lengths[slot] = min(
+                    int(self.lengths[slot]) + int(widths[i]), cap)
+                left = self._chunk_left.get(slot)
+                if left is not None and int(widths[i]) < left.size:
+                    # mid-prompt chunk: the K/V landed; the token predicts
+                    # a prompt token we already have
+                    self._chunk_left[slot] = left[int(widths[i]):]
+                    continue
+                if left is not None:
+                    # final chunk: publish the prompt, take the first token
+                    del self._chunk_left[slot]
+                    self._cache.register(self._prefix(req),
+                                         self.tables[slot])
+                self._keys[slot] = keys_h[i]
+                self._harvest(req, [int(tok[i])])
+                self._last_tok[slot] = int(tok[i])
+                if req.done:
+                    del self._active[slot]
+                    self._free_slot(slot)
+                    req.slot = None
+            except RequestError as e:
+                self._fail_request(req, e)
+            except Exception as e:
+                self._fail_request(req, self._wrap_step_fault(e, req))
+
+    # ------------------------------------------------- speculative decoding
+    def _spec_step(self):
+        """One spec-decode iteration: blocking admission, a k+1-row page
+        reservation per slot, drafter proposals, ONE verify forward over
+        every slot, acceptance, and the roll-back of rejected rows (an eos
+        or the budget mid-block truncates and frees the slot)."""
+        t0 = time.perf_counter()
+        spec = self._spec
+        self._admit()
+        if not self._active:
+            if self._queue:
+                self._note_stall()
+            return
+        self._stall_steps = 0
+        k = spec.k
+        # writes past a request's own budget route to the trash page
+        # through the zero table entries
+        self._reserve_step_pages(
+            1, lambda slot, req, _kk: min(
+                int(self.lengths[slot]) + k + 1,
+                req.prompt.size + req.max_new_tokens + 1))
+        if not self._active:
+            return
+        slots = sorted(self._active)
+        reqs = [self._active[s] for s in slots]
+        n = len(slots)
+        nb = _pow2ceil(n)
+        want = [spec.controller.draft_len(r) for r in reqs]
+        try:
+            drafts, dlen = spec.drafter.propose(self, slots, reqs, want, k)
+        except Exception as e:
+            # a drafter fault drafts nothing this step: a zero-draft
+            # verify is a vanilla decode step
+            spec.note_drafter_fault(e)
+            drafts = np.zeros((nb, k), np.int32)
+            dlen = np.zeros((n,), np.int32)
+        tables_c = np.zeros((nb, self.max_pages_per_seq), np.int32)
+        lengths_c = np.zeros((nb,), np.int32)
+        last_c = np.zeros((nb,), np.int64)
+        temps_c = np.zeros((nb,), np.float32)
+        keys_c = np.zeros((nb, 2), np.int64)
+        dlen_c = np.zeros((nb,), np.int32)
+        tables_c[:n] = self.tables[slots]
+        lengths_c[:n] = self.lengths[slots]
+        last_c[:n] = self._last_tok[slots]
+        temps_c[:n] = self._temps[slots]
+        keys_c[:n] = self._keys[slots]
+        dlen_c[:n] = dlen
+        sampling = bool(np.any(temps_c > 0.0))
+        verify = self.runner.get_verify(sampling)
+        outs = verify(self._dev(tables_c), self._dev(lengths_c),
+                      self._dev(last_c), self._dev(drafts, torch.int64),
+                      self._dev(dlen_c), self._dev(temps_c),
+                      self._dev(keys_c))
+        toks, nem, lengths_h, keys_h, bad_h = (a.cpu().numpy() for a in outs)
+        for i, (slot, req) in enumerate(zip(slots, reqs)):
+            try:
+                if bad_h[i]:
+                    raise NumericsError(
+                        "non-finite logits in verify block", rid=req.rid)
+                n_emit = int(nem[i])
+                consumed = self._harvest(req, toks[i, :n_emit].tolist())
+                spec.note(req, proposed=int(dlen[i]), accepted=n_emit - 1,
+                          landed=consumed)
+                if req.done:
+                    # eos or budget mid-block: freeing the slot recycles
+                    # every page, the rows past the eos included
+                    del self._active[slot]
+                    self._free_slot(slot)
+                    req.slot = None
+                    spec.controller.forget(req)
+                else:
+                    # keep the accepted prefix; the headroom pages,
+                    # rejected rows included, return to the pool
+                    self.lengths[slot] = int(lengths_h[i])
+                    self._last_tok[slot] = int(toks[i, n_emit - 1])
+                    self._keys[slot] = keys_h[i]
+                    self._trim_pages(slot, int(lengths_h[i]))
+            except RequestError as e:
+                self._fail_request(req, e)
+            except Exception as e:
+                self._fail_request(req, self._wrap_step_fault(e, req))
+        spec.observe_step(time.perf_counter() - t0)
 
     def run(self, requests=None) -> List[Request]:
         """Serve ``requests`` (or whatever is queued) to completion."""

@@ -1,0 +1,90 @@
+"""Speculative decoding for the port's paged engine, after
+``paddle_tpu/inference/spec``.
+
+Decode is memory-bound: a step streams all weight bytes to emit one token
+per sequence, so its cost is nearly flat in how many positions it scores.
+A cheap drafter proposes k tokens, ONE verify forward through the paged
+path (the verify kernel) scores all k+1 positions, and acceptance keeps
+the usable prefix: token-exact argmax matching for greedy requests
+(output identical to vanilla decode), rejection sampling for temperature
+> 0. Rejected rows roll back through the engine's ``_trim_pages``.
+
+``Engine(model, spec="ngram", spec_k=4)``. The draft-model drafter
+(``spec="draft"``) is not ported yet.
+"""
+from __future__ import annotations
+
+from .acceptance import accept_tokens
+from .controller import AdaptiveDraftController
+from .drafter import NgramDrafter
+from .verifier import make_verify_fn
+
+__all__ = ["SpecDecoder", "NgramDrafter", "AdaptiveDraftController",
+           "accept_tokens", "make_verify_fn"]
+
+
+class SpecDecoder:
+    """Engine-side spec-decode state: the drafter, the per-request adaptive
+    controller and the rolling totals :meth:`stats` reports."""
+
+    def __init__(self, engine, mode: str, k: int = 4):
+        if mode == "draft":
+            raise TypeError('spec="draft" (the draft-model drafter) is not '
+                            'ported yet; use spec="ngram"')
+        if mode != "ngram":
+            raise ValueError(f"spec={mode!r}: expected 'ngram' (or "
+                             "None/'off' for vanilla decode)")
+        self.drafter = NgramDrafter()
+        # the k+1-row verify block must fit the chunk_size headroom that
+        # add_request keeps below max_position
+        self.k = max(1, min(int(k), engine.chunk_size))
+        self.engine = engine
+        self.controller = AdaptiveDraftController(self.k)
+        self.verify_steps = 0      # verify dispatches
+        self.request_steps = 0     # per-request verify rows harvested
+        self.tokens_landed = 0     # tokens delivered by verify steps
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
+        self.drafter_faults = 0    # proposals that raised
+        self.last_drafter_fault = None  # the last such exception
+        self.wall_seconds = 0.0    # _spec_step wall time of the above
+
+    def note(self, req, proposed: int, accepted: int, landed: int):
+        """Per-request bookkeeping for one harvested verify row."""
+        self.controller.update(req, proposed, accepted)
+        self.request_steps += 1
+        self.tokens_landed += landed
+        self.drafts_proposed += proposed
+        self.drafts_accepted += min(accepted, proposed)
+
+    def observe_step(self, wall: float):
+        self.verify_steps += 1
+        self.wall_seconds += wall
+
+    def note_drafter_fault(self, exc: BaseException):
+        """The drafter raised ``exc``: the step goes on with zero drafts (a
+        vanilla decode step), the exception is kept with its traceback and
+        the drafter resets."""
+        self.drafter_faults += 1
+        self.last_drafter_fault = exc
+        self.drafter.reset()
+
+    def stats(self) -> dict:
+        """Rolling summary: landed tokens per request-row per verify step,
+        draft acceptance rate, spec ms per token (host clock)."""
+        return {
+            "drafter": self.drafter.name,
+            "k": self.k,
+            "verify_steps": self.verify_steps,
+            "tokens_landed": self.tokens_landed,
+            "accept_per_step": (
+                self.tokens_landed / self.request_steps
+                if self.request_steps else 0.0),
+            "accept_rate": (
+                self.drafts_accepted / self.drafts_proposed
+                if self.drafts_proposed else 0.0),
+            "drafter_faults": self.drafter_faults,
+            "spec_ms_per_token": (
+                1e3 * self.wall_seconds / self.tokens_landed
+                if self.tokens_landed else 0.0),
+        }

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 9 + [_I, _F, _I,
                                                               _P],
+    "paged_verify_attention": [_P] * 7 + [_I] * 7 + [_LL] * 3 + [_I] * 2
+    + [_F, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,15 @@
-"""Paged KV cache state and slab-paged decode attention.
+"""Paged KV cache state, slab-paged decode attention and multi-query
+verify/suffix attention.
 
 Port of the functional serving path of
 ``paddle_tpu/ops/pallas/paged_attention.py``: ``PagedCacheState``,
 ``quantize_rows_int8``, ``_store_rows``, ``paged_state_prefill``,
-``paged_state_step``, the ``PagedCacheState`` branch of ``paged_forward``,
-and ``paged_slab_decode_attention`` (TPU kernel ``_paged_slab_kernel``)
-with its plain twin. The CUDA source is
-``paddle_tpu_torch/csrc/paged_decode_attention.cu``.
+``paged_state_step``, ``paged_state_verify``, the ``PagedCacheState``
+branch of ``paged_forward``, ``paged_slab_decode_attention`` (TPU kernel
+``_paged_slab_kernel``) and ``paged_verify_slab_attention`` (TPU kernel
+``_paged_verify_slab_kernel``), each with its plain twin. The CUDA sources
+are ``paddle_tpu_torch/csrc/paged_decode_attention.cu`` and
+``paddle_tpu_torch/csrc/paged_verify_attention.cu``.
 
 Page layout, as in the reference: data pages ``[P, page_size, Hkv*D]``
 (heads side by side in one slab row); physical page 0 is the trash page
@@ -26,11 +29,14 @@ from typing import Optional
 import torch
 
 __all__ = ["PagedCacheState", "quantize_rows_int8", "paged_state_prefill",
-           "paged_state_step", "paged_forward",
-           "paged_slab_decode_attention", "paged_slab_decode_attention_ref"]
+           "paged_state_step", "paged_state_verify", "paged_forward",
+           "paged_slab_decode_attention", "paged_slab_decode_attention_ref",
+           "paged_verify_slab_attention", "paged_verify_slab_attention_ref",
+           "paged_multi_query_attention"]
 
 NEG_INF = -1.0e30
 _HEAD_DIMS = (32, 64, 128, 256)
+_VERIFY_HEAD_DIMS = (64, 128, 256)
 
 
 class PagedCacheState:
@@ -39,7 +45,9 @@ class PagedCacheState:
     tensors on one device. ``lengths[b] == 0`` marks an idle slot: its
     writes go to the trash page and its output is discarded.
     ``prefill_valid`` ([B] i32) marks an admission forward and carries each
-    row's valid prompt width."""
+    row's valid prompt width. ``verify`` marks a multi-query forward over
+    the cache (spec verify, suffix prefill, chunked prefill): see
+    :func:`paged_state_verify`."""
 
     def __init__(self, k_pages, v_pages, scale_pages, block_tables, lengths,
                  page_size, prefill_valid=None, verify=False):
@@ -157,18 +165,61 @@ def paged_state_step(state, q, k, v, scale=None):
     return out.to(q.dtype), state
 
 
+def paged_state_verify(state, q, k, v, scale=None):
+    """Append ``m`` tokens per row at ``[lengths, lengths + m)`` and score
+    every position over the cache plus the causal prefix of the new block.
+    q [B, m, H, D], k/v [B, m, Hkv, D] → (out [B, m, H, D] in q's dtype,
+    state).
+
+    Spec-verify form (``prefill_valid`` None): rows with ``lengths == 0``
+    are idle (writes to the trash page); active rows advance by m, and the
+    caller rolls ``lengths`` back to the accepted prefix.
+
+    Partial-prefill form (``prefill_valid`` [B] widths; prefix-cache suffix
+    prefill and chunked prefill): row b holds ``lengths[b]`` cached tokens
+    and appends ``prefill_valid[b]`` of the m columns; the columns past its
+    width write to the trash page and advance nothing. A row with base 0 is
+    a prefill from scratch, a row of width 0 is idle.
+
+    The block's K/V are written in place (``index_put_``) on the stream
+    before the attention launch reads them. Lengths cap at the capacity."""
+    b, m = q.shape[:2]
+    base = state.lengths
+    dev = q.device
+    if state.prefill_valid is not None:
+        widths = state.prefill_valid.to(base.dtype)
+        valid = (torch.arange(m, device=dev)[None, :] < widths[:, None])
+        adv = widths
+    else:
+        active = base > 0
+        valid = active[:, None].expand(b, m)
+        adv = m * active.to(base.dtype)
+    pos = state.positions(m)  # [B, m], clamped at capacity - 1
+    logical = torch.clamp(pos // state.page_size, 0,
+                          state.block_tables.shape[1] - 1)
+    phys = torch.where(valid,
+                       torch.gather(state.block_tables.long(), 1, logical),
+                       torch.zeros_like(logical))
+    slotpos = torch.where(valid, pos % state.page_size, torch.zeros_like(pos))
+    _write(state, phys, slotpos, k, v)
+    new_state = state.replace(lengths=torch.clamp(base + adv,
+                                                  max=state.capacity))
+    out = paged_multi_query_attention(q, new_state, base, scale=scale)
+    return out.to(q.dtype), new_state
+
+
 def paged_forward(cache, q, k, v, context_attention):
     """Model-side paged-cache step for one attention layer. q/k/v
-    [b, s, heads, head_dim]. With ``prefill_valid`` set (every admission)
+    [b, s, heads, head_dim]. A ``verify`` state is a multi-query forward
+    over the cache (:func:`paged_state_verify`; checked first, since its
+    block is multi-token). With ``prefill_valid`` set (every admission)
     or a multi-token input this is a prefill: the prompt is written and
     ``context_attention()`` gives the output. Otherwise one decode token
     per slot. Returns ``(out, new_state)``."""
     if not isinstance(cache, PagedCacheState):
         raise TypeError("paged_forward takes a PagedCacheState")
     if cache.verify:
-        raise NotImplementedError(
-            "multi-query verify attention (prefix cache, chunked prefill, "
-            "spec decode) is not ported yet")
+        return paged_state_verify(cache, q, k, v)
     if cache.prefill_valid is not None or q.shape[1] > 1:
         s0 = k.shape[1]
         real_len = (torch.full((q.shape[0],), s0, dtype=torch.int32,
@@ -222,12 +273,16 @@ def paged_slab_decode_attention_ref(q, k_pages, v_pages, block_tables,
     return out.to(q.dtype)
 
 
-def _check(q, k_pages, v_pages, block_tables, lengths, scale_pages):
-    if q.dim() != 3 or k_pages.dim() != 3:
-        raise ValueError("q [B, H, D] and pages [P, page_size, Hkv*D]")
+def _check(q, k_pages, v_pages, block_tables, lengths, scale_pages,
+           q_rank):
+    """Operand checks shared by both wrappers: q [B, H, D] (decode,
+    ``q_rank`` 3) or [B, m, H, D] (verify, 4)."""
+    if q.dim() != q_rank or k_pages.dim() != 3:
+        raise ValueError("q [B, H, D] (decode) or [B, m, H, D] (verify), "
+                         "pages [P, page_size, Hkv*D]")
     if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
         raise ValueError("k and v pages must match in shape and dtype")
-    b, h, d = q.shape
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     khd = k_pages.shape[2]
     if khd % d:
         raise ValueError(f"page lanes ({khd}) must hold whole KV heads of "
@@ -237,7 +292,7 @@ def _check(q, k_pages, v_pages, block_tables, lengths, scale_pages):
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError("block_tables must be [B, max_pages]")
     if lengths.shape != (b,):
-        raise ValueError("lengths must be [B]")
+        raise ValueError("lengths / base_len must be [B]")
     quantized = scale_pages is not None
     if quantized != (k_pages.dtype == torch.int8):
         raise TypeError("int8 pages need scale_pages, other pages none")
@@ -259,7 +314,7 @@ def paged_slab_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     already written). ``scale_pages`` selects the int8 path. Returns
     [B, H, D] in q's dtype. A CPU tensor takes the plain twin; a CUDA
     tensor launches the kernel (``.launches`` counts them) or raises."""
-    _check(q, k_pages, v_pages, block_tables, lengths, scale_pages)
+    _check(q, k_pages, v_pages, block_tables, lengths, scale_pages, 3)
     if num_heads is not None and num_heads != q.shape[1]:
         raise ValueError("num_heads disagrees with q")
     if q.device.type == "cpu":
@@ -302,3 +357,115 @@ def paged_slab_decode_attention(q, k_pages, v_pages, block_tables, lengths,
 
 
 paged_slab_decode_attention.launches = 0
+
+
+def paged_verify_slab_attention_ref(q, k_pages, v_pages, block_tables,
+                                    base_len, scale=None, scale_pages=None):
+    """Plain twin of the verify kernel (the JAX ``_paged_multi_query_ref``):
+    gather each row's whole window, f32 logits, query j of row b masked to
+    tokens ``< min(base_len[b] + j + 1, capacity)``, softmax normalised
+    before P.V, GQA by sharing each KV head over its group. Returns
+    ``[B, m, H, D]`` f32."""
+    b, m, h, d = q.shape
+    _, page_size, khd = k_pages.shape
+    h_kv = khd // d
+    group = h // h_kv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    seq = bt.shape[1] * page_size
+
+    def window(pages, sc):
+        win = pages[bt].float().reshape(b, seq, h_kv, d)
+        if sc is not None:
+            win = win * sc.float()[..., None]
+        return win  # [B, S, Hkv, D]
+
+    ks = vs = None
+    if scale_pages is not None:
+        scw = scale_pages[bt].reshape(b, seq, 128)
+        ks, vs = scw[..., :h_kv], scw[..., h_kv:2 * h_kv]
+    k_c = window(k_pages, ks)
+    v_c = window(v_pages, vs)
+    qg = q.float().reshape(b, m, h_kv, group, d)
+    s = torch.einsum("bmkgd,bskd->bmkgs", qg, k_c) * scale
+    limit = torch.clamp(base_len.long()[:, None]
+                        + torch.arange(m, device=q.device)[None] + 1,
+                        max=seq)  # [B, m]
+    mask = (torch.arange(seq, device=q.device)[None, None]
+            < limit[..., None])  # [B, m, S]
+    s = torch.where(mask[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bmkgs,bskd->bmkgd", p, v_c).reshape(b, m, h, d)
+
+
+def paged_verify_slab_attention(q, k_pages, v_pages, block_tables, base_len,
+                                scale=None,
+                                scale_pages: Optional[torch.Tensor] = None):
+    """Multi-query paged attention with a per-row base: q [B, m, H, D]
+    against slab pages [P, page_size, Hkv*D]; query j of row b attends the
+    window tokens ``< min(base_len[b] + j + 1, max_pages * page_size)``.
+    ``scale_pages`` selects the int8 path. Returns ``[B, m, H, D]`` f32.
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    (``.launches`` counts them) or raises. q may be strided (its last dim
+    contiguous); the other operands must be contiguous."""
+    _check(q, k_pages, v_pages, block_tables, base_len, scale_pages, 4)
+    if q.device.type == "cpu":
+        return paged_verify_slab_attention_ref(
+            q, k_pages, v_pages, block_tables, base_len, scale, scale_pages)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    from ...kernels import build
+
+    b, m, h, d = q.shape
+    _, page_size, khd = k_pages.shape
+    h_kv = khd // d
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"verify kernel takes f32 or bf16 q, got {q.dtype}")
+    if k_pages.dtype not in (q.dtype, torch.int8):
+        raise TypeError("pages must be q's dtype or int8")
+    if d not in _VERIFY_HEAD_DIMS:
+        raise ValueError(f"verify kernel takes head_dim in "
+                         f"{_VERIFY_HEAD_DIMS}, got {d}")
+    if block_tables.dtype != torch.int32 or base_len.dtype != torch.int32:
+        raise TypeError("block_tables and base_len must be int32")
+    if q.stride(3) != 1:
+        raise ValueError("q must be contiguous in head_dim")
+    tensors = [k_pages, v_pages, block_tables, base_len] + (
+        [scale_pages] if scale_pages is not None else [])
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("verify kernel pages, tables and base_len must be "
+                         "contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("verify kernel pages must be 16-byte aligned")
+    if b > 65535 or h > 65535:
+        raise ValueError("batch or heads too large for the kernel grid")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty((b, m, h, d), dtype=torch.float32, device=q.device)
+    lib = build.load("paged_verify_attention")
+    rc = lib.paged_verify_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        scale_pages.data_ptr() if scale_pages is not None else None,
+        block_tables.data_ptr(), base_len.data_ptr(), out.data_ptr(),
+        b, m, h, h_kv, d, page_size, block_tables.shape[1],
+        q.stride(0), q.stride(1), q.stride(2),
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
+        float(scale), build.stream_ptr(q.device))
+    build.check(rc, "paged_verify_attention")
+    paged_verify_slab_attention.launches += 1
+    return out
+
+
+paged_verify_slab_attention.launches = 0
+
+
+def paged_multi_query_attention(q, state, base_len, scale=None):
+    """The one multi-position entry the spec verifier, the prefix-cache
+    suffix prefill and chunked prefill ride: the verify kernel over
+    ``state``'s pages (its plain twin for CPU tensors)."""
+    return paged_verify_slab_attention(
+        q, state.k_pages, state.v_pages, state.block_tables,
+        base_len.to(torch.int32), scale=scale,
+        scale_pages=state.scale_pages)

@@ -3,8 +3,10 @@
 These tests need an NVIDIA card with ``nvcc`` (sm_90a); without one they
 skip (the decision is taken inside the ``cuda`` fixture, never at import).
 They cover what the main path of ``chip_smoke.py`` does not reach: GQA
-groups, other head dims and page sizes, lengths past the table capacity,
-f32, ragged and strided flash inputs, and the wrappers' refusals.
+groups, other head dims and page sizes, lengths (and verify bases) past
+the table capacity, verify widths from 1 to 300, f32, int8 pages, ragged
+and strided inputs, the wrappers' refusals, and the engine's modes that
+ride the verify kernel.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -218,3 +220,162 @@ def test_engine_greedy_matches_cacheless_on_card(cuda):
                     break
                 assert int(torch.argmax(logits)) == tok
                 seq = torch.cat([seq, seq.new_tensor([tok])])
+
+
+def _verify_inputs(dev, dtype, quant, B, m, H, Hkv, D, ps, max_pages,
+                   seed=0):
+    q1, k, v, tables, _, sc = _decode_inputs(
+        dev, dtype, quant, B, H, Hkv, D, ps, max_pages, [0] * B, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    q = torch.randn((B, m, H, D), generator=g, device=dev).to(dtype)
+    return q, k, v, tables, sc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("m", [1, 5, 17, 64, 65, 300])
+@pytest.mark.parametrize("H,Hkv,D,ps", [(32, 8, 128, 16), (8, 2, 64, 8)])
+def test_verify_kernel_matches_plain(cuda, dtype, quant, m, H, Hkv, D, ps):
+    max_pages = 40
+    cap = max_pages * ps
+    # base 0, a partial page, mid-window, one that reaches the capacity
+    # inside the block, and one past it
+    bases = [0, ps + 3, cap // 2, cap - m // 2 - 1, cap + 5]
+    q, k, v, tables, sc = _verify_inputs(cuda, dtype, quant, len(bases), m,
+                                         H, Hkv, D, ps, max_pages)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    before = pa.paged_verify_slab_attention.launches
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base,
+                                         scale_pages=sc)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_slab_attention.launches == before + 1
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base,
+                                              scale_pages=sc)
+    assert got.dtype == torch.float32 and got.shape == (len(bases), m, H, D)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_head_dim_256(cuda, dtype):
+    q, k, v, tables, _ = _verify_inputs(cuda, dtype, False, 2, 9, 4, 2, 256,
+                                        16, 6)
+    base = torch.tensor([3, 70], dtype=torch.int32, device=cuda)
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base)
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_verify_kernel_strided_q_and_scale(cuda):
+    """q as a view into a packed [B, m, 3, H, D] tensor: the kernel reads
+    its strides, no copy; a custom softmax scale."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    _, k, v, tables, _ = _verify_inputs(cuda, torch.float32, False, 3, 7, 8,
+                                        2, 64, 8, 10)
+    qkv = torch.randn((3, 7, 3, 8, 64), generator=g, device=cuda)
+    q = qkv[:, :, 1]
+    assert not q.is_contiguous()
+    base = torch.tensor([0, 30, 79], dtype=torch.int32, device=cuda)
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base, scale=0.3)
+    want = pa.paged_verify_slab_attention_ref(q.contiguous(), k, v, tables,
+                                              base, scale=0.3)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_verify_kernel_refuses(cuda):
+    q, k, v, tables, _ = _verify_inputs(cuda, torch.float32, False, 2, 3, 4,
+                                        2, 32, 8, 4)
+    base = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_verify_slab_attention(q, k, v, tables, base)
+    q, k, v, tables, _ = _verify_inputs(cuda, torch.float32, False, 2, 3, 4,
+                                        2, 64, 8, 4)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_verify_slab_attention(q, k, v, tables, base.long())
+    with pytest.raises(TypeError):
+        pa.paged_verify_slab_attention(q, k.bfloat16(), v.bfloat16(),
+                                       tables, base)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_verify_slab_attention(q, k, v, tables.t().contiguous().t(),
+                                       base)
+
+
+@pytest.mark.parametrize("widths", [None, [3, 5, 0]])
+def test_paged_state_verify_on_card(cuda, widths):
+    """The verify step on the card (in-place block write, then the kernel)
+    against the same step on the CPU's plain path, in the spec form and
+    the partial-prefill form."""
+    B, m, H, Hkv, D, ps, mp = 3, 5, 4, 2, 64, 8, 4
+    g = torch.Generator().manual_seed(4)
+    P = 1 + B * mp
+    pages = torch.randn((P, ps, Hkv * D), generator=g)
+    tables = torch.arange(1, P, dtype=torch.int32).view(B, mp)
+    # the last row's block ends at the capacity exactly (a block past it
+    # would write its clamped rows to one slot in an unspecified order)
+    lens = torch.tensor([3, 0, mp * ps - m], dtype=torch.int32)
+    valid = None if widths is None else torch.tensor(widths,
+                                                     dtype=torch.int32)
+    q = torch.randn((B, m, H, D), generator=g)
+    kk = torch.randn((B, m, Hkv, D), generator=g)
+    vv = torch.randn((B, m, Hkv, D), generator=g)
+    outs = []
+    for dev in ("cpu", cuda):
+        st = pa.PagedCacheState(
+            pages.clone().to(dev), pages.clone().to(dev), None,
+            tables.to(dev), lens.to(dev), ps,
+            prefill_valid=None if valid is None else valid.to(dev),
+            verify=True)
+        out, st = pa.paged_state_verify(st, q.to(dev), kk.to(dev),
+                                        vv.to(dev))
+        outs.append((out.cpu(), st.k_pages.cpu(), st.lengths.cpu()))
+    (o0, k0, l0), (o1, k1, l1) = outs
+    torch.testing.assert_close(o1, o0, atol=1e-4, rtol=1e-4)
+    assert torch.equal(k1[1:], k0[1:]) and torch.equal(l1, l0)
+
+
+def test_engine_modes_match_cacheless_on_card(cuda):
+    """Tiny LLaMA (f32) served on the card with the prefix cache, chunked
+    prefill and n-gram spec decoding: each greedy stream equals the argmax
+    of the cacheless forward, up to the first near-tie, and each mode
+    launched the verify kernel."""
+    import numpy as np
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import tiny_llama_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tiny_llama_config(hidden_size=256, num_heads=4, num_kv_heads=2,
+                            max_position=256)
+    model = init_llama(cfg, seed=0, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    pre = rng.integers(0, cfg.vocab_size, (24,))
+    tails = [rng.integers(0, cfg.vocab_size, (n,)) for n in (8, 13)]
+    rep = np.tile(rng.integers(0, cfg.vocab_size, (6,)), 5)
+    runs = [
+        (dict(prefix_cache=True),
+         [[np.concatenate([pre, tails[0]])],
+          [np.concatenate([pre, tails[1]]), np.concatenate([pre, tails[0]])]]),
+        (dict(prefill_chunk=8), [[rng.integers(0, cfg.vocab_size, (n,))
+                                  for n in (5, 37, 70)]]),
+        (dict(spec="ngram", spec_k=3), [[rep, rep[:20]]]),
+    ]
+    for kw, waves in runs:
+        eng = Engine(model, max_slots=2, num_pages=64, page_size=8,
+                     chunk_size=4, **kw)
+        before = pa.paged_verify_slab_attention.launches
+        reqs = []
+        for wave in waves:
+            reqs += [eng.add_request(p, 12) for p in wave]
+            eng.run()
+        assert pa.paged_verify_slab_attention.launches > before, kw
+        for r in reqs:
+            assert r.state == "FINISHED" and len(r.tokens) == 12
+            seq = torch.as_tensor(r.prompt, dtype=torch.int64, device=cuda)
+            with torch.no_grad():
+                for tok in r.tokens:
+                    logits = model(seq[None])[0, -1]
+                    top2 = torch.topk(logits, 2).values
+                    if (top2[0] - top2[1]).item() < 1e-4:
+                        break
+                    assert int(torch.argmax(logits)) == tok, kw
+                    seq = torch.cat([seq, seq.new_tensor([tok])])

@@ -3,7 +3,8 @@ same weights: the same mixed-length requests (f32, ``max_slots=2``,
 ``page_size=8``) must give token-identical streams — all greedy, a sampled
 mix with temperatures and seeds, a pool small enough to force recompute
 preemption, and an eos. Plus the port's up-front validation, streaming,
-the resume path, and ``TypeError`` for every unported engine knob."""
+the resume path, and ``TypeError`` for every unported engine knob (the
+modes that ride the verify kernel are in ``test_torch_serving_modes.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,7 +155,7 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(spec="ngram"), dict(prefill_chunk=8),
+    dict(kv_host_pages=8), dict(max_queue=4), dict(spec="draft"),
     dict(tp=2), dict(metrics=False), dict(multi_step=2),
     dict(disaggregate=True), dict(watchdog={})])
 def test_unported_knobs_raise_type_error(models, knob):

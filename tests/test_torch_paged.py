@@ -134,11 +134,23 @@ def test_decode_twin_matches_jax_ref(quant, rng):
 
 
 def test_verify_state_not_ported():
-    js, ts = _states(False, np.ones((B,), np.int32), _tables())
+    """A verify state used to raise here; it now takes the multi-query
+    path (``paged_state_verify``, held against the JAX one in
+    ``test_torch_verify.py``), checked before the prefill branch (whose
+    context attention ignores the cache): every active slot appends the
+    block, the idle slot stays at length 0, and the output keeps q's
+    shape."""
+    lengths = np.array([1, 1, 1, 0], np.int32)
+    js, ts = _states(False, lengths, _tables())
     x = torch.zeros((B, 2, H, D))
     kv = torch.zeros((B, 2, HKV, D))
-    with pytest.raises(NotImplementedError):
-        T.paged_forward(ts.replace(verify=True), x, kv, kv, lambda: x)
+
+    def context():
+        raise AssertionError("verify must not take the prefill branch")
+
+    out, st = T.paged_forward(ts.replace(verify=True), x, kv, kv, context)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    np.testing.assert_array_equal(st.lengths.numpy(), [3, 3, 3, 0])
 
 
 def test_decode_rejects_bad_operands(rng):
