@@ -10,21 +10,29 @@ Phases, in order; any failure exits non-zero:
               process per source, all at once); prints the build seconds
               and the card's name and power limit.
 2. kernels  — each kernel against its plain PyTorch version at the main
-              path's shapes (``llama2_7b`` widths), with the tolerance
-              stated; kernel, plain and library times by CUDA events.
+              path's shapes (``llama2_7b`` widths; Mixtral-8x7B widths for
+              the grouped expert matmul and the GQA timings), with the
+              tolerance stated; kernel, plain and library times by CUDA
+              events.
 3. main     — ``llama2_7b`` at full width and depth, bf16, random weights
               from a seed, served through the port's ``Engine``: sampled and
               greedy requests, an int8-page pass, a pool small enough to
               force a preemption, and the three modes that ride the verify
               kernel (prefix cache, chunked prefill, n-gram speculative
-              decoding). Each pass zeroes the launch counters just before
-              it and reads them just after.
-4. greedy   — a 2-layer full-width f32 model: the engine's greedy streams,
-              plain and in each of the three modes, against the argmax of
-              the port's own cacheless forward.
+              decoding). Pass A serves it again with weight-only int8 and
+              int4 weights (kernel #12); pass B builds a LLaMA-MoE at
+              Mixtral-8x7B-v0.1 widths, 16 of its 32 layers, and serves it
+              (kernel #13). Each pass zeroes the launch counters just
+              before it and reads them just after.
+4. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
+              and int8 weights; Mixtral widths): the engine's greedy
+              streams, plain and in each of the three modes, against the
+              argmax of the same model's cacheless forward.
 
-Opt-in: ``--phases build,profile`` times one 7B decode chain and lists
-the device kernels under torch.profiler (PERF.md "Where the time goes").
+Opt-in: ``--phases build,profile`` times 7B decode chains (bf16 and int8
+weights), a chunked mixed step, a spec verify step and a Mixtral-width MoE
+decode chain, and lists the device kernels under torch.profiler (PERF.md
+"Where the time goes").
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -32,6 +40,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -51,9 +60,14 @@ def log(*a):
 
 
 def time_ms(fn, warmup=3, reps=10):
-    """Median CUDA-event milliseconds of ``fn()`` after ``warmup`` calls."""
+    """Median CUDA-event milliseconds of ``fn()`` after ``warmup`` calls.
+    Each timed call is queued behind a ~1 ms device spin, so the host's
+    time to launch it (a Python wrapper takes tens of microseconds) hides
+    behind the spin and the events see the device's time alone (a call
+    that waits for the device itself still counts its host time)."""
     import torch
 
+    spin = getattr(torch.cuda, "_sleep", None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -61,6 +75,8 @@ def time_ms(fn, warmup=3, reps=10):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin is not None:
+            spin(2_000_000)
         a.record()
         fn()
         b.record()
@@ -155,6 +171,9 @@ def check_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages, lengths,
         flops = 4 * live * (H // Hkv) * Hkv * D
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         b_ops = flops / BF16_FLOPS_PER_S * 1e3
+        lib = _gathered_sdpa(torch, q[:, None], k, v, sc, tables,
+                             torch.clamp(lens.long(), max=cap)[:, None],
+                             H, Hkv, D, cap)
         rec.update(
             ms=time_ms(lambda: pa.paged_slab_decode_attention(
                 q, k, v, tables, lens, H, scale_pages=sc)),
@@ -162,17 +181,49 @@ def check_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages, lengths,
                 q, k, v, tables, lens, scale_pages=sc), warmup=1, reps=3),
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
-            library_ms=None)
+            library_ms=time_ms(lib))
+        del lib
+        torch.cuda.empty_cache()
     return rec
 
 
-def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed):
+def _gathered_sdpa(torch, q, k, v, sc, tables, lim, H, Hkv, D, cap):
+    """The library yardstick of the paged attention kernels: each row's
+    window gathered beforehand (not timed) into contiguous K/V, GQA heads
+    repeated, int8 pages dequantized, then one SDPA call with query j of
+    row b masked to keys ``< lim[b, j]``. q [B, m, H, D]; returns the
+    timed call."""
+    B = q.shape[0]
+    win = max(1, int(lim.max()))
+    bt = tables.long()
+
+    def window(pages, lanes):
+        w = pages[bt].reshape(B, cap, Hkv, D)[:, :win].float()
+        if sc is not None:
+            w = w * sc[bt].reshape(B, cap, 128)[:, :win, lanes].float()[
+                ..., None]
+        w = w.to(q.dtype).transpose(1, 2)
+        return w.repeat_interleave(H // Hkv, dim=1)
+
+    kw = window(k, slice(0, Hkv))
+    vw = window(v, slice(Hkv, 2 * Hkv))
+    mask = (torch.arange(win, device=q.device)[None, None]
+            < lim[..., None])[:, None]
+    qt = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kw, vw, attn_mask=mask)
+
+
+def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None):
+    """#2 against its plain version; ``Hkv`` < H gives k/v fewer heads
+    (the kernel's native GQA; SDPA gets them expanded)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
+    Hkv = Hkv or H
     g = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
-    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+               for h in (H, Hkv, Hkv))
     got, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     torch.cuda.synchronize()
     want, want_lse = fa.flash_attention_ref(q, k, v, causal=True,
@@ -188,12 +239,14 @@ def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed):
     if timed:
         pairs = S * (S + 1) // 2
         flops = 4 * B * H * D * pairs
-        nbytes = 4 * B * S * H * D * q.element_size()
+        nbytes = 2 * B * S * (H + Hkv) * D * q.element_size()
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
             else F32_FLOPS_PER_S
         b_ops = flops / peak * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2],
+                                                          dim=1)
+                      for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rec.update(
             ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
@@ -247,25 +300,9 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / BF16_FLOPS_PER_S * 1e3
     # the library yardstick: SDPA on contiguous windows gathered up front
-    win = max(live)
-    bt = tables.long()
-
-    def window(pages, lanes):
-        w = pages[bt].reshape(B, cap, Hkv, D)[:, :win].float()
-        if sc is not None:
-            w = w * sc[bt].reshape(B, cap, 128)[:, :win, lanes].float()[
-                ..., None]
-        w = w.to(q.dtype).transpose(1, 2)
-        return w.repeat_interleave(H // Hkv, dim=1)
-
-    kw = window(k, slice(0, Hkv))
-    vw = window(v, slice(Hkv, 2 * Hkv))
     lim = torch.clamp(base.long()[:, None] + torch.arange(
         m, device="cuda")[None] + 1, max=cap)
-    mask = (torch.arange(win, device="cuda")[None, None] < lim[..., None])
-    qt = q.transpose(1, 2)
-    mask = mask[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = _gathered_sdpa(torch, q, k, v, sc, tables, lim, H, Hkv, D, cap)
     rec.update(
         ms=time_ms(lambda: pa.paged_verify_slab_attention(
             q, k, v, tables, base, scale_pages=sc)),
@@ -273,10 +310,138 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
             q, k, v, tables, base, scale_pages=sc), warmup=1, reps=3),
         bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations",
-        library_ms=time_ms(lambda: sdpa(qt, kw, vw, attn_mask=mask)))
-    del kw, vw, mask, want
+        library_ms=time_ms(lib))
+    del lib, want
     torch.cuda.empty_cache()
     return rec
+
+
+def check_quant(torch, dtype, int4, M, K, N, timed, seed=5):
+    """Kernel #12 against ``quant_matmul_ref``. Bound: x, the int8 (or
+    packed int4) weight, the f32 scales and the output over HBM; 2*M*K*N
+    flops over the peak of x's type. Library: ``torch.matmul`` of x with
+    the bf16 weight of the same shape."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+    wq, sc = weight_quantize(w, "weight_only_int4" if int4
+                             else "weight_only_int8")
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    wd = "int4" if int4 else "int8"
+    got = qm.quant_matmul(x, wq, sc, weight_dtype=wd)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_ref(x, wq, sc, weight_dtype=wd)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"quant_matmul {wd} {dtype} {M}x{K}x{N}: max "
+                             f"abs err {err} beyond atol=rtol={tol}")
+    rec = {"max_abs_err": err}
+    if timed:
+        nbytes = (x.numel() * x.element_size() + wq.numel() + sc.numel() * 4
+                  + got.numel() * got.element_size())
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        b_ops = 2 * M * K * N / peak * 1e3
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        wb = w.to(dtype)
+        rec.update(
+            ms=time_ms(lambda: qm.quant_matmul(x, wq, sc, weight_dtype=wd),
+                       reps=20),
+            plain_ms=time_ms(lambda: qm.quant_matmul_ref(
+                x, wq, sc, weight_dtype=wd), warmup=1, reps=3),
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops > b_bytes else "bytes",
+            library_ms=time_ms(lambda: torch.matmul(x, wb), reps=20))
+        del wb
+    return rec
+
+
+def _grouped_library(torch, lhs, rhs, gs):
+    """The grouped matmul's library yardstick: ``torch._grouped_mm`` over
+    the same groups where this PyTorch has it and takes these operands,
+    else one ``torch.matmul`` per expert segment. Returns (name, call)."""
+    ends = torch.cumsum(gs, 0).to(torch.int32)
+    gm_fn = getattr(torch, "_grouped_mm", None)
+    if gm_fn is not None:
+        for b in (rhs, rhs.transpose(-2, -1).contiguous().transpose(-2, -1)):
+            try:
+                gm_fn(lhs, b, offs=ends)
+                torch.cuda.synchronize()
+                return "torch._grouped_mm", lambda b=b: gm_fn(lhs, b,
+                                                              offs=ends)
+            except Exception:  # this build or operand layout: not taken
+                torch.cuda.synchronize()
+    bounds = [0] + ends.tolist()
+
+    def loop():
+        for e in range(rhs.shape[0]):
+            if bounds[e + 1] > bounds[e]:
+                torch.matmul(lhs[bounds[e]:bounds[e + 1]], rhs[e])
+    return "per-expert torch.matmul", loop
+
+
+def check_grouped(torch, dtype, K, N, cap, valid, timed, seed=6):
+    """Kernel #13 against ``grouped_matmul_ref`` on the capacity-padded
+    layout (E groups of ``cap`` rows, ``valid`` kept rows each): dead rows
+    must be exactly zero. Bound: the live rows of lhs, the weights of the
+    experts with a live row and the whole output over HBM; 2 * live rows
+    * K * N flops over the peak of the dtype."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    E = len(valid)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs = torch.randn((E * cap, K), generator=g, device="cuda").to(dtype)
+    rhs = (torch.randn((E, K, N), generator=g, device="cuda")
+           * 0.02).to(dtype)
+    gs = torch.full((E,), cap, dtype=torch.int32, device="cuda")
+    vs = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    got = gm.grouped_matmul(lhs, rhs, gs, vs)
+    torch.cuda.synchronize()
+    want = gm.grouped_matmul_ref(lhs, rhs, gs, vs)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"grouped_matmul {dtype} K={K} N={N} C={cap}: "
+                             f"max abs err {err} beyond atol=rtol={tol}")
+    for e, v in enumerate(valid):
+        if bool(got[e * cap + v:(e + 1) * cap].any()):
+            raise AssertionError(f"grouped_matmul: expert {e}'s rows past "
+                                 f"its {v} kept rows are not exactly zero")
+    rec = {"max_abs_err": err}
+    del want
+    if timed:
+        live = sum(valid)
+        el = lhs.element_size()
+        nbytes = (live * K * el + sum(v > 0 for v in valid) * K * N * el
+                  + got.numel() * el + 2 * E * 4)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        b_ops = 2 * live * K * N / peak * 1e3
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_name, lib = _grouped_library(torch, lhs, rhs, gs)
+        rec.update(
+            ms=time_ms(lambda: gm.grouped_matmul(lhs, rhs, gs, vs)),
+            plain_ms=time_ms(lambda: gm.grouped_matmul_ref(lhs, rhs, gs, vs),
+                             warmup=1, reps=3),
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops > b_bytes else "bytes",
+            library_ms=time_ms(lib), library=lib_name)
+        del lib
+    del lhs, rhs, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _row(tag, r):
+    extra = ""
+    if "ms" in r:
+        extra = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
+                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                 f"library_ms={r['library_ms']:.4f}")
+    return f"kernel {tag}: max_abs_err={r['max_abs_err']:.3g}{extra}"
 
 
 def phase_kernels():
@@ -355,6 +520,68 @@ def phase_kernels():
                         rtol=1e-4, timed=False)
     log(f"kernel paged_verify_attention f32 B=2 m=7: max_abs_err="
         f"{rv32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
+
+    # GQA at Mixtral-8x7B widths (32 q heads over 8 kv heads), the same
+    # lengths and bases as above: #1, #3 (spec and chunked) and #2 with
+    # native GQA k/v
+    gqa = dict(B=8, H=32, Hkv=8, D=128, ps=16, max_pages=256)
+    r = check_decode(torch, bf16, False, lengths=lengths, timed=True,
+                     **gqa, **tol)
+    log(_row(f"paged_decode_attention GQA 32/8 bf16 lengths={lengths}", r))
+    for tag, m, bases in cases[:2]:
+        r = check_verify(torch, bf16, False, m=m, bases=bases, timed=True,
+                         **gqa, **tol)
+        log(_row(f"paged_verify_attention GQA 32/8 bf16 {tag} m={m}", r))
+    rg = check_flash(torch, bf16, 8, 1024, 32, 128, timed=True, Hkv=8, **tol)
+    log(_row("flash_attention_fwd GQA 32/8 bf16 B=8 S=1024 (k/v not "
+             "expanded)", rg))
+
+    # #12 at the llama2_7b decode GEMMs (8 slots; 40 rows = 8 spec-verify
+    # rows of 5), int8 and int4, bf16 timed and f32 checked; 256 rows (the
+    # routing limit) and an N that is no multiple of the 128-column tile
+    log("kernel quant_matmul: library_ms is torch.matmul of x with the bf16 "
+        "weight of the same shape")
+    for M in (8, 40):
+        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                     (4096, 32000)):
+            for int4 in (False, True):
+                r = check_quant(torch, bf16, int4, M, K, N, timed=True)
+                log(_row(f"quant_matmul {'int4' if int4 else 'int8'} bf16 "
+                         f"{M}x{K}x{N} (atol 2e-2 rtol 2e-2)", r))
+                if (M, K, N, int4) == (8, 4096, 11008, False):
+                    results["quant_matmul"] = r
+                rf = check_quant(torch, f32, int4, M, K, N, timed=False)
+                log(_row(f"quant_matmul {'int4' if int4 else 'int8'} f32 "
+                         f"{M}x{K}x{N} (atol 1e-4 rtol 1e-4)", rf))
+    for M, K, N in ((256, 4096, 4096), (8, 4096, 1000), (5, 1030, 129)):
+        for int4 in (False, True):
+            for dt in (bf16, f32):
+                r = check_quant(torch, dt, int4, M, K, N, timed=False)
+                log(_row(f"quant_matmul {'int4' if int4 else 'int8'} {dt} "
+                         f"{M}x{K}x{N}", r))
+
+    # #13 at Mixtral-8x7B widths: 8 experts, gate/up 4096x14336 and down
+    # 14336x4096; decode C = ceil(1.25*2*8/8) = 3 rows an expert, a
+    # 4096-token prefill wave C = 1280; uneven kept counts with zeros
+    dec_valid = [3, 1, 0, 2, 3, 3, 0, 1]
+    pre_valid = [1280, 1000, 0, 1200, 900, 1280, 1100, 1000]
+    log("kernel grouped_matmul: Mixtral-8x7B widths, E=8; bound counts the "
+        "live rows and the weights of experts with a live row")
+    for K, N in ((4096, 14336), (14336, 4096)):
+        for cap, valid in ((3, dec_valid), (1280, pre_valid)):
+            r = check_grouped(torch, bf16, K, N, cap, valid, timed=True)
+            log(_row(f"grouped_matmul bf16 K={K} N={N} C={cap} "
+                     f"valid={valid} (atol 2e-2 rtol 2e-2)", r)
+                + f" library={r['library']}")
+            if (K, N, cap) == (4096, 14336, 3):
+                results["grouped_matmul"] = r
+        r = check_grouped(torch, f32, K, N, 3, dec_valid, timed=False)
+        log(_row(f"grouped_matmul f32 K={K} N={N} C=3 (atol 1e-4 rtol "
+                 "1e-4)", r))
+    r = check_grouped(torch, f32, 4096, 1024, 256, [256, 0, 100, 255, 1, 64,
+                                                    200, 3], timed=False)
+    log(_row("grouped_matmul f32 K=4096 N=1024 C=256 (atol 1e-4 rtol "
+             "1e-4)", r))
     return results
 
 
@@ -368,6 +595,12 @@ KERNELS = {
     "paged_verify_attention": dict(
         source="paddle_tpu_torch/csrc/paged_verify_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:661"),
+    "quant_matmul": dict(
+        source="paddle_tpu_torch/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/quant_matmul.py:184"),
+    "grouped_matmul": dict(
+        source="paddle_tpu_torch/csrc/grouped_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/grouped_matmul.py:92"),
 }
 
 
@@ -460,20 +693,26 @@ def _serve(engine, specs, rng, vocab):
 
 
 def _report(tag, reqs, wall, ident):
+    """Log and return (tok/s, median TTFT ms) of a finished pass."""
     ttft = sorted((r._t_first - r._t_arrival) * 1e3 for r in reqs)
     toks = sum(len(r.tokens) for r in reqs)
     log(f"{tag}: {len(reqs)} requests, {toks} tokens in {wall:.3f} s = "
         f"{toks / wall:.1f} tok/s; TTFT ms median "
         f"{statistics.median(ttft):.1f} max {ttft[-1]:.1f} [{ident}]")
+    return toks / wall, statistics.median(ttft)
 
 
 def _counters():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
     return {"paged_decode_attention": pa.paged_slab_decode_attention,
             "flash_attention_fwd": fa.flash_attention_fwd,
-            "paged_verify_attention": pa.paged_verify_slab_attention}
+            "paged_verify_attention": pa.paged_verify_slab_attention,
+            "quant_matmul": qm.quant_matmul,
+            "grouped_matmul": gm.grouped_matmul}
 
 
 def _counted(run, needs=()):
@@ -494,13 +733,15 @@ def _counted(run, needs=()):
 def phase_main(ident):
     """llama2_7b at full width and depth, bf16, through the Engine: three
     vanilla passes, then one pass in each mode that rides the verify
-    kernel. Launches are counted per pass and summed."""
+    kernel; pass A with int8 and int4 weights; pass B a Mixtral-width MoE
+    at 16 layers. Launches are counted per pass and summed."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
 
     cfg = llama2_7b()
     t0 = time.perf_counter()
@@ -523,11 +764,14 @@ def phase_main(ident):
         log(f"{tag}: launches {got}")
         for name, n in got.items():
             total[name] += n
+        gc.collect()  # an engine and its runner hold each other
         torch.cuda.empty_cache()
+
+    seen = {}
 
     def serve(tag, eng, items):
         reqs, wall = _serve_items(eng, items)
-        _report(tag, reqs, wall, ident)
+        seen[tag] = _report(tag, reqs, wall, ident)
         return eng
 
     def rand(n):
@@ -539,13 +783,14 @@ def phase_main(ident):
     vanilla = ("paged_decode_attention", "flash_attention_fwd")
     verify = ("paged_verify_attention",)
     # pass 1: 10 mixed requests, two of them sampled
-    items = plain([(16, 64, 0.0, None), (1024, 32, 0.0, None),
-                   (300, 128, 0.8, 11), (64, 96, 0.0, None),
-                   (700, 48, 0.8, 12), (128, 128, 0.0, None),
-                   (33, 40, 0.0, None), (512, 64, 0.0, None),
-                   (900, 32, 0.0, None), (200, 80, 0.0, None)])
-    run_pass("main bf16 pages",
-             lambda: serve("main bf16 pages", engine(), items), vanilla)
+    items1 = plain([(16, 64, 0.0, None), (1024, 32, 0.0, None),
+                    (300, 128, 0.8, 11), (64, 96, 0.0, None),
+                    (700, 48, 0.8, 12), (128, 128, 0.0, None),
+                    (33, 40, 0.0, None), (512, 64, 0.0, None),
+                    (900, 32, 0.0, None), (200, 80, 0.0, None)])
+    peak_bf16 = _peak_pass(torch, lambda: run_pass(
+        "main bf16 pages", lambda: serve("main bf16 pages", engine(),
+                                         items1), vanilla))
     # pass 2: int8 KV pages
     items = plain([(100, 48, 0.0, None), (600, 32, 0.8, 21),
                    (250, 64, 0.0, None), (40, 64, 0.0, None)])
@@ -633,15 +878,133 @@ def phase_main(ident):
             f"request-row per step")
 
     run_pass("main spec ngram", spec, verify)
+    peak_dense = torch.cuda.max_memory_allocated()
 
-    log(f"main: launches {total}; peak memory "
+    # ---- pass A: weight-only int8 and int4 weights (kernel #12) --------
+    quant = ("quant_matmul",)
+    t0 = time.perf_counter()
+    _, swapped = quantize_for_decode(model, algo="weight_only_int8")
+    torch.cuda.synchronize()
+    log(f"main pass A: {swapped} Linears quantized to int8 in "
+        f"{time.perf_counter() - t0:.1f} s; weights now "
+        f"{_model_gib(model):.2f} GiB")
+    peaks = {"bf16": peak_bf16}
+    peaks["int8"] = _peak_pass(torch, lambda: run_pass(
+        "main int8 weights", lambda: serve("main int8 weights", engine(),
+                                           items1), quant + vanilla))
+
+    def spec_int8():
+        items = [(np.tile(rand(64), -(-n // 64))[:n], 96, 0.0, None)
+                 for n in (200, 280, 360, 440, 520, 600)]
+        serve("main int8 weights spec ngram", engine(spec="ngram",
+                                                     spec_k=4), items)
+
+    run_pass("main int8 weights spec ngram", spec_int8, quant + verify)
+    del model
+    torch.cuda.empty_cache()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    _, swapped = quantize_for_decode(model, algo="weight_only_int4")
+    torch.cuda.synchronize()
+    log(f"main pass A: {swapped} Linears quantized to int4; weights now "
+        f"{_model_gib(model):.2f} GiB")
+    items_int4 = plain([(100, 48, 0.0, None), (600, 32, 0.8, 21),
+                        (250, 64, 0.0, None), (40, 64, 0.0, None)])
+    peaks["int4+int8 pages"] = _peak_pass(torch, lambda: run_pass(
+        "main int4 weights int8 pages", lambda: serve(
+            "main int4 weights int8 pages", engine(quantized_cache=True),
+            items_int4), quant + vanilla))
+    for tag, bf in (("main int8 weights", "main bf16 pages"),
+                    ("main int4 weights int8 pages", "main int8 pages")):
+        log(f"main pass A: {tag} {seen[tag][0]:.1f} tok/s, TTFT median "
+            f"{seen[tag][1]:.1f} ms against {bf} {seen[bf][0]:.1f} tok/s, "
+            f"{seen[bf][1]:.1f} ms (same requests) [{ident}]")
+    log("main pass A: peak memory GiB " + ", ".join(
+        f"{k} {v / 2**30:.2f}" for k, v in peaks.items()) + f" [{ident}]")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- pass B: LLaMA-MoE at Mixtral-8x7B widths (kernel #13) ---------
+    mcfg = mixtral_8x7b(num_layers=16)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    moe = init_llama(mcfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"main pass B: Mixtral-8x7B widths, {mcfg.num_layers} of 32 layers, "
+        f"{mcfg.num_params() / 1e9:.2f}B params bf16 "
+        f"({_model_gib(moe):.2f} GiB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    grouped = ("grouped_matmul",)
+
+    def moe_engine(**kw):
+        return Engine(moe, max_slots=8, num_pages=512, page_size=16,
+                      chunk_size=16, **kw)
+
+    def moe_run(tag, eng, items):
+        serve(tag, eng, items)
+        st = eng.moe_stats()
+        log(f"{tag}: moe_stats tokens_routed={st['tokens_routed']:.0f} "
+            f"pairs_kept={st['pairs_kept']:.0f} "
+            f"pairs_dropped={st['pairs_dropped']:.0f} "
+            f"drop_frac={st['drop_frac']:.4f} "
+            f"load_imbalance={st['load_imbalance']:.3f} "
+            f"router_entropy={st['router_entropy']:.4f} expert_load="
+            f"{[int(x) for x in st['expert_load']]}")
+        if not st["tokens_routed"] > 0:
+            raise AssertionError(f"{tag}: the router saw no token")
+
+    moe_items = [(rand(n), m, t, s) for n, m, t, s in (
+        (32, 64, 0.0, None), (512, 32, 0.0, None), (200, 48, 0.8, 61),
+        (77, 64, 0.0, None), (384, 40, 0.0, None), (128, 64, 0.8, 62),
+        (450, 32, 0.0, None), (260, 56, 0.0, None))]
+    run_pass("main moe", lambda: moe_run("main moe", moe_engine(),
+                                         moe_items), grouped + vanilla)
+    moe_long = plain([(300, 48, 0.0, None), (560, 48, 0.0, None),
+                      (777, 48, 0.8, 63), (1000, 48, 0.0, None)])
+    run_pass("main moe chunked prefill", lambda: moe_run(
+        "main moe chunked prefill", moe_engine(prefill_chunk=256),
+        moe_long), grouped + verify)
+    log(f"main pass B: peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{ident}]")
+    del moe
+    torch.cuda.empty_cache()
+
+    log(f"main: launches {total}; peak memory of the dense bf16 passes "
+        f"{peak_dense / 2**30:.2f} GiB [{ident}]")
     for name, n in total.items():
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
-    del model
-    torch.cuda.empty_cache()
     return total
+
+
+def mixtral_8x7b(**kw):
+    """LLaMA-MoE at the published widths of ``mistralai/Mixtral-8x7B-v0.1``
+    (its ``config.json``): vocab 32000, hidden 4096, 32 layers, 32 heads
+    over 8 kv heads, expert FF 14336, 8 experts, top-2, rope_theta 1e6,
+    rms_eps 1e-5, max_position 32768. Built here, not in the package."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    base = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
+                num_heads=32, num_kv_heads=8, intermediate_size=14336,
+                max_position=32768, rope_theta=1e6, rms_eps=1e-5,
+                num_experts=8, moe_top_k=2, moe_intermediate_size=14336)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def _model_gib(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())
+               ) / 2**30
+
+
+def _peak_pass(torch, run):
+    """Peak device memory of ``run()`` (bytes)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
 
 
 def _profile_step(eng, tag, steps, ident):
@@ -677,13 +1040,15 @@ def _profile_step(eng, tag, steps, ident):
 def phase_profile(ident):
     """Opt-in (not in the default run): where the time goes at llama2_7b,
     8 active slots, bf16, in one decode chain, one chunked-prefill mixed
-    step and one spec-decode verify step."""
+    step and one spec-decode verify step; then one decode chain with int8
+    weights and one of the 16-layer Mixtral-width MoE."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
 
     cfg = llama2_7b()
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -715,6 +1080,25 @@ def phase_profile(ident):
     eng.step()  # blocking admission + the first verify step
     _profile_step(eng, "one spec verify step, 8 rows x 5 tokens, "
                   "~512-token contexts", 1, ident)
+    del eng
+    quantize_for_decode(model, algo="weight_only_int8")
+    eng = engine(512, max_chain=1)
+    eng.step()
+    eng.step()
+    _profile_step(eng, "int8 weights: one 16-step decode chain, ~512-token "
+                  "contexts", eng.chunk_size, ident)
+    del eng, model
+    torch.cuda.empty_cache()
+    model = init_llama(mixtral_8x7b(num_layers=16), seed=2, device="cuda",
+                       dtype=torch.bfloat16)
+    eng = Engine(model, max_slots=8, num_pages=512, page_size=16,
+                 chunk_size=16, max_chain=1)
+    for _ in range(8):
+        eng.add_request(rng.integers(0, 32000, (512,)), 200)
+    eng.step()
+    eng.step()
+    _profile_step(eng, "Mixtral widths, 16 layers (MoE): one 16-step decode "
+                  "chain, ~512-token contexts", eng.chunk_size, ident)
     del eng, model
     torch.cuda.empty_cache()
 
@@ -752,14 +1136,16 @@ def _match_cacheless(model, reqs, tag):
 
 def phase_greedy(ident):
     """2-layer full-width f32: engine greedy streams (plain, prefix cache,
-    chunked prefill, n-gram spec) against the argmax of the port's own
-    cacheless forward."""
+    chunked prefill, n-gram spec; then with int8 weights; then a
+    Mixtral-width MoE, plain and chunked) against the argmax of the same
+    model's cacheless forward."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     cfg = LlamaConfig(num_layers=2)
@@ -806,7 +1192,39 @@ def phase_greedy(ident):
         f"{eng._spec.drafts_accepted} of {eng._spec.drafts_proposed} drafts "
         "accepted")
     _match_cacheless(model, reqs, "spec ngram")
+    del eng
+
+    # the same model with int8 weights: its GEMMs go through #12 at the
+    # decode and verify rows (and the cacheless forward's <= 256 rows)
+    quantize_for_decode(model, algo="weight_only_int8")
+    reqs = _counted(lambda: _serve(
+        engine(), [(40, 24, 0.0, None), (150, 24, 0.0, None)], rng,
+        cfg.vocab_size), needs=("quant_matmul",))[0][0]
+    _match_cacheless(model, reqs, "int8 weights")
+    eng = engine(spec="ngram", spec_k=4)
+    reqs, _ = _serve_items(eng, [(np.tile(rand(16), 6), 24, 0.0, None)])
+    _match_cacheless(model, reqs, "int8 weights spec ngram")
     del eng, model
+    torch.cuda.empty_cache()
+
+    # Mixtral widths, 2 layers, capacity factor 4.0 = E/k: no pair drops in
+    # the engine's forwards or the cacheless one, so they route alike
+    moe = init_llama(mixtral_8x7b(num_layers=2), seed=3, device="cuda",
+                     dtype=torch.float32)
+
+    def moe_engine(**kw):
+        return Engine(moe, max_slots=4, num_pages=128, page_size=16,
+                      chunk_size=16, capacity_factor=4.0, **kw)
+
+    for tag, kw in (("moe", {}), ("moe chunked", dict(prefill_chunk=32))):
+        eng = moe_engine(**kw)
+        reqs = _counted(lambda: _serve(
+            eng, [(40, 24, 0.0, None), (150, 24, 0.0, None)], rng,
+            moe.config.vocab_size), needs=("grouped_matmul",))[0][0]
+        if eng.moe_stats()["pairs_dropped"]:
+            raise AssertionError(f"greedy {tag}: capacity 4.0 dropped pairs")
+        _match_cacheless(moe, reqs, tag)
+    del eng, moe
     torch.cuda.empty_cache()
 
 

@@ -3,7 +3,16 @@
 ``state_dict_from_numpy`` takes ``{name: ndarray}`` as the JAX package
 gives it (``paddle_tpu.jit.param_arrays(model)`` or ``Layer.state_dict``,
 then ``np.asarray``): names and ``[in, out]`` layouts already match the
-port's modules, so no renaming or transposing happens here.
+port's modules, so no renaming or transposing happens here. Floating
+weights take the requested dtype; integer arrays (quantized weights) stay
+integer and ``weight_scale`` arrays stay f32.
+
+A weight-only quantized JAX model crosses over by one recipe, which
+``llama_from_numpy(..., quant_algo=...)`` follows: take its parameters
+AND buffers (``paddle_tpu.jit.state_arrays``), build the float port model,
+run ``nn.quant.quantize_for_decode`` with the same algo (so the same
+Linears become ``WeightOnlyLinear`` with buffers of the right shapes),
+then ``load_state_dict(strict=True)``.
 
 ``init_llama`` initialises a model directly on its device from a seed with
 an explicit ``torch.Generator`` (normal, std ``initializer_range``; norm
@@ -11,31 +20,50 @@ scales are ones), so a 7B model is made on the card with no host copy.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .framework.device import resolve_device, resolve_dtype
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .nn.quant import quantize_for_decode
 
 __all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy"]
+
+
+def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind in "iub":
+        return torch.from_numpy(np.array(a, order="C", copy=True)).to(dev)
+    if name.rsplit(".", 1)[-1] == "weight_scale":
+        keep = np.array(a, np.float32, order="C", copy=True)
+        return torch.from_numpy(keep).to(dev)
+    return torch.from_numpy(np.array(a, np.float32, order="C",
+                                     copy=True)).to(device=dev, dtype=dt)
 
 
 def state_dict_from_numpy(arrays: Dict[str, np.ndarray], device=None,
                           dtype=torch.float32) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
-    return {name: torch.from_numpy(np.array(a, np.float32, order="C",
-                                            copy=True)).to(device=dev,
-                                                           dtype=dt)
+    return {name: _port_tensor(name, a, dev, dt)
             for name, a in arrays.items()}
 
 
 def llama_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
-                     device=None, dtype=torch.float32) -> LlamaForCausalLM:
-    """A port model holding the given parameters (every name must match)."""
+                     device=None, dtype=torch.float32,
+                     quant_algo: Optional[str] = None) -> LlamaForCausalLM:
+    """A port model holding the given arrays (every name must match).
+    ``quant_algo`` (``"weight_only_int8"`` / ``"weight_only_int4"``) takes
+    a quantized model's parameters and buffers: the Linears are swapped by
+    ``quantize_for_decode`` first (the recipe above)."""
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+    if quant_algo is not None:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()  # quantize defined values; the load overwrites
+        quantize_for_decode(model, algo=quant_algo)
     model.load_state_dict(state_dict_from_numpy(arrays, device, dtype),
                           strict=True)
     return model.eval()
@@ -45,8 +73,9 @@ def llama_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
 def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
                dtype=torch.bfloat16) -> LlamaForCausalLM:
     """A ``LlamaForCausalLM`` with random weights drawn on ``device`` from
-    ``seed``: every matrix normal(0, ``initializer_range``), norm scales
-    one. Parameters are drawn in ``named_parameters`` order."""
+    ``seed``: every matrix (the MoE router and expert stacks included)
+    normal(0, ``initializer_range``), norm scales one. Parameters are drawn
+    in ``named_parameters`` order."""
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(int(seed))

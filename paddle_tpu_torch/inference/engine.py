@@ -49,18 +49,26 @@
 * **Per-request faults.** Validation at ``add_request``; a non-finite
   logit row, a raising ``on_token`` callback or an unexpected error while
   harvesting one request fails that request only (``errors.py``).
+* **Weight-only quantized models** serve as they are: ``nn.quant``'s
+  ``WeightOnlyLinear`` routes decode-sized GEMMs through kernel #12.
+* **MoE models** (``num_experts > 0``) serve on one device:
+  ``capacity_factor=`` overrides every MoE layer's capacity factor, and
+  each forward runs under the router-stats tap (``_moe_tap``). The stats
+  stay device tensors until the step boundary or :meth:`moe_stats`, so the
+  decode chain never waits for the device.
 
 The modes combine as in the reference: chunked with the prefix cache,
 chunked with spec, spec with the prefix cache. Left out of the reference
 (``ROADMAP.md`` queue A lists them): the draft-model drafter, pre-admission,
 the host KV tier, the watchdog and whole-step fault recovery (an exception
 inside a dispatch raises out of ``step``), fault injection, integrity
-audits, multi-step, metrics and tracing, deadlines and cancellation,
-``max_queue``, disaggregation, tp/ep and MoE. Passing any of their
-constructor arguments raises ``TypeError``.
+audits, multi-step, metrics and tracing (the MoE stats included),
+deadlines and cancellation, ``max_queue``, disaggregation and tp/ep.
+Passing any of their constructor arguments raises ``TypeError``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -70,6 +78,7 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device, resolve_dtype
+from ..models.llama import moe_stats_size, moe_stats_tap
 from ..ops.cuda.paged_attention import PagedCacheState
 from .cache_coord import CacheCoordinator
 from .errors import (AdmissionRejected, CallbackError, NumericsError,
@@ -86,6 +95,18 @@ def _pow2ceil(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+@contextlib.contextmanager
+def _moe_tap(n: int):
+    """Arm the MoE router-stats tap around one forward when the engine
+    serves an MoE model (``n`` = ``moe_stats_size(cfg)``; 0 = dense, no-op).
+    Yields the per-layer stats list the MoE layers append to."""
+    if not n:
+        yield None
+        return
+    with moe_stats_tap() as tap:
+        yield tap
 
 
 def make_mixed_step_fn(engine, sampling):
@@ -105,7 +126,9 @@ def make_mixed_step_fn(engine, sampling):
     def mixed_chunk_step(ids, widths, emit, tables, lengths, temps, keys):
         states = engine._states_from(tables, lengths, prefill_valid=widths,
                                      verify=True)
-        logits, _ = model(ids, caches=states)
+        with _moe_tap(engine._moe_stats_n) as tap:
+            logits, _ = model(ids, caches=states)
+        engine._note_moe_stats(tap)
         rows = torch.arange(ids.shape[0], device=ids.device)
         last = logits[rows, widths.long() - 1].float()
         tok, burned, bad = engine._select(last, sampling, temps, keys)
@@ -164,7 +187,8 @@ class Engine:
                  top_k: Optional[int] = None, max_retries: int = 8,
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
-                 spec: Optional[str] = None, spec_k: int = 4, device=None):
+                 spec: Optional[str] = None, spec_k: int = 4,
+                 capacity_factor: Optional[float] = None, device=None):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -198,6 +222,29 @@ class Engine:
                     f"prefill_chunk={prefill_chunk} must be in "
                     f"[2, max_position={cfg.max_position}]")
         self.prefill_chunk = prefill_chunk
+        # MoE router stats: every program of an MoE engine notes one [E+3]
+        # device vector (summed over layers, and over a decode chain's
+        # steps); _moe_pending holds them undrained, _moe_tot (and, for
+        # spec verify forwards, which the reference does not tap,
+        # _moe_tot_verify) the host aggregates
+        self._moe_stats_n = moe_stats_size(cfg)
+        self._moe_pending: List = []
+        self._moe_tot = np.zeros((self._moe_stats_n,), np.float64)
+        self._moe_tot_verify = np.zeros((self._moe_stats_n,), np.float64)
+        if capacity_factor is not None:
+            if not self._moe_stats_n:
+                raise ValueError(
+                    "capacity_factor= on a dense model: the capacity "
+                    "factor sizes each expert's token buffer — serve an "
+                    "MoE config or drop the knob")
+            cf = float(capacity_factor)
+            if cf <= 0:
+                raise ValueError(
+                    f"capacity_factor={cf} must be > 0 (it scales the "
+                    "per-expert token capacity ceil(cf*k*T/E))")
+            for mod in model.modules():
+                if hasattr(mod, "router") and hasattr(mod, "experts_gate"):
+                    mod.capacity_factor = cf
         # mid-prefill slot -> prompt tokens not yet written (chunked mode)
         self._chunk_left: Dict[int, np.ndarray] = {}
         self.runner = ModelRunner(self)
@@ -513,7 +560,9 @@ class Engine:
         def prefill(ids, valid, tables, lengths, temps, keys):
             states = self._states_from(tables, lengths, prefill_valid=valid,
                                        verify=suffix)
-            logits, _ = model(ids, caches=states)
+            with _moe_tap(self._moe_stats_n) as tap:
+                logits, _ = model(ids, caches=states)
+            self._note_moe_stats(tap)
             rows = torch.arange(ids.shape[0], device=ids.device)
             last = logits[rows, valid.long() - 1].float()
             return self._select(last, sampling, temps, keys)
@@ -522,10 +571,12 @@ class Engine:
 
     def _make_decode_raw(self, k, sampling):
         """The chained decode: ``k * chunk_size`` steps, one token per slot
-        each, with no host sync inside. Returns (tokens [nb, steps],
+        each, with no host sync inside (an MoE model's router stats add up
+        on the card across the steps). Returns (tokens [nb, steps],
         lengths, keys, bad)."""
         model = self.model
         steps = k * self.chunk_size
+        moe_n = self._moe_stats_n
 
         @torch.no_grad()
         def decode_chain(tables, lengths, last_tok, temps, keys):
@@ -533,17 +584,79 @@ class Engine:
                               device=last_tok.device)
             toks = []
             last = last_tok
+            mstat = None
             for _ in range(steps):
                 states = self._states_from(tables, lengths)
-                logits, new_states = model(last[:, None], caches=states)
+                with _moe_tap(moe_n) as tap:
+                    logits, new_states = model(last[:, None], caches=states)
+                if tap:
+                    st = torch.stack(tap).sum(0)
+                    mstat = st if mstat is None else mstat + st
                 last, keys, b = self._select(logits[:, -1].float(),
                                              sampling, temps, keys)
                 bad = bad | b
                 lengths = new_states[0].lengths
                 toks.append(last)
+            self._note_moe_stats([mstat] if mstat is not None else None)
             return torch.stack(toks, dim=1), lengths, keys, bad
 
         return decode_chain
+
+    # ------------------------------------------------------ MoE router stats
+    def _note_moe_stats(self, tap, verify=False):
+        """Keep one program's router stats (the per-layer vectors in
+        ``tap``, summed on the card) without waiting for them; drained at
+        the step boundary or by :meth:`moe_stats`. The soft cap bounds the
+        list when a caller dispatches outside ``step()``."""
+        if not tap:
+            return
+        vec = tap[0] if len(tap) == 1 else torch.stack(tap).sum(0)
+        self._moe_pending.append((vec, verify))
+        if len(self._moe_pending) > 64:
+            self._drain_moe_stats()
+
+    def _drain_moe_stats(self):
+        """Fold the pending stats vectors into the host aggregates (host
+        code between dispatches)."""
+        pend, self._moe_pending = self._moe_pending, []
+        for vec, verify in pend:
+            tot = self._moe_tot_verify if verify else self._moe_tot
+            tot += vec.double().cpu().numpy()
+
+    @staticmethod
+    def _moe_summary(t, e):
+        load = t[:e]
+        kept = float(load.sum())
+        dropped = float(t[e])
+        pairs = kept + dropped
+        routed = float(t[e + 2])
+        mean = kept / e if e else 0.0
+        return {
+            "tokens_routed": routed,
+            "pairs_kept": kept,
+            "pairs_dropped": dropped,
+            "drop_frac": dropped / pairs if pairs else 0.0,
+            "expert_load": [float(x) for x in load],
+            "load_imbalance": float(load.max()) / mean if mean > 0 else 0.0,
+            "router_entropy": float(t[e + 1]) / routed if routed else 0.0,
+        }
+
+    def moe_stats(self) -> Dict[str, object]:
+        """Cumulative MoE routing stats since construction, as the
+        reference reports them (``{}`` on dense engines): ``drop_frac`` is
+        dropped over routed pairs, ``load_imbalance`` max over mean kept
+        pairs per expert, ``router_entropy`` the per-token mean in nats.
+        They cover the prefill, decode-chain and mixed-step forwards, as in
+        the reference; a spec engine adds ``"verify"``, the same fields
+        over its verify forwards, which the reference leaves untapped."""
+        if not self._moe_stats_n:
+            return {}
+        self._drain_moe_stats()
+        e = self._moe_stats_n - 3
+        out = self._moe_summary(self._moe_tot, e)
+        if self._spec is not None:
+            out["verify"] = self._moe_summary(self._moe_tot_verify, e)
+        return out
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device,
@@ -807,6 +920,9 @@ class Engine:
             self._spec_step()
         else:
             self._chained_step()
+        if self._moe_pending:
+            # the step's harvest fetched what produced them: no wait here
+            self._drain_moe_stats()
         return len(self._queue) + len(self._active)
 
     def _chained_step(self):

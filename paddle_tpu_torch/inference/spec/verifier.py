@@ -6,7 +6,10 @@ path: the input row is ``[last_tok, d1..dk]``, ``PagedCacheState(verify=
 True)`` routes every attention layer through ``paged_state_verify`` (the
 k+1 rows land at ``[len, len+k+1)`` and each position attends over the
 cache plus the causal prefix, through the verify kernel), and acceptance
-runs in the same call, so a verify step costs one fetch.
+runs in the same call, so a verify step costs one fetch. An MoE model's
+router stats of the verify forward are kept apart from the other
+programs' (``Engine.moe_stats()["verify"]``): the reference does not tap
+this program.
 
 The roll-back happens here too: the returned lengths are ``len + 1 +
 accepted``, not what was written. Rejected rows become dead data past
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..engine import _moe_tap
 from .acceptance import accept_tokens
 
 __all__ = ["make_verify_fn"]
@@ -32,7 +36,9 @@ def make_verify_fn(engine, sampling):
                          keys):
         ids = torch.cat([last_tok[:, None], drafts.long()], dim=1)
         states = engine._states_from(tables, lengths, verify=True)
-        logits, _ = model(ids, caches=states)
+        with _moe_tap(engine._moe_stats_n) as tap:
+            logits, _ = model(ids, caches=states)
+        engine._note_moe_stats(tap, verify=True)
         lg = logits.float()
         # any non-finite position in a row's k+1 logits fails that request
         bad = ~torch.isfinite(lg).all(dim=-1).all(dim=-1)

@@ -49,6 +49,8 @@ _SIGNATURES = {
                                                               _P],
     "paged_verify_attention": [_P] * 7 + [_I] * 7 + [_LL] * 3 + [_I] * 2
     + [_F, _P],
+    "quant_matmul": [_P] * 6 + [_I] * 7 + [_P],
+    "grouped_matmul": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
 """Layers of the port (after ``paddle_tpu.nn``)."""
-from . import functional
+from . import functional, quant
 from .common import Embedding, Linear
 from .norm import RMSNorm
 
-__all__ = ["functional", "Linear", "Embedding", "RMSNorm"]
+__all__ = ["functional", "quant", "Linear", "Embedding", "RMSNorm"]

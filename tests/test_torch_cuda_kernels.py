@@ -6,7 +6,10 @@ They cover what the main path of ``chip_smoke.py`` does not reach: GQA
 groups, other head dims and page sizes, lengths (and verify bases) past
 the table capacity, verify widths from 1 to 300, f32, int8 pages, ragged
 and strided inputs, the wrappers' refusals, and the engine's modes that
-ride the verify kernel.
+ride the verify kernel; the weight-only quant matmul (#12) and the grouped
+expert matmul (#13) at the main path's shapes and at odd ones (K no tile
+multiple, N = 1, one row, one expert, every group empty), and the
+quantized and MoE engines.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -209,17 +214,8 @@ def test_engine_greedy_matches_cacheless_on_card(cuda):
     reqs = [eng.add_request(rng.integers(0, cfg.vocab_size, (n,)), 12)
             for n in (5, 37, 70)]
     eng.run()
-    for r in reqs:
-        assert r.state == "FINISHED" and len(r.tokens) == 12
-        seq = torch.as_tensor(r.prompt, dtype=torch.int64, device=cuda)
-        with torch.no_grad():
-            for tok in r.tokens:
-                logits = model(seq[None])[0, -1]
-                top2 = torch.topk(logits, 2).values
-                if (top2[0] - top2[1]).item() < 1e-4:
-                    break
-                assert int(torch.argmax(logits)) == tok
-                seq = torch.cat([seq, seq.new_tensor([tok])])
+    assert all(r.state == "FINISHED" and len(r.tokens) == 12 for r in reqs)
+    _greedy_matches_cacheless(model, reqs, "plain")
 
 
 def _verify_inputs(dev, dtype, quant, B, m, H, Hkv, D, ps, max_pages,
@@ -368,14 +364,197 @@ def test_engine_modes_match_cacheless_on_card(cuda):
             reqs += [eng.add_request(p, 12) for p in wave]
             eng.run()
         assert pa.paged_verify_slab_attention.launches > before, kw
-        for r in reqs:
-            assert r.state == "FINISHED" and len(r.tokens) == 12
-            seq = torch.as_tensor(r.prompt, dtype=torch.int64, device=cuda)
-            with torch.no_grad():
-                for tok in r.tokens:
-                    logits = model(seq[None])[0, -1]
-                    top2 = torch.topk(logits, 2).values
-                    if (top2[0] - top2[1]).item() < 1e-4:
-                        break
-                    assert int(torch.argmax(logits)) == tok, kw
-                    seq = torch.cat([seq, seq.new_tensor([tok])])
+        assert all(r.state == "FINISHED" and len(r.tokens) == 12
+                   for r in reqs)
+        _greedy_matches_cacheless(model, reqs, kw)
+
+
+# ------------------------------------------------ #12 weight-only matmul
+def _quant_inputs(dev, dtype, int4, M, K, N, seed=0, bias=True):
+    """x ~ N(0, 1); the weight is a normal(0, 0.02) matrix through
+    ``weight_quantize``, as a model's would be."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w, sc = weight_quantize(
+        torch.randn((K, N), generator=g, device=dev) * 0.02,
+        "weight_only_int4" if int4 else "weight_only_int8")
+    b = torch.randn((N,), generator=g, device=dev) if bias else None
+    return x, w, sc, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (40, 4096, 11008),
+                                   (8, 11008, 4096), (1, 130, 1),
+                                   (256, 512, 1000), (3, 2, 7),
+                                   (17, 1030, 129)])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, int4, M, K, N):
+    x, w, sc, b = _quant_inputs(cuda, dtype, int4, M, K, N)
+    wd = "int4" if int4 else "int8"
+    before = qm.quant_matmul.launches
+    got = qm.quant_matmul(x, w, sc, b, weight_dtype=wd)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    want = qm.quant_matmul_ref(x, w, sc, b, weight_dtype=wd)
+    assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_quant_matmul_kernel_leading_dims_no_bias(cuda):
+    x, w, sc, _ = _quant_inputs(cuda, torch.bfloat16, False, 6, 256, 96,
+                                bias=False)
+    x3 = x.reshape(2, 3, 256)
+    got = qm.quant_matmul(x3, w, sc)
+    want = qm.quant_matmul_ref(x3, w, sc)
+    assert got.shape == (2, 3, 96)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_quant_matmul_kernel_refuses(cuda):
+    x, w, sc, _ = _quant_inputs(cuda, torch.float32, False, 4, 64, 32)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x.half(), w, sc)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x, w, sc.double())
+    with pytest.raises(ValueError):
+        qm.quant_matmul(x, w[:32], sc)
+    with pytest.raises(ValueError):
+        qm.quant_matmul(x, w.t().contiguous().t(), sc)
+
+
+def test_weight_only_linear_routes_by_rows(cuda):
+    from paddle_tpu_torch.nn import quant
+
+    x, w, sc, _ = _quant_inputs(cuda, torch.bfloat16, False, 300, 128, 64,
+                                bias=False)
+    before = qm.quant_matmul.launches
+    quant.weight_only_linear(x[:256], w, None, sc)
+    assert qm.quant_matmul.launches == before + 1
+    y = quant.weight_only_linear(x, w, None, sc)  # 300 rows: no kernel
+    assert qm.quant_matmul.launches == before + 1
+    torch.testing.assert_close(
+        y.float(), quant.quant_matmul_xla(x, w, sc).float())
+
+
+# ------------------------------------------------ #13 grouped matmul
+def _grouped_inputs(dev, dtype, M, K, N, E, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    rhs = (torch.randn((E, K, N), generator=g, device=dev)
+           / K ** 0.5).to(dtype)
+    return lhs, rhs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,sizes,valid", [
+    (24, 4096, 14336, [3] * 8, [3, 1, 0, 2, 3, 3, 0, 1]),
+    (24, 14336, 4096, [3] * 8, [3, 3, 3, 3, 3, 3, 3, 3]),
+    (300, 100, 70, [64, 0, 129, 100], [60, 0, 129, 1]),
+    (40, 16, 32, [7, 13, 3, 17], None),
+    (30, 16, 32, [5, 5, 5, 5], None),
+    (16, 33, 1, [16], None),
+    (1, 8, 9, [1, 0], None),
+    (10, 8, 24, [0, 0, 0], None),
+    (20, 24, 40, [30, 30], [25, 3]),
+])
+def test_grouped_matmul_kernel_matches_plain(cuda, dtype, M, K, N, sizes,
+                                             valid):
+    lhs, rhs = _grouped_inputs(cuda, dtype, M, K, N, len(sizes))
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    vs = None if valid is None else torch.tensor(valid, dtype=torch.int32,
+                                                 device=cuda)
+    before = gm.grouped_matmul.launches
+    got = gm.grouped_matmul(lhs, rhs, gs, vs)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches == before + 1
+    want = gm.grouped_matmul_ref(lhs, rhs, gs, vs)
+    assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    dead = (want == 0).all(-1)
+    assert not bool(got[dead].any())  # dead rows exactly zero
+
+
+def test_grouped_matmul_kernel_prefill_capacity(cuda):
+    """Mixtral prefill layout, cut to 2 experts: C = 1280 rows each with
+    uneven kept counts."""
+    lhs, rhs = _grouped_inputs(cuda, torch.bfloat16, 2560, 4096, 1024, 2)
+    gs = torch.full((2,), 1280, dtype=torch.int32, device=cuda)
+    vs = torch.tensor([1000, 1], dtype=torch.int32, device=cuda)
+    got = gm.grouped_matmul(lhs, rhs, gs, vs)
+    want = gm.grouped_matmul_ref(lhs, rhs, gs, vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert not bool(got[1000:1280].any()) and not bool(got[1281:].any())
+
+
+def test_grouped_matmul_kernel_refuses(cuda):
+    lhs, rhs = _grouped_inputs(cuda, torch.float32, 8, 16, 8, 2)
+    gs = torch.tensor([4, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        gm.grouped_matmul(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError):
+        gm.grouped_matmul(lhs, rhs.bfloat16(), gs)
+    with pytest.raises(TypeError):
+        gm.grouped_matmul(lhs, rhs, gs.long())
+    with pytest.raises(TypeError):
+        gm.grouped_matmul(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError):
+        gm.grouped_matmul(lhs.t(), rhs, gs)
+
+
+def _greedy_matches_cacheless(model, reqs, tag):
+    """Each greedy stream equals the argmax of the cacheless forward, up to
+    the first near-tie (top-2 gap < 1e-4)."""
+    for r in reqs:
+        seq = torch.as_tensor(r.prompt, dtype=torch.int64,
+                              device=model.device)
+        with torch.no_grad():
+            for tok in r.tokens:
+                logits = model(seq[None])[0, -1]
+                top2 = torch.topk(logits, 2).values
+                if (top2[0] - top2[1]).item() < 1e-4:
+                    break
+                assert int(torch.argmax(logits)) == tok, tag
+                seq = torch.cat([seq, seq.new_tensor([tok])])
+
+
+def test_quantized_and_moe_engines_match_cacheless_on_card(cuda):
+    """An int8-weight tiny LLaMA and a tiny MoE (f32; capacity 4.0, so
+    nothing drops in either forward) served on the card: greedy streams
+    equal the argmax of the cacheless forward, and each engine launched
+    its kernel."""
+    import numpy as np
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import (tiny_llama_config,
+                                               tiny_moe_llama_config)
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    dense = init_llama(tiny_llama_config(hidden_size=256,
+                                         max_position=256), seed=0,
+                       device=cuda, dtype=torch.float32)
+    quantize_for_decode(dense)
+    moe = init_llama(tiny_moe_llama_config(hidden_size=256,
+                                           max_position=256), seed=1,
+                     device=cuda, dtype=torch.float32)
+    for model, counter, kw in ((dense, qm.quant_matmul, {}),
+                               (moe, gm.grouped_matmul,
+                                dict(capacity_factor=4.0))):
+        eng = Engine(model, max_slots=2, num_pages=64, page_size=8,
+                     chunk_size=4, **kw)
+        before = counter.launches
+        reqs = [eng.add_request(rng.integers(0, 128, (n,)), 12)
+                for n in (5, 19, 40)]
+        eng.run()
+        assert counter.launches > before
+        assert all(r.state == "FINISHED" for r in reqs)
+        _greedy_matches_cacheless(model, reqs, counter.__name__)
+    assert eng.moe_stats()["pairs_dropped"] == 0
