@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
               and the card's name and power limit.
 2. kernels  — each kernel against its plain PyTorch version at the main
               path's shapes (``llama2_7b`` widths; Mixtral-8x7B widths for
-              the grouped expert matmul and the GQA timings), with the
+              the grouped expert matmul and the GQA timings; GPT-medium
+              widths for the flash backward on the general and the packed
+              layouts and for the forward on the packed views), with the
               tolerance stated; kernel, plain and library times by CUDA
               events.
 3. main     — ``llama2_7b`` at full width and depth, bf16, random weights
@@ -22,17 +24,24 @@ Phases, in order; any failure exits non-zero:
               decoding). Pass A serves it again with weight-only int8 and
               int4 weights (kernel #12); pass B builds a LLaMA-MoE at
               Mixtral-8x7B-v0.1 widths, 16 of its 32 layers, and serves it
-              (kernel #13). Each pass zeroes the launch counters just
-              before it and reads them just after.
+              (kernel #13). Then the trainer: ``gpt2_medium()`` at full
+              depth, O2 bf16, ``loss.backward()`` and ``AdamW.step()`` on
+              one fixed batch (T1 packed 12 x 1024, T2 8 x 2048, T3 the
+              general route; T4-T6 reach the remaining regimes). Each pass
+              zeroes the launch counters just before it and reads them
+              just after.
 4. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
               and int8 weights; Mixtral widths): the engine's greedy
               streams, plain and in each of the three modes, against the
-              argmax of the same model's cacheless forward.
+              argmax of the same model's cacheless forward; then the train
+              check: loss, gradients and three AdamW steps of 2-layer
+              GPT-medium and ``llama2_7b`` widths with the kernels against
+              plain attention.
 
-Opt-in: ``--phases build,profile`` times 7B decode chains (bf16 and int8
-weights), a chunked mixed step, a spec verify step and a Mixtral-width MoE
-decode chain, and lists the device kernels under torch.profiler (PERF.md
-"Where the time goes").
+Opt-in: ``--phases build,profile`` profiles one T1 training step, then
+times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
+spec verify step and a Mixtral-width MoE decode chain, and lists the
+device kernels under torch.profiler (PERF.md "Where the time goes").
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -435,12 +444,195 @@ def check_grouped(torch, dtype, K, N, cap, valid, timed, seed=6):
     return rec
 
 
+def _causal_pairs(sq, sk, causal):
+    """(query, key) pairs the attention computes: the live triangle when
+    causal (top-left: query i sees keys j <= i), all of them when not."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)
+    return full * (full + 1) // 2 + max(0, sq - sk) * sk
+
+
+def _flash_library_bwd(torch, q, k, v, do, causal, scale):
+    """PyTorch's own flash backward on the same inputs ([B, H, S, D]
+    views), the yardstick of the backward kernel. Returns (name, call): the
+    aten flash backward after one untimed forward where this PyTorch has
+    it; else SDPA forward+backward, of which the caller subtracts the
+    forward."""
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale)
+        o, lse, cq, ck, mq, mk, seed, off = fwd[:8]
+
+        def bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, causal, seed,
+                off, scale=scale)
+        bwd()
+        torch.cuda.synchronize()
+        return "aten._scaled_dot_product_flash_attention_backward", bwd
+    except (AttributeError, RuntimeError, TypeError):
+        torch.cuda.synchronize()
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        out = sdpa(qs, ks, vs, is_causal=causal, scale=scale)
+        torch.autograd.grad(out, (qs, ks, vs), dot)
+    return "sdpa forward+backward minus forward", fwd_bwd
+
+
+def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
+                    dlse=False, packed=False, seed=21):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the same
+    q, k, v, out, dO and lse (the forward kernel's). ``packed``: q, k, v
+    are views of one ``[B, S, 3H, D]`` QKV buffer, the output a ``[B, S,
+    H, D]`` buffer and dq/dk/dv views of one dQKV, as the packed route
+    lays them out. Tolerance: every gradient within 2e-2 (bf16) or 1e-4
+    (f32) of its largest entry. Bound: q, k, v, out, dO (and lse, dlse)
+    read once and dq, dk, dv written once over HBM; 10*D flops per live
+    (query, key) pair (the five products of the recompute scheme, 2.5x the
+    forward's) over the dtype's peak."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    scale = 1.0 / D ** 0.5
+    grads = None
+    if packed:
+        y = torch.randn((B, Sq, 3 * H, D), generator=g, device=dev).to(dtype)
+        q, k, v = y[:, :, :H], y[:, :, H:2 * H], y[:, :, 2 * H:]
+        dqkv = torch.empty_like(y)
+        grads = (dqkv[:, :, :H], dqkv[:, :, H:2 * H], dqkv[:, :, 2 * H:])
+    else:
+        q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, Sk, H, D), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    dl = (torch.randn((B, H, Sq), generator=g, device=dev) * 0.1 if dlse
+          else None)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, dl, causal=causal,
+                                 grads=grads)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, dl,
+                                      causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"flash bwd {name}: non-finite values")
+        top = max(1.0, float(b.float().abs().max()))
+        e = float((a.float() - b.float()).abs().max())
+        if e > tol * top:
+            raise AssertionError(f"flash bwd {dtype} B={B} Sq={Sq} Sk={Sk} "
+                                 f"H={H} D={D} {name}: max abs err {e} "
+                                 f"beyond {tol} * {top:.3g}")
+        err = max(err, e)
+    del want
+    rec = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        # the same math on f32 upcasts, with no bf16 rounding of P and dS:
+        # what the bf16 kernel's gradients lose to that rounding
+        want = fa.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, out, do)), lse, dl, causal=causal)
+        rec["err_vs_f32"] = max(
+            float((a.float() - b).abs().max()) / max(1.0, float(
+                b.abs().max())) for a, b in zip(got, want))
+        del want
+    torch.cuda.empty_cache()
+    if timed:
+        el = q.element_size()
+        nbytes = (el * (2 * B * Sq * H * D + 2 * B * Sk * H * D)   # q,k,v,o
+                  + el * B * Sq * H * D                              # dO
+                  + el * (B * Sq * H * D + 2 * B * Sk * H * D)     # dq,dk,dv
+                  + 4 * B * H * Sq * (2 if dlse else 1))           # lse
+        flops = 10 * D * B * H * _causal_pairs(Sq, Sk, causal)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        b_ops = flops / peak * 1e3
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update(
+            ms=time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, out, do, lse, dl, causal=causal, grads=grads)),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, do, lse, dl, causal=causal), warmup=1, reps=3),
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops >= b_bytes else "bytes",
+            library_ms=None, library=None)
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16 and not dlse:
+            name, lib = _flash_library_bwd(torch, q, k, v, do, causal, scale)
+            lib_ms = time_ms(lib)
+            if name.startswith("sdpa"):
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms -= time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                               scale=scale))
+            rec.update(library_ms=lib_ms, library=name)
+            del lib
+    del q, k, v, out, do, lse, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_packed_fwd(torch, B, S, H, D, timed, seed=22):
+    """#2's forward kernel on the packed route's layout (q, k, v strided
+    views of one ``[B, S, 3H, D]`` buffer, the output written into a
+    ``[B, S, H, D]`` buffer) against ``flash_attention_ref``, bf16, atol =
+    rtol = 2e-2. Bound: q, k, v in and out over HBM; 4*D flops per live
+    pair over the bf16 peak. Library: causal SDPA on contiguous [B, H, S,
+    D] copies made beforehand."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn((B, S, 3 * H, D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    q, k, v = y[:, :, :H], y[:, :, H:2 * H], y[:, :, 2 * H:]
+    o = torch.empty((B, S, H, D), dtype=y.dtype, device="cuda")
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, out=o)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_ref(q, k, v, return_lse=True)
+    err = float((o.float() - want.float()).abs().max())
+    if not torch.allclose(o.float(), want.float(), atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"packed forward S={S}: max abs err {err}")
+    lerr = float((lse - want_lse).abs().max())
+    if lerr > 1e-3:
+        raise AssertionError(f"packed forward S={S}: lse max abs err {lerr}")
+    del want, want_lse
+    torch.cuda.empty_cache()
+    rec = {"max_abs_err": err}
+    if timed:
+        b_ops = 4 * D * B * H * _causal_pairs(S, S, True) / \
+            BF16_FLOPS_PER_S * 1e3
+        b_bytes = 4 * B * S * H * D * 2 / HBM_BYTES_PER_S * 1e3
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec.update(
+            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, out=o)),
+            plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v),
+                             warmup=1, reps=3),
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops >= b_bytes else "bytes",
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)))
+        del qt, kt, vt
+    del y, o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _row(tag, r):
     extra = ""
     if "ms" in r:
+        lib = r["library_ms"]
         extra = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                 f"library_ms={r['library_ms']:.4f}")
+                 f"library_ms="
+                 + ("none" if lib is None else f"{lib:.4f}"))
+    if "err_vs_f32" in r:
+        extra += f" err_vs_f32={r['err_vs_f32']:.3g} (of the largest entry)"
     return f"kernel {tag}: max_abs_err={r['max_abs_err']:.3g}{extra}"
 
 
@@ -582,24 +774,101 @@ def phase_kernels():
                                                     200, 3], timed=False)
     log(_row("grouped_matmul f32 K=4096 N=1024 C=256 (atol 1e-4 rtol "
              "1e-4)", r))
+    results.update(check_training_kernels(torch))
     return results
 
 
+def check_training_kernels(torch):
+    """The training path's attention at GPT-medium widths (16 heads of 64):
+    the backward kernel on the general layout (#5's regime B=12 S=1024,
+    #6's B=8 S=2048, D=128 at 32 heads, sq != sk, an lse cotangent, f32)
+    and on the packed views (#11 S=1024, #10 S=2048 and S=8192), and #2's
+    forward on the packed views at #7's, #9's and #8's sequence lengths.
+    Returns the rows of TPU kernels #5-#11."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+    log("kernel flash_attention_bwd: every gradient within 2e-2 (bf16) or "
+        "1e-4 (f32) of its largest entry; library_ms is PyTorch's own flash "
+        "backward (the aten op where this PyTorch exposes it, else SDPA "
+        "forward+backward minus forward, named per row)")
+    for row, B, S, H, D in (("flash_attention_bwd_fused", 12, 1024, 16, 64),
+                            ("flash_attention_bwd_split", 8, 2048, 16, 64),
+                            (None, 2, 2048, 32, 128)):
+        r = check_flash_bwd(torch, bf16, B, S, S, H, D, timed=True)
+        log(_row(f"flash_attention_bwd general bf16 B={B} S={S} H={H} D={D} "
+                 "causal", r) + f" library={r['library']}")
+        if row:
+            res[row] = r
+    for B, Sq, Sk, causal, dl in ((4, 512, 1024, True, False),
+                                  (4, 1024, 512, False, False),
+                                  (4, 1000, 1000, True, True)):
+        r = check_flash_bwd(torch, bf16, B, Sq, Sk, 16, 64, timed=False,
+                            causal=causal, dlse=dl)
+        log(_row(f"flash_attention_bwd general bf16 B={B} Sq={Sq} Sk={Sk} "
+                 f"causal={causal} dlse={dl}", r))
+    for D in (64, 128, 256):
+        r = check_flash_bwd(torch, f32, 1, 300, 300, 4, D, timed=False,
+                            dlse=True)
+        log(_row(f"flash_attention_bwd general f32 S=300 H=4 D={D} dlse",
+                 r))
+    for row, B, S in (("causal_flash_bwd", 12, 1024),
+                      ("causal_flash_bwd_tiled", 8, 2048),
+                      (None, 1, 8192)):
+        r = check_flash_bwd(torch, bf16, B, S, S, 16, 64, timed=True,
+                            packed=True)
+        log(_row(f"flash_attention_bwd packed views bf16 B={B} S={S} H=16 "
+                 "D=64", r) + f" library={r['library']}")
+        if row:
+            res[row] = r
+    for row, B, S in (("causal_flash_fwd", 24, 512),
+                      ("causal_flash_fwd_row", 8, 2048),
+                      ("causal_flash_fwd_tiled", 1, 8192)):
+        r = check_packed_fwd(torch, B, S, 16, 64, timed=True)
+        log(_row(f"flash_attention_fwd packed views bf16 B={B} S={S} H=16 "
+                 "D=64 (atol 2e-2 rtol 2e-2; library causal sdpa)", r))
+        res[row] = r
+    return res
+
+
+# one row per TPU kernel of the repo that the port has replaced: the row's
+# name, the CUDA source that serves it, the Pallas function it replaces,
+# and the launch counter (the wrapper) whose launches it is charged with
 KERNELS = {
     "paged_decode_attention": dict(
-        source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
+        tpu_kernel=1, source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:446"),
     "flash_attention_fwd": dict(
-        source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        tpu_kernel=2, source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:136"),
     "paged_verify_attention": dict(
-        source="paddle_tpu_torch/csrc/paged_verify_attention.cu",
+        tpu_kernel=3, source="paddle_tpu_torch/csrc/paged_verify_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:661"),
+    "flash_attention_bwd_fused": dict(
+        tpu_kernel=5, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:229"),
+    "flash_attention_bwd_split": dict(
+        tpu_kernel=6, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:361"),
+    "causal_flash_fwd": dict(
+        tpu_kernel=7, source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/causal_flash.py:112"),
+    "causal_flash_fwd_tiled": dict(
+        tpu_kernel=8, source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/causal_flash.py:256"),
+    "causal_flash_fwd_row": dict(
+        tpu_kernel=9, source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/causal_flash.py:360"),
+    "causal_flash_bwd_tiled": dict(
+        tpu_kernel=10, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/causal_flash.py:516"),
+    "causal_flash_bwd": dict(
+        tpu_kernel=11, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/causal_flash.py:598"),
     "quant_matmul": dict(
-        source="paddle_tpu_torch/csrc/quant_matmul.cu",
+        tpu_kernel=12, source="paddle_tpu_torch/csrc/quant_matmul.cu",
         replaces="paddle_tpu/ops/pallas/quant_matmul.py:184"),
     "grouped_matmul": dict(
-        source="paddle_tpu_torch/csrc/grouped_matmul.cu",
+        tpu_kernel=13, source="paddle_tpu_torch/csrc/grouped_matmul.cu",
         replaces="paddle_tpu/ops/pallas/grouped_matmul.py:92"),
 }
 
@@ -710,6 +979,7 @@ def _counters():
 
     return {"paged_decode_attention": pa.paged_slab_decode_attention,
             "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "paged_verify_attention": pa.paged_verify_slab_attention,
             "quant_matmul": qm.quant_matmul,
             "grouped_matmul": gm.grouped_matmul}
@@ -734,7 +1004,8 @@ def phase_main(ident):
     """llama2_7b at full width and depth, bf16, through the Engine: three
     vanilla passes, then one pass in each mode that rides the verify
     kernel; pass A with int8 and int4 weights; pass B a Mixtral-width MoE
-    at 16 layers. Launches are counted per pass and summed."""
+    at 16 layers; then the training passes (``train_passes``). Launches
+    are counted per pass and summed into the rows of ``KERNELS``."""
     import numpy as np
     import torch
 
@@ -751,7 +1022,7 @@ def phase_main(ident):
         f"initialised in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats()
-    total = {name: 0 for name in _counters()}
+    total = {name: 0 for name in KERNELS}
 
     def engine(**kw):
         return Engine(model, max_slots=8, num_pages=1024, page_size=16,
@@ -762,6 +1033,8 @@ def phase_main(ident):
         counters are zeroed just before and read just after."""
         got = _counted(run, needs)[1]  # the pass's engine is gone here
         log(f"{tag}: launches {got}")
+        if got.pop("flash_attention_bwd"):
+            raise AssertionError(f"{tag}: serving launched the backward")
         for name, n in got.items():
             total[name] += n
         gc.collect()  # an engine and its runner hold each other
@@ -968,12 +1241,171 @@ def phase_main(ident):
     del moe
     torch.cuda.empty_cache()
 
-    log(f"main: launches {total}; peak memory of the dense bf16 passes "
+    log(f"main: peak memory of the dense bf16 serving passes "
         f"{peak_dense / 2**30:.2f} GiB [{ident}]")
+    train_passes(ident, total)
+    log(f"main: launches {total}")
     for name, n in total.items():
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     return total
+
+
+def _packed_rows(seq):
+    """The rows of the reference kernels whose regime a bf16 packed-route
+    call at sequence length ``seq`` replaces: the forward of
+    ``_fwd_dispatch`` (whole-row #9 for 512 < S <= 4096 with S % 512 == 0,
+    whole-sequence #7 up to 1024, else the tiled #8) and the backward of
+    ``_packed_bwd_rule`` (#11 up to 1024, the tiled #10 above)."""
+    if 512 < seq <= 4096 and seq % 512 == 0:
+        fwd = "causal_flash_fwd_row"
+    elif seq <= 1024:
+        fwd = "causal_flash_fwd"
+    else:
+        fwd = "causal_flash_fwd_tiled"
+    return fwd, ("causal_flash_bwd" if seq <= 1024
+                 else "causal_flash_bwd_tiled")
+
+
+def _general_rows(seq):
+    """The same for ``flash_attention_fused`` on square self-attention: #2
+    forward; the fused #5 backward up to S = 1024, the split #6 above."""
+    return "flash_attention_fwd", ("flash_attention_bwd_fused" if seq <= 1024
+                                   else "flash_attention_bwd_split")
+
+
+def _no_decay(name):
+    return not (name.endswith(".bias") or ".ln_" in name)
+
+
+def gpt_trainer(cfg, steps, seed=7, peak_lr=6e-4, o2=True):
+    """``init_gpt`` on the card, the AdamW recipe of the main path (a
+    linear warmup over a quarter of the steps from peak/10 into a cosine
+    decay, weight decay 0.01 off biases and norms, global-norm clip 1.0),
+    then ``amp.decorate`` O2 (bf16 parameters, f32 master weights in the
+    optimizer) unless ``o2`` is False (f32)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import init_gpt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    model = init_gpt(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(peak_lr, steps),
+                            max(1, steps // 4), peak_lr / 10, peak_lr)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.01, apply_decay_param_fun=_no_decay,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if o2:
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    model.train()
+    return model, opt, sched
+
+
+def train_steps(model, opt, sched, ids, labels, steps):
+    """``steps`` eager steps on one fixed batch. Returns (losses, host
+    seconds of each step, each ending in a device sync)."""
+    import torch
+
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.detach())
+    return [float(v) for v in losses], secs
+
+
+def train_passes(ident, total):
+    """The training path at GPT-medium widths, full depth (24 layers), O2
+    bf16, random weights from a seed and one fixed random batch repeated:
+    T1 the packed route at 12 x 1024 (#9 forward, #11 backward), T2 8 x
+    2048 with max_position 2048 (#9, #10), T3 T1's shape on the general
+    route (#2, #5), and three short passes that reach the other regimes:
+    T4 packed 24 x 512 (#7, #11), T5 packed 1 x 8192 with max_position
+    8192 (#8, #10), T6 general 8 x 2048 (#2, #6). Each pass's launches of
+    the two flash wrappers are charged to the rows of its regimes; every
+    loss must be finite and the last below the first. Reports tokens/s
+    (steps after the first), median step ms, peak GiB and MFU as
+    ``bench.py`` defines it (6 * params flops a token, and with the causal
+    attention's 12 * layers * hidden * S / 2) over the 989 TF/s bf16
+    peak."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models.gpt import gpt2_medium
+
+    med = gpt2_medium()
+    passes = [("T1", med, 12, 1024, 12, True),
+              ("T2", dataclasses.replace(med, max_position=2048), 8, 2048, 6,
+               True),
+              ("T3", med, 12, 1024, 4, False),
+              ("T4", med, 24, 512, 3, True),
+              ("T5", dataclasses.replace(med, max_position=8192), 1, 8192, 3,
+               True),
+              ("T6", dataclasses.replace(med, max_position=2048), 8, 2048, 3,
+               False)]
+    flag = "FLAGS_use_packed_attention"
+    saved = get_flags(flag)
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    summary = []
+    try:
+        for tag, cfg, B, S, steps, packed in passes:
+            set_flags({flag: packed})
+            rows = _packed_rows(S) if packed else _general_rows(S)
+            model, opt, sched = gpt_trainer(cfg, steps)
+            g = torch.Generator(device="cuda").manual_seed(S)
+            ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                device="cuda")
+            labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                   device="cuda")
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (losses, secs), got = _counted(
+                lambda: train_steps(model, opt, sched, ids, labels, steps),
+                needs=flash)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for wrapper, row in zip(flash, rows):
+                total[row] += got.pop(wrapper)
+            if any(got.values()):
+                raise AssertionError(f"{tag}: launched {got}")
+            if not all(map(lambda v: v == v and abs(v) < float("inf"),
+                           losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{tag}: losses {losses} are not "
+                                     "finite and falling")
+            steady = secs[1:]
+            tok_s = B * S * len(steady) / sum(steady)
+            n = cfg.num_params()
+            attn = 12 * cfg.num_layers * cfg.hidden_size * S // 2
+            mfu = tok_s * 6 * n / BF16_FLOPS_PER_S
+            mfu_attn = tok_s * (6 * n + attn) / BF16_FLOPS_PER_S
+            med_ms = statistics.median(steady) * 1e3
+            log(f"main {tag} {'packed' if packed else 'general'} route "
+                f"gpt2_medium {cfg.num_layers} layers, max_position "
+                f"{cfg.max_position}, O2 bf16, batch {B} x {S}, {steps} "
+                f"steps (rows {rows[0]}, {rows[1]}): {tok_s:.1f} tok/s, "
+                f"median step {med_ms:.1f} ms (first {secs[0] * 1e3:.1f}), "
+                f"peak {peak:.2f} GiB, MFU {mfu:.4f} (with attention "
+                f"{mfu_attn:.4f}) [{ident}]")
+            log(f"main {tag} losses " + " ".join(f"{v:.4f}" for v in losses))
+            summary.append((tag, tok_s, med_ms, peak, mfu))
+            del model, opt, sched
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        set_flags(saved)
+    log("main training: " + "; ".join(
+        f"{t} {a:.1f} tok/s {b:.1f} ms {c:.2f} GiB MFU {d:.4f}"
+        for t, a, b, c, d in summary) + f" [{ident}]")
 
 
 def mixtral_8x7b(**kw):
@@ -1037,11 +1469,49 @@ def _profile_step(eng, tag, steps, ident):
             f"x{e.count:<6d} {e.key[:90]}")
 
 
+def _profile_train(ident):
+    """One T1 training step (GPT-medium, O2 bf16, packed route, 12 x 1024)
+    after two warm steps: its host wall time against the device's busy
+    time in the next step under torch.profiler, and the top device
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models.gpt import gpt2_medium
+
+    set_flags({"FLAGS_use_packed_attention": None})
+    cfg = gpt2_medium()
+    model, opt, sched = gpt_trainer(cfg, 8)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (12, 1024), generator=g,
+                                 device="cuda") for _ in range(2))
+    _, secs = train_steps(model, opt, sched, ids, labels, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_steps(model, opt, sched, ids, labels, 1)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    wall = secs[-1] * 1e3
+    log(f"profile: T1 train step (GPT-medium O2 bf16, packed, 12 x 1024): "
+        f"wall {wall:.1f} ms; device busy {busy_ms:.1f} ms under the "
+        f"profiler (idle {max(0.0, 1 - busy_ms / wall):.0%}); "
+        f"{sum(e.count for e in events)} device kernels [{ident}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
+            f"x{e.count:<6d} {e.key[:90]}")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile(ident):
-    """Opt-in (not in the default run): where the time goes at llama2_7b,
-    8 active slots, bf16, in one decode chain, one chunked-prefill mixed
-    step and one spec-decode verify step; then one decode chain with int8
-    weights and one of the 16-layer Mixtral-width MoE."""
+    """Opt-in (not in the default run): where the time goes in one T1
+    training step; then at llama2_7b, 8 active slots, bf16, in one decode
+    chain, one chunked-prefill mixed step and one spec-decode verify step;
+    then one decode chain with int8 weights and one of the 16-layer
+    Mixtral-width MoE."""
     import numpy as np
     import torch
 
@@ -1050,6 +1520,7 @@ def phase_profile(ident):
     from paddle_tpu_torch.models.llama import llama2_7b
     from paddle_tpu_torch.nn.quant import quantize_for_decode
 
+    _profile_train(ident)
     cfg = llama2_7b()
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     rng = np.random.default_rng(3)
@@ -1138,7 +1609,7 @@ def phase_greedy(ident):
     """2-layer full-width f32: engine greedy streams (plain, prefix cache,
     chunked prefill, n-gram spec; then with int8 weights; then a
     Mixtral-width MoE, plain and chunked) against the argmax of the same
-    model's cacheless forward."""
+    model's cacheless forward; then ``train_check``."""
     import numpy as np
     import torch
 
@@ -1226,6 +1697,153 @@ def phase_greedy(ident):
         _match_cacheless(moe, reqs, tag)
     del eng, moe
     torch.cuda.empty_cache()
+    train_check(ident)
+
+
+def _grads(model, ids, labels, packed, flash):
+    """Loss and every parameter's gradient with the given attention flags
+    (the packed route; the flash kernels, or ``naive_attention`` when
+    ``flash`` is False)."""
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    set_flags({"FLAGS_use_packed_attention": packed,
+               "FLAGS_use_flash_attention": flash})
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(ids, labels)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def _compare_grads(tag, got, want, tol):
+    """Fail unless every gradient is within ``tol`` of its largest entry;
+    returns the largest such relative error."""
+    worst = 0.0
+    for name, w in want.items():
+        top = max(float(w.abs().max()), 1e-12)
+        rel = float((got[name] - w).abs().max()) / top
+        if rel > tol:
+            raise AssertionError(f"{tag}: {name} off by {rel:.3g} of its "
+                                 f"largest entry (limit {tol})")
+        worst = max(worst, rel)
+    return worst
+
+
+def train_check(ident):
+    """2-layer models at full width, f32 (tf32 off): GPT-medium widths with
+    max_position 2048 at S = 1024 and 2048 on the packed and the general
+    route, and ``llama2_7b`` widths (``loss``, general route) at the same
+    lengths. Loss and every gradient with the kernels are held against
+    the same model with plain attention on the card (``naive_attention``:
+    ``FLAGS_use_flash_attention`` and the packed route off, autograd
+    through PyTorch's own ops): loss within 1e-4, each gradient within
+    1e-4 of its largest entry (f32 FMA tiles against cuBLAS, another
+    summation order; the first run on the H100 showed at most 7.9e-6). Then three AdamW steps from one start, kernels
+    against plain: every parameter within twice the steps' summed learning
+    rate (Adam turns a near-zero gradient of either sign into a step of
+    the learning rate's size; the K bias's gradient is zero in exact
+    arithmetic), and the median difference below 1% of one step."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.convert import init_gpt, init_llama
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models.gpt import gpt2_medium
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("FLAGS_use_packed_attention", "FLAGS_use_flash_attention")
+    saved = get_flags(names)
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    try:
+        cfg = dataclasses.replace(gpt2_medium(), num_layers=2,
+                                  max_position=2048)
+        model = init_gpt(cfg, seed=5, device="cuda")
+        model.train()
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        g = torch.Generator(device="cuda").manual_seed(9)
+        for S in (1024, 2048):
+            ids, labels = (torch.randint(0, cfg.vocab_size, (2, S),
+                                         generator=g, device="cuda")
+                           for _ in range(2))
+            want_l, want = _grads(model, ids, labels, False, False)
+            for packed in (True, False):
+                (got_l, got), n = _counted(lambda: _grads(
+                    model, ids, labels, packed, True), needs=flash)
+                tag = (f"train check GPT-medium widths, 2 layers, f32, 2 x "
+                       f"{S}, {'packed' if packed else 'general'} route")
+                if abs(got_l - want_l) > 1e-4:
+                    raise AssertionError(f"{tag}: loss {got_l} against "
+                                         f"plain {want_l}")
+                worst = _compare_grads(tag, got, want, 1e-4)
+                log(f"{tag}: loss {got_l:.6f} (plain {want_l:.6f}); every "
+                    f"gradient within {worst:.3g} of its largest entry; "
+                    f"launches fwd {n['flash_attention_fwd']} bwd "
+                    f"{n['flash_attention_bwd']}")
+        ids, labels = (torch.randint(0, cfg.vocab_size, (2, 1024),
+                                     generator=g, device="cuda")
+                       for _ in range(2))
+        lr_, steps = 1e-4, 3
+        for packed in (True, False):
+            finals = []
+            for flash_on in (True, False):
+                model.load_state_dict(start)
+                model.zero_grad(set_to_none=True)
+                opt = AdamW(learning_rate=lr_,
+                            parameters=model.named_parameters(),
+                            weight_decay=0.01, apply_decay_param_fun=_no_decay,
+                            grad_clip=ClipGradByGlobalNorm(1.0))
+                # plain: naive attention on the general route
+                set_flags({names[0]: packed and flash_on,
+                           names[1]: flash_on})
+                for _ in range(steps):
+                    model.loss(ids, labels).backward()
+                    opt.step()
+                    opt.clear_grad()
+                finals.append({n: p.detach().clone()
+                               for n, p in model.named_parameters()})
+            diffs = torch.cat([(finals[0][n] - finals[1][n]).abs().flatten()
+                               for n in finals[1]])
+            worst, median = float(diffs.max()), float(diffs.median())
+            tag = (f"train check: {steps} AdamW steps (lr {lr_}), "
+                   f"{'packed' if packed else 'general'} route, kernels "
+                   "against plain")
+            if worst > 2 * steps * lr_ or median > 0.01 * lr_:
+                raise AssertionError(f"{tag}: parameters differ by up to "
+                                     f"{worst:.3g} (median {median:.3g})")
+            log(f"{tag}: parameters within {worst:.3g} (median "
+                f"{median:.3g}, {float((diffs > 1e-6).float().mean()):.2e} "
+                "of them beyond 1e-6)")
+        del model, start
+        torch.cuda.empty_cache()
+
+        lcfg = LlamaConfig(num_layers=2)
+        llama = init_llama(lcfg, seed=6, device="cuda", dtype=torch.float32)
+        llama.train()
+        for S in (1024, 2048):
+            ids, labels = (torch.randint(0, lcfg.vocab_size, (1, S),
+                                         generator=g, device="cuda")
+                           for _ in range(2))
+            want_l, want = _grads(llama, ids, labels, False, False)
+            (got_l, got), n = _counted(lambda: _grads(
+                llama, ids, labels, False, True), needs=flash)
+            tag = f"train check llama2_7b widths, 2 layers, f32, 1 x {S}"
+            if abs(got_l - want_l) > 1e-4:
+                raise AssertionError(f"{tag}: loss {got_l} against plain "
+                                     f"{want_l}")
+            worst = _compare_grads(tag, got, want, 1e-4)
+            log(f"{tag}: loss {got_l:.6f} (plain {want_l:.6f}); every "
+                f"gradient within {worst:.3g} of its largest entry; launches "
+                f"fwd {n['flash_attention_fwd']} bwd "
+                f"{n['flash_attention_bwd']} [{ident}]")
+            del want, got
+        del llama
+        torch.cuda.empty_cache()
+    finally:
+        set_flags(saved)
 
 
 if __name__ == "__main__":

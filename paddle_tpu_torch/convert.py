@@ -14,9 +14,11 @@ run ``nn.quant.quantize_for_decode`` with the same algo (so the same
 Linears become ``WeightOnlyLinear`` with buffers of the right shapes),
 then ``load_state_dict(strict=True)``.
 
-``init_llama`` initialises a model directly on its device from a seed with
-an explicit ``torch.Generator`` (normal, std ``initializer_range``; norm
-scales are ones), so a 7B model is made on the card with no host copy.
+``init_llama`` and ``init_gpt`` initialise a model directly on its device
+from a seed with an explicit ``torch.Generator`` (normal, std
+``initializer_range``; norm scales ones, biases zeros), so a 7B model is
+made on the card with no host copy. ``gpt_from_numpy`` builds the GPT from
+the JAX package's ``param_arrays`` the way ``llama_from_numpy`` does.
 """
 from __future__ import annotations
 
@@ -26,10 +28,12 @@ import numpy as np
 import torch
 
 from .framework.device import resolve_device, resolve_dtype
+from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.quant import quantize_for_decode
 
-__all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy"]
+__all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy",
+           "init_gpt", "gpt_from_numpy"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -85,3 +89,32 @@ def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
         else:
             p.normal_(0.0, cfg.initializer_range, generator=gen)
     return model.eval()
+
+
+def gpt_from_numpy(cfg: GPTConfig, arrays: Dict[str, np.ndarray],
+                   device=None, dtype=torch.float32) -> GPTForCausalLM:
+    """A port GPT holding the given arrays (``paddle_tpu.jit.param_arrays``
+    of a JAX ``GPTForCausalLM``; every name must match)."""
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype)
+    model.load_state_dict(state_dict_from_numpy(arrays, device, dtype),
+                          strict=True)
+    return model
+
+
+@torch.no_grad()
+def init_gpt(cfg: GPTConfig, seed: int = 0, device=None,
+             dtype=torch.float32, generator=None) -> GPTForCausalLM:
+    """A ``GPTForCausalLM`` with random weights drawn on ``device`` from
+    ``seed``: every matrix (the embeddings included) normal(0,
+    ``initializer_range``), LayerNorm scales one, biases zero, in
+    ``named_parameters`` order. ``generator`` goes to the dropout layers."""
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype,
+                           generator=generator)
+    gen = torch.Generator(device=model.device).manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if p.dim() == 1:
+            p.fill_(1.0 if ".ln_" in name and name.endswith("weight")
+                    else 0.0)
+        else:
+            p.normal_(0.0, cfg.initializer_range, generator=gen)
+    return model

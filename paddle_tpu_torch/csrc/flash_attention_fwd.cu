@@ -3,11 +3,14 @@
 //
 // Replaces the forward of the TPU kernel
 // paddle_tpu/ops/pallas/flash_attention.py `flash_attention_fused` (`_fwd`,
-// body `_fwd_kernel`). Backward is not ported yet.
+// body `_fwd_kernel`), and serves the packed causal forwards of
+// paddle_tpu/ops/pallas/causal_flash.py (`_fwd`, `_fwd_tiled`, `_fwd_row`:
+// three VMEM regimes of this one function) through strided views of the
+// packed QKV tensor. The backward is csrc/flash_attention_bwd.cu.
 //
 // What it computes: for q [B, Sq, H, D] and k, v [B, Sk, Hkv, D] in any
 // strides whose last dim is contiguous (q head h reads kv head
-// h // (H / Hkv)), out[b, i, h] = sum_j softmax_j(q_i . k_j * scale) v_j
+// h // (H / Hkv)), out[b, i, h] (any strides, contiguous last dim) = sum_j softmax_j(q_i . k_j * scale) v_j
 // over j < Sk and, when causal, j <= i. lse[b, h, i] = log sum_j exp(...)
 // when an lse buffer is given. Rows with no key give zeros.
 //
@@ -55,7 +58,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
                  long long qsb, long long qss, long long qsh, long long ksb,
                  long long kss, long long ksh, long long vsb, long long vss,
-                 long long vsh, int causal, float scale) {
+                 long long vsh, long long osb, long long oss, long long osh,
+                 int causal, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // [BQ][D]
   float* sK = sQ + BQ * D;           // [BK][D + 1]
@@ -170,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   if (qi < Sq) {
     const float inv = 1.f / fmaxf(l_i, 1e-37f);
-    T* orow = out + ((static_cast<size_t>(b) * Sq + qi) * H + h) * D;
+    T* orow = out + b * osb + qi * oss + h * osh;
 #pragma unroll
     for (int c = 0; c < DP; ++c) store_f(orow + part + 4 * c, o[c] * inv);
     if (lse != nullptr && part == 0)
@@ -193,8 +197,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, H, Hkv, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], causal, scale);
   return cudaGetLastError();
 }
 
@@ -223,20 +227,21 @@ cudaError_t launch_t(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [B, Sq, H, D], k / v [B, Sk, Hkv, D] with element strides (batch, seq,
-// head) and a contiguous last dim; out [B, Sq, H, D] contiguous, same dtype
-// (f32 or bf16); lse [B, H, Sq] f32 or null. Returns the cudaError_t of the
-// launch.
+// q [B, Sq, H, D], k / v [B, Sk, Hkv, D] and out [B, Sq, H, D] with element
+// strides (batch, seq, head) and a contiguous last dim, one dtype (f32 or
+// bf16); lse [B, H, Sq] f32 contiguous or null. Returns the cudaError_t of
+// the launch.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int H, int Hkv, int Sq, int Sk, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, float scale,
-    int dtype, void* stream) {
+    long long vsb, long long vss, long long vsh, long long osb, long long oss,
+    long long osh, int causal, float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
       static_cast<long long>(B) * H > 65535)
     return cudaErrorInvalidValue;
-  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
+                            vsb, vss, vsh, osb, oss, osh};
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)

@@ -15,6 +15,7 @@ __all__ = ["resolve_device", "resolve_dtype"]
 _DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "float16": torch.float16, "fp16": torch.float16,
     "int8": torch.int8,
 }
 

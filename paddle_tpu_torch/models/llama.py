@@ -117,7 +117,7 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_kv_heads
         self.head_dim = hd
         self.rope_theta = config.rope_theta
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.q_proj = pnn.Linear(h, config.num_heads * hd, **kw)
         self.k_proj = pnn.Linear(h, config.num_kv_heads * hd, **kw)
         self.v_proj = pnn.Linear(h, config.num_kv_heads * hd, **kw)
@@ -145,8 +145,11 @@ class LlamaAttention(nn.Module):
             return t if group == 1 else t.repeat_interleave(group, dim=2)
 
         def context():
+            # training runs the flash backward, which takes as many k/v
+            # heads as q heads: GQA heads are repeated first, as the
+            # reference does
             return F.flash_attention(q, expand_kv(k), expand_kv(v),
-                                     causal=True)[0]
+                                     causal=True, training=self.training)[0]
 
         new_cache = None
         if cache is None:
@@ -165,7 +168,7 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.gate_proj = pnn.Linear(h, m, **kw)
         self.up_proj = pnn.Linear(h, m, **kw)
         self.down_proj = pnn.Linear(m, h, **kw)
@@ -216,7 +219,7 @@ class LlamaMoEMLP(nn.Module):
         self.top_k = config.moe_top_k
         self.capacity_factor = float(config.capacity_factor)
         kw = dict(device=device, dtype=dtype)
-        self.router = pnn.Linear(h, e, **kw)
+        self.router = pnn.Linear(h, e, bias_attr=False, **kw)
         self.experts_gate = nn.Parameter(torch.empty((e, h, f), **kw))
         self.experts_up = nn.Parameter(torch.empty((e, h, f), **kw))
         self.experts_down = nn.Parameter(torch.empty((e, f, h), **kw))
@@ -362,7 +365,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.model = LlamaModel(config, device=dev, dtype=dt)
         self.lm_head = pnn.Linear(config.hidden_size, config.vocab_size,
-                                  device=dev, dtype=dt)
+                                  bias_attr=False, device=dev, dtype=dt)
 
     # the embedding is never quantized (``nn.quant.quantize_for_decode``
     # swaps every Linear, lm_head included), so it carries the model's
@@ -380,3 +383,16 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(self.model(input_ids))
         x, new_caches = self.model(input_ids, caches=caches)
         return self.lm_head(x), new_caches
+
+    def loss(self, input_ids, labels):
+        """Mean causal-LM loss over every position (an ``ignore_index``
+        label counts as 0), the reference's off-mesh
+        ``ParallelCrossEntropy``. Dense models only: the MoE layer's
+        grouped matmul kernel has no backward."""
+        if self.config.num_experts:
+            raise TypeError("LlamaForCausalLM.loss: MoE training is not "
+                            "ported (the grouped matmul has no backward)")
+        logits = self.forward(input_ids)
+        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  labels.reshape(-1), reduction="none")
+        return per_tok.mean()

@@ -1,15 +1,23 @@
 """Attention functions, after ``paddle_tpu/nn/functional/attention.py``.
 
-``flash_attention`` routes to the hand-written CUDA flash kernel for CUDA
-tensors and to the kernel's plain version for CPU tensors. Unlike the JAX
-package's ``_pallas_ok`` gate there is no shape gate: the kernel masks
-ragged sequence edges itself.
+``flash_attention`` routes to the hand-written CUDA flash kernels for CUDA
+tensors and to their plain versions for CPU tensors. When autograd needs
+gradients it runs through the differentiable ``FlashAttentionFunction``
+(forward kernel with its log-sum-exp, backward kernel); otherwise (the
+engine's prefill, ``torch.no_grad``) it calls the forward kernel alone.
+Unlike the JAX package's ``_pallas_ok`` gate there is no shape gate: the
+kernels mask ragged sequence edges themselves. ``FLAGS_use_flash_attention
+= False`` sends it to ``naive_attention``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops.cuda.flash_attention import flash_attention_fwd
+from ...amp import amp_cast
+from ...framework.flags import get_flags
+from ...ops.cuda.flash_attention import (flash_attention_fused,
+                                         flash_attention_fwd)
+from .common import dropout as _dropout
 
 __all__ = ["flash_attention", "naive_attention"]
 
@@ -32,8 +40,23 @@ def naive_attention(q, k, v, causal=False, scale=None):
     return out.transpose(1, 2)
 
 
-def flash_attention(query, key, value, causal=False):
-    """Inputs ``[batch, seq, num_heads, head_dim]``. Returns ``(out, None)``
-    like the reference API (the second slot is the softmax the reference
-    can return on request; the port never materialises it)."""
-    return flash_attention_fwd(query, key, value, causal=causal), None
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, training=True, generator=None):
+    """Inputs ``[batch, seq, num_heads, head_dim]``. Returns ``(out,
+    None)`` like the reference API (the second slot is the softmax the
+    reference can return on request; the port never materialises it).
+    ``dropout`` applies to the output, outside the kernel, when
+    ``training``, with its mask from ``generator``."""
+    if return_softmax:
+        raise TypeError("flash_attention: return_softmax is not ported")
+    q, k, v = amp_cast("attention", query, key, value)
+    if not get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
+        out = naive_attention(q, k, v, causal=causal)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        out = flash_attention_fused(q, k, v, causal=causal)
+    else:
+        out = flash_attention_fwd(q, k, v, causal=causal)
+    if dropout > 0.0 and training:
+        out = _dropout(out, p=dropout, training=True, generator=generator)
+    return out, None

@@ -6,7 +6,7 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["RMSNorm"]
+__all__ = ["RMSNorm", "LayerNorm"]
 
 
 class RMSNorm(nn.Module):
@@ -21,3 +21,29 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, epsilon=self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm with a learned scale (ones) and shift (zeros); either is
+    dropped by ``weight_attr=False`` / ``bias_attr=False``."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, device=None, dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        kw = dict(device=device, dtype=dtype)
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones(self.normalized_shape, **kw))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(self.normalized_shape, **kw))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)
+
+    def extra_repr(self):
+        return f"normalized_shape={self.normalized_shape}, " \
+               f"epsilon={self.epsilon}"

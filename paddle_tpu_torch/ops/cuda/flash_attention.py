@@ -1,36 +1,52 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the autograd Function over both.
 
-Port of the forward of ``paddle_tpu/ops/pallas/flash_attention.py``
-``flash_attention_fused`` (TPU kernel ``_fwd_kernel``). The CUDA source is
-``paddle_tpu_torch/csrc/flash_attention_fwd.cu``.
+Port of ``paddle_tpu/ops/pallas/flash_attention.py`` ``flash_attention_fused``
+and ``flash_attention_with_lse``. The forward kernel (TPU kernel #2,
+``_fwd_kernel``) is ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; the
+backward kernel, which replaces both the fused whole-sequence backward (#5,
+``_bwd_fused``) and the split dK/dV and dQ kernels (#6, ``_bwd``), is
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
 
 Layout ``[B, S, H, D]`` in and out (the paddle flash_attention layout); the
-kernel reads these strides directly, so no ``[B*H, S, D]`` copy is made.
-Causality is top-left aligned (query i sees keys j <= i), as in the Pallas
-kernel. k/v may carry fewer heads than q (GQA: q head h reads kv head
-``h // (H // Hkv)``).
+kernels read every operand through its strides (last dim contiguous), so
+no ``[B*H, S, D]`` copy is made and q, k, v may be views of one packed
+tensor. Causality is top-left aligned (query i sees keys j <= i), as in the
+Pallas kernels. In the forward k/v may carry fewer heads than q (GQA: q
+head h reads kv head ``h // (H // Hkv)``); the backward takes as many k/v
+heads as q heads (LLaMA repeats them first, as the reference does).
 
-A CPU tensor takes :func:`flash_attention_ref`; a CUDA tensor launches the
-kernel or raises. ``flash_attention_fwd.launches`` counts kernel launches.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["flash_attention_fwd", "flash_attention_ref"]
+__all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "FlashAttentionFunction",
+           "flash_attention_fused", "flash_attention_with_lse"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128, 256)
+_BWD_HEAD_DIMS = (64, 128, 256)
+
+
+def _keep_mask(sq, sk, causal, device):
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    return torch.tril(keep) if causal else keep
 
 
 def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False):
-    """Plain PyTorch twin of the kernel: f32 logits and softmax, P rounded
-    to the input dtype before the P.V product (f32 accumulation), rows with
-    no key give zeros. Returns ``out [B, Sq, H, D]`` in q's dtype, plus
-    ``lse [B, H, Sq]`` f32 when ``return_lse``."""
+    """Plain PyTorch twin of the forward kernel: f32 logits and softmax, P
+    rounded to the input dtype before the P.V product (f32 accumulation),
+    rows with no key give zeros. Returns ``out [B, Sq, H, D]`` in q's
+    dtype, plus ``lse [B, H, Sq]`` f32 when ``return_lse``."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -39,10 +55,7 @@ def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False):
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = torch.tril(keep)
-    s = s.masked_fill(~keep, float("-inf"))
+    s = s.masked_fill(~_keep_mask(sq, sk, causal, q.device), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
@@ -54,6 +67,34 @@ def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False):
     if return_lse:
         return out, (m + torch.log(l))[..., 0]
     return out
+
+
+def flash_attention_bwd_ref(q, k, v, out, do, lse, dlse=None, causal=True,
+                            scale=None):
+    """Plain PyTorch twin of the backward kernel (the recompute scheme of
+    the reference's ``fused_bwd_math`` / ``_bwd``): ``P = exp(S*scale -
+    lse)`` with masked entries exactly 0, ``delta = rowsum(dO*O) - dlse``
+    in f32, P and dS rounded to the input dtype before their products, f32
+    accumulation. Returns ``(dq, dk, dv)`` in q's dtype."""
+    d = q.shape[-1]
+    sq, sk = q.shape[1], k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dt = q.dtype
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    keep = _keep_mask(sq, sk, causal, q.device)
+    p = torch.where(keep, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (gf * of).sum(-1).transpose(1, 2)                 # [B, H, Sq]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(q, k, v):
@@ -72,32 +113,57 @@ def _check(q, k, v):
         raise ValueError("q, k and v must live on one device")
 
 
-def flash_attention_fwd(q, k, v, causal=True, scale=None,
-                        return_lse=False):
-    """Flash attention forward on ``[B, S, H, D]`` tensors. Returns ``out``
-    (and ``lse [B, H, Sq]`` f32 when ``return_lse``)."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, scale, return_lse)
+def _check_like(name, t, shape, ref):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != ref.dtype or t.device != ref.device:
+        raise TypeError(f"{name} must match q's dtype and device")
+
+
+def _cuda_checks(q, head_dims, *named):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    b, _, h, d = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes f32 or bf16, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, "
+    if d not in head_dims:
+        raise ValueError(f"flash kernel takes head_dim in {head_dims}, "
                          f"got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named:
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim")
     if b * h > 65535:
         raise ValueError(f"B*H={b * h} exceeds the kernel grid")
+
+
+def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
+                        out: Optional[torch.Tensor] = None):
+    """Flash attention forward on ``[B, S, H, D]`` tensors. Returns ``out``
+    (and ``lse [B, H, Sq]`` f32 when ``return_lse``). ``out``, when given,
+    is a ``[B, Sq, H, D]`` tensor in any strides (contiguous last dim) that
+    the kernel writes in place, such as a view into a packed buffer."""
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    if out is not None:
+        _check_like("out", out, (b, sq, h, d), q)
+    if q.device.type == "cpu":
+        res = flash_attention_ref(q, k, v, causal, scale, return_lse)
+        if out is None:
+            return res
+        out.copy_(res[0] if return_lse else res)
+        return (out, res[1]) if return_lse else out
+    named = [("q", q), ("k", k), ("v", v)]
+    if out is not None:
+        named.append(("out", out))
+    _cuda_checks(q, _HEAD_DIMS, *named)
+    sk, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     from ...kernels import build
 
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse: Optional[torch.Tensor] = (
         torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         if return_lse else None)
@@ -109,6 +175,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
         int(bool(causal)), float(scale), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q.device))
     build.check(rc, "flash_attention_fwd")
@@ -117,3 +184,118 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None,
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
+                        scale=None,
+                        grads: Optional[Sequence[torch.Tensor]] = None):
+    """Flash attention backward. q, out, do ``[B, Sq, H, D]``; k, v ``[B,
+    Sk, H, D]``; lse (and the optional lse cotangent dlse) ``[B, H, Sq]``
+    f32, as the forward wrote it. Returns ``(dq, dk, dv)`` in q's dtype.
+    ``grads``, when given, is ``(dq, dk, dv)`` preallocated in any strides
+    (contiguous last dim), such as views into one packed dQKV buffer; the
+    kernel writes them in place."""
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape[2] != h:
+        raise ValueError(f"the flash backward takes as many k/v heads as q "
+                         f"heads ({k.shape[2]} != {h}); repeat them first")
+    _check_like("out", out, q.shape, q)
+    _check_like("do", do, q.shape, q)
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and (tuple(t.shape) != (b, h, sq)
+                              or t.dtype != torch.float32
+                              or t.device != q.device):
+            raise ValueError(f"{name} must be f32 [B, H, Sq] = "
+                             f"{(b, h, sq)} on q's device")
+    if grads is not None:
+        for name, t, ref in zip(("dq", "dk", "dv"), grads, (q, k, v)):
+            _check_like(name, t, ref.shape, q)
+    if q.device.type == "cpu":
+        res = flash_attention_bwd_ref(q, k, v, out, do, lse, dlse, causal,
+                                      scale)
+        if grads is None:
+            return res
+        for dst, src in zip(grads, res):
+            dst.copy_(src)
+        return tuple(grads)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if grads is None:
+        grads = (torch.empty_like(q, memory_format=torch.contiguous_format),
+                 torch.empty_like(k, memory_format=torch.contiguous_format),
+                 torch.empty_like(v, memory_format=torch.contiguous_format))
+    ops = (q, k, v, out, do) + tuple(grads)
+    _cuda_checks(q, _BWD_HEAD_DIMS,
+                 *zip(("q", "k", "v", "out", "do", "dq", "dk", "dv"), ops))
+    lse = lse.contiguous()
+    dlse = dlse.contiguous() if dlse is not None else None
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    from ...kernels import build
+
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *[t.stride(i) for t in ops for i in range(3)])
+    lib = build.load("flash_attention_bwd")
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr() if dlse is not None else None,
+        grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+        delta.data_ptr(), b, h, sq, sk, d, strides, int(bool(causal)),
+        float(scale), build.DTYPE_CODES[q.dtype], build.stream_ptr(q.device))
+    build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``(out, lse) = f(q, k, v)``: the forward kernel with its
+    log-sum-exp, and the backward kernel for the gradients, with the lse
+    cotangent (when the caller uses lse) folded into delta, as the
+    reference's ``_flash_bhsd_lse`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if k.shape[2] != q.shape[2]:
+            raise ValueError("the flash backward takes as many k/v heads as "
+                             "q heads; repeat them first")
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dout = dout.to(q.dtype)  # an f32 cotangent from an f32 loss tail
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, dlse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_fused(q, k, v, causal=True, scale=None):
+    """Differentiable flash attention on ``[B, S, H, D]`` (the reference's
+    ``flash_attention_fused``)."""
+    return FlashAttentionFunction.apply(q, k, v, causal, scale)[0]
+
+
+def flash_attention_with_lse(q, k, v, causal=True, scale=None,
+                             q_positions=None, kv_positions=None):
+    """``(out [B, Sq, H, D], lse [B, H, Sq] f32)``, differentiable in both:
+    the lse cotangent flows back through the same backward kernel. The
+    position-masked form (``q_positions`` / ``kv_positions``, for ring
+    attention) is not ported and raises ``TypeError``."""
+    if q_positions is not None or kv_positions is not None:
+        raise TypeError("flash_attention_with_lse: position masks (ring "
+                        "attention) are not ported")
+    return FlashAttentionFunction.apply(q, k, v, causal, scale)

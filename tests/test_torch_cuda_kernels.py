@@ -9,7 +9,10 @@ and strided inputs, the wrappers' refusals, and the engine's modes that
 ride the verify kernel; the weight-only quant matmul (#12) and the grouped
 expert matmul (#13) at the main path's shapes and at odd ones (K no tile
 multiple, N = 1, one row, one expert, every group empty), and the
-quantized and MoE engines.
+quantized and MoE engines; the flash backward (general layout, sq != sk,
+ragged lengths, D 64-256, an lse cotangent, strided packed views into one
+dQKV, determinism), the autograd Functions, the packed route and a tiny
+GPT's gradients against plain attention.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -558,3 +561,204 @@ def test_quantized_and_moe_engines_match_cacheless_on_card(cuda):
         assert all(r.state == "FINISHED" for r in reqs)
         _greedy_matches_cacheless(model, reqs, counter.__name__)
     assert eng.moe_stats()["pairs_dropped"] == 0
+
+
+# ------------------------------------------------ flash backward (#5, #6,
+# #10, #11) and the packed causal forward (#7-#9) on #2's kernel
+def _bwd_inputs(dev, dtype, B, Sq, Sk, H, D, causal, seed=0, dlse=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, H, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, H, D), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+    dl = (torch.randn((B, H, Sq), generator=g, device=dev) if dlse
+          else None)
+    return q, k, v, out, do, lse, dl
+
+
+def _grads_close(got, want, dtype, tag=""):
+    """Each gradient within TOL[dtype] of its largest entry."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(1.0, float(b.float().abs().max()))
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= TOL[dtype] * scale, f"{tag} {name}: {err} > " \
+            f"{TOL[dtype]} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (63, 63), (65, 65), (200, 200),
+                                   (64, 130), (130, 64), (1030, 1030)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, Sq, Sk, D):
+    q, k, v, out, do, lse, _ = _bwd_inputs(cuda, dtype, 2, Sq, Sk, 2, D,
+                                           causal, seed=Sq + D)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    for a, b in zip(got, (q, k, v)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_lse_cotangent(cuda, dtype, causal):
+    q, k, v, out, do, lse, dl = _bwd_inputs(cuda, dtype, 2, 100, 100, 4, 64,
+                                            causal, seed=3, dlse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, dl, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, dl,
+                                      causal=causal)
+    _grads_close(got, want, dtype)
+    without = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    assert not torch.equal(without[0], got[0])
+
+
+def test_flash_bwd_kernel_is_deterministic(cuda):
+    args = _bwd_inputs(cuda, torch.bfloat16, 2, 300, 300, 4, 64, True)
+    a = fa.flash_attention_bwd(*args[:6])
+    b = fa.flash_attention_bwd(*args[:6])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_strided_packed_views(cuda, dtype):
+    """q, k, v, out and dO as views of packed buffers, dq/dk/dv written
+    into views of one packed dQKV: the values of the contiguous call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, H, D = 2, 96, 4, 64
+    y = torch.randn((B, S, 3 * H, D), generator=g, device=cuda).to(dtype)
+    q, k, v = y[:, :, :H], y[:, :, H:2 * H], y[:, :, 2 * H:]
+    o = torch.empty((B, S, H, D), dtype=dtype, device=cuda)
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, out=o)
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    dqkv = torch.empty((B, S, 3 * H, D), dtype=dtype, device=cuda)
+    fa.flash_attention_bwd(q, k, v, o, do, lse, grads=(
+        dqkv[:, :, :H], dqkv[:, :, H:2 * H], dqkv[:, :, 2 * H:]))
+    cq, ck, cv = (t.contiguous() for t in (q, k, v))
+    co, clse = fa.flash_attention_fwd(cq, ck, cv, return_lse=True)
+    assert torch.equal(co, o) and torch.equal(clse, lse)
+    want = fa.flash_attention_bwd(cq, ck, cv, co, do, clse)
+    assert torch.equal(dqkv[:, :, :H], want[0])
+    assert torch.equal(dqkv[:, :, H:2 * H], want[1])
+    assert torch.equal(dqkv[:, :, 2 * H:], want[2])
+
+
+def test_flash_bwd_kernel_refuses(cuda):
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q, q, q, q, q, lse)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    k = torch.zeros((1, 8, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        fa.flash_attention_bwd(q, k, k, q, q, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q, q, lse.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_grads_on_card(cuda, dtype):
+    """``F.flash_attention``'s Function (both kernels) against autograd
+    through the plain ``naive_attention``, with the lse cotangent too."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ts = [torch.randn((2, 200, 4, 64), generator=g, device=cuda).to(dtype)
+          .requires_grad_() for _ in range(3)]
+    ct = torch.randn((2, 200, 4, 64), generator=g, device=cuda).to(dtype)
+    out, _ = F.flash_attention(*ts, causal=True)
+    got = torch.autograd.grad((out.float() * ct.float()).sum(), ts)
+    ref = [t.detach().float().requires_grad_() for t in ts]
+    want_o = F.naive_attention(*ref, causal=True)
+    want = torch.autograd.grad((want_o * ct.float()).sum(), ref,
+                               retain_graph=True)
+    _grads_close(got, want, dtype, "Function")
+    ctl = torch.randn((2, 4, 200), generator=g, device=cuda)
+    o2, lse2 = fa.flash_attention_with_lse(*ts)
+    got2 = torch.autograd.grad((o2.float() * ct.float()).sum()
+                               + (lse2 * ctl).sum(), ts)
+    s = torch.einsum("bqhd,bkhd->bhqk", ref[0], ref[1]) / 8.0
+    s = s.masked_fill(~torch.ones((200, 200), dtype=torch.bool,
+                                  device=cuda).tril(), float("-inf"))
+    want2 = torch.autograd.grad((want_o * ct.float()).sum()
+                                + (torch.logsumexp(s, -1) * ctl).sum(), ref)
+    _grads_close(got2, want2, dtype, "with lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,hpb", [(256, 1), (256, 2), (1024, 2),
+                                   (2048, 2), (2048, 1)])
+def test_causal_flash_qkv_on_card(cuda, dtype, S, hpb):
+    """The packed route on the card (#2's forward on strided views, the
+    backward kernel into one dQKV) against the plain packed attention."""
+    from paddle_tpu_torch.ops.cuda import causal_flash as cf
+
+    g = torch.Generator(device=cuda).manual_seed(S + hpb)
+    B, H, D = 2, 4, 64
+    y = (torch.randn((B, S, 3 * H * D), generator=g, device=cuda) * 0.5
+         ).to(dtype).requires_grad_()
+    qkv = y.view(B, S, 3 * H // hpb, hpb * D).transpose(1, 2)
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out = cf.causal_flash_qkv(qkv, H, D)
+    ct = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    (got,) = torch.autograd.grad((out.float() * ct.float()).sum(), y)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches - f0,
+            fa.flash_attention_bwd.launches - b0) == (1, 1)
+    yr = y.detach().float().requires_grad_()
+    want_o = cf.causal_flash_qkv_ref(
+        yr.view(B, S, 3 * H // hpb, hpb * D).transpose(1, 2), H, D)
+    (want,) = torch.autograd.grad((want_o * ct.float()).sum(), yr)
+    torch.testing.assert_close(out.float(), want_o, atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.float() - want).abs().max()) <= TOL[dtype] * scale
+
+
+def test_tiny_gpt_grads_on_card(cuda):
+    """A 2-layer GPT (hidden 128, two heads of 64), f32: loss and every
+    gradient with the kernels (packed and general routes) against plain
+    attention (``FLAGS_use_flash_attention`` off, the packed route off)."""
+    from paddle_tpu_torch.convert import init_gpt
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=96, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position=256)
+    model = init_gpt(cfg, seed=2, device=cuda)
+    model.train()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, 96, (2, 200), generator=g, device=cuda)
+    labels = torch.randint(0, 96, (2, 200), generator=g, device=cuda)
+    names = ("FLAGS_use_packed_attention", "FLAGS_use_flash_attention")
+    saved = get_flags(names)
+
+    def run(packed, flash):
+        set_flags({names[0]: packed, names[1]: flash})
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(ids, labels)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    try:
+        want_l, want = run(False, False)
+        b0 = fa.flash_attention_bwd.launches
+        for packed in (True, False):
+            got_l, got = run(packed, True)
+            assert abs(got_l - want_l) < 1e-4
+            for n, w in want.items():
+                scale = max(float(w.abs().max()), 1e-6)
+                err = float((got[n] - w).abs().max())
+                assert err <= 1e-4 * scale, (packed, n, err, scale)
+        assert fa.flash_attention_bwd.launches == b0 + 2 * cfg.num_layers
+    finally:
+        set_flags(saved)
