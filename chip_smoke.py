@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero:
               path's shapes (``llama2_7b`` widths; Mixtral-8x7B widths for
               the grouped expert matmul and the GQA timings; GPT-medium
               widths for the flash backward on the general and the packed
-              layouts and for the forward on the packed views), with the
-              tolerance stated; kernel, plain and library times by CUDA
-              events.
+              layouts and for the forward on the packed views; GPT-2 small
+              and ``llama2_7b`` widths for the decode kernels #4, #14,
+              #15), with the tolerance stated; kernel, plain and library
+              times by CUDA events.
 3. main     — ``llama2_7b`` at full width and depth, bf16, random weights
               from a seed, served through the port's ``Engine``: sampled and
               greedy requests, an int8-page pass, a pool small enough to
@@ -30,7 +31,17 @@ Phases, in order; any failure exits non-zero:
               general route; T4-T6 reach the remaining regimes). Each pass
               zeroes the launch counters just before it and reads them
               just after.
-4. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
+4. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
+              ``bench.py``'s decode shape (B=8, 128 + 512 tokens, bf16,
+              then int8 and int4 weights; #2 prefill, #15 decode, #12) and
+              ``llama2_7b`` at full depth (greedy and sampled); GPT-2 small
+              on user-allocated 5-D caches (#14) and one
+              ``masked_multihead_attention`` step; GPT-2 small and
+              ``llama2_7b`` on ``PagedKVCache`` (#4, bf16 and int8 pages),
+              each held against the same run on the plain versions; then
+              2-layer full-width f32 checks: greedy streams against the
+              cacheless argmax, 5-D and paged logits against the slab's.
+5. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
               and int8 weights; Mixtral widths): the engine's greedy
               streams, plain and in each of the three modes, against the
               argmax of the same model's cacheless forward; then the train
@@ -49,8 +60,11 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -60,7 +74,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
-PHASES = ("build", "kernels", "main", "greedy")
+PHASES = ("build", "kernels", "main", "generate", "greedy")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -623,6 +637,206 @@ def check_packed_fwd(torch, B, S, H, D, timed, seed=22):
     return rec
 
 
+def _decode_record(torch, tag, got, want, dtype):
+    """The decode kernels' tolerance against their plain versions: f32
+    within 2e-5 absolute (the reference's own kernel-vs-twin bound), bf16
+    within one bf16 ulp of the output's largest entry (both round one f32
+    result)."""
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        lim = 2e-5
+    else:
+        top = float(want.float().abs().max())
+        lim = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite values")
+    if err > lim:
+        raise AssertionError(f"{tag}: max abs err {err} beyond {lim}")
+    return {"max_abs_err": err, "tolerance": lim}
+
+
+def _decode_bound(q, live, Hkv, D, kv_elem, scale_bytes):
+    """(bound ms, bound_by) of a decode over ``live`` K/V rows: q in, the
+    output out, each live row of K and V (and its scales) read once, over
+    HBM; 4 * H * D flops a live row over the bf16 peak."""
+    H = q.shape[1]
+    nbytes = (2 * q.numel() * q.element_size() + 2 * live * Hkv * D * kv_elem
+              + live * scale_bytes + 4 * q.shape[0])
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = 4 * live * H * D / BF16_FLOPS_PER_S * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def _window_sdpa(torch, q, k, v, lens):
+    """The decode kernels' library yardstick: one SDPA call of q [B, H, D]
+    over each row's live window of contiguous k/v [B, Hkv, W, D] (GQA heads
+    repeated, both made beforehand, not timed), masked at ``lens``."""
+    H, Hkv = q.shape[1], k.shape[1]
+    win = int(lens.max())
+    kw, vw = (t[:, :, :win].repeat_interleave(H // Hkv, dim=1)
+              for t in (k, v))
+    mask = (torch.arange(win, device=q.device)[None]
+            < lens.long()[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q[:, :, None]
+    return lambda: sdpa(qt, kw, vw, attn_mask=mask)
+
+
+def check_contig_decode(torch, dtype, slab, B, H, Hkv, D, S, lengths, timed,
+                        seed=31):
+    """#15 (``slab``: the kv slab [2, B, S, Hkv*D]) or #14 (k/v caches
+    [B, Hkv, S, D], the halves of one [2, B, Hkv, S, D]) against
+    ``decode_attention_ref`` on the same rows. Library: SDPA over each
+    row's live window."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = torch.randn((2, B, Hkv, S, D), generator=g,
+                        device="cuda").to(dtype)
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if slab:
+        kv = cache.transpose(2, 3).reshape(2, B, S, Hkv * D).contiguous()
+        del cache
+        k, v = da._slab_views(kv, D)
+
+        def run():
+            return da.decode_attention_slab(q, kv, lens)
+    else:
+        k, v = cache[0], cache[1]
+
+        def run():
+            return da.decode_attention(q, k, v, lens)
+
+    def plain():
+        return da.decode_attention_ref(q, k, v, lens)
+
+    got = run()
+    torch.cuda.synchronize()
+    rec = _decode_record(torch, f"decode {'slab' if slab else '5-D'}", got,
+                         plain(), dtype)
+    if timed:
+        live = sum(min(max(n, 0), S) for n in lengths)
+        bound, by = _decode_bound(q, live, Hkv, D, q.element_size(), 0)
+        lib = _window_sdpa(torch, q, k.contiguous(), v.contiguous(), lens)
+        rec.update(ms=time_ms(run), plain_ms=time_ms(plain, warmup=1, reps=3),
+                   bound_ms=bound, bound_by=by, library_ms=time_ms(lib))
+        del lib
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_v1_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages,
+                    lengths, timed, seed=32):
+    """#4 on head-major pages [Hkv, P, ps, D] (int8 with f32 per-row scales
+    [Hkv, P, ps]) against ``paged_decode_attention_ref``. Library: SDPA
+    over each row's window gathered (and dequantized) beforehand."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    P = 1 + B * max_pages
+    k = torch.randn((Hkv, P, ps, D), generator=g, device="cuda")
+    v = torch.randn((Hkv, P, ps, D), generator=g, device="cuda")
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = pa.quantize_rows_int8(k), pa.quantize_rows_int8(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+    tables = perm[:B * max_pages].view(B, max_pages).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
+
+    def run():
+        return pa.paged_decode_attention(q, k, v, tables, lens, k_scales=ks,
+                                         v_scales=vs)
+
+    def plain():
+        return pa.paged_decode_attention_ref(q, k, v, tables, lens,
+                                             k_scales=ks, v_scales=vs)
+
+    got = run()
+    torch.cuda.synchronize()
+    rec = _decode_record(torch, f"paged v1 {dtype} quant={quant}", got,
+                         plain(), dtype)
+    if timed:
+        cap = max_pages * ps
+        live = sum(min(max(n, 0), cap) for n in lengths)
+        bound, by = _decode_bound(q, live, Hkv, D, 1 if quant else
+                                  k.element_size(), 8 if quant else 0)
+        bt = tables.long()
+
+        def window(pages, sc):
+            w = pages[:, bt].float()
+            if sc is not None:
+                w = w * sc[:, bt][..., None]
+            return w.transpose(0, 1).reshape(B, Hkv, cap, D).to(dtype)
+
+        lib = _window_sdpa(torch, q, window(k, ks), window(v, vs), lens)
+        rec.update(ms=time_ms(run), plain_ms=time_ms(plain, warmup=1, reps=3),
+                   bound_ms=bound, bound_by=by, library_ms=time_ms(lib))
+        del lib
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_decode_slice(torch):
+    """#14, #15 and #4 at the generate phase's shapes: GPT-2 small (B=8,
+    12 heads of 64, S=640, lengths ragged from 129 to 640), ``llama2_7b``
+    (32 heads of 128, S=1152), GQA at Mixtral-8x7B widths (32 over 8 kv
+    heads), #4 at ``llama2_7b`` widths with 16-row pages (bf16 and int8),
+    bf16 timed; f32 and an idle row checked. Returns the rows of #4, #14
+    and #15 (GPT-2 small for #14 and #15, ``llama2_7b`` for #4)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+    log("kernel decode_attention (#14 on [B, Hkv, S, D], #15 on the slab) "
+        "and paged_decode_attention_v1 (#4): f32 within 2e-5, bf16 within "
+        "one bf16 ulp of the output's largest entry; library_ms is SDPA "
+        "over each row's live window (gathered beforehand for #4)")
+    gpt_lens = [129, 200, 257, 320, 400, 511, 600, 640]
+    big_lens = [129, 300, 511, 640, 777, 900, 1024, 1152]
+    for tag, H, Hkv, D, S, lens in (
+            ("GPT-2 small", 12, 12, 64, 640, gpt_lens),
+            ("llama2_7b", 32, 32, 128, 1152, big_lens),
+            ("GQA 32/8", 32, 8, 128, 1152, big_lens)):
+        for slab in (True, False):
+            r = check_contig_decode(torch, bf16, slab, 8, H, Hkv, D, S, lens,
+                                    timed=True)
+            name = "decode_attention_slab" if slab else "decode_attention"
+            log(_row(f"{name} bf16 {tag} B=8 H={H} Hkv={Hkv} D={D} S={S} "
+                     f"lengths={lens}", r))
+            if tag == "GPT-2 small":
+                res[name] = r
+    for slab in (True, False):
+        for H, Hkv, D in ((12, 12, 64), (32, 4, 128)):
+            r = check_contig_decode(torch, f32, slab, 3, H, Hkv, D, 300,
+                                    [0, 1, 300], timed=False)
+            log(_row(f"{'decode_attention_slab' if slab else 'decode_attention'}"
+                     f" f32 H={H} Hkv={Hkv} D={D} lengths [0, 1, 300]", r))
+    for tag, H, Hkv, D in (("llama2_7b", 32, 32, 128), ("GQA 32/8", 32, 8,
+                                                         128)):
+        for quant in (False, True):
+            r = check_v1_decode(torch, bf16, quant, 8, H, Hkv, D, 16, 72,
+                                big_lens, timed=True)
+            log(_row(f"paged_decode_attention_v1 {'int8' if quant else 'bf16'}"
+                     f" pages, {tag} B=8 ps=16 lengths={big_lens}", r))
+            if tag == "llama2_7b" and not quant:
+                res["paged_decode_attention_v1"] = r
+    r = check_v1_decode(torch, bf16, False, 8, 12, 12, 64, 16, 40, gpt_lens,
+                        timed=True)
+    log(_row(f"paged_decode_attention_v1 bf16 pages, GPT-2 small ps=16 "
+             f"lengths={gpt_lens}", r))
+    for quant in (False, True):
+        r = check_v1_decode(torch, f32, quant, 3, 32, 8, 128, 16, 8,
+                            [0, 5, 200], timed=False)
+        log(_row(f"paged_decode_attention_v1 f32 {'int8' if quant else 'f32'}"
+                 " pages, GQA 32/8 lengths [0, 5, 200]", r))
+    return res
+
+
 def _row(tag, r):
     extra = ""
     if "ms" in r:
@@ -775,6 +989,7 @@ def phase_kernels():
     log(_row("grouped_matmul f32 K=4096 N=1024 C=256 (atol 1e-4 rtol "
              "1e-4)", r))
     results.update(check_training_kernels(torch))
+    results.update(check_decode_slice(torch))
     return results
 
 
@@ -843,6 +1058,10 @@ KERNELS = {
     "paged_verify_attention": dict(
         tpu_kernel=3, source="paddle_tpu_torch/csrc/paged_verify_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:661"),
+    "paged_decode_attention_v1": dict(
+        tpu_kernel=4,
+        source="paddle_tpu_torch/csrc/paged_decode_attention_v1.cu",
+        replaces="paddle_tpu/ops/pallas/paged_attention.py:113"),
     "flash_attention_bwd_fused": dict(
         tpu_kernel=5, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:229"),
@@ -870,7 +1089,16 @@ KERNELS = {
     "grouped_matmul": dict(
         tpu_kernel=13, source="paddle_tpu_torch/csrc/grouped_matmul.cu",
         replaces="paddle_tpu/ops/pallas/grouped_matmul.py:92"),
+    "decode_attention": dict(
+        tpu_kernel=14, source="paddle_tpu_torch/csrc/decode_attention.cu",
+        replaces="paddle_tpu/ops/pallas/decode_attention.py:63"),
+    "decode_attention_slab": dict(
+        tpu_kernel=15, source="paddle_tpu_torch/csrc/decode_attention.cu",
+        replaces="paddle_tpu/ops/pallas/decode_attention.py:241"),
 }
+# the rows that only the generate phase launches
+GENERATE_ROWS = ("paged_decode_attention_v1", "decode_attention",
+                 "decode_attention_slab")
 
 
 def main(argv=None):
@@ -904,6 +1132,9 @@ def main(argv=None):
         kernel_stats = phase_kernels()
     if "main" in phases:
         launches = phase_main(ident)
+    if "generate" in phases:
+        for name, n in phase_generate(ident).items():
+            launches[name] = launches.get(name, 0) + n
     if "greedy" in phases:
         phase_greedy(ident)
     if "profile" in phases:
@@ -972,6 +1203,7 @@ def _report(tag, reqs, wall, ident):
 
 
 def _counters():
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
@@ -982,7 +1214,10 @@ def _counters():
             "flash_attention_bwd": fa.flash_attention_bwd,
             "paged_verify_attention": pa.paged_verify_slab_attention,
             "quant_matmul": qm.quant_matmul,
-            "grouped_matmul": gm.grouped_matmul}
+            "grouped_matmul": gm.grouped_matmul,
+            "paged_decode_attention_v1": pa.paged_decode_attention,
+            "decode_attention": da.decode_attention,
+            "decode_attention_slab": da.decode_attention_slab}
 
 
 def _counted(run, needs=()):
@@ -1246,8 +1481,417 @@ def phase_main(ident):
     train_passes(ident, total)
     log(f"main: launches {total}")
     for name, n in total.items():
-        if n <= 0:
+        if n <= 0 and name not in GENERATE_ROWS:
             raise AssertionError(f"the main path never launched {name}")
+    return total
+
+
+# ------------------------------------------------------------ generate
+@contextlib.contextmanager
+def _plain_decode():
+    """The decode wrappers of #4, #14 and #15 replaced by their plain
+    versions (the module globals the cache code calls), so a run on the
+    card can be held against the same run on the plain versions."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = (da.decode_attention, da.decode_attention_slab,
+             pa.paged_decode_attention)
+    da.decode_attention = lambda q, k, v, lens, scale=None: \
+        da.decode_attention_ref(q, k, v, lens, scale)
+    da.decode_attention_slab = lambda q, kv, lens, scale=None: \
+        da._slab_ref(q, kv, lens, scale)
+    pa.paged_decode_attention = pa.paged_decode_attention_ref
+    try:
+        yield
+    finally:
+        (da.decode_attention, da.decode_attention_slab,
+         pa.paged_decode_attention) = saved
+
+
+def _generate_ms(model, ids, new, max_seq, reps=3, **kw):
+    """``bench.py``'s differential: the median over ``reps`` of
+    generate(new) minus generate(new // 4) with the cache size pinned,
+    each run ending in a device sync, over the ``new - new // 4`` decode
+    steps it isolates (prefill and set-up cancel), after one untimed short
+    run. Returns (ms a step, the last long run's output)."""
+    import torch
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=n, max_seq=max_seq, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    short = new // 4
+    timed(short)
+    diffs, out = [], None
+    for _ in range(reps):
+        t_long, out = timed(new)
+        diffs.append(t_long - timed(short)[0])
+    return 1e3 * sorted(diffs)[reps // 2] / (new - short), out
+
+
+def _report_decode(tag, ms, model, batch, prompt, total, kv_width, layers,
+                   peak, ident):
+    """Log ms a step, tokens/s and ``bench.py``'s per-step HBM floor:
+    every parameter and buffer byte once plus every layer's K and V window
+    (averaged over the decode range) once, over 3.35 TB/s."""
+    weight_bytes = _model_gib(model) * 2**30
+    avg_window = (prompt + total) / 2
+    kv_bytes = layers * 2 * batch * avg_window * kv_width * 2
+    floor_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"generate {tag}: {ms:.4f} ms a decode step of {batch} tokens, "
+        f"{batch / ms * 1e3:.1f} tokens/s; HBM floor {floor_ms:.4f} ms "
+        f"(weights {weight_bytes / 1e6:.1f} MB + K/V window "
+        f"{kv_bytes / 1e6:.1f} MB), floor/measured {floor_ms / ms:.4f}; "
+        f"peak {peak / 2**30:.2f} GiB [{ident}]")
+    return {"ms": ms, "tok_s": batch / ms * 1e3, "floor_ms": floor_ms,
+            "peak_gib": peak / 2**30}
+
+
+def _teacher_forced(model, ids, caches, tokens):
+    """Per-step last-position logits of a prefill of ``ids`` and one
+    decode step per column of ``tokens`` [B, T] at time_step prompt + t,
+    f32 [T + 1, B, V]; ends in a device sync."""
+    import torch
+
+    prompt = ids.shape[1]
+    with torch.no_grad():
+        out, caches = model(ids, caches=caches)
+        steps = [out[:, -1].float()]
+        for t in range(tokens.shape[1]):
+            out, caches = model(tokens[:, t:t + 1], caches=caches,
+                                time_step=prompt + t)
+            steps.append(out[:, -1].float())
+    torch.cuda.synchronize()
+    return torch.stack(steps)
+
+
+def _layout_caches(model, kind, batch, max_seq, dtype, quant=False):
+    """One cache per layer: ``slab`` (``init_caches``), ``5d`` ([2, B, Hkv,
+    S, D], user-allocated) or ``paged`` (``PagedKVCache``, 16-row pages,
+    int8 with ``quant``)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.paged_attention import PagedKVCache
+
+    cfg = model.config
+    kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    hd = cfg.hidden_size // cfg.num_heads
+    if kind == "slab":
+        return model.init_caches(batch, max_seq, dtype)
+    if kind == "5d":
+        return [torch.zeros((2, batch, kv, max_seq, hd), dtype=dtype,
+                            device=model.device)
+                for _ in range(cfg.num_layers)]
+    pages = -(-max_seq // 16)
+    return [PagedKVCache(batch * pages + 1, 16, batch, kv, hd, pages,
+                         dtype=dtype, quantized=quant, device=model.device)
+            for _ in range(cfg.num_layers)]
+
+
+def _close_logits(tag, got, want, rel):
+    """Fail unless ``got`` is finite and within ``rel`` of ``want``'s
+    largest entry; log and return the error."""
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not math.isfinite(err) or err > rel * top:
+        raise AssertionError(f"{tag}: logits off by {err:.3g} (largest "
+                             f"{top:.3g}, limit {rel} of it)")
+    log(f"{tag}: per-step logits within {err:.3g} (largest entry "
+        f"{top:.3g}, limit {rel:g} of it)")
+    return err
+
+
+def _layout_pass(tag, model, ids, steps, kinds, dtype, rel, ident):
+    """``model`` decodes ``steps`` greedy tokens from ``ids`` on slab
+    caches; then the same tokens are fed (teacher-forced) through each
+    cache kind of ``kinds`` [(kind, quant)], with the kernels and, for
+    bf16, again on the plain versions. Each kind's per-step logits are
+    held against its plain run (bf16) or the slab run (f32) within
+    ``rel`` of the largest logit. Logs host ms a decode step."""
+    import torch
+
+    B, prompt = ids.shape
+    total = prompt + steps + 1
+    out = model.generate(ids, max_new_tokens=steps + 1, temperature=0.0,
+                         max_seq=total)
+    toks = out[:, prompt:prompt + steps]
+    slab = None
+    for kind, quant in kinds:
+        name = f"{tag} {kind}{' int8' if quant else ''}"
+        caches = _layout_caches(model, kind, B, total, dtype, quant)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _teacher_forced(model, ids, caches, toks)
+        wall = time.perf_counter() - t0
+        log(f"generate {name}: prefill {prompt} + {steps} decode steps in "
+            f"{wall * 1e3:.1f} ms ({wall * 1e3 / (steps + 1):.2f} ms a "
+            f"step) [{ident}]")
+        if dtype == torch.float32:
+            if kind == "slab":
+                slab = got
+            else:
+                _close_logits(f"check {name} against the slab", got, slab,
+                              rel)
+            continue
+        with _plain_decode():
+            want = _teacher_forced(model, ids, _layout_caches(
+                model, kind, B, total, dtype, quant), toks)
+        _close_logits(f"check {name} against its plain run", got, want, rel)
+        del want
+    return out
+
+
+def _mmha_step(torch, B, H, D, S, ident):
+    """One ``masked_multihead_attention`` step at GPT-2 small widths,
+    bf16, ragged lengths: the cache row written in place and #14's output
+    against the plain version over the updated cache."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        masked_multihead_attention
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(44)
+    cache = torch.randn((2, B, H, S, D), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    x = torch.randn((B, 3 * H * D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([128 + 61 * i for i in range(B)], dtype=torch.int32,
+                        device="cuda")
+    out, same = masked_multihead_attention(x, cache_kv=cache,
+                                           sequence_lengths=lens)
+    torch.cuda.synchronize()
+    qkv = x.view(B, 3, H, D)
+    rows = torch.arange(B, device="cuda")
+    if same is not cache or not torch.equal(
+            cache[0][rows, :, lens.long()], qkv[:, 1]):
+        raise AssertionError("masked_multihead_attention did not write the "
+                             "new row in place")
+    want = da.decode_attention_ref(qkv[:, 0], cache[0], cache[1], lens + 1)
+    rec = _decode_record(torch, "masked_multihead_attention", out,
+                         want.reshape(B, H * D), torch.bfloat16)
+    log(f"generate G3 masked_multihead_attention B={B} H={H} D={D} S={S} "
+        f"bf16: max_abs_err {rec['max_abs_err']:.3g} (limit "
+        f"{rec['tolerance']:.3g}) [{ident}]")
+
+
+def _match_cacheless_rows(model, out, prompt, tag):
+    """Each row of a greedy ``generate`` output against the argmax of the
+    cacheless forward, token by token; a row stops at its first near-tie
+    (top-2 gap under 1e-4); at least 16 tokens of each row compared."""
+    import torch
+
+    for b in range(out.shape[0]):
+        seq = out[b:b + 1, :prompt]
+        compared = 0
+        with torch.no_grad():
+            for tok in out[b, prompt:].tolist():
+                logits = model(seq)[0, -1]
+                top2 = torch.topk(logits, 2).values
+                if (top2[0] - top2[1]).item() < 1e-4:
+                    break
+                want = int(torch.argmax(logits))
+                if want != tok:
+                    raise AssertionError(f"{tag} row {b}: token {compared} "
+                                         f"is {tok}, the cacheless forward "
+                                         f"says {want}")
+                compared += 1
+                seq = torch.cat([seq, seq.new_tensor([[tok]])], dim=1)
+        if compared < 16:
+            raise AssertionError(f"{tag} row {b}: only {compared} tokens "
+                                 "compared before a near-tie")
+        log(f"check {tag}: row {b} matches the cacheless forward on "
+            f"{compared}/{out.shape[1] - prompt} tokens")
+
+
+def phase_generate(ident):
+    """KV-cache generation (``GenerationMixin.generate``) at the repo's
+    decode benchmark shape and ``llama2_7b``, random weights from a seed:
+
+    - G1: GPT-2 small, full depth, bf16, B=8, prompt 128, 512 new tokens,
+      greedy, max_seq 640 (``bench.py:143-275``; #2 prefill, #15 decode),
+      then with int8 and int4 weights (#12);
+    - G2: ``llama2_7b``, full depth, bf16, B=8, prompt 128, 128 new
+      tokens, greedy and sampled (temperature 0.8, top-k 40, seed 3);
+    - G3: GPT-2 small on user-allocated [2, B, H, S, D] caches (#14) and
+      one ``masked_multihead_attention`` step;
+    - G4: GPT-2 small and ``llama2_7b`` on ``PagedKVCache`` (16-row
+      pages, bf16 and int8; #4);
+    - checks, 2-layer full-width f32 models (tf32 off): greedy
+      ``generate`` against the cacheless argmax, and the 5-D and paged
+      per-step logits against the slab's. The bf16 G3/G4 runs are held
+      against the same runs on the plain versions.
+
+    Timing as ``bench.py``: generate(new) minus generate(new / 4), median
+    of 3 for G1 bf16 (one difference for the quantized G1 passes and G2,
+    to keep the phase near two minutes), per decode step of B tokens.
+    Launches are counted per pass; returns the summed launches."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_gpt, init_llama
+    from paddle_tpu_torch.models.gpt import gpt2_small
+    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    bf16 = torch.bfloat16
+
+    def run(tag, fn, needs):
+        res, got = _counted(fn, needs)
+        if got.pop("flash_attention_bwd"):
+            raise AssertionError(f"{tag}: generation launched the backward")
+        log(f"{tag}: launches {got}")
+        for name, n in got.items():
+            total[name] += n
+        return res
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    slab = ("decode_attention_slab", "flash_attention_fwd")
+
+    # ---- G1: GPT-2 small, bench_decode's shape --------------------------
+    cfg = gpt2_small()
+    B, prompt, new, max_seq = 8, 128, 512, 640
+    ids = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                        device="cuda")
+    figures = {}
+
+    def g1(tag, model, reps):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ms, out = _generate_ms(model, ids, new, max_seq, reps,
+                               temperature=0.0)
+        if out.shape != (B, prompt + new) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"G1 {tag}: bad output {tuple(out.shape)}")
+        figures[tag] = _report_decode(
+            f"G1 GPT-2 small {tag}", ms, model, B, prompt, max_seq,
+            cfg.hidden_size, cfg.num_layers,
+            torch.cuda.max_memory_allocated(), ident)
+        return out
+
+    gpt = init_gpt(cfg, seed=0, device="cuda", dtype=bf16).eval()
+    per_pass = _counted(lambda: gpt.generate(
+        ids, max_new_tokens=new, temperature=0.0, max_seq=max_seq),
+        needs=slab)[1]
+    log(f"generate G1: one generate pass (B=8, 128 + 512) launches "
+        f"{ {k: v for k, v in per_pass.items() if v} }")
+    out_bf16 = run("G1 bf16", lambda: g1("bf16", gpt, 3), slab)
+    # one decode step under the profiler: host wall against device busy
+    caches = gpt.init_caches(B, max_seq, bf16)
+    with torch.no_grad():
+        gpt(ids, caches=caches)
+        tok = out_bf16[:, prompt:prompt + 1]
+        _profile_call(lambda: gpt(tok, caches=caches, time_step=prompt),
+                      "GPT-2 small bf16 decode step (B=8, ~129-token "
+                      "window)", 1, ident)
+    del caches
+
+    # ---- G3: user-allocated 5-D caches (#14), masked MHA ----------------
+    run("G3 5-D caches", lambda: _layout_pass(
+        "G3 GPT-2 small bf16", gpt, ids, 64, [("5d", False)], bf16, 0.03,
+        ident), ("decode_attention",))
+    run("G3 masked_multihead_attention",
+        lambda: _mmha_step(torch, B, cfg.num_heads, cfg.head_dim, max_seq,
+                           ident), ("decode_attention",))
+    # ---- G4 (GPT-2 small): PagedKVCache, bf16 and int8 pages (#4) ------
+    run("G4 GPT-2 small paged", lambda: _layout_pass(
+        "G4 GPT-2 small bf16", gpt, ids, 32, [("paged", False),
+                                             ("paged", True)], bf16, 0.03,
+        ident), ("paged_decode_attention_v1",))
+
+    # ---- G1 with int8 and int4 weights (#12) ----------------------------
+    quant = slab + ("quant_matmul",)
+    quantize_for_decode(gpt, algo="weight_only_int8")
+    out8 = run("G1 int8 weights", lambda: g1("int8 weights", gpt, 1),
+               quant)
+    del gpt
+    torch.cuda.empty_cache()
+    gpt = init_gpt(cfg, seed=0, device="cuda", dtype=bf16).eval()
+    quantize_for_decode(gpt, algo="weight_only_int4")
+    out4 = run("G1 int4 weights", lambda: g1("int4 weights", gpt, 1),
+               quant)
+    for tag, o in (("int8", out8), ("int4", out4)):
+        same = float((o[:, prompt:] == out_bf16[:, prompt:]).float().mean())
+        log(f"generate G1: {tag} weights' greedy tokens equal bf16's on "
+            f"{same:.3f} of positions")
+    del gpt, out8, out4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- G2: llama2_7b, full depth -------------------------------------
+    lcfg = llama2_7b()
+    t0 = time.perf_counter()
+    llama = init_llama(lcfg, seed=0, device="cuda", dtype=bf16)
+    torch.cuda.synchronize()
+    log(f"generate G2: llama2_7b initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lids = torch.randint(0, lcfg.vocab_size, (B, prompt), generator=g,
+                         device="cuda")
+    outs = {}
+    for tag, kw in (("greedy", dict(temperature=0.0)),
+                    ("sampled", dict(temperature=0.8, top_k=40, seed=3))):
+        def g2(tag=tag, kw=kw):
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            ms, outs[tag] = _generate_ms(llama, lids, 128, prompt + 128,
+                                         1, **kw)
+            figures[f"llama {tag}"] = _report_decode(
+                f"G2 llama2_7b bf16 {tag}", ms, llama, B, prompt,
+                prompt + 128, lcfg.num_kv_heads * lcfg.head_dim,
+                lcfg.num_layers, torch.cuda.max_memory_allocated(), ident)
+        run(f"G2 {tag}", g2, slab)
+    again = llama.generate(lids, max_new_tokens=128, max_seq=prompt + 128,
+                           temperature=0.8, top_k=40, seed=3)
+    if not torch.equal(again, outs["sampled"]):
+        raise AssertionError("G2: the sampled stream is not reproducible")
+    same = float((outs["sampled"] == outs["greedy"])[:, prompt:].float()
+                 .mean())
+    log(f"generate G2: the sampled stream repeats itself; it equals the "
+        f"greedy one on {same:.3f} of positions")
+
+    # ---- G4 (llama2_7b): PagedKVCache ----------------------------------
+    # 32 bf16 layers amplify the one-ulp differences of the attention
+    # outputs further than GPT-2 small's 12 (0.043 of the largest logit
+    # on the first run): the limit is 0.1 of it here
+    run("G4 llama2_7b paged", lambda: _layout_pass(
+        "G4 llama2_7b bf16", llama, lids, 16, [("paged", False),
+                                               ("paged", True)], bf16, 0.1,
+        ident), ("paged_decode_attention_v1",))
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- checks: 2-layer full-width f32 --------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kinds = [("slab", False), ("5d", False), ("paged", False)]
+    small = init_gpt(dataclasses.replace(cfg, num_layers=2), seed=1,
+                     device="cuda").eval()
+    check_ids = ids[:2, :64]
+    out = run("check GPT-2 small widths", lambda: _layout_pass(
+        "GPT-2 small widths 2 layers f32", small, check_ids, 40, kinds,
+        torch.float32, 1e-5, ident), slab + GENERATE_ROWS[:2])
+    _match_cacheless_rows(small, out, 64, "GPT-2 small widths 2 layers f32")
+    del small
+    small = init_llama(LlamaConfig(num_layers=2), seed=1, device="cuda",
+                       dtype=torch.float32)
+    out = run("check llama2_7b widths", lambda: _layout_pass(
+        "llama2_7b widths 2 layers f32", small, lids[:2, :64], 40,
+        kinds, torch.float32, 1e-5, ident), slab + GENERATE_ROWS)
+    _match_cacheless_rows(small, out, 64, "llama2_7b widths 2 layers f32")
+    del small
+    torch.cuda.empty_cache()
+    log(f"generate: launches {total}")
+    for name in GENERATE_ROWS:
+        if total[name] <= 0:
+            raise AssertionError(f"the generate phase never launched {name}")
+    log("generate: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms/step {v['tok_s']:.1f} tok/s floor/measured "
+        f"{v['floor_ms'] / v['ms']:.4f} peak {v['peak_gib']:.2f} GiB"
+        for k, v in figures.items()) + f" [{ident}]")
+    log(f"generate: phase took {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -1440,32 +2084,37 @@ def _peak_pass(torch, run):
 
 
 def _profile_step(eng, tag, steps, ident):
-    """Host wall time of one ``eng.step()`` against the device's busy time
-    of the next one under torch.profiler, and the top device kernels.
-    ``steps`` token steps make up one engine step."""
+    """``_profile_call`` of one ``eng.step()``; ``steps`` token steps make
+    up one engine step."""
+    _profile_call(eng.step, tag, steps, ident)
+
+
+def _profile_call(fn, tag, steps, ident):
+    """Host wall time of one ``fn()`` against the device's busy time of
+    the next one under torch.profiler, and the top device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step()
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.step()
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    log(f"profile: {tag}: wall {wall * 1e3:.1f} ms "
-        f"({wall * 1e3 / steps:.2f} ms/token step); device busy "
-        f"{busy_ms:.1f} ms under the profiler ({busy_ms / steps:.2f} "
-        f"ms/step); {launches} device kernels ({launches / steps:.0f}/step)"
-        f" [{ident}]")
+    log(f"profile: {tag}: wall {wall * 1e3:.3f} ms "
+        f"({wall * 1e3 / steps:.3f} ms/token step); device busy "
+        f"{busy_ms:.3f} ms under the profiler ({busy_ms / steps:.3f} "
+        f"ms/step, idle {max(0.0, 1 - busy_ms / (wall * 1e3)):.0%}); "
+        f"{launches} device kernels ({launches / steps:.0f}/step) [{ident}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<6d} {e.key[:90]}")
 
 

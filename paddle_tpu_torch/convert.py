@@ -8,11 +8,12 @@ weights take the requested dtype; integer arrays (quantized weights) stay
 integer and ``weight_scale`` arrays stay f32.
 
 A weight-only quantized JAX model crosses over by one recipe, which
-``llama_from_numpy(..., quant_algo=...)`` follows: take its parameters
-AND buffers (``paddle_tpu.jit.state_arrays``), build the float port model,
-run ``nn.quant.quantize_for_decode`` with the same algo (so the same
-Linears become ``WeightOnlyLinear`` with buffers of the right shapes),
-then ``load_state_dict(strict=True)``.
+``llama_from_numpy(..., quant_algo=...)`` and ``gpt_from_numpy(...,
+quant_algo=...)`` follow: take its parameters AND buffers
+(``paddle_tpu.jit.state_arrays``), build the float port model, run
+``nn.quant.quantize_for_decode`` with the same algo (so the same Linears
+become ``WeightOnlyLinear`` with buffers of the right shapes), then
+``load_state_dict(strict=True)``.
 
 ``init_llama`` and ``init_gpt`` initialise a model directly on its device
 from a seed with an explicit ``torch.Generator`` (normal, std
@@ -63,6 +64,10 @@ def llama_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
     a quantized model's parameters and buffers: the Linears are swapped by
     ``quantize_for_decode`` first (the recipe above)."""
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+    return _load(model, arrays, device, dtype, quant_algo).eval()
+
+
+def _load(model, arrays, device, dtype, quant_algo):
     if quant_algo is not None:
         with torch.no_grad():
             for p in model.parameters():
@@ -70,7 +75,7 @@ def llama_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
         quantize_for_decode(model, algo=quant_algo)
     model.load_state_dict(state_dict_from_numpy(arrays, device, dtype),
                           strict=True)
-    return model.eval()
+    return model
 
 
 @torch.no_grad()
@@ -92,13 +97,14 @@ def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
 
 
 def gpt_from_numpy(cfg: GPTConfig, arrays: Dict[str, np.ndarray],
-                   device=None, dtype=torch.float32) -> GPTForCausalLM:
+                   device=None, dtype=torch.float32,
+                   quant_algo: Optional[str] = None) -> GPTForCausalLM:
     """A port GPT holding the given arrays (``paddle_tpu.jit.param_arrays``
-    of a JAX ``GPTForCausalLM``; every name must match)."""
+    of a JAX ``GPTForCausalLM``; every name must match). ``quant_algo``
+    takes a quantized model's parameters and buffers, as for LLaMA (the
+    tied LM head stays the float embedding)."""
     model = GPTForCausalLM(cfg, device=device, dtype=dtype)
-    model.load_state_dict(state_dict_from_numpy(arrays, device, dtype),
-                          strict=True)
-    return model
+    return _load(model, arrays, device, dtype, quant_algo)
 
 
 @torch.no_grad()

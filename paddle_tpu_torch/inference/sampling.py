@@ -23,8 +23,8 @@ from typing import Optional
 import torch
 
 __all__ = ["threefry2x32", "split", "random_bits", "uniform", "gumbel",
-           "categorical", "key_from_seed", "select_token",
-           "advance_sample_key"]
+           "categorical", "categorical_array", "key_from_seed",
+           "select_token", "advance_sample_key"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -98,6 +98,14 @@ def categorical(key, logits):
     key ``[..., 2]``, logits ``[..., V]`` → ``argmax(logits + gumbel)``."""
     g = gumbel(key, (logits.shape[-1],))
     return torch.argmax(g + logits, dim=-1)
+
+
+def categorical_array(key, logits):
+    """``jax.random.categorical(key, logits)`` on a 2-D array with ONE key
+    for the whole array (``GenerationMixin``'s form): key ``[2]``, logits
+    ``[B, V]`` → ``argmax(logits + gumbel(key, (B, V)))`` per row, the
+    gumbel noise drawn over the flat ``B * V`` counters."""
+    return torch.argmax(gumbel(key, tuple(logits.shape)) + logits, dim=-1)
 
 
 def key_from_seed(seed: int):

@@ -45,6 +45,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # c_void_p, so ctypes never cuts a 64-bit address to 32 bits)
 _SIGNATURES = {
     "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "paged_decode_attention_v1": [_P] * 8 + [_I] * 7 + [_LL] * 2
+    + [_I] * 2 + [_F, _P],
+    "decode_attention": [_P] * 5 + [_I] * 5 + [_LL] * 5 + [_I] * 2
+    + [_F, _P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _F, _I,
                                                                _P],
     "flash_attention_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _F, _I, _P],

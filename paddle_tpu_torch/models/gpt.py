@@ -18,9 +18,16 @@ Attention takes one of two routes in training, as in the reference:
   ``F.flash_attention`` (its autograd Function on the card).
 
 ``FLAGS_use_packed_attention`` picks the route: None (the default) means
-packed when the activations are on CUDA. The cache arguments of the
-reference (the contiguous and paged GPT caches, ``GenerationMixin``) are
-not ported; passing a cache raises ``TypeError``.
+packed when the activations are on CUDA.
+
+With caches (one per layer) the attention takes the reference's cache
+branches: a contiguous cache from ``init_caches`` (the slab) or a
+user-allocated ``[2, B, H, S, D]`` one is written by a prefill
+(``time_step`` None; the context attention runs ``F.flash_attention``) or
+by one decode token at ``time_step`` (``cache_decode_step``: kernels #15
+and #14); a ``PagedKVCache`` or ``PagedCacheState`` goes through
+``paged_forward``. ``GenerationMixin.generate`` drives the contiguous
+caches.
 """
 from __future__ import annotations
 
@@ -34,6 +41,11 @@ from ..framework.device import resolve_device, resolve_dtype
 from ..framework.flags import get_flags
 from ..nn import functional as F
 from ..ops.cuda import causal_flash
+from ..ops.cuda.decode_attention import (cache_decode_step,
+                                         cache_prefill_write, make_kv_slab)
+from ..ops.cuda.paged_attention import (PagedCacheState, PagedKVCache,
+                                        paged_forward)
+from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_small",
            "gpt2_medium", "gpt3_6p7b"]
@@ -82,10 +94,10 @@ def gpt3_6p7b():
                      num_heads=32, max_position=2048)
 
 
-def _no_cache(cache, time_step):
-    if cache is not None or time_step is not None:
-        raise TypeError("the port's GPT has no KV cache: the contiguous and "
-                        "paged GPT caches (GenerationMixin) are not ported")
+def _check_caches(caches, num_layers):
+    if len(caches) != num_layers or any(c is None for c in caches):
+        raise TypeError(f"caches: one cache per layer ({num_layers}), "
+                        "none of them None")
 
 
 class GPTAttention(nn.Module):
@@ -130,17 +142,33 @@ class GPTAttention(nn.Module):
         return torch.matmul(o, wo.to(x.dtype)) + bo.to(x.dtype)
 
     def forward(self, x, cache=None, time_step=None):
-        _no_cache(cache, time_step)
-        if self._packed_ok(x):
+        """Without a cache: the packed or the general training route.
+        With one: returns ``(out, new_cache)`` (see the module doc)."""
+        if cache is None and self._packed_ok(x):
             return self._forward_packed(x)
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)
-        out, _ = F.flash_attention(q, k, v, dropout=self.attn_dropout,
-                                   causal=True, training=self.training,
-                                   generator=self.generator)
-        return self.out_proj(out.reshape(b, s, h))
+        if cache is None:
+            out, _ = F.flash_attention(q, k, v, dropout=self.attn_dropout,
+                                       causal=True, training=self.training,
+                                       generator=self.generator)
+            return self.out_proj(out.reshape(b, s, h))
+
+        def context():
+            return F.flash_attention(q, k, v, causal=True,
+                                     training=False)[0]
+
+        if isinstance(cache, (PagedKVCache, PagedCacheState)):
+            out, new_cache = paged_forward(cache, q, k, v, context,
+                                           time_step=time_step)
+        elif time_step is None:
+            new_cache = cache_prefill_write(cache, k, v)
+            out = context()
+        else:
+            out, new_cache = cache_decode_step(cache, q, k, v, time_step)
+        return self.out_proj(out.reshape(b, s, h)), new_cache
 
 
 class GPTMLP(nn.Module):
@@ -169,9 +197,13 @@ class GPTBlock(nn.Module):
         self.dropout = pnn.Dropout(config.hidden_dropout, generator=generator)
 
     def forward(self, x, cache=None, time_step=None):
-        _no_cache(cache, time_step)
-        x = x + self.dropout(self.attn(self.ln_1(x)))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        if cache is None:
+            x = x + self.dropout(self.attn(self.ln_1(x)))
+            return x + self.dropout(self.mlp(self.ln_2(x)))
+        attn, new_cache = self.attn(self.ln_1(x), cache=cache,
+                                    time_step=time_step)
+        x = x + attn
+        return x + self.mlp(self.ln_2(x)), new_cache
 
 
 class GPTModel(nn.Module):
@@ -192,20 +224,44 @@ class GPTModel(nn.Module):
                                   epsilon=config.layer_norm_eps, **kw)
 
     def forward(self, input_ids, caches=None, time_step=None):
-        _no_cache(caches, time_step)
+        """Positions ``arange(s) + time_step`` (per slot for a
+        ``PagedCacheState``: slot b at its own length). Returns the final
+        hidden states, and the new caches when ``caches`` is given."""
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        if caches and isinstance(caches[0], PagedCacheState):
+            pos = caches[0].positions(s)
+        else:
+            pos = torch.arange(s, device=input_ids.device)[None, :]
+            if time_step is not None:
+                pos = pos + time_step
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
-        for block in self.h:
-            x = block(x)
-        return self.ln_f(x)
+        if caches is None:
+            for block in self.h:
+                x = block(x)
+            return self.ln_f(x)
+        _check_caches(caches, len(self.h))
+        new_caches = []
+        for block, cache in zip(self.h, caches):
+            x, nc = block(x, cache=cache, time_step=time_step)
+            new_caches.append(nc)
+        return self.ln_f(x), new_caches
+
+    def init_caches(self, batch_size, max_seq, dtype=torch.float32):
+        """Zeroed slab caches ``[2, batch_size, max_seq, H*D]``, one per
+        layer, on the model's device (the reference's layout for
+        ``cache_decode_step``)."""
+        cfg = self.config
+        return [make_kv_slab(batch_size, max_seq, cfg.num_heads,
+                             cfg.head_dim, dtype, self.wte.weight.device)
+                for _ in range(cfg.num_layers)]
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(GenerationMixin, nn.Module):
     """LM head tied to ``wte``: logits = trunk(x) @ wte.weight^T. Built on
     ``device`` (CUDA unless ``device="cpu"``) in ``dtype``; the weights are
     uninitialised until ``convert.init_gpt`` or ``load_state_dict`` fills
-    them. ``generator`` (on ``device``) draws the dropout masks."""
+    them. ``generator`` (on ``device``) draws the dropout masks.
+    Generation over the KV caches comes from ``GenerationMixin``."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
@@ -223,9 +279,17 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.wte.weight.dtype
 
     def forward(self, input_ids, caches=None, time_step=None):
-        _no_cache(caches, time_step)
-        x = self.gpt(input_ids)
+        if caches is None:
+            return self._logits(self.gpt(input_ids, time_step=time_step))
+        x, new_caches = self.gpt(input_ids, caches=caches,
+                                 time_step=time_step)
+        return self._logits(x), new_caches
+
+    def _logits(self, x):
         return torch.matmul(x, self.gpt.wte.weight.to(x.dtype).t())
+
+    def init_caches(self, batch_size, max_seq, dtype=torch.float32):
+        return self.gpt.init_caches(batch_size, max_seq, dtype)
 
     def loss(self, input_ids, labels):
         """Mean causal-LM loss over every position (an ``ignore_index``

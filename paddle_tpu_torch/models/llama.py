@@ -7,11 +7,21 @@ Parameter names match the JAX package's ``state_dict`` names one for one
 ``Linear`` weights keep the ``[in, out]`` layout, so weights cross over
 with no renaming or transposes (``convert.state_dict_from_numpy``).
 
-``forward(input_ids, caches=None)`` runs the cacheless path (prefill-style
-causal attention over the whole input) or, with one ``PagedCacheState`` per
-layer, the serving path: an admission prefill (context attention through
-the flash kernel, the prompt written to the pages) or one decode token per
-slot (the paged decode kernel).
+``forward(input_ids, caches=None, time_step=None)`` runs the cacheless
+path (prefill-style causal attention over the whole input) or, with one
+cache per layer:
+
+* a ``PagedCacheState`` (the engine): an admission prefill (context
+  attention through the flash kernel, the prompt written to the pages) or
+  one decode token per slot (the paged decode kernel #1), rotated at each
+  slot's own position;
+* a contiguous cache (the slab of ``init_caches``, or ``[2, B, Hkv, S,
+  D]``): a prefill (``time_step`` None) or one decode token at
+  ``time_step`` through ``cache_decode_step`` (kernels #15 and #14), RoPE
+  at ``arange(s) + time_step``. ``GenerationMixin.generate`` drives it;
+* a host-managed ``PagedKVCache`` through ``paged_forward`` (kernel #4).
+
+GQA stays native on every decode path: no repeat of K/V.
 
 With ``num_experts > 0`` every block's MLP is ``LlamaMoEMLP``: GShard-style
 top-k routing with a static per-expert capacity (overflow pairs drop and
@@ -32,8 +42,13 @@ from .. import nn as pnn
 from ..framework.device import resolve_device, resolve_dtype
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
+from ..ops.cuda.decode_attention import (cache_decode_step,
+                                         cache_prefill_write, make_kv_slab)
 from ..ops.cuda.grouped_matmul import grouped_matmul
-from ..ops.cuda.paged_attention import PagedCacheState, paged_forward
+from ..ops.cuda.paged_attention import (PagedCacheState, PagedKVCache,
+                                        paged_forward)
+from .generation import GenerationMixin
+from .gpt import _check_caches
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama2_7b",
            "tiny_llama_config", "tiny_moe_llama_config", "LlamaMoEMLP",
@@ -123,22 +138,28 @@ class LlamaAttention(nn.Module):
         self.v_proj = pnn.Linear(h, config.num_kv_heads * hd, **kw)
         self.o_proj = pnn.Linear(config.num_heads * hd, h, **kw)
 
-    def _rope(self, q, k, cache=None):
-        # per-slot positions: a ragged serving batch rotates each slot at
-        # its own length
-        pos = (cache.positions(q.shape[1])
-               if isinstance(cache, PagedCacheState) else None)
+    def _rope(self, q, k, time_step=None, cache=None):
+        b, s = q.shape[:2]
+        if isinstance(cache, PagedCacheState):
+            # per-slot positions: a ragged serving batch rotates each slot
+            # at its own length
+            pos = cache.positions(s)
+        elif time_step is None:
+            pos = None
+        else:
+            pos = (torch.arange(s, device=q.device)[None]
+                   + time_step).expand(b, s)
         q, k, _ = fused_rotary_position_embedding(
             q, k, position_ids=pos, rotary_emb_base=self.rope_theta)
         return q, k
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, time_step=None):
         b, s, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).reshape(b, s, nh, hd)
         k = self.k_proj(x).reshape(b, s, nkv, hd)
         v = self.v_proj(x).reshape(b, s, nkv, hd)
-        q, k = self._rope(q, k, cache)
+        q, k = self._rope(q, k, time_step, cache)
         group = nh // nkv
 
         def expand_kv(t):
@@ -154,8 +175,15 @@ class LlamaAttention(nn.Module):
         new_cache = None
         if cache is None:
             out = context()
+        elif isinstance(cache, (PagedKVCache, PagedCacheState)):
+            out, new_cache = paged_forward(cache, q, k, v, context,
+                                           time_step=time_step)
+        elif time_step is None:
+            new_cache = cache_prefill_write(cache, k, v)
+            out = context()
         else:
-            out, new_cache = paged_forward(cache, q, k, v, context)
+            # the decode kernels read kv head h // group natively
+            out, new_cache = cache_decode_step(cache, q, k, v, time_step)
         out = self.o_proj(out.reshape(b, s, nh * hd))
         if cache is not None:
             return out, new_cache
@@ -314,12 +342,12 @@ class LlamaBlock(nn.Module):
         self.mlp = (LlamaMoEMLP(config, **kw) if config.num_experts
                     else LlamaMLP(config, **kw))
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, time_step=None):
         if cache is None:
             x = x + self.self_attn(self.input_layernorm(x))
             return x + self.mlp(self.post_attention_layernorm(x))
         attn, new_cache = self.self_attn(self.input_layernorm(x),
-                                         cache=cache)
+                                         cache=cache, time_step=time_step)
         x = x + attn
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, new_cache
@@ -339,23 +367,34 @@ class LlamaModel(nn.Module):
         self.norm = pnn.RMSNorm(config.hidden_size, epsilon=config.rms_eps,
                                 **kw)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, caches=None, time_step=None):
         x = self.embed_tokens(input_ids)
         if caches is None:
             for block in self.layers:
                 x = block(x)
             return self.norm(x)
+        _check_caches(caches, len(self.layers))
         new_caches = []
         for block, cache in zip(self.layers, caches):
-            x, nc = block(x, cache=cache)
+            x, nc = block(x, cache=cache, time_step=time_step)
             new_caches.append(nc)
         return self.norm(x), new_caches
 
+    def init_caches(self, batch_size, max_seq, dtype=torch.float32):
+        """Zeroed slab caches ``[2, batch_size, max_seq, Hkv*D]`` (GQA-narrow),
+        one per layer, on the model's device."""
+        cfg = self.config
+        return [make_kv_slab(batch_size, max_seq, cfg.num_kv_heads,
+                             cfg.head_dim, dtype,
+                             self.embed_tokens.weight.device)
+                for _ in range(cfg.num_layers)]
 
-class LlamaForCausalLM(nn.Module):
+
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Untied LM head (llama convention). Built on ``device`` (CUDA unless
     ``device="cpu"``) in ``dtype``; the weights are uninitialised until
-    ``convert.init_llama`` or ``load_state_dict`` fills them."""
+    ``convert.init_llama`` or ``load_state_dict`` fills them. Generation
+    over the KV caches comes from ``GenerationMixin``."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32):
@@ -378,11 +417,15 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model.embed_tokens.weight.dtype
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, caches=None, time_step=None):
         if caches is None:
             return self.lm_head(self.model(input_ids))
-        x, new_caches = self.model(input_ids, caches=caches)
+        x, new_caches = self.model(input_ids, caches=caches,
+                                   time_step=time_step)
         return self.lm_head(x), new_caches
+
+    def init_caches(self, batch_size, max_seq, dtype=torch.float32):
+        return self.model.init_caches(batch_size, max_seq, dtype)
 
     def loss(self, input_ids, labels):
         """Mean causal-LM loss over every position (an ``ignore_index``

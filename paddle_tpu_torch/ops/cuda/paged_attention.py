@@ -1,38 +1,47 @@
-"""Paged KV cache state, slab-paged decode attention and multi-query
-verify/suffix attention.
+"""Paged KV caches and their decode and verify attention.
 
-Port of the functional serving path of
-``paddle_tpu/ops/pallas/paged_attention.py``: ``PagedCacheState``,
-``quantize_rows_int8``, ``_store_rows``, ``paged_state_prefill``,
-``paged_state_step``, ``paged_state_verify``, the ``PagedCacheState``
-branch of ``paged_forward``, ``paged_slab_decode_attention`` (TPU kernel
-``_paged_slab_kernel``) and ``paged_verify_slab_attention`` (TPU kernel
-``_paged_verify_slab_kernel``), each with its plain twin. The CUDA sources
-are ``paddle_tpu_torch/csrc/paged_decode_attention.cu`` and
-``paddle_tpu_torch/csrc/paged_verify_attention.cu``.
+Port of ``paddle_tpu/ops/pallas/paged_attention.py``:
 
-Page layout, as in the reference: data pages ``[P, page_size, Hkv*D]``
-(heads side by side in one slab row); physical page 0 is the trash page
-that idle slots and padding write into; int8 pages carry a bf16 scale page
-``[P, page_size, 128]`` with k scales at lanes ``[0, Hkv)`` and v scales at
-``[Hkv, 2*Hkv)``.
+* the functional serving path: ``PagedCacheState``, ``quantize_rows_int8``,
+  ``_store_rows``, ``paged_state_prefill``, ``paged_state_step``,
+  ``paged_state_verify``, the ``PagedCacheState`` branch of
+  ``paged_forward``, ``paged_slab_decode_attention`` (TPU kernel
+  ``_paged_slab_kernel``, #1) and ``paged_verify_slab_attention`` (TPU
+  kernel ``_paged_verify_slab_kernel``, #3);
+* the host-managed cache: ``PagedKVCache``, its branch of
+  ``paged_forward`` and ``paged_decode_attention`` (TPU kernel
+  ``_paged_kernel``, #4).
+
+Each kernel has its plain twin beside its wrapper. The CUDA sources are
+``paddle_tpu_torch/csrc/paged_decode_attention.cu`` (#1),
+``paged_decode_attention_v1.cu`` (#4) and ``paged_verify_attention.cu``
+(#3).
+
+Page layouts, as in the reference. The functional state keeps slab pages
+``[P, page_size, Hkv*D]`` (heads side by side in one slab row); physical
+page 0 is the trash page that idle slots and padding write into; int8
+pages carry a bf16 scale page ``[P, page_size, 128]`` with k scales at
+lanes ``[0, Hkv)`` and v scales at ``[Hkv, 2*Hkv)``. ``PagedKVCache`` keeps
+head-major pages ``[Hkv, P, page_size, D]`` and, for int8, f32 scales
+``[Hkv, P, page_size]``, one per row.
 
 Unlike the JAX version, page writes happen IN PLACE (``index_put_``) on the
-state's page tensors: the returned state shares them. Lengths are new
-tensors.
+page tensors: a returned state shares them. Lengths are new tensors.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["PagedCacheState", "quantize_rows_int8", "paged_state_prefill",
-           "paged_state_step", "paged_state_verify", "paged_forward",
-           "paged_slab_decode_attention", "paged_slab_decode_attention_ref",
-           "paged_verify_slab_attention", "paged_verify_slab_attention_ref",
-           "paged_multi_query_attention"]
+__all__ = ["PagedCacheState", "PagedKVCache", "quantize_rows_int8",
+           "paged_state_prefill", "paged_state_step", "paged_state_verify",
+           "paged_forward", "paged_decode_attention",
+           "paged_decode_attention_ref", "paged_slab_decode_attention",
+           "paged_slab_decode_attention_ref", "paged_verify_slab_attention",
+           "paged_verify_slab_attention_ref", "paged_multi_query_attention"]
 
 NEG_INF = -1.0e30
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -208,16 +217,42 @@ def paged_state_verify(state, q, k, v, scale=None):
     return out.to(q.dtype), new_state
 
 
-def paged_forward(cache, q, k, v, context_attention):
+def paged_forward(cache, q, k, v, context_attention, time_step=None):
     """Model-side paged-cache step for one attention layer. q/k/v
-    [b, s, heads, head_dim]. A ``verify`` state is a multi-query forward
-    over the cache (:func:`paged_state_verify`; checked first, since its
-    block is multi-token). With ``prefill_valid`` set (every admission)
-    or a multi-token input this is a prefill: the prompt is written and
+    [b, s, heads, head_dim]. Always returns ``(out, cache)``.
+
+    With a host-managed :class:`PagedKVCache`: prefill (``time_step``
+    None) writes the prompt and returns ``context_attention()``'s result;
+    decode appends one token per slot and attends over the pages (#4).
+    Decode requires ``time_step`` to equal EVERY slot's length: a replayed
+    or skipped step would corrupt the cache silently (append is no
+    overwrite), and ragged per-slot lengths need ``PagedCacheState``.
+    ``time_step`` is a keyword here (the reference takes it before
+    ``context_attention``).
+
+    With a ``PagedCacheState`` (the engine) ``time_step`` is ignored. A
+    ``verify`` state is a multi-query forward over the cache
+    (:func:`paged_state_verify`; checked first, since its block is
+    multi-token). With ``prefill_valid`` set (every admission) or a
+    multi-token input this is a prefill: the prompt is written and
     ``context_attention()`` gives the output. Otherwise one decode token
-    per slot. Returns ``(out, new_state)``."""
+    per slot."""
+    if isinstance(cache, PagedKVCache):
+        if time_step is None:
+            cache.prefill(k, v)
+            return context_attention(), cache
+        ts = int(time_step)
+        if not np.all(cache.lengths == ts):
+            raise ValueError(
+                f"paged decode at time_step={ts} but cache slots hold "
+                f"{cache.lengths.tolist()} tokens — paged caches append; "
+                "replay/skip requires free()+prefill, and ragged per-slot "
+                "lengths need the functional PagedCacheState engine path")
+        cache.append(k[:, 0], v[:, 0])
+        return cache.attend(q[:, 0])[:, None], cache
     if not isinstance(cache, PagedCacheState):
-        raise TypeError("paged_forward takes a PagedCacheState")
+        raise TypeError("paged_forward takes a PagedKVCache or a "
+                        "PagedCacheState")
     if cache.verify:
         return paged_state_verify(cache, q, k, v)
     if cache.prefill_valid is not None or q.shape[1] > 1:
@@ -459,6 +494,234 @@ def paged_verify_slab_attention(q, k_pages, v_pages, block_tables, base_len,
 
 
 paged_verify_slab_attention.launches = 0
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                               scale=None, k_scales=None, v_scales=None):
+    """Plain twin of #4 (the JAX ``paged_decode_attention_ref``): gather
+    each row's pages into a contiguous [B, Hkv, S, D] window (dequantized
+    by the per-row scales), f32 logits masked at ``ids < lengths``,
+    softmax, P.V, GQA by sharing each kv head over its group. A row of
+    length 0 gives zeros (the kernel's guard). Returns [B, H, D] in q's
+    dtype (the JAX twin returns f32, its kernel q's dtype)."""
+    b, h, d = q.shape
+    h_kv, _, page_size, _ = k_pages.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    seq = bt.shape[1] * page_size
+
+    def window(pages, scales):
+        win = pages[:, bt].float()  # [Hkv, B, max_pages, page_size, D]
+        if scales is not None:
+            win = win * scales[:, bt].float()[..., None]
+        return win.transpose(0, 1).reshape(b, h_kv, seq, d)
+
+    k_c = window(k_pages, k_scales)
+    v_c = window(v_pages, v_scales)
+    group = h // h_kv
+    qg = q.reshape(b, h_kv, group, d).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k_c) * scale
+    lens = lengths.long()
+    ids = torch.arange(seq, device=q.device)[None, None, None, :]
+    s = torch.where(ids < lens[:, None, None, None], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v_c).reshape(b, h, d)
+    out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
+                           scale=None, k_scales=None, v_scales=None):
+    """#4: q [B, H, D] (a unit stride over D; other operands contiguous)
+    against head-major pages [Hkv, P, page_size, D];
+    block_tables [B, max_pages] i32; lengths [B] i32 (the new token already
+    written). ``k_scales``/``v_scales`` f32 [Hkv, P, page_size] select the
+    int8 path (pages must then be int8). Returns [B, H, D] in q's dtype. A
+    CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    (``.launches`` counts them) or raises."""
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError("q [B, H, D], pages [Hkv, P, page_size, D]")
+    if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
+        raise ValueError("k and v pages must match in shape and dtype")
+    b, h, d = q.shape
+    h_kv, num_pages, page_size, pd = k_pages.shape
+    if pd != d or h % h_kv:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError("block_tables must be [B, max_pages]")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError("lengths must be [B]")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None) or quantized != (
+            k_pages.dtype == torch.int8):
+        raise TypeError("int8 pages need k_scales and v_scales, other pages "
+                        "none")
+    scales = [k_scales, v_scales] if quantized else []
+    if any(tuple(s.shape) != (h_kv, num_pages, page_size) for s in scales):
+        raise ValueError("scales must be [Hkv, P, page_size]")
+    tensors = [q, k_pages, v_pages, block_tables, lengths] + scales
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must live on one device")
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          lengths, scale, k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    from ...kernels import build
+
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode kernel takes f32 or bf16 q, got {q.dtype}")
+    if k_pages.dtype not in (q.dtype, torch.int8):
+        raise TypeError("pages must be q's dtype or int8")
+    if quantized and any(s.dtype != torch.float32 for s in scales):
+        raise TypeError("int8 page scales must be f32")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"decode kernel takes head_dim in {_HEAD_DIMS}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    if q.stride(2) != 1 or not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("decode kernel operands must be contiguous (q in "
+                         "head_dim)")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lib = build.load("paged_decode_attention_v1")
+    rc = lib.paged_decode_attention_v1(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, h_kv, d, num_pages, page_size, block_tables.shape[1],
+        q.stride(0), q.stride(1),
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
+        float(scale), build.stream_ptr(q.device))
+    build.check(rc, "paged_decode_attention_v1")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+class PagedKVCache:
+    """Host-side page pool and block tables for one transformer layer
+    (the reference's ``PagedKVCache``).
+
+    Pages ``[Hkv, P, page_size, D]`` (int8 with f32 per-row scales when
+    ``quantized``) are tensors on ``device`` (CUDA unless ``device="cpu"``),
+    written in place. Allocation bookkeeping (free list, per-slot block
+    tables, lengths) is host numpy, as in serving engines; each write or
+    attend sends its indices to the device in one copy. ``batch_size``
+    slots are sequence slots; ``free`` recycles a slot's pages."""
+
+    def __init__(self, num_pages: int, page_size: int, batch_size: int,
+                 num_kv_heads: int, head_dim: int, max_pages_per_seq: int,
+                 dtype=torch.bfloat16, quantized: bool = False, device=None):
+        from ...framework.device import resolve_device, resolve_dtype
+
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_pages = max_pages_per_seq
+        self.quantized = bool(quantized)
+        self.device = resolve_device(device)
+        store = torch.int8 if quantized else resolve_dtype(dtype)
+        shape = (num_kv_heads, num_pages, page_size, head_dim)
+        self.k_pages = torch.zeros(shape, dtype=store, device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=store, device=self.device)
+        if quantized:
+            self.k_scales = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=self.device)
+            self.v_scales = torch.zeros_like(self.k_scales)
+        else:
+            self.k_scales = self.v_scales = None
+        self.block_tables = np.zeros((batch_size, max_pages_per_seq),
+                                     np.int32)
+        self.lengths = np.zeros((batch_size,), np.int32)
+        self._free = list(range(num_pages - 1, -1, -1))
+
+    # -- allocation ----------------------------------------------------
+    def _ensure_pages(self, slot: int, new_len: int):
+        need = (new_len + self.page_size - 1) // self.page_size
+        have = (self.lengths[slot] + self.page_size - 1) // self.page_size
+        if need > self.max_pages:
+            raise ValueError(f"sequence exceeds max_pages={self.max_pages}")
+        for i in range(have, need):
+            if not self._free:
+                raise RuntimeError("KV page pool exhausted")
+            self.block_tables[slot, i] = self._free.pop()
+
+    def free(self, slot: int):
+        used = (int(self.lengths[slot]) + self.page_size - 1) // self.page_size
+        self._free.extend(int(p) for p in self.block_tables[slot, :used])
+        self.block_tables[slot, :] = 0
+        self.lengths[slot] = 0
+
+    # -- writes --------------------------------------------------------
+    def _to_device(self, *arrays, dtype=np.int64):
+        """Host int arrays → contiguous device tensors, in one copy."""
+        flat = np.concatenate([np.asarray(a, dtype).ravel()
+                               for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device)
+        out, at = [], 0
+        for a in arrays:
+            n = int(np.size(a))
+            out.append(dev[at:at + n].view(np.shape(a)))
+            at += n
+        return out
+
+    def _write(self, phys, slots, k, v):
+        """k/v [Hkv, *idx.shape, D] into (head, phys, slot)."""
+        idx = (slice(None),) + tuple(self._to_device(phys, slots))
+        if self.quantized:
+            kq, ks = quantize_rows_int8(k)
+            vq, vs = quantize_rows_int8(v)
+            self.k_scales[idx] = ks
+            self.v_scales[idx] = vs
+            k, v = kq, vq
+        self.k_pages[idx] = k.to(self.k_pages.dtype)
+        self.v_pages[idx] = v.to(self.v_pages.dtype)
+
+    def append(self, k, v):
+        """Append ONE token per slot: k/v [B, Hkv, D] at each slot's current
+        length (slots must all be active)."""
+        bsz = k.shape[0]
+        phys = np.empty((bsz,), np.int64)
+        slots = np.empty((bsz,), np.int64)
+        for bidx in range(bsz):
+            t = int(self.lengths[bidx])
+            self._ensure_pages(bidx, t + 1)
+            phys[bidx] = self.block_tables[bidx, t // self.page_size]
+            slots[bidx] = t % self.page_size
+        # [B, Hkv, D] → [Hkv, B, D] at (head, phys[b], slot[b])
+        self._write(phys, slots, k.transpose(0, 1), v.transpose(0, 1))
+        self.lengths[:bsz] += 1
+
+    def prefill(self, k, v):
+        """Write a whole prompt: k/v [B, S0, Hkv, D] into fresh slots."""
+        bsz, s0 = k.shape[:2]
+        for bidx in range(bsz):
+            if self.lengths[bidx]:
+                raise ValueError("prefill into non-empty slot; free() first")
+            self._ensure_pages(bidx, s0)
+        logical = np.arange(s0)
+        phys = self.block_tables[:bsz, logical // self.page_size]  # [B,S0]
+        slots = np.broadcast_to(logical % self.page_size, (bsz, s0))
+        # [B, S0, Hkv, D] → [Hkv, B, S0, D]
+        self._write(phys, slots, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3))
+        self.lengths[:bsz] += s0
+
+    # -- attend --------------------------------------------------------
+    def attend(self, q):
+        """Decode attention for the current state (#4): q [B, H, D] → [B,
+        H, D] in q's dtype."""
+        tables, lengths = self._to_device(self.block_tables, self.lengths,
+                                          dtype=np.int32)
+        return paged_decode_attention(
+            q, self.k_pages, self.v_pages, tables, lengths,
+            k_scales=self.k_scales, v_scales=self.v_scales)
 
 
 def paged_multi_query_attention(q, state, base_len, scale=None):

@@ -12,7 +12,11 @@ multiple, N = 1, one row, one expert, every group empty), and the
 quantized and MoE engines; the flash backward (general layout, sq != sk,
 ragged lengths, D 64-256, an lse cotangent, strided packed views into one
 dQKV, determinism), the autograd Functions, the packed route and a tiny
-GPT's gradients against plain attention.
+GPT's gradients against plain attention; the contiguous decode kernels
+(#14 on ``[B, Hkv, S, D]`` caches, #15 on the slab, strided views) and the
+head-major paged one (#4, int8 pages) at GQA groups 1/4/8, D 32-256, f32
+and bf16 (f32 within 2e-5, bf16 within one bf16 ulp of the output's
+largest entry), and tiny models generating on the card against the CPU.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -26,6 +30,7 @@ Tolerances: f32 1e-4 (online vs direct softmax, summation order); bf16
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.cuda import decode_attention as da
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
@@ -762,3 +767,202 @@ def test_tiny_gpt_grads_on_card(cuda):
         assert fa.flash_attention_bwd.launches == b0 + 2 * cfg.num_layers
     finally:
         set_flags(saved)
+
+
+def _ulp_close(got, want, dtype):
+    """f32: within 2e-5; bf16: within one bf16 ulp of want's largest
+    entry (both round the same f32 result)."""
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= 2e-5, err
+    else:
+        top = float(want.float().abs().max())
+        ulp = 2.0 ** (torch.floor(torch.log2(torch.tensor(top))).item() - 7)
+        assert err <= ulp, (err, ulp)
+
+
+def _contig_inputs(dev, dtype, B, H, Hkv, D, S, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
+    cache = torch.randn((2, B, Hkv, S, D), generator=g,
+                        device=dev).to(dtype)
+    return q, cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["5d", "slab"])
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 64), (16, 4, 128), (16, 2, 64),
+                                     (8, 1, 32), (4, 4, 256)])
+def test_contiguous_decode_kernels_match_plain(cuda, dtype, layout, H, Hkv,
+                                               D):
+    S = 100
+    # idle, one token, a partial window, the whole window, past it
+    lengths = [0, 1, 37, S, S + 9]
+    q, cache = _contig_inputs(cuda, dtype, len(lengths), H, Hkv, D, S)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if layout == "5d":
+        fn, args = da.decode_attention, (cache[0], cache[1])
+    else:
+        slab = cache.transpose(2, 3).reshape(2, len(lengths), S,
+                                             Hkv * D).contiguous()
+        fn, args = da.decode_attention_slab, (slab,)
+    before = fn.launches
+    got = fn(q, *args, lens)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = da.decode_attention_ref(q, cache[0], cache[1], lens)
+    assert got.dtype == dtype and got.shape == q.shape
+    _ulp_close(got, want, dtype)
+    assert torch.all(got[0] == 0)  # length 0 gives exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_kernel_strided_views(cuda, dtype):
+    """A slab cut from a longer one (its batch stride is the long
+    slab's), q a strided view of a packed QKV row, and a custom scale."""
+    B, H, Hkv, D, S = 3, 8, 2, 128, 300
+    g = torch.Generator(device=cuda).manual_seed(4)
+    wide = torch.randn((2, B, S + 50, Hkv * D), generator=g,
+                       device=cuda).to(dtype)
+    slab = wide[:, :, :S]
+    qkv = torch.randn((B, 3, H, D), generator=g, device=cuda).to(dtype)
+    q = qkv[:, 0]
+    lens = torch.tensor([5, 299, 300], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_slab(q, slab, lens, scale=0.2)
+    want = da._slab_ref(q, slab, lens, scale=0.2)
+    _ulp_close(got, want, dtype)
+
+
+def test_contiguous_decode_kernel_refuses(cuda):
+    q, cache = _contig_inputs(cuda, torch.float32, 2, 4, 2, 48, 16)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q, cache[0], cache[1], lens)
+    q, cache = _contig_inputs(cuda, torch.float32, 2, 4, 2, 64, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        da.decode_attention(q, cache[0].bfloat16(), cache[1].bfloat16(),
+                            lens)
+    k, v = (c.transpose(2, 3).contiguous().transpose(2, 3) for c in cache)
+    with pytest.raises(ValueError, match="head_dim"):  # D not unit-stride
+        da.decode_attention(q, k, v, lens)
+
+
+def _v1_inputs(dev, dtype, quant, B, H, Hkv, D, ps, max_pages, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = B * max_pages + 3
+    k = torch.randn((Hkv, P, ps, D), generator=g, device=dev)
+    v = torch.randn((Hkv, P, ps, D), generator=g, device=dev)
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = pa.quantize_rows_int8(k), pa.quantize_rows_int8(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    perm = torch.randperm(P, generator=g, device=dev)
+    tables = perm[:B * max_pages].view(B, max_pages).to(torch.int32)
+    # q as the model hands it over: a strided view of the QKV projection
+    q = torch.randn((B, 3, H, D), generator=g, device=dev).to(dtype)[:, 0]
+    return q, k, v, tables, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("H,Hkv,D,ps", [(8, 8, 64, 16), (16, 4, 128, 16),
+                                        (8, 1, 128, 8), (4, 2, 32, 4)])
+def test_paged_v1_kernel_matches_plain(cuda, dtype, quant, H, Hkv, D, ps):
+    max_pages = 6
+    cap = max_pages * ps
+    lengths = [0, 1, ps + 3, cap, cap + 7]
+    q, k, v, tables, ks, vs = _v1_inputs(cuda, dtype, quant, len(lengths),
+                                         H, Hkv, D, ps, max_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, k, v, tables, lens, k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 1
+    want = pa.paged_decode_attention_ref(q, k, v, tables, lens, k_scales=ks,
+                                         v_scales=vs)
+    assert got.dtype == dtype
+    _ulp_close(got, want, dtype)
+    assert torch.all(got[0] == 0)
+
+
+def test_paged_kv_cache_on_card(cuda):
+    """Prefill, appends and attends of a host-managed cache on the card
+    (in-place writes from host indices, then #4) against the CPU's."""
+    g = torch.Generator().manual_seed(8)
+    kw = dict(num_pages=20, page_size=8, batch_size=3, num_kv_heads=2,
+              head_dim=64, max_pages_per_seq=6, dtype=torch.float32)
+    for quant in (False, True):
+        caches = [pa.PagedKVCache(quantized=quant, device=d, **kw)
+                  for d in ("cpu", cuda)]
+        k0 = torch.randn((3, 13, 2, 64), generator=g)
+        for c in caches:
+            c.prefill(k0.to(c.device), (k0 * 0.5).to(c.device))
+        for _ in range(5):
+            k, q = torch.randn((3, 2, 64), generator=g), torch.randn(
+                (3, 8, 64), generator=g)
+            outs = []
+            for c in caches:
+                c.append(k.to(c.device), (k * 2).to(c.device))
+                outs.append(c.attend(q.to(c.device)).cpu())
+            torch.testing.assert_close(outs[1], outs[0], atol=2e-5, rtol=0)
+        assert torch.equal(caches[1].k_pages.cpu(), caches[0].k_pages)
+
+
+def _tiny_models(dev):
+    from paddle_tpu_torch.convert import init_gpt, init_llama
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    gcfg = GPTConfig(vocab_size=96, hidden_size=128, num_layers=2,
+                     num_heads=2, max_position=128)
+    lcfg = LlamaConfig(vocab_size=128, hidden_size=256, num_layers=2,
+                       num_heads=4, num_kv_heads=2, intermediate_size=256,
+                       max_position=128)
+    return (init_gpt(gcfg, seed=3, device=dev).eval(),
+            init_llama(lcfg, seed=3, device=dev, dtype=torch.float32))
+
+
+def test_generate_on_card_matches_cpu(cuda):
+    """A tiny GPT (2 heads of 64) and a GQA LLaMA (4 over 2 heads of 64),
+    f32, tf32 off: greedy and sampled ``generate`` on the card (#15 in the
+    decode steps) give the CPU's tokens; per-step logits over 5-D caches
+    (#14) and ``PagedKVCache``s (#4) on the card match the slab's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids = torch.randint(0, 96, (2, 7), generator=torch.Generator()
+                        .manual_seed(0))
+    for cpu_m, card_m in zip(_tiny_models("cpu"), _tiny_models(cuda)):
+        card_m.load_state_dict(cpu_m.state_dict())
+        for kw in (dict(temperature=0.0), dict(temperature=0.9, top_k=8,
+                                               seed=2)):
+            before = da.decode_attention_slab.launches
+            got = card_m.generate(ids.to(cuda), max_new_tokens=12, **kw)
+            assert da.decode_attention_slab.launches == before + 11 * \
+                card_m.config.num_layers
+            want = cpu_m.generate(ids, max_new_tokens=12, **kw)
+            assert torch.equal(got.cpu(), want), kw
+        cfg = card_m.config
+        kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+        hd = cfg.hidden_size // cfg.num_heads
+        n = cfg.num_layers
+        layouts = {
+            "slab": card_m.init_caches(2, 32),
+            "5d": [torch.zeros((2, 2, kv, 32, hd), device=cuda)
+                   for _ in range(n)],
+            "paged": [pa.PagedKVCache(16, 4, 2, kv, hd, 8,
+                                      dtype=torch.float32, device=cuda)
+                      for _ in range(n)]}
+        logits = {}
+        with torch.no_grad():
+            for name, caches in layouts.items():
+                out, caches = card_m(ids.to(cuda), caches=caches)
+                steps = [out[:, -1]]
+                for t in range(7, 12):
+                    tok = ids[:, t - 7:t - 6].to(cuda)
+                    out, caches = card_m(tok, caches=caches, time_step=t)
+                    steps.append(out[:, -1])
+                logits[name] = torch.stack(steps).cpu()
+        for name in ("5d", "paged"):
+            torch.testing.assert_close(logits[name], logits["slab"],
+                                       atol=1e-4, rtol=0)

@@ -196,12 +196,16 @@ def test_packed_route_is_auto_on_cuda_only(gpt_pair, route_flags):
 
 
 def test_cache_arguments_raise(gpt_pair):
+    """The caches are ported (``tests/test_torch_generate.py``); what is
+    not a cache still raises: a missing layer cache, a tensor of neither
+    cache layout."""
     _, tm, _ = gpt_pair
     ids = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(TypeError, match="cache"):
         tm(ids, caches=[None])
     with pytest.raises(TypeError, match="cache"):
-        tm.gpt.h[0](torch.zeros((1, 4, 128)), time_step=3)
+        tm.gpt.h[0](torch.zeros((1, 4, 128)), cache=torch.zeros(3),
+                    time_step=3)
 
 
 def test_init_gpt_is_seeded():
