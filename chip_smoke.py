@@ -17,7 +17,17 @@ Phases, in order; any failure exits non-zero:
               and ``llama2_7b`` widths for the decode kernels #4, #14,
               #15), with the tolerance stated; kernel, plain and library
               times by CUDA events.
-3. main     — ``llama2_7b`` at full width and depth, bf16, random weights
+3. context  — context parallelism at ``llama2_7b``'s attention widths:
+              the position-masked forms of #2 and #6 against their plain
+              twins on the 16 chunk pairs of a four-rank zig-zag ring over
+              16384 tokens (bf16 and f32, timed against SDPA with the
+              boolean mask); the four-rank schedule in one process against
+              full causal attention, forward and gradients; then the path,
+              ``fleet.init`` (``sep_degree=1``) on a one-rank NCCL world
+              and ``ring_flash_attention`` forward + backward on bf16
+              ``[1, 16384, 32, 128]`` in a zig-zag layout, held against
+              the materialized-logits ring (``impl="xla"``) at 4096.
+4. main     — ``llama2_7b`` at full width and depth, bf16, random weights
               from a seed, served through the port's ``Engine``: sampled and
               greedy requests, an int8-page pass, a pool small enough to
               force a preemption, and the three modes that ride the verify
@@ -31,7 +41,7 @@ Phases, in order; any failure exits non-zero:
               general route; T4-T6 reach the remaining regimes). Each pass
               zeroes the launch counters just before it and reads them
               just after.
-4. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
+5. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
               ``bench.py``'s decode shape (B=8, 128 + 512 tokens, bf16,
               then int8 and int4 weights; #2 prefill, #15 decode, #12) and
               ``llama2_7b`` at full depth (greedy and sampled); GPT-2 small
@@ -41,7 +51,7 @@ Phases, in order; any failure exits non-zero:
               each held against the same run on the plain versions; then
               2-layer full-width f32 checks: greedy streams against the
               cacheless argmax, 5-D and paged logits against the slab's.
-5. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
+6. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
               and int8 weights; Mixtral widths): the engine's greedy
               streams, plain and in each of the three modes, against the
               argmax of the same model's cacheless forward; then the train
@@ -53,6 +63,9 @@ Opt-in: ``--phases build,profile`` profiles one T1 training step, then
 times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
 spec verify step and a Mixtral-width MoE decode chain, and lists the
 device kernels under torch.profiler (PERF.md "Where the time goes").
+``--phases build,drift`` walks one ``llama2_7b`` decode step layer by
+layer with the decode kernels and their plain versions on the same inputs
+and logs each layer's attention and block error.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -74,8 +87,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
-PHASES = ("build", "kernels", "main", "generate", "greedy")
-OPTIONAL_PHASES = ("profile",)
+PHASES = ("build", "kernels", "context", "main", "generate", "greedy")
+OPTIONAL_PHASES = ("profile", "drift")
 
 
 def log(*a):
@@ -1045,6 +1058,402 @@ def check_training_kernels(torch):
     return res
 
 
+# ------------------------------------------------------------ context phase
+def _zigzag_positions(torch, S, world):
+    """Rank r's slice of a ``world``-rank zig-zag layout of S tokens: the
+    ``[world, S / world]`` int32 positions on the card."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        zigzag_indices)
+
+    return torch.from_numpy(zigzag_indices(S, world)).cuda().view(world, -1)
+
+
+def _live_pos_pairs(torch, qp, kp):
+    """(query, key) pairs a position-masked call computes: q_pos >= kv_pos."""
+    ks = torch.sort(kp).values
+    return int(torch.searchsorted(ks, qp, right=True).sum())
+
+
+def _pos_mask_sdpa(torch, q, k, v, qp, kp, scale):
+    """The library yardstick of the position forms: one SDPA call on [B, H,
+    S, D] views with the boolean position mask as ``attn_mask`` (it gives
+    NaN on rows that see no key, so only its time is used)."""
+    mask = qp[:, None] >= kp[None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, scale=scale)
+
+
+# the context phase's tolerances: entry by entry atol = rtol = TOL, and the
+# relative error over the whole tensor, ||got - want|| / ||want||, within
+# NORM_TOL (which a fault confined to some rows cannot hide under)
+CTX_TOL = {"bf16": 2e-2, "f32": 1e-4}
+CTX_NORM_TOL = {"bf16": 1e-2, "f32": 1e-4}
+
+
+def _close_check(tag, got, want, dtype):
+    """Fail unless ``got`` is finite, within atol = rtol = CTX_TOL of
+    ``want`` entry by entry, and within CTX_NORM_TOL of it in relative
+    Frobenius norm; return (max abs err, relative norm err)."""
+    import torch
+
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    tol, norm_tol = CTX_TOL[key], CTX_NORM_TOL[key]
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{tag}: non-finite values")
+    diff = (g - w).abs()
+    over = diff - tol * w.abs()
+    if bool((over > tol).any()):
+        i = int(torch.argmax(over.flatten()))
+        raise AssertionError(
+            f"{tag}: {int((over > tol).sum())} entries beyond atol=rtol="
+            f"{tol}; worst got {float(g.flatten()[i]):.6g} want "
+            f"{float(w.flatten()[i]):.6g}")
+    rel = float(torch.linalg.vector_norm(diff)) / max(
+        float(torch.linalg.vector_norm(w)), 1e-30)
+    if rel > norm_tol:
+        raise AssertionError(f"{tag}: relative norm err {rel:.3g} beyond "
+                             f"{norm_tol}")
+    return float(diff.max()), rel
+
+
+def _plain_attention(torch, q, k, v, do, heads=4, **kw):
+    """``(out, lse, dq, dk, dv)`` of the plain twins on ``[B, S, H, D]``:
+    ``flash_attention_ref``, then ``flash_attention_bwd_ref`` on the twin's
+    own out and lse with ``do``, ``heads`` heads at a time so that the f32
+    logits fit (4 GiB a group at S=16384). ``kw``: ``causal`` or the
+    positions."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    parts = [[] for _ in range(5)]
+    for h in range(0, q.shape[2], heads):
+        a = [t[:, :, h:h + heads] for t in (q, k, v)]
+        o, lse = fa.flash_attention_ref(*a, return_lse=True, **kw)
+        grads = fa.flash_attention_bwd_ref(*a, o, do[:, :, h:h + heads], lse,
+                                           **kw)
+        for part, t in zip(parts, (o, lse) + tuple(grads)):
+            part.append(t)
+        del a, o, lse, grads
+        torch.cuda.empty_cache()
+    return tuple(torch.cat(part, 1 if i == 1 else 2)
+                 for i, part in enumerate(parts))
+
+
+def check_flash_pos(torch, dtype, S, world, H, D, timed_rank=None, seed=31):
+    """The position forms of #2 and #6 against their plain twins on every
+    (query chunk r, kv chunk s) pair of a ``world``-rank zig-zag ring over
+    S tokens, B=1: the chunk calls a real ring makes. Whole tiles are then
+    visible, masked (skipped) or on the diagonal, and the query half-chunk
+    0 of rank 0 sees no key of another rank's chunk (lse -1e30, out 0).
+    Tolerance (``_close_check``): out and every gradient within atol =
+    rtol = 2e-2 (bf16) or 1e-4 (f32) entry by entry and 1e-2 (bf16) or
+    1e-4 (f32) in relative norm; lse within atol = rtol = 1e-4, and -1e30
+    exactly where the twin has it. With ``timed_rank`` r, times rank r's
+    ring (its query chunk against the four kv chunks in ring order), the
+    forward and the backward (with an lse cotangent) apart. Bound: the
+    live pairs (q_pos >= kv_pos) of those calls, 4*D (forward) or 10*D
+    (backward) flops each over the dtype's peak, against q, k, v, out,
+    lse, positions (and dO, dq, dk, dv, dlse) over HBM; library: SDPA with
+    the boolean position mask (forward; forward+backward minus forward)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    sl = S // world
+    pos = _zigzag_positions(torch, S, world)
+    q, k, v, do = (torch.randn((1, S, H, D), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    dl = torch.randn((1, H, sl), generator=g, device=dev) * 0.1
+
+    def shard(x, r):
+        return x[:, r * sl:(r + 1) * sl]
+
+    err = {"fwd": 0.0, "bwd": 0.0}
+    rel = {"fwd": 0.0, "bwd": 0.0}
+    dead_rows = 0
+    for r in range(world):
+        for s in range(world):
+            tag = f"flash pos {dtype} S={S} pair ({r}, {s})"
+            args = (shard(q, r), shard(k, s), shard(v, s))
+            pk = dict(q_positions=pos[r], kv_positions=pos[s])
+            out, lse = fa.flash_attention_fwd(*args, return_lse=True, **pk)
+            grads = fa.flash_attention_bwd(*args, out, shard(do, r), lse, dl,
+                                           **pk)
+            torch.cuda.synchronize()
+            w_out, w_lse = fa.flash_attention_ref(*args, return_lse=True,
+                                                  **pk)
+            e, n = _close_check(tag + " out", out, w_out, dtype)
+            err["fwd"], rel["fwd"] = max(err["fwd"], e), max(rel["fwd"], n)
+            dead = w_lse == fa.NO_KEY_LSE
+            if not bool((lse[dead] == fa.NO_KEY_LSE).all()) or bool(
+                    out.transpose(1, 2)[dead].any()):
+                raise AssertionError(f"{tag}: rows that see no key must "
+                                     "give lse -1e30 and out 0")
+            dead_rows += int(dead.sum())
+            live = ~dead
+            if not torch.allclose(lse[live], w_lse[live], atol=1e-4,
+                                  rtol=1e-4):
+                lerr = float((lse[live] - w_lse[live]).abs().max())
+                raise AssertionError(f"{tag}: lse max abs err {lerr:.3g} "
+                                     "beyond atol=rtol=1e-4")
+            want = fa.flash_attention_bwd_ref(*args, out, shard(do, r), lse,
+                                              dl, **pk)
+            for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+                e, n = _close_check(f"{tag} {name}", a, b, dtype)
+                err["bwd"], rel["bwd"] = max(err["bwd"], e), max(rel["bwd"],
+                                                                 n)
+            del out, lse, grads, w_out, w_lse, want
+    torch.cuda.empty_cache()
+    log(f"kernel flash pos {dtype} S={S} world={world} H={H} D={D}: 16 "
+        f"zig-zag chunk pairs, {dead_rows} (head, row)s see no key; out "
+        f"max abs err {err['fwd']:.3g} (relative norm {rel['fwd']:.3g}), "
+        f"grads {err['bwd']:.3g} ({rel['bwd']:.3g})")
+    if timed_rank is None:
+        return None
+    r = timed_rank
+    calls = [((shard(q, r), shard(k, s), shard(v, s)),
+              dict(q_positions=pos[r], kv_positions=pos[s]), s)
+             for s in [(r - t) % world for t in range(world)]]
+    live = sum(_live_pos_pairs(torch, pos[r], pos[s]) for _, _, s in calls)
+    fwd = [fa.flash_attention_fwd(*a, return_lse=True, **pk)
+           for a, pk, _ in calls]
+    el, n = q.element_size(), len(calls)
+    scale = 1.0 / D ** 0.5
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    io = el * sl * H * D                      # one [1, S/W, H, D] operand
+
+    def bound(flops, nbytes):
+        b_ops, b_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(b_ops, b_bytes),
+                    bound_by="operations" if b_ops >= b_bytes else "bytes")
+
+    rec_f = {"max_abs_err": err["fwd"], "live_pairs": live,
+             **bound(4 * D * H * live, n * (4 * io + 4 * H * sl + 8 * sl))}
+    rec_f["ms"] = time_ms(lambda: [fa.flash_attention_fwd(
+        *a, return_lse=True, **pk) for a, pk, _ in calls])
+    rec_f["plain_ms"] = time_ms(lambda: [fa.flash_attention_ref(
+        *a, return_lse=True, **pk) for a, pk, _ in calls], warmup=1, reps=3)
+    rec_f["library_ms"] = time_ms(lambda: [_pos_mask_sdpa(
+        torch, *a, pk["q_positions"], pk["kv_positions"], scale)
+        for a, pk, _ in calls])
+    dor = shard(do, r)
+    rec_b = {"max_abs_err": err["bwd"], "live_pairs": live,
+             **bound(10 * D * H * live,
+                     n * (8 * io + 4 * H * sl * 2 + 8 * sl))}
+    rec_b["ms"] = time_ms(lambda: [fa.flash_attention_bwd(
+        *a, o, dor, lse, dl, **pk) for (a, pk, _), (o, lse) in zip(calls,
+                                                                 fwd)])
+    rec_b["plain_ms"] = time_ms(lambda: [fa.flash_attention_bwd_ref(
+        *a, o, dor, lse, dl, **pk) for (a, pk, _), (o, lse) in zip(calls,
+                                                                 fwd)],
+        warmup=1, reps=3)
+    leaves = [[t.detach().requires_grad_() for t in a] for a, _, _ in calls]
+    dot = dor.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        for (a, pk, _), lv in zip(calls, leaves):
+            o = _pos_mask_sdpa(torch, *lv, pk["q_positions"],
+                               pk["kv_positions"], scale)
+            torch.autograd.grad(o, lv, dot)
+
+    rec_b["library_ms"] = time_ms(sdpa_fwd_bwd) - rec_f["library_ms"]
+    for tag, rec in (("forward (#2 position form)", rec_f),
+                     ("backward (#6 position form)", rec_b)):
+        log(_row(f"flash pos {tag} {dtype} rank {r}'s ring, {n} calls, "
+                 f"{live} live pairs a head", rec)
+            + " library=sdpa with the boolean position mask")
+    del fwd, leaves
+    torch.cuda.empty_cache()
+    return rec_f, rec_b
+
+
+def check_ring_schedule(torch, S, world, H, D, dtype, seed=32):
+    """The four-rank ring in one process: each simulated rank attends its
+    query chunk to every kv chunk in ring order (the position form of #2
+    through ``flash_attention_with_lse``) and merges with the ring's
+    ``_lse_merge``; the result, un-permuted from the zig-zag layout, and
+    the gradients of sum(out * ct) (through #6's position form with the
+    lse cotangent) against full causal attention on the natural order by
+    the plain twins (``_plain_attention``, four heads at a time).
+    Tolerance: ``_close_check``."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.context_parallel \
+        import _lse_merge
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    pos = _zigzag_positions(torch, S, world)
+    perm = pos.reshape(-1).long()
+    inv = torch.argsort(perm)
+    nat = [torch.randn((1, S, H, D), generator=g, device=dev).to(dtype)
+           for _ in range(3)]
+    ct = torch.randn((1, S, H, D), generator=g, device=dev)
+    lay = [x[:, perm].detach().requires_grad_() for x in nat]
+    sl = S // world
+    outs = []
+    for r in range(world):
+        acc = None
+        for s in [(r - t) % world for t in range(world)]:
+            o, lse = fa.flash_attention_with_lse(
+                lay[0][:, r * sl:(r + 1) * sl], lay[1][:, s * sl:(s + 1) * sl],
+                lay[2][:, s * sl:(s + 1) * sl], q_positions=pos[r],
+                kv_positions=pos[s])
+            acc = (o.float(), lse) if acc is None else _lse_merge(
+                *acc, o.float(), lse)
+        outs.append(acc[0].to(dtype))
+    out = torch.cat(outs, 1)[:, inv]
+    (out.float() * ct).sum().backward()
+    got = [out.detach()] + [x.grad[:, inv] for x in lay]
+    del outs, acc, out, lay
+    torch.cuda.empty_cache()
+    out, _, *grads = _plain_attention(torch, *nat, ct.to(dtype), causal=True)
+    errs = [_close_check(f"ring schedule {dtype} S={S} {name}", a, b, dtype)
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got,
+                                  [out] + grads)]
+    log(f"context: {world}-rank zig-zag ring schedule in one process, "
+        f"{dtype} S={S} H={H} D={D}, against full causal attention (the "
+        "plain twins): max abs err (relative norm) " + ", ".join(
+            f"{n} {e:.3g} ({r:.3g})" for n, (e, r) in zip(
+                ("out", "dq", "dk", "dv"), errs)))
+    del got, out, grads, nat
+    torch.cuda.empty_cache()
+
+
+def phase_context(ident, S=16384, iters=3):
+    """Context parallelism (``distributed/fleet/meta_parallel``) at
+    ``llama2_7b``'s attention widths (32 heads of 128):
+
+    (a) the position forms of #2 and #6 against their plain twins on the
+        16 chunk pairs of a four-rank zig-zag ring over S tokens, bf16 and
+        f32; rank 1's ring timed against its bound, the twins and SDPA;
+    (b) the four-rank schedule in one process against full causal
+        attention, forward and gradients (bf16 at S, f32 at S / 4);
+    (c) the path: ``fleet.init`` with ``sep_degree=1`` on a one-rank NCCL
+        world, then ``ring_flash_attention`` forward and backward on bf16
+        ``[1, S, 32, 128]`` in a four-rank zig-zag layout, ``iters`` times
+        (the launch counters zeroed just before and read just after), its
+        last output and gradients against the plain twins on the same
+        inputs (four heads at a time); then the flash ring against
+        ``impl="xla"`` at S / 4, where the materialized logits fit.
+
+    Returns (kernel rows, launches of the position forms)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import destroy_process_group, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ring_attention, zigzag_indices)
+    from paddle_tpu_torch.incubate.nn.functional import ring_flash_attention
+
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, D, world = 32, 128, 4
+    rec_f, rec_b = check_flash_pos(torch, bf16, S, world, H, D, timed_rank=1)
+    check_flash_pos(torch, f32, S, world, H, D)
+    check_ring_schedule(torch, S, world, H, D, bf16)
+    check_ring_schedule(torch, S // 4, world, H, D, f32)
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sep_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    backend = dist.get_backend(hcg.get_sep_parallel_group().process_group)
+    if hcg.get_sep_parallel_world_size() != 1 or backend != "nccl":
+        raise AssertionError(f"context: sep group of "
+                             f"{hcg.get_sep_parallel_world_size()} on "
+                             f"{backend}, expected one rank on nccl")
+    g = torch.Generator(device="cuda").manual_seed(33)
+
+    def inputs(seq):
+        pos = torch.from_numpy(zigzag_indices(seq, world)).cuda()
+        qkv = [torch.randn((1, seq, H, D), generator=g, device="cuda")
+               .to(bf16).requires_grad_() for _ in range(3)]
+        do = torch.randn((1, seq, H, D), generator=g, device="cuda").to(bf16)
+        return pos, qkv, do
+
+    pos, qkv, do = inputs(S)
+
+    def step():
+        for t in qkv:
+            t.grad = None
+        out = ring_flash_attention(*qkv, causal=True, q_positions=pos,
+                                   kv_positions=pos)
+        out.backward(do)
+        return out
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+
+    def drive():
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out
+
+    out, got = _counted(drive, needs=("flash_attention_fwd_pos",
+                                      "flash_attention_bwd_pos"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in got.items():
+        if n and not name.startswith(("flash_attention_fwd",
+                                      "flash_attention_bwd")):
+            raise AssertionError(f"context: the ring launched {name}")
+    if got["flash_attention_fwd"] != got["flash_attention_fwd_pos"]:
+        raise AssertionError(f"context: causal ring chunks left position "
+                             f"mode: {got}")
+    if out.shape != (1, S, H, D):
+        raise AssertionError(f"context: ring output {tuple(out.shape)}")
+    # the last iteration's output and gradients against the plain twins on
+    # the same inputs (the one chunk of a one-rank ring)
+    want = _plain_attention(torch, *[t.detach() for t in qkv], do,
+                            q_positions=pos, kv_positions=pos)
+    path_errs = [_close_check(f"context path S={S} {name}", a, b, bf16)
+                 for name, a, b in zip(("out", "dq", "dk", "dv"),
+                                       [out.detach()] + [t.grad for t in qkv],
+                                       want[:1] + want[2:])]
+    del want
+    launches = {"flash_attention_fwd_pos": got["flash_attention_fwd_pos"],
+                "flash_attention_bwd_pos": got["flash_attention_bwd_pos"]}
+    log(f"context: ring_flash_attention through fleet.init (sep_degree=1, "
+        f"one-rank NCCL world), bf16 [1, {S}, {H}, {D}], zig-zag positions, "
+        f"forward + backward: " + " ".join(f"{s * 1e3:.1f}" for s in secs)
+        + f" ms ({iters} iterations; median "
+        f"{statistics.median(secs) * 1e3:.1f}), peak {peak:.2f} GiB, "
+        f"launches {launches} [{ident}]; against the plain twins: max abs "
+        "err (relative norm) " + ", ".join(
+            f"{n} {e:.3g} ({r:.3g})" for n, (e, r) in zip(
+                ("out", "dq", "dk", "dv"), path_errs)))
+    del qkv, do, out
+    torch.cuda.empty_cache()
+
+    # the flash ring against the materialized-logits ring at S / 4
+    pos, qkv, do = inputs(S // 4)
+    res = []
+    for impl in ("flash", "xla"):
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        o = ring_attention(*leaves, causal=True, q_positions=pos,
+                           kv_positions=pos, impl=impl)
+        o.backward(do)
+        res.append([o.detach()] + [t.grad for t in leaves])
+        del o, leaves
+    errs = [_close_check(f"context ring flash vs xla {name}", a, b, bf16)
+            for name, a, b in zip(("out", "dq", "dk", "dv"), *res)]
+    log(f"context: ring_attention flash vs impl='xla' at S={S // 4} bf16: "
+        "max abs err (relative norm) " + ", ".join(
+            f"{n} {e:.3g} ({r:.3g})" for n, (e, r) in zip(
+                ("out", "dq", "dk", "dv"), errs)))
+    del res
+    destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"context: phase took {time.perf_counter() - t_phase:.1f} s")
+    return ({"flash_attention_fwd_pos": rec_f,
+             "flash_attention_bwd_pos": rec_b}, launches)
+
+
 # one row per TPU kernel of the repo that the port has replaced: the row's
 # name, the CUDA source that serves it, the Pallas function it replaces,
 # and the launch counter (the wrapper) whose launches it is charged with
@@ -1066,6 +1475,14 @@ KERNELS = {
         tpu_kernel=5, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:229"),
     "flash_attention_bwd_split": dict(
+        tpu_kernel=6, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:361"),
+    # the position-masked forms of #2 and #6 (q_positions / kv_positions),
+    # the chunk attention of ring attention
+    "flash_attention_fwd_pos": dict(
+        tpu_kernel=2, source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:136"),
+    "flash_attention_bwd_pos": dict(
         tpu_kernel=6, source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:361"),
     "causal_flash_fwd": dict(
@@ -1099,6 +1516,8 @@ KERNELS = {
 # the rows that only the generate phase launches
 GENERATE_ROWS = ("paged_decode_attention_v1", "decode_attention",
                  "decode_attention_slab")
+# the rows that only the context phase launches (it fails unless both are)
+CONTEXT_ROWS = ("flash_attention_fwd_pos", "flash_attention_bwd_pos")
 
 
 def main(argv=None):
@@ -1130,15 +1549,20 @@ def main(argv=None):
         phase_build()
     if "kernels" in phases:
         kernel_stats = phase_kernels()
-    if "main" in phases:
-        launches = phase_main(ident)
-    if "generate" in phases:
-        for name, n in phase_generate(ident).items():
-            launches[name] = launches.get(name, 0) + n
+    if "context" in phases:
+        stats, n = phase_context(ident)
+        kernel_stats.update(stats)
+        launches.update(n)
+    for phase, run in (("main", phase_main), ("generate", phase_generate)):
+        if phase in phases:
+            for name, n in run(ident).items():
+                launches[name] = launches.get(name, 0) + n
     if "greedy" in phases:
         phase_greedy(ident)
     if "profile" in phases:
         phase_profile(ident)
+    if "drift" in phases:
+        phase_drift(ident)
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -1209,15 +1633,24 @@ def _counters():
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
-    return {"paged_decode_attention": pa.paged_slab_decode_attention,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "paged_verify_attention": pa.paged_verify_slab_attention,
-            "quant_matmul": qm.quant_matmul,
-            "grouped_matmul": gm.grouped_matmul,
-            "paged_decode_attention_v1": pa.paged_decode_attention,
-            "decode_attention": da.decode_attention,
-            "decode_attention_slab": da.decode_attention_slab}
+    # name -> (wrapper, its counter); the flash wrappers' ``launches``
+    # include their position-mode launches, which ``pos_launches`` counts
+    return {"paged_decode_attention": (pa.paged_slab_decode_attention,
+                                       "launches"),
+            "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
+            "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
+            "flash_attention_fwd_pos": (fa.flash_attention_fwd,
+                                        "pos_launches"),
+            "flash_attention_bwd_pos": (fa.flash_attention_bwd,
+                                        "pos_launches"),
+            "paged_verify_attention": (pa.paged_verify_slab_attention,
+                                       "launches"),
+            "quant_matmul": (qm.quant_matmul, "launches"),
+            "grouped_matmul": (gm.grouped_matmul, "launches"),
+            "paged_decode_attention_v1": (pa.paged_decode_attention,
+                                          "launches"),
+            "decode_attention": (da.decode_attention, "launches"),
+            "decode_attention_slab": (da.decode_attention_slab, "launches")}
 
 
 def _counted(run, needs=()):
@@ -1225,10 +1658,10 @@ def _counted(run, needs=()):
     kernel in ``needs`` was never launched. Returns (run's result,
     launches)."""
     fns = _counters()
-    for fn in fns.values():
-        fn.launches = 0
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
     out = run()
-    got = {name: fn.launches for name, fn in fns.items()}
+    got = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
     for name in needs:
         if got[name] <= 0:
             raise AssertionError(f"this pass never launched {name}")
@@ -1481,7 +1914,7 @@ def phase_main(ident):
     train_passes(ident, total)
     log(f"main: launches {total}")
     for name, n in total.items():
-        if n <= 0 and name not in GENERATE_ROWS:
+        if n <= 0 and name not in GENERATE_ROWS + CONTEXT_ROWS:
             raise AssertionError(f"the main path never launched {name}")
     return total
 
@@ -2152,6 +2585,114 @@ def _profile_train(ident):
             f"x{e.count:<6d} {e.key[:90]}")
     del model, opt
     gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_drift(ident, B=8, prompt=128, steps=8):
+    """Opt-in (not in the default run): where the bf16 logits of the
+    decode kernels and their plain versions part with depth. ``llama2_7b``
+    at full depth, bf16, random weights (seed 0): a prefill of B=8 random
+    128-token prompts on slab caches (#2), then decode steps at
+    ``time_step`` = 128, 129, ...
+
+    - Shared inputs, one decode step walked layer by layer: at every layer
+      both paths take the SAME hidden state (the kernel path's). The
+      decode attention of that layer (#15 and its plain twin ``_slab_ref``
+      on the same q and cache) against the f32 attention on the same bf16
+      q and cache; the attention module's output and the block's output
+      of both paths.
+    - Free-running, the same step: each path feeds its own previous output
+      on, as the generate checks did: the hidden states' divergence by
+      depth.
+    - ``steps`` teacher-forced decode steps of the whole model on two
+      cache copies, kernels and plain versions: the logits' divergence by
+      step.
+
+    Errors are max abs errors over the largest entry of the f32 (or
+    plain) value. A bf16 rounding of an output is up to 2**-9 of it."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / max(
+            1e-30, float(b.float().abs().max()))
+
+    bf16 = torch.bfloat16
+    cfg = llama2_7b()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=bf16).eval()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    ids = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                        device="cuda")
+    nh, hd = cfg.num_heads, cfg.head_dim
+    t = prompt
+    lens = torch.full((B,), t + 1, dtype=torch.int32, device="cuda")
+    rows = []
+    with torch.no_grad():
+        logits, caches = model(ids, caches=model.init_caches(
+            B, prompt + steps + 1, bf16))
+        tok = logits[:, -1:].argmax(-1)
+        x = x_free_k = x_free_p = model.model.embed_tokens(tok)
+        for i, block in enumerate(model.model.layers):
+            attn, cache = block.self_attn, caches[i]
+            xn = block.input_layernorm(x)
+            q = attn.q_proj(xn).reshape(B, 1, nh, hd)
+            k = attn.k_proj(xn).reshape(B, 1, -1, hd)
+            v = attn.v_proj(xn).reshape(B, 1, -1, hd)
+            q, k = attn._rope(q, k, t, cache)
+            c = cache.clone()
+            c[0, :, t] = k[:, 0].reshape(B, -1)
+            c[1, :, t] = v[:, 0].reshape(B, -1)
+            a_k = da.decode_attention_slab(q[:, 0], c, lens)
+            a_p = da._slab_ref(q[:, 0], c, lens)
+            a_t = da._slab_ref(q[:, 0].float(), c.float(), lens)
+            m_k = attn(xn, cache=cache.clone(), time_step=t)[0]
+            with _plain_decode():
+                m_p = attn(xn, cache=cache.clone(), time_step=t)[0]
+            h_k, h_p = x + m_k, x + m_p
+            y_k = h_k + block.mlp(block.post_attention_layernorm(h_k))
+            y_p = h_p + block.mlp(block.post_attention_layernorm(h_p))
+            f_k = block(x_free_k, cache=cache.clone(), time_step=t)[0]
+            with _plain_decode():
+                f_p = block(x_free_p, cache=cache.clone(), time_step=t)[0]
+            rows.append(dict(kernel_truth=rel(a_k, a_t),
+                             plain_truth=rel(a_p, a_t),
+                             kernel_plain=rel(a_k, a_p),
+                             module=rel(m_k, m_p), block=rel(y_k, y_p),
+                             free=rel(f_k, f_p)))
+            x, x_free_k, x_free_p = y_k, f_k, f_p
+        for i, r in enumerate(rows):
+            log(f"drift layer {i:2d}: attention kernel vs f32 "
+                f"{r['kernel_truth']:.3e}, plain vs f32 "
+                f"{r['plain_truth']:.3e}, kernel vs plain "
+                f"{r['kernel_plain']:.3e}; attention module "
+                f"{r['module']:.3e}; block {r['block']:.3e}; free-running "
+                f"hidden state {r['free']:.3e}")
+        # teacher-forced whole-model steps on two cache copies
+        ck = [c.clone() for c in caches]
+        cp = [c.clone() for c in caches]
+        step_err = []
+        for s in range(steps):
+            lk, ck = model(tok, caches=ck, time_step=t + s)
+            with _plain_decode():
+                lp, cp = model(tok, caches=cp, time_step=t + s)
+            step_err.append(rel(lk, lp))
+            tok = lp[:, -1:].argmax(-1)
+    worst = max(rows, key=lambda r: r["kernel_truth"] - r["plain_truth"])
+    log(f"drift: decode attention against f32, worst layer: kernel "
+        f"{worst['kernel_truth']:.3e}, plain {worst['plain_truth']:.3e} "
+        f"(max over layers: kernel "
+        f"{max(r['kernel_truth'] for r in rows):.3e}, plain "
+        f"{max(r['plain_truth'] for r in rows):.3e}); shared-input block "
+        f"error max {max(r['block'] for r in rows):.3e}; free-running "
+        f"hidden state at layers "
+        + " ".join(f"{i + 1}: {rows[i]['free']:.3e}" for i in sorted(
+            {0, len(rows) // 4 - 1, len(rows) // 2 - 1, len(rows) - 1}))
+        + "; logits kernel vs plain by teacher-forced step: "
+        + " ".join(f"{e:.3e}" for e in step_err) + f" [{ident}]")
+    del model, caches, ck, cp
     torch.cuda.empty_cache()
 
 

@@ -5,7 +5,8 @@ import torch
 
 from ...ops.cuda.decode_attention import decode_attention
 
-__all__ = ["fused_rotary_position_embedding", "masked_multihead_attention"]
+__all__ = ["fused_rotary_position_embedding", "masked_multihead_attention",
+           "ring_flash_attention"]
 
 
 def fused_rotary_position_embedding(q, k=None, v=None, position_ids=None,
@@ -93,3 +94,14 @@ def masked_multihead_attention(x, cache_kv=None, src_mask=None,
     out = decode_attention(q, cache_kv[0], cache_kv[1],
                            (lens + 1).to(torch.int32))
     return out.reshape(bsz, nh * hd), cache_kv
+
+
+def ring_flash_attention(q, k, v, causal=True, axis_name="sep", **kw):
+    """PaddleNLP's ``ring_flash_attention`` name for the context-parallel
+    ring (``fleet.meta_parallel.ring_attention``) on this rank's
+    ``[B, S/W, H, D]`` shards, differentiable through the flash kernels."""
+    from ...distributed.fleet.meta_parallel.context_parallel import (
+        ring_attention_op)
+
+    return ring_attention_op(q, k, v, causal=causal, axis_name=axis_name,
+                             **kw)

@@ -49,9 +49,9 @@ _SIGNATURES = {
     + [_I] * 2 + [_F, _P],
     "decode_attention": [_P] * 5 + [_I] * 5 + [_LL] * 5 + [_I] * 2
     + [_F, _P],
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _F, _I,
+    "flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _F, _I,
                                                                _P],
-    "flash_attention_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _F, _I, _P],
+    "flash_attention_bwd": [_P] * 13 + [_I] * 5 + [_P, _I, _F, _I, _P],
     "paged_verify_attention": [_P] * 7 + [_I] * 7 + [_LL] * 3 + [_I] * 2
     + [_F, _P],
     "quant_matmul": [_P] * 6 + [_I] * 7 + [_P],

@@ -16,9 +16,18 @@ Pallas kernels. In the forward k/v may carry fewer heads than q (GQA: q
 head h reads kv head ``h // (H // Hkv)``); the backward takes as many k/v
 heads as q heads (LLaMA repeats them first, as the reference does).
 
+Position mode (the reference's ``q_positions`` / ``kv_positions``, which
+ring attention passes on every ring step): each query and key carries its
+global token index; query i sees key j iff ``q_pos[i] >= kv_pos[j]`` and
+``causal`` is ignored. The positions are int32 on q's device (the
+reference's f32 holds the same values below 2**24). A row that sees no key
+gives ``out = 0`` and ``lse = -1e30``, the reference's ``NEG_INF``, which
+the ring's log-space merge weighs as nothing.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
-count kernel launches.
+count kernel launches; ``.pos_launches`` counts those in position mode
+(which ``.launches`` includes).
 """
 from __future__ import annotations
 
@@ -33,31 +42,79 @@ __all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_fused", "flash_attention_with_lse"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+NO_KEY_LSE = -1.0e30  # lse of a row that sees no key (the reference's NEG_INF)
 _HEAD_DIMS = (32, 64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
 
 
-def _keep_mask(sq, sk, causal, device):
+def _positions(q_positions, kv_positions, sq, sk, device):
+    """Both position arrays as int32 ``[Sq]`` / ``[Sk]`` on ``device``, or
+    ``(None, None)``: the one conversion, made where the autograd Function
+    takes them. One without the other raises (the reference raises for
+    ``q_positions`` alone and ignores ``kv_positions`` alone)."""
+    if q_positions is None or kv_positions is None:
+        _check_positions(q_positions, kv_positions, sq, sk, device)
+        return None, None
+    qp, kp = (torch.as_tensor(p) for p in (q_positions, kv_positions))
+    for name, p in (("q_positions", qp), ("kv_positions", kp)):
+        if p.dtype.is_floating_point or p.dtype == torch.bool:
+            raise TypeError(f"{name} must hold integer token indices")
+    qp, kp = (p.to(device=device, dtype=torch.int32).contiguous()
+              for p in (qp, kp))
+    _check_positions(qp, kp, sq, sk, device)
+    return qp, kp
+
+
+def _check_positions(qp, kp, sq, sk, device):
+    """Refuse positions that are not both int32 ``[Sq]`` / ``[Sk]`` on
+    ``device`` (or both None), as the kernels and their twins take them."""
+    if qp is None and kp is None:
+        return
+    if qp is None or kp is None:
+        raise ValueError("q_positions and kv_positions go together: one "
+                         "was given without the other")
+    for name, p, n in (("q_positions", qp, sq), ("kv_positions", kp, sk)):
+        if not isinstance(p, torch.Tensor) or p.dtype != torch.int32:
+            raise TypeError(f"{name} must hold integer token indices as an "
+                            f"int32 tensor, got "
+                            f"{getattr(p, 'dtype', type(p).__name__)}")
+        if tuple(p.shape) != (n,):
+            raise ValueError(f"{name} has shape {tuple(p.shape)}, expected "
+                             f"({n},)")
+        if p.device != torch.device(device) or not p.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def _keep_mask(sq, sk, causal, device, qp=None, kp=None):
+    if qp is not None:
+        return qp[:, None] >= kp[None, :]
     keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
     return torch.tril(keep) if causal else keep
 
 
-def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False):
+def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False,
+                        q_positions=None, kv_positions=None):
     """Plain PyTorch twin of the forward kernel: f32 logits and softmax, P
     rounded to the input dtype before the P.V product (f32 accumulation),
-    rows with no key give zeros. Returns ``out [B, Sq, H, D]`` in q's
-    dtype, plus ``lse [B, H, Sq]`` f32 when ``return_lse``."""
+    rows with no key give zeros and lse -1e30. With positions the mask is
+    ``q_pos[i] >= kv_pos[j]`` and ``causal`` is ignored. Returns ``out [B,
+    Sq, H, D]`` in q's dtype, plus ``lse [B, H, Sq]`` f32 when
+    ``return_lse``."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    qp, kp = q_positions, kv_positions
+    _check_positions(qp, kp, sq, sk, q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = s.masked_fill(~_keep_mask(sq, sk, causal, q.device), float("-inf"))
+    s = s.masked_fill(~_keep_mask(sq, sk, causal, q.device, qp, kp),
+                      float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    dead = torch.isinf(m)  # the row sees no key
+    m = torch.where(dead, torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
     pr = p.to(q.dtype).float()
@@ -65,25 +122,30 @@ def flash_attention_ref(q, k, v, causal=True, scale=None, return_lse=False):
         l.permute(0, 2, 1, 3)
     out = out.to(q.dtype)
     if return_lse:
-        return out, (m + torch.log(l))[..., 0]
+        lse = torch.where(dead, torch.full_like(m, NO_KEY_LSE),
+                          m + torch.log(l))
+        return out, lse[..., 0]
     return out
 
 
 def flash_attention_bwd_ref(q, k, v, out, do, lse, dlse=None, causal=True,
-                            scale=None):
+                            scale=None, q_positions=None, kv_positions=None):
     """Plain PyTorch twin of the backward kernel (the recompute scheme of
     the reference's ``fused_bwd_math`` / ``_bwd``): ``P = exp(S*scale -
-    lse)`` with masked entries exactly 0, ``delta = rowsum(dO*O) - dlse``
-    in f32, P and dS rounded to the input dtype before their products, f32
-    accumulation. Returns ``(dq, dk, dv)`` in q's dtype."""
+    lse)`` with masked entries exactly 0 (with positions, the mask of the
+    forward's position mode), ``delta = rowsum(dO*O) - dlse`` in f32, P and
+    dS rounded to the input dtype before their products, f32 accumulation.
+    Returns ``(dq, dk, dv)`` in q's dtype."""
     d = q.shape[-1]
     sq, sk = q.shape[1], k.shape[1]
+    qp, kp = q_positions, kv_positions
+    _check_positions(qp, kp, sq, sk, q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dt = q.dtype
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    keep = _keep_mask(sq, sk, causal, q.device)
+    keep = _keep_mask(sq, sk, causal, q.device, qp, kp)
     p = torch.where(keep, torch.exp(s - lse.float()[..., None]),
                     torch.zeros((), device=q.device))
     delta = (gf * of).sum(-1).transpose(1, 2)                 # [B, H, Sq]
@@ -138,17 +200,22 @@ def _cuda_checks(q, head_dims, *named):
 
 
 def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
-                        out: Optional[torch.Tensor] = None):
+                        out: Optional[torch.Tensor] = None, q_positions=None,
+                        kv_positions=None):
     """Flash attention forward on ``[B, S, H, D]`` tensors. Returns ``out``
     (and ``lse [B, H, Sq]`` f32 when ``return_lse``). ``out``, when given,
     is a ``[B, Sq, H, D]`` tensor in any strides (contiguous last dim) that
-    the kernel writes in place, such as a view into a packed buffer."""
+    the kernel writes in place, such as a view into a packed buffer.
+    ``q_positions`` [Sq] / ``kv_positions`` [Sk], int32 on q's device,
+    select position mode."""
     _check(q, k, v)
     b, sq, h, d = q.shape
+    qp, kp = q_positions, kv_positions
+    _check_positions(qp, kp, sq, k.shape[1], q.device)
     if out is not None:
         _check_like("out", out, (b, sq, h, d), q)
     if q.device.type == "cpu":
-        res = flash_attention_ref(q, k, v, causal, scale, return_lse)
+        res = flash_attention_ref(q, k, v, causal, scale, return_lse, qp, kp)
         if out is None:
             return res
         out.copy_(res[0] if return_lse else res)
@@ -171,6 +238,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
+        qp.data_ptr() if qp is not None else None,
+        kp.data_ptr() if kp is not None else None,
         b, h, hkv, sq, sk, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -180,24 +249,30 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
         build.stream_ptr(q.device))
     build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    if qp is not None:
+        flash_attention_fwd.pos_launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.pos_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
                         scale=None,
-                        grads: Optional[Sequence[torch.Tensor]] = None):
+                        grads: Optional[Sequence[torch.Tensor]] = None,
+                        q_positions=None, kv_positions=None):
     """Flash attention backward. q, out, do ``[B, Sq, H, D]``; k, v ``[B,
     Sk, H, D]``; lse (and the optional lse cotangent dlse) ``[B, H, Sq]``
     f32, as the forward wrote it. Returns ``(dq, dk, dv)`` in q's dtype.
     ``grads``, when given, is ``(dq, dk, dv)`` preallocated in any strides
     (contiguous last dim), such as views into one packed dQKV buffer; the
-    kernel writes them in place."""
+    kernel writes them in place. The positions are the forward's."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    qp, kp = q_positions, kv_positions
+    _check_positions(qp, kp, sq, sk, q.device)
     if k.shape[2] != h:
         raise ValueError(f"the flash backward takes as many k/v heads as q "
                          f"heads ({k.shape[2]} != {h}); repeat them first")
@@ -214,7 +289,7 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
             _check_like(name, t, ref.shape, q)
     if q.device.type == "cpu":
         res = flash_attention_bwd_ref(q, k, v, out, do, lse, dlse, causal,
-                                      scale)
+                                      scale, qp, kp)
         if grads is None:
             return res
         for dst, src in zip(grads, res):
@@ -244,31 +319,41 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
         do.data_ptr(), lse.data_ptr(),
         dlse.data_ptr() if dlse is not None else None,
         grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-        delta.data_ptr(), b, h, sq, sk, d, strides, int(bool(causal)),
+        delta.data_ptr(), qp.data_ptr() if qp is not None else None,
+        kp.data_ptr() if kp is not None else None, b, h, sq, sk, d,
+        strides, int(bool(causal)),
         float(scale), build.DTYPE_CODES[q.dtype], build.stream_ptr(q.device))
     build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    if qp is not None:
+        flash_attention_bwd.pos_launches += 1
     return tuple(grads)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.pos_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``(out, lse) = f(q, k, v)``: the forward kernel with its
     log-sum-exp, and the backward kernel for the gradients, with the lse
     cotangent (when the caller uses lse) folded into delta, as the
-    reference's ``_flash_bhsd_lse`` does."""
+    reference's ``_flash_bhsd_lse`` does. The optional positions select
+    position mode in both and get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, q_positions=None,
+                kv_positions=None):
         if k.shape[2] != q.shape[2]:
             raise ValueError("the flash backward takes as many k/v heads as "
                              "q heads; repeat them first")
+        qp, kp = _positions(q_positions, kv_positions, q.shape[1],
+                            k.shape[1], q.device)
         out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                       return_lse=True)
+                                       return_lse=True, q_positions=qp,
+                                       kv_positions=kp)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.positions = causal, scale, (qp, kp)
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -278,9 +363,11 @@ class FlashAttentionFunction(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros_like(out)
         dout = dout.to(q.dtype)  # an f32 cotangent from an f32 loss tail
+        qp, kp = ctx.positions
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, dlse,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         q_positions=qp, kv_positions=kp)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_fused(q, k, v, causal=True, scale=None):
@@ -292,10 +379,9 @@ def flash_attention_fused(q, k, v, causal=True, scale=None):
 def flash_attention_with_lse(q, k, v, causal=True, scale=None,
                              q_positions=None, kv_positions=None):
     """``(out [B, Sq, H, D], lse [B, H, Sq] f32)``, differentiable in both:
-    the lse cotangent flows back through the same backward kernel. The
-    position-masked form (``q_positions`` / ``kv_positions``, for ring
-    attention) is not ported and raises ``TypeError``."""
-    if q_positions is not None or kv_positions is not None:
-        raise TypeError("flash_attention_with_lse: position masks (ring "
-                        "attention) are not ported")
-    return FlashAttentionFunction.apply(q, k, v, causal, scale)
+    the lse cotangent flows back through the same backward kernel. With
+    ``q_positions`` [Sq] and ``kv_positions`` [Sk] (global token indices,
+    ring attention's chunks) the mask is ``q_pos >= kv_pos`` and ``causal``
+    is ignored; a row that sees no key gives out 0 and lse -1e30."""
+    return FlashAttentionFunction.apply(q, k, v, causal, scale, q_positions,
+                                        kv_positions)

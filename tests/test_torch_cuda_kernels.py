@@ -16,7 +16,11 @@ GPT's gradients against plain attention; the contiguous decode kernels
 (#14 on ``[B, Hkv, S, D]`` caches, #15 on the slab, strided views) and the
 head-major paged one (#4, int8 pages) at GQA groups 1/4/8, D 32-256, f32
 and bf16 (f32 within 2e-5, bf16 within one bf16 ulp of the output's
-largest entry), and tiny models generating on the card against the CPU.
+largest entry), and tiny models generating on the card against the CPU;
+the position forms of the flash forward and backward (zig-zag chunk pairs,
+rows that see no key, ragged unequal lengths, ``llama2_7b`` widths, equal
+to the causal kernels on 0..S-1) and the ring on a one-rank NCCL world
+against its materialized-logits version.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -966,3 +970,139 @@ def test_generate_on_card_matches_cpu(cuda):
         for name in ("5d", "paged"):
             torch.testing.assert_close(logits[name], logits["slab"],
                                        atol=1e-4, rtol=0)
+
+
+# ---- the position forms of #2 and #6, and the ring on the card --------
+def _zigzag_rows(S, world):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        zigzag_indices)
+
+    return torch.from_numpy(zigzag_indices(S, world)).view(world, -1)
+
+
+def _pos_cases():
+    """(tag, q positions, kv positions): zig-zag chunk pairs of a four-rank
+    ring over 256 tokens (whole tiles visible, masked or diagonal; rank 0's
+    first half-chunk sees no key of rank 3's), a chunk that sees no key,
+    and ragged unequal lengths."""
+    z = _zigzag_rows(256, 4)
+    return [("pair03", z[0], z[3]), ("pair30", z[3], z[0]),
+            ("pair11", z[1], z[1]), ("pair21", z[2], z[1]),
+            ("none", torch.arange(40, dtype=torch.int32),
+             torch.arange(50, 120, dtype=torch.int32)),
+            ("ragged", torch.arange(37, dtype=torch.int32) + 5,
+             torch.arange(29, dtype=torch.int32))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", range(6))
+def test_flash_pos_kernels_match_plain(cuda, dtype, D, case):
+    """Both position forms against their twins: out, lse (-1e30 exactly on
+    rows that see no key, where out is 0), and dq/dk/dv with an lse
+    cotangent; each wrapper counts one position-mode launch."""
+    tag, qp, kp = _pos_cases()[case]
+    g = torch.Generator(device=cuda).manual_seed(case)
+    H = 4
+    q = torch.randn((2, len(qp), H, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, len(kp), H, D), generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    dl = torch.randn((2, H, len(qp)), generator=g, device=cuda)
+    pk = dict(q_positions=qp.to(cuda), kv_positions=kp.to(cuda))
+    f0, b0 = fa.flash_attention_fwd.pos_launches, \
+        fa.flash_attention_bwd.pos_launches
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **pk)
+    grads = fa.flash_attention_bwd(q, k, v, out, do, lse, dl, **pk)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.pos_launches == f0 + 1
+    assert fa.flash_attention_bwd.pos_launches == b0 + 1
+    w_out, w_lse = fa.flash_attention_ref(q, k, v, return_lse=True, **pk)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    dead = w_lse == fa.NO_KEY_LSE
+    assert bool((lse[dead] == fa.NO_KEY_LSE).all())
+    assert not out.transpose(1, 2)[dead].any()
+    torch.testing.assert_close(lse[~dead], w_lse[~dead], atol=1e-4,
+                               rtol=1e-5)
+    if tag == "none":
+        assert bool(dead.all())
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, dl, **pk)
+    _grads_close(grads, want, dtype, tag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_pos_kernels_llama_widths(cuda, dtype):
+    """llama2_7b's attention widths (32 heads of 128): rank 0's chunk
+    against rank 1's in a two-rank zig-zag ring over 4096 tokens."""
+    z = _zigzag_rows(4096, 2).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn((1, 2048, 32, 128), generator=g,
+                               device=cuda).to(dtype) for _ in range(4))
+    pk = dict(q_positions=z[0], kv_positions=z[1])
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **pk)
+    w_out, w_lse = fa.flash_attention_ref(q, k, v, return_lse=True, **pk)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert bool((lse[w_lse == fa.NO_KEY_LSE] == fa.NO_KEY_LSE).all())
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **pk)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, **pk)
+    _grads_close(got, want, dtype, "llama widths")
+
+
+def test_flash_pos_equal_causal_on_card(cuda):
+    """Positions 0..S-1 give the causal kernels' values, forward and
+    backward (the same tiles, the same order)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn((2, 300, 4, 64), generator=g, device=cuda)
+                   for _ in range(4))
+    pos = torch.arange(300, dtype=torch.int32, device=cuda)
+    a = fa.flash_attention_fwd(q, k, v, return_lse=True, q_positions=pos,
+                               kv_positions=pos)
+    b = fa.flash_attention_fwd(q, k, v, return_lse=True, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    ga = fa.flash_attention_bwd(q, k, v, a[0], do, a[1], q_positions=pos,
+                                kv_positions=pos)
+    gb = fa.flash_attention_bwd(q, k, v, b[0], do, b[1], causal=True)
+    for x, y in zip(ga, gb):
+        assert torch.equal(x, y)
+
+
+def test_ring_attention_one_rank_nccl(cuda):
+    """``fleet.init`` (``sep_degree=1``) on a one-rank NCCL world, then the
+    flash ring against ``impl="xla"`` in a zig-zag layout, bf16, forward
+    and gradients; a CPU tensor on the NCCL group raises."""
+    from paddle_tpu_torch.distributed import destroy_process_group, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ring_attention, zigzag_indices)
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sep_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        _one_rank_ring_checks(cuda, ring_attention, zigzag_indices)
+    finally:
+        destroy_process_group()
+
+
+def _one_rank_ring_checks(cuda, ring_attention, zigzag_indices):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    pos = torch.from_numpy(zigzag_indices(512, 4)).to(cuda)
+    base = [torch.randn((2, 512, 8, 64), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(3)]
+    do = torch.randn((2, 512, 8, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    res = []
+    for impl in ("flash", "xla"):
+        ts = [t.clone().requires_grad_() for t in base]
+        out = ring_attention(*ts, causal=True, q_positions=pos,
+                             kv_positions=pos, impl=impl)
+        out.backward(do)
+        res.append([out.detach()] + [t.grad for t in ts])
+    torch.testing.assert_close(res[0][0].float(), res[1][0].float(),
+                               atol=2e-2, rtol=2e-2)
+    _grads_close(res[0][1:], res[1][1:], torch.bfloat16, "ring")
+    with pytest.raises(ValueError, match="nccl"):
+        x = torch.zeros((1, 8, 8, 64))
+        ring_attention(x, x, x)

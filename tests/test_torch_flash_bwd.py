@@ -170,10 +170,9 @@ def test_function_rejects_gqa_and_positions():
     with pytest.raises(ValueError, match="heads"):
         fa.flash_attention_fused(torch.from_numpy(q), k2, k2)
     pos = torch.arange(8)
-    with pytest.raises(TypeError, match="ring"):
+    with pytest.raises(ValueError, match="kv_positions"):
         fa.flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v), q_positions=pos,
-                                    kv_positions=pos)
+                                    torch.from_numpy(v), q_positions=pos)
     with pytest.raises(ValueError, match="lse"):
         tq = torch.from_numpy(q)
         fa.flash_attention_bwd(tq, tq, tq, tq, tq, torch.zeros((1, 4, 7)))
