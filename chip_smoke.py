@@ -59,6 +59,15 @@ Phases, in order; any failure exits non-zero:
               GPT-medium and ``llama2_7b`` widths with the kernels against
               plain attention.
 
+The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
+bodies: the kernels, context and training passes log those kernels'
+ptxas registers and spill bytes (and fail on a spill), and every bf16
+pass (T1-T6, the context path, the engine's passes, ``generate``) fails
+unless each of its flash launches was a tensor-core launch. The log's
+``flash row`` lines set each timed flash row beside the time of the
+FMA-only kernel it replaced (``FMA_BEFORE``, earlier runs of this script);
+the kernel JSON line holds only this run's numbers.
+
 Opt-in: ``--phases build,profile`` profiles one T1 training step, then
 times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
 spec verify step and a Mixtral-width MoE decode chain, and lists the
@@ -143,6 +152,50 @@ def phase_build():
                  if "registers" in ln or "spill" in ln]
         for ln in lines[:24]:
             log(f"  ptxas[{name}] {ln.strip()}")
+
+
+def tc_ptxas(tag):
+    """Log the ptxas registers and spill bytes of every tensor-core flash
+    kernel (``*_tc_kernel``, from the ``-Xptxas -v`` report that the build
+    keeps beside each library). Fail if one spills, if the report holds
+    none, or if a library holds an FMA body for bf16 at D 64 or 128: each
+    bf16 launch there must reach the tensor-core body, which is how the
+    wrappers count ``tc_launches``. Returns the number of kernels read."""
+    import re
+
+    from paddle_tpu_torch.kernels import build
+
+    n = 0
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        name = None
+        for ln in build.ptxas_report(lib).splitlines():
+            m = re.search(r"\d(flash_\w+?_fma_kernel)I13__nv_bfloat16Li(\d+)E",
+                          ln)
+            if m and int(m.group(2)) in (64, 128):
+                raise AssertionError(f"{tag}: {lib} holds {m.group(1)} for "
+                                     f"bf16 at D {m.group(2)}")
+            m = re.search(r"\d(flash_(?:fwd|bwd_dkv|bwd_dq)_tc_kernel)I"
+                          r"(\w+?)EEv", ln)
+            if m:
+                args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+                name = f"{m.group(1)}<{', '.join(args)}>"
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if name and m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", ln)
+            if name and m:
+                log(f"{tag}: ptxas {name}: {m.group(1)} registers, spill "
+                    f"stores {spill[0]} B, loads {spill[1]} B")
+                if any(spill):
+                    raise AssertionError(f"{tag}: {name} spills")
+                name, n = None, n + 1
+    if n == 0:
+        raise AssertionError(f"{tag}: the ptxas report names no tensor-core "
+                             "flash kernel")
+    return n
 
 
 # ------------------------------------------------------------ phase 2
@@ -517,7 +570,10 @@ def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
     are views of one ``[B, S, 3H, D]`` QKV buffer, the output a ``[B, S,
     H, D]`` buffer and dq/dk/dv views of one dQKV, as the packed route
     lays them out. Tolerance: every gradient within 2e-2 (bf16) or 1e-4
-    (f32) of its largest entry. Bound: q, k, v, out, dO (and lse, dlse)
+    (f32) of its largest entry, and within CTX_NORM_TOL of the twin's in
+    relative norm. Control: the kernel's dV with one live 64-key tile
+    zeroed (what a skipped tile gives) must fail the relative-norm check.
+    Bound: q, k, v, out, dO (and lse, dlse)
     read once and dq, dk, dv written once over HBM; 10*D flops per live
     (query, key) pair (the five products of the recompute scheme, 2.5x the
     forward's) over the dtype's peak."""
@@ -547,19 +603,32 @@ def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
     want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, dl,
                                       causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    err = 0.0
+    norm_tol = CTX_NORM_TOL["bf16" if dtype == torch.bfloat16 else "f32"]
+    tag = f"flash bwd {dtype} B={B} Sq={Sq} Sk={Sk} H={H} D={D}"
+    err = rel = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"flash bwd {name}: non-finite values")
         top = max(1.0, float(b.float().abs().max()))
         e = float((a.float() - b.float()).abs().max())
         if e > tol * top:
-            raise AssertionError(f"flash bwd {dtype} B={B} Sq={Sq} Sk={Sk} "
-                                 f"H={H} D={D} {name}: max abs err {e} "
-                                 f"beyond {tol} * {top:.3g}")
-        err = max(err, e)
-    del want
-    rec = {"max_abs_err": err}
+            raise AssertionError(f"{tag} {name}: max abs err {e} beyond "
+                                 f"{tol} * {top:.3g}")
+        n = _rel_norm(torch, a, b)
+        if n > norm_tol:
+            raise AssertionError(f"{tag} {name}: relative norm err {n:.3g} "
+                                 f"beyond {norm_tol}")
+        err, rel = max(err, e), max(rel, n)
+    # keys past the last query are dead when causal: zero a live tile
+    j = (min(Sq, Sk) if causal else Sk) // 2 // 64 * 64
+    dv = got[2].float().clone()
+    dv[:, j:j + 64] = 0
+    ctl = _rel_norm(torch, dv, want[2])
+    if ctl <= norm_tol:
+        raise AssertionError(f"{tag}: control (dv keys {j}..{j + 63} "
+                             f"zeroed) passes at relative norm {ctl:.3g}")
+    del want, dv
+    rec = {"max_abs_err": err, "rel_norm": rel, "control_rel_norm": ctl}
     if dtype == torch.bfloat16:
         # the same math on f32 upcasts, with no bf16 rounding of P and dS:
         # what the bf16 kernel's gradients lose to that rounding
@@ -568,6 +637,8 @@ def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
         rec["err_vs_f32"] = max(
             float((a.float() - b).abs().max()) / max(1.0, float(
                 b.abs().max())) for a, b in zip(got, want))
+        rec["rel_vs_f32"] = max(_rel_norm(torch, a, b)
+                                for a, b in zip(got, want))
         del want
     torch.cuda.empty_cache()
     if timed:
@@ -858,14 +929,19 @@ def _row(tag, r):
                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                  f"library_ms="
                  + ("none" if lib is None else f"{lib:.4f}"))
+    if "rel_norm" in r:
+        extra += (f" rel_norm={r['rel_norm']:.3g} control_rel_norm="
+                  f"{r['control_rel_norm']:.3g}")
     if "err_vs_f32" in r:
-        extra += f" err_vs_f32={r['err_vs_f32']:.3g} (of the largest entry)"
+        extra += (f" err_vs_f32={r['err_vs_f32']:.3g} (of the largest "
+                  f"entry) rel_vs_f32={r['rel_vs_f32']:.3g}")
     return f"kernel {tag}: max_abs_err={r['max_abs_err']:.3g}{extra}"
 
 
 def phase_kernels():
     import torch
 
+    tc_ptxas("kernels")
     bf16, f32 = torch.bfloat16, torch.float32
     # llama2_7b decode: B=8 slots, H=Hkv=32, D=128, page 16, 256 pages per
     # sequence (max_position 4096); ragged lengths with 0 and the cap
@@ -1087,6 +1163,13 @@ def _pos_mask_sdpa(torch, q, k, v, qp, kp, scale):
 # the context phase's tolerances: entry by entry atol = rtol = TOL, and the
 # relative error over the whole tensor, ||got - want|| / ||want||, within
 # NORM_TOL (which a fault confined to some rows cannot hide under)
+def _rel_norm(torch, got, want):
+    """||got - want|| / ||want|| in f32 (0 when both are 0)."""
+    g, w = got.float(), want.float()
+    diff = float(torch.linalg.vector_norm(g - w))
+    return diff / max(float(torch.linalg.vector_norm(w)), 1e-30)
+
+
 CTX_TOL = {"bf16": 2e-2, "f32": 1e-4}
 CTX_NORM_TOL = {"bf16": 1e-2, "f32": 1e-4}
 
@@ -1110,8 +1193,7 @@ def _close_check(tag, got, want, dtype):
             f"{tag}: {int((over > tol).sum())} entries beyond atol=rtol="
             f"{tol}; worst got {float(g.flatten()[i]):.6g} want "
             f"{float(w.flatten()[i]):.6g}")
-    rel = float(torch.linalg.vector_norm(diff)) / max(
-        float(torch.linalg.vector_norm(w)), 1e-30)
+    rel = _rel_norm(torch, g, w)
     if rel > norm_tol:
         raise AssertionError(f"{tag}: relative norm err {rel:.3g} beyond "
                              f"{norm_tol}")
@@ -1347,6 +1429,7 @@ def phase_context(ident, S=16384, iters=3):
     from paddle_tpu_torch.incubate.nn.functional import ring_flash_attention
 
     t_phase = time.perf_counter()
+    tc_ptxas("context")
     bf16, f32 = torch.bfloat16, torch.float32
     H, D, world = 32, 128, 4
     rec_f, rec_b = check_flash_pos(torch, bf16, S, world, H, D, timed_rank=1)
@@ -1396,7 +1479,8 @@ def phase_context(ident, S=16384, iters=3):
         return out
 
     out, got = _counted(drive, needs=("flash_attention_fwd_pos",
-                                      "flash_attention_bwd_pos"))
+                                      "flash_attention_bwd_pos"),
+                        tc="context path")
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name, n in got.items():
         if n and not name.startswith(("flash_attention_fwd",
@@ -1513,6 +1597,21 @@ KERNELS = {
         tpu_kernel=15, source="paddle_tpu_torch/csrc/decode_attention.cu",
         replaces="paddle_tpu/ops/pallas/decode_attention.py:241"),
 }
+# the time of the FMA-only flash kernel that each flash row's tensor-core
+# body replaced, at the same shape, from earlier full runs of this script
+# (H100 80GB HBM3, 700 W); only the log's "flash row" lines read it
+FMA_BEFORE = {
+    "flash_attention_fwd": 4.2502,
+    "flash_attention_bwd_fused": 4.5087,
+    "flash_attention_bwd_split": 10.9615,
+    "flash_attention_fwd_pos": 31.7969,
+    "flash_attention_bwd_pos": 100.0360,
+    "causal_flash_fwd": 0.9386,
+    "causal_flash_fwd_tiled": 9.0901,
+    "causal_flash_fwd_row": 4.4158,
+    "causal_flash_bwd_tiled": 10.9307,
+    "causal_flash_bwd": 4.5202,
+}
 # the rows that only the generate phase launches
 GENERATE_ROWS = ("paged_decode_attention_v1", "decode_attention",
                  "decode_attention_slab")
@@ -1573,6 +1672,11 @@ def main(argv=None):
                      "bound_ms": st.get("bound_ms"),
                      "bound_by": st.get("bound_by"),
                      "library_ms": st.get("library_ms")})
+    for name, before in FMA_BEFORE.items():
+        ms = kernel_stats.get(name, {}).get("ms")
+        if ms:
+            log(f"flash row {name}: {ms:.4f} ms (the FMA-only kernel, an "
+                f"earlier run: {before:.4f} ms, {before / ms:.1f}x)")
     log("kernels: " + ", ".join(KERNELS))
     log(f"card: {ident}")
     log(json.dumps({"kernels": rows}))
@@ -1634,11 +1738,16 @@ def _counters():
     from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
     # name -> (wrapper, its counter); the flash wrappers' ``launches``
-    # include their position-mode launches, which ``pos_launches`` counts
+    # include their position-mode launches, which ``pos_launches`` counts,
+    # and their tensor-core launches, which ``tc_launches`` counts
     return {"paged_decode_attention": (pa.paged_slab_decode_attention,
                                        "launches"),
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
+            "flash_attention_fwd_tc": (fa.flash_attention_fwd,
+                                       "tc_launches"),
+            "flash_attention_bwd_tc": (fa.flash_attention_bwd,
+                                       "tc_launches"),
             "flash_attention_fwd_pos": (fa.flash_attention_fwd,
                                         "pos_launches"),
             "flash_attention_bwd_pos": (fa.flash_attention_bwd,
@@ -1653,10 +1762,13 @@ def _counters():
             "decode_attention_slab": (da.decode_attention_slab, "launches")}
 
 
-def _counted(run, needs=()):
+def _counted(run, needs=(), tc=None):
     """Zero every launch counter, ``run()``, read the counters. Fails if a
-    kernel in ``needs`` was never launched. Returns (run's result,
-    launches)."""
+    kernel in ``needs`` was never launched. ``tc``, the tag of a pass whose
+    attention is bf16 at head dim 64 or 128 throughout: logs the flash
+    wrappers' tensor-core launches and fails unless every flash launch of
+    the pass was one. Returns (run's result, launches without the
+    tensor-core counts)."""
     fns = _counters()
     for fn, attr in fns.values():
         setattr(fn, attr, 0)
@@ -1665,6 +1777,17 @@ def _counted(run, needs=()):
     for name in needs:
         if got[name] <= 0:
             raise AssertionError(f"this pass never launched {name}")
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    on_tc = {name: got.pop(name + "_tc") for name in flash}
+    if tc is not None:
+        log(f"{tc}: tensor-core flash launches: forward "
+            f"{on_tc[flash[0]]} of {got[flash[0]]}, backward "
+            f"{on_tc[flash[1]]} of {got[flash[1]]}")
+        for name in flash:
+            if on_tc[name] != got[name]:
+                raise AssertionError(f"{tc}: {got[name] - on_tc[name]} bf16 "
+                                     f"launches of {name} at head dim 64/128 "
+                                     "left the tensor-core body")
     return out, got
 
 
@@ -1699,7 +1822,7 @@ def phase_main(ident):
     def run_pass(tag, run, needs):
         """``run()`` serves one pass on an engine of its own; the launch
         counters are zeroed just before and read just after."""
-        got = _counted(run, needs)[1]  # the pass's engine is gone here
+        got = _counted(run, needs, tc=tag)[1]  # its engine is gone here
         log(f"{tag}: launches {got}")
         if got.pop("flash_attention_bwd"):
             raise AssertionError(f"{tag}: serving launched the backward")
@@ -2172,8 +2295,8 @@ def phase_generate(ident):
     total = {name: 0 for name in KERNELS}
     bf16 = torch.bfloat16
 
-    def run(tag, fn, needs):
-        res, got = _counted(fn, needs)
+    def run(tag, fn, needs, tc=True):
+        res, got = _counted(fn, needs, tc=tag if tc else None)
         if got.pop("flash_attention_bwd"):
             raise AssertionError(f"{tag}: generation launched the backward")
         log(f"{tag}: launches {got}")
@@ -2208,7 +2331,7 @@ def phase_generate(ident):
     gpt = init_gpt(cfg, seed=0, device="cuda", dtype=bf16).eval()
     per_pass = _counted(lambda: gpt.generate(
         ids, max_new_tokens=new, temperature=0.0, max_seq=max_seq),
-        needs=slab)[1]
+        needs=slab, tc="generate G1 prefill")[1]
     log(f"generate G1: one generate pass (B=8, 128 + 512) launches "
         f"{ {k: v for k, v in per_pass.items() if v} }")
     out_bf16 = run("G1 bf16", lambda: g1("bf16", gpt, 3), slab)
@@ -2305,14 +2428,14 @@ def phase_generate(ident):
     check_ids = ids[:2, :64]
     out = run("check GPT-2 small widths", lambda: _layout_pass(
         "GPT-2 small widths 2 layers f32", small, check_ids, 40, kinds,
-        torch.float32, 1e-5, ident), slab + GENERATE_ROWS[:2])
+        torch.float32, 1e-5, ident), slab + GENERATE_ROWS[:2], tc=False)
     _match_cacheless_rows(small, out, 64, "GPT-2 small widths 2 layers f32")
     del small
     small = init_llama(LlamaConfig(num_layers=2), seed=1, device="cuda",
                        dtype=torch.float32)
     out = run("check llama2_7b widths", lambda: _layout_pass(
         "llama2_7b widths 2 layers f32", small, lids[:2, :64], 40,
-        kinds, torch.float32, 1e-5, ident), slab + GENERATE_ROWS)
+        kinds, torch.float32, 1e-5, ident), slab + GENERATE_ROWS, tc=False)
     _match_cacheless_rows(small, out, 64, "llama2_7b widths 2 layers f32")
     del small
     torch.cuda.empty_cache()
@@ -2420,6 +2543,7 @@ def train_passes(ident, total):
     from paddle_tpu_torch.framework.flags import get_flags, set_flags
     from paddle_tpu_torch.models.gpt import gpt2_medium
 
+    tc_ptxas("main training")
     med = gpt2_medium()
     passes = [("T1", med, 12, 1024, 12, True),
               ("T2", dataclasses.replace(med, max_position=2048), 8, 2048, 6,
@@ -2449,7 +2573,7 @@ def train_passes(ident, total):
             torch.cuda.reset_peak_memory_stats()
             (losses, secs), got = _counted(
                 lambda: train_steps(model, opt, sched, ids, labels, steps),
-                needs=flash)
+                needs=flash, tc=f"main {tag}")
             peak = torch.cuda.max_memory_allocated() / 2**30
             for wrapper, row in zip(flash, rows):
                 total[row] += got.pop(wrapper)
@@ -2575,11 +2699,16 @@ def _profile_train(ident):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in events
+                  if "flash_" in e.key) / 1e3
     wall = secs[-1] * 1e3
+    mfu = 12 * 1024 / (wall / 1e3) * 6 * cfg.num_params() / BF16_FLOPS_PER_S
     log(f"profile: T1 train step (GPT-medium O2 bf16, packed, 12 x 1024): "
-        f"wall {wall:.1f} ms; device busy {busy_ms:.1f} ms under the "
-        f"profiler (idle {max(0.0, 1 - busy_ms / wall):.0%}); "
-        f"{sum(e.count for e in events)} device kernels [{ident}]")
+        f"wall {wall:.1f} ms (MFU {mfu:.4f}); device busy {busy_ms:.1f} ms "
+        f"under the profiler (idle {max(0.0, 1 - busy_ms / wall):.0%}); "
+        f"flash kernels {attn_ms:.2f} ms ({attn_ms / busy_ms:.0%} of the "
+        f"device time); {sum(e.count for e in events)} device kernels "
+        f"[{ident}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
             f"x{e.count:<6d} {e.key[:90]}")

@@ -11,7 +11,7 @@ with at most ``PALLAS_MAX_ROWS`` (256) rows takes the fused kernel #12
 (``ops/cuda/quant_matmul.py``, dequant inside the kernel); more rows
 (prefill) and the CPU take :func:`quant_matmul_xla`, which dequantizes and
 hands the product to ``torch.matmul``. ``FLAGS_weight_only_quant_backend``
-is not ported: the port has no flags module yet.
+is not ported yet: ``framework/flags.py`` does not define it.
 """
 from __future__ import annotations
 

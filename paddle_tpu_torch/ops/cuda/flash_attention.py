@@ -6,7 +6,19 @@ and ``flash_attention_with_lse``. The forward kernel (TPU kernel #2,
 ``_fwd_kernel``) is ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; the
 backward kernel, which replaces both the fused whole-sequence backward (#5,
 ``_bwd_fused``) and the split dK/dV and dQ kernels (#6, ``_bwd``), is
-``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``. Both are bound by the
+tensor cores' bf16 rate at every shape the port runs (thousands of flops
+per byte moved).
+
+Each kernel has two bodies, chosen by dtype and head dim (``flash_body``):
+bf16 at D 64 and 128 runs on the tensor cores (FlashAttention-2's design
+on ``mma.sync``: tiles staged in bf16 shared memory by ``cp.async``, the
+softmax on the accumulators in registers, P and dS rounded to bf16 straight
+into the next product's operands); f32 at every D, and bf16 at D 32 and 256
+(no model on the port's paths uses them), run on f32 FMAs, so f32 keeps
+full-precision products. The tensor-core body copies 16 bytes at a time:
+each operand's base and (batch, seq, head) strides must be multiples of 16
+bytes, and ``check_tc_alignment`` refuses others, naming the operand.
 
 Layout ``[B, S, H, D]`` in and out (the paddle flash_attention layout); the
 kernels read every operand through its strides (last dim contiguous), so
@@ -26,8 +38,11 @@ the ring's log-space merge weighs as nothing.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``
-count kernel launches; ``.pos_launches`` counts those in position mode
-(which ``.launches`` includes).
+count kernel launches; ``.tc_launches`` counts those on the tensor-core body
+and ``.pos_launches`` those in position mode (both included in
+``.launches``). Each library picks its body at compile time and builds no
+FMA body for bf16 at D 64 or 128, so ``flash_body`` tells which body a
+launch ran.
 """
 from __future__ import annotations
 
@@ -39,12 +54,54 @@ import torch
 
 __all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "FlashAttentionFunction",
-           "flash_attention_fused", "flash_attention_with_lse"]
+           "flash_attention_fused", "flash_attention_with_lse", "flash_body",
+           "check_tc_alignment"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NO_KEY_LSE = -1.0e30  # lse of a row that sees no key (the reference's NEG_INF)
 _HEAD_DIMS = (32, 64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
+_TC_HEAD_DIMS = (64, 128)
+
+
+def flash_body(dtype, head_dim) -> str:
+    """The body a flash kernel runs for ``dtype`` at ``head_dim`` on the
+    card, by the rule of both ``.cu`` files' launch code:
+    ``"tensor_core"`` for bf16 at D 64 and 128, ``"fma"`` for f32 at every
+    D (its checks hold it to 1e-4, which TF32 products would break) and for
+    bf16 at D 32 and 256."""
+    if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
+        return "tensor_core"
+    return "fma"
+
+
+def check_tc_alignment(*named):
+    """Refuse an operand the tensor-core body cannot copy: its 16-byte
+    ``cp.async`` copies and stores need each ``(name, tensor)``'s base
+    address and its (batch, seq, head) strides in bytes to be multiples of
+    16 (a stride of a dim of size 1 is never used). Raises ``ValueError``
+    naming the operand."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core flash kernel needs a "
+                             f"16-byte aligned base address, got "
+                             f"{t.data_ptr():#x}")
+        for dim, what in enumerate(("batch", "seq", "head")):
+            nbytes = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and nbytes % 16:
+                raise ValueError(f"{name}: the tensor-core flash kernel "
+                                 f"needs a {what} stride of a multiple of 16 "
+                                 f"bytes, got {nbytes}")
+
+
+def _launched(fn, tensor_core, positions):
+    """Count one launch of ``fn``'s kernel, on the tensor-core body when
+    ``tensor_core``, in position mode when ``positions``."""
+    fn.launches += 1
+    if tensor_core:
+        fn.tc_launches += 1
+    if positions:
+        fn.pos_launches += 1
 
 
 def _positions(q_positions, kv_positions, sq, sk, device):
@@ -224,6 +281,9 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     if out is not None:
         named.append(("out", out))
     _cuda_checks(q, _HEAD_DIMS, *named)
+    tensor_core = flash_body(q.dtype, d) == "tensor_core"
+    if tensor_core:
+        check_tc_alignment(*named)
     sk, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -248,13 +308,12 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
         int(bool(causal)), float(scale), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q.device))
     build.check(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
-    if qp is not None:
-        flash_attention_fwd.pos_launches += 1
+    _launched(flash_attention_fwd, tensor_core, qp is not None)
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 flash_attention_fwd.pos_launches = 0
 
 
@@ -301,9 +360,12 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
         grads = (torch.empty_like(q, memory_format=torch.contiguous_format),
                  torch.empty_like(k, memory_format=torch.contiguous_format),
                  torch.empty_like(v, memory_format=torch.contiguous_format))
-    ops = (q, k, v, out, do) + tuple(grads)
-    _cuda_checks(q, _BWD_HEAD_DIMS,
-                 *zip(("q", "k", "v", "out", "do", "dq", "dk", "dv"), ops))
+    named = tuple(zip(("q", "k", "v", "out", "do", "dq", "dk", "dv"),
+                      (q, k, v, out, do) + tuple(grads)))
+    _cuda_checks(q, _BWD_HEAD_DIMS, *named)
+    tensor_core = flash_body(q.dtype, d) == "tensor_core"
+    if tensor_core:
+        check_tc_alignment(*named)
     lse = lse.contiguous()
     dlse = dlse.contiguous() if dlse is not None else None
     if scale is None:
@@ -312,7 +374,7 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
 
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
-        *[t.stride(i) for t in ops for i in range(3)])
+        *[t.stride(i) for _, t in named for i in range(3)])
     lib = build.load("flash_attention_bwd")
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -324,13 +386,12 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
         strides, int(bool(causal)),
         float(scale), build.DTYPE_CODES[q.dtype], build.stream_ptr(q.device))
     build.check(rc, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
-    if qp is not None:
-        flash_attention_bwd.pos_launches += 1
+    _launched(flash_attention_bwd, tensor_core, qp is not None)
     return tuple(grads)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 flash_attention_bwd.pos_launches = 0
 
 

@@ -29,8 +29,13 @@ JAX, which the port's machine need not have; this file uses none of it)::
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: f32 1e-4 (online vs direct softmax, summation order); bf16
-2e-2 (outputs rounded to bf16, P rounded to bf16 before P.V).
+2e-2 (outputs rounded to bf16, P rounded to bf16 before P.V). Flash
+gradients are also held to NORM_TOL in relative norm (f32 1e-4, bf16
+1e-2; ``_grads_close``), which catches an error spread over many small
+entries.
 """
+import re
+
 import pytest
 import torch
 
@@ -41,6 +46,7 @@ from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -588,12 +594,20 @@ def _bwd_inputs(dev, dtype, B, Sq, Sk, H, D, causal, seed=0, dlse=False):
 
 
 def _grads_close(got, want, dtype, tag=""):
-    """Each gradient within TOL[dtype] of its largest entry."""
+    """Each gradient within TOL[dtype] of its largest entry, and within
+    NORM_TOL[dtype] of ``want`` in norm relative to ``max(||want||, 1)``:
+    the floor of 1, like the entrywise scale's, keeps a gradient that is
+    zero by cancellation (one key per query: dP = delta) from holding
+    rounding noise to its own size."""
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         scale = max(1.0, float(b.float().abs().max()))
         err = float((a.float() - b.float()).abs().max())
         assert err <= TOL[dtype] * scale, f"{tag} {name}: {err} > " \
             f"{TOL[dtype]} * {scale}"
+        rel = float(torch.linalg.vector_norm(a.float() - b.float())) / max(
+            float(torch.linalg.vector_norm(b.float())), 1.0)
+        assert rel <= NORM_TOL[dtype], f"{tag} {name}: relative norm " \
+            f"{rel} > {NORM_TOL[dtype]}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1106,3 +1120,218 @@ def _one_rank_ring_checks(cuda, ring_attention, zigzag_indices):
     with pytest.raises(ValueError, match="nccl"):
         x = torch.zeros((1, 8, 8, 64))
         ring_attention(x, x, x)
+
+
+# ------------------------------------------------ the tensor-core bodies of
+# #2 and the backward (bf16 at D 64 and 128)
+def _counts():
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tc_launches,
+            fa.flash_attention_bwd.launches, fa.flash_attention_bwd.tc_launches)
+
+
+def _compiled_bodies(lib):
+    """``{(body, dtype, D)}`` of the flash kernels that ``lib`` compiled,
+    read from the mangled names in its ptxas report: a tensor-core kernel
+    (``*_tc_kernel<D, POS>``) is bf16; an FMA kernel
+    (``*_fma_kernel<T, D, POS>``) names its dtype."""
+    from paddle_tpu_torch.kernels import build
+
+    build.load(lib)
+    found = set()
+    for kind, args in re.findall(r"\dflash_\w+?_(tc|fma)_kernelI(\w+?)EEv",
+                                 build.ptxas_report(lib)):
+        d = int(re.search(r"Li(\d+)E", args).group(1))
+        dtype = "f32" if args.startswith("f") else "bf16"
+        found.add(("tensor_core" if kind == "tc" else "fma", dtype, d))
+    return found
+
+
+def test_flash_body_rule_matches_the_libraries(cuda):
+    """Each library compiles the tensor-core body for exactly the (dtype,
+    D) cases that ``flash_body`` names and the FMA body for the rest: no
+    FMA body for bf16 at D 64 or 128 exists, so the wrappers'
+    ``tc_launches`` (counted by ``flash_body``) is what ran."""
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    for lib, dims in (("flash_attention_fwd", (32, 64, 128, 256)),
+                      ("flash_attention_bwd", (64, 128, 256))):
+        want = {(fa.flash_body(dt, d), names[dt], d) for dt in names
+                for d in dims}
+        assert _compiled_bodies(lib) == want, lib
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 256)])
+def test_flash_tc_launch_counts(cuda, dtype, D):
+    """bf16 at D 64 and 128 reaches the tensor-core bodies (tc_launches +1
+    in each wrapper); f32 and bf16 at D 256 do not."""
+    q, k, v, out, do, lse, _ = _bwd_inputs(cuda, dtype, 1, 70, 70, 2, D,
+                                           True)
+    c0 = _counts()
+    fa.flash_attention_fwd(q, k, v, return_lse=True)
+    fa.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16 and D in (64, 128))
+    assert tuple(b - a for a, b in zip(c0, _counts())) == (1, tc, 1, tc)
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 1000, 1030])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_ragged_lengths(cuda, S, D, causal):
+    """Ragged sequence lengths (no multiple of a tile) on the tensor-core
+    bodies: out, lse and every gradient against the plain twins."""
+    q, k, v, out, do, lse, dl = _bwd_inputs(cuda, torch.bfloat16, 2, S, S, 2,
+                                            D, causal, seed=S, dlse=True)
+    w_out, w_lse = fa.flash_attention_ref(q, k, v, causal=causal,
+                                          return_lse=True)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, w_lse, atol=1e-3, rtol=1e-4)
+    c0 = _counts()
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, dl, causal=causal)
+    assert _counts()[3] == c0[3] + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, dl,
+                                      causal=causal)
+    _grads_close(got, want, torch.bfloat16, f"S={S}")
+
+
+@pytest.mark.parametrize("Sq,Sk", [(30, 130), (130, 30), (1, 700),
+                                   (700, 1), (200, 1030)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tc_cross_lengths(cuda, Sq, Sk, causal):
+    """Sq != Sk (top-left causality) on the tensor-core bodies."""
+    q, k, v, out, do, lse, _ = _bwd_inputs(cuda, torch.bfloat16, 2, Sq, Sk,
+                                           2, 64, causal, seed=Sq + Sk)
+    w_out, w_lse = fa.flash_attention_ref(q, k, v, causal=causal,
+                                          return_lse=True)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, w_lse, atol=1e-3, rtol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    _grads_close(got, want, torch.bfloat16, f"{Sq}x{Sk}")
+
+
+@pytest.mark.parametrize("S", [64, 333, 1024])
+def test_flash_tc_gqa_32_8(cuda, S):
+    """Native GQA on the tensor-core forward: 32 q heads over 8 kv heads
+    at D = 128, k/v not expanded."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn((2, S, 32, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, S, 8, 128), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    c0 = _counts()
+    got, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    assert _counts()[1] == c0[1] + 1
+    want, w_lse = fa.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, w_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tc_packed_views(cuda, D):
+    """q, k, v as views of one [B, S, 3H, D] buffer and dq/dk/dv written
+    into views of one dQKV on the tensor-core bodies: the plain twins'
+    values, and the contiguous call's bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    B, S, H = 2, 300, 4
+    y = torch.randn((B, S, 3 * H, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = y[:, :, :H], y[:, :, H:2 * H], y[:, :, 2 * H:]
+    o = torch.empty((B, S, H, D), dtype=y.dtype, device=cuda)
+    c0 = _counts()
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, out=o)
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).to(y.dtype)
+    dqkv = torch.empty_like(y)
+    fa.flash_attention_bwd(q, k, v, o, do, lse, grads=(
+        dqkv[:, :, :H], dqkv[:, :, H:2 * H], dqkv[:, :, 2 * H:]))
+    assert tuple(b - a for a, b in zip(c0, _counts())) == (1, 1, 1, 1)
+    want_o = fa.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    _grads_close((dqkv[:, :, :H], dqkv[:, :, H:2 * H], dqkv[:, :, 2 * H:]),
+                 want, torch.bfloat16, "packed")
+    cq, ck, cv = (t.contiguous() for t in (q, k, v))
+    co, clse = fa.flash_attention_fwd(cq, ck, cv, return_lse=True)
+    assert torch.equal(co, o) and torch.equal(clse, lse)
+    cg = fa.flash_attention_bwd(cq, ck, cv, co, do, clse)
+    assert torch.equal(torch.cat(cg, 2), dqkv)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tc_position_rows_without_keys(cuda, D):
+    """Position mode on the tensor-core bodies: the first 48 queries see
+    no key (out exactly 0, lse exactly -1e30, zero gradients), the rest a
+    zig-zag-like mix of whole, masked and diagonal tiles."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    qp = torch.cat([torch.arange(48), torch.arange(500, 700)]).to(
+        torch.int32)
+    kp = (torch.arange(300, dtype=torch.int32) * 2 + 100)
+    q = torch.randn((2, len(qp), 4, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, len(kp), 4, D), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    pk = dict(q_positions=qp.to(cuda), kv_positions=kp.to(cuda))
+    c0 = _counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **pk)
+    grads = fa.flash_attention_bwd(q, k, v, out, do, lse, **pk)
+    assert tuple(b - a for a, b in zip(c0, _counts())) == (1, 1, 1, 1)
+    assert bool((lse[:, :, :48] == fa.NO_KEY_LSE).all())
+    assert not out[:, :48].any() and not grads[0][:, :48].any()
+    w_out, w_lse = fa.flash_attention_ref(q, k, v, return_lse=True, **pk)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse[:, :, 48:], w_lse[:, :, 48:], atol=1e-4,
+                               rtol=1e-5)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, **pk)
+    _grads_close(grads, want, torch.bfloat16, "positions")
+
+
+def test_flash_tc_backward_deterministic_at_t1(cuda):
+    """The T1 training shape (GPT-medium heads, 12 x 1024, the packed
+    route's views into one dQKV): two backward runs give bitwise-equal
+    gradients (three launches, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, H, D = 12, 1024, 16, 64
+    y = torch.randn((B, S, 3 * H, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = y[:, :, :H], y[:, :, H:2 * H], y[:, :, 2 * H:]
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).to(y.dtype)
+    runs = []
+    for _ in range(2):
+        dqkv = torch.empty_like(y)
+        fa.flash_attention_bwd(q, k, v, o, do, lse, grads=(
+            dqkv[:, :, :H], dqkv[:, :, H:2 * H], dqkv[:, :, 2 * H:]))
+        runs.append(dqkv)
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_flash_tc_refuses_views_cp_async_cannot_take(cuda):
+    """A base or a (batch, seq, head) stride that is no multiple of 16
+    bytes raises ValueError naming the operand; the f32 FMA body takes the
+    same view."""
+    bf = torch.bfloat16
+    q = torch.zeros((1, 16, 2, 64), dtype=bf, device=cuda)
+    flat = torch.zeros(q.numel() + 8, dtype=bf, device=cuda)
+    k = flat[4:4 + q.numel()].view_as(q)
+    with pytest.raises(ValueError, match="^k: .*base address"):
+        fa.flash_attention_fwd(q, k, q)
+    wide = torch.zeros((1, 16, 2 * 64 + 4), dtype=bf, device=cuda)
+    v = wide[..., :128].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="^v: .*seq stride"):
+        fa.flash_attention_fwd(q, q, v)
+    lse = torch.zeros((1, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="^do: .*seq stride"):
+        fa.flash_attention_bwd(q, q, q, q, v, lse)
+    f = torch.zeros((1, 16, 2 * 64 + 1), device=cuda)[..., :128].view(
+        1, 16, 2, 64)
+    fa.flash_attention_fwd(f, f, f)
+    torch.cuda.synchronize()
