@@ -66,7 +66,15 @@ pass (T1-T6, the context path, the engine's passes, ``generate``) fails
 unless each of its flash launches was a tensor-core launch. The log's
 ``flash row`` lines set each timed flash row beside the time of the
 FMA-only kernel it replaced (``FMA_BEFORE``, earlier runs of this script);
-the kernel JSON line holds only this run's numbers.
+the kernel JSON line holds only this run's numbers. The verify kernel
+(#3) runs bf16 at head dims 64 and 128 on its tensor-core body, with
+split-K at narrow widths, and the grouped expert matmul (#13) runs its
+prefill shapes on its ``wgmma`` body: the kernels phase logs both bodies'
+ptxas registers and spills (a spill fails), times each beside the body it
+replaced on the same inputs (``fma_ms``, ``wmma_ms``) and the merge
+kernel's share of a split call; every bf16 engine pass through #3 fails
+unless each verify launch was a tensor-core one, and the MoE chunked pass
+unless it reached the ``wgmma`` body.
 
 Opt-in: ``--phases build,profile`` profiles one T1 training step, then
 times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
@@ -199,6 +207,45 @@ def tc_ptxas(tag):
 
 
 # ------------------------------------------------------------ phase 2
+def body_ptxas(tag):
+    """Log the ptxas registers and spill bytes of the tensor-core verify
+    kernel (``verify_tc_kernel<D, BQ, int8 pages>``) and the wgmma grouped
+    matmul (``grouped_wgmma_kernel<BN>``), from the ``-Xptxas -v`` report
+    the build keeps beside each library. Fail if one spills or if a
+    report names none of them. Returns the number of kernels read."""
+    import re
+
+    from paddle_tpu_torch.kernels import build
+
+    n = 0
+    for lib, kernel in (("paged_verify_attention", "verify_tc_kernel"),
+                        ("grouped_matmul", "grouped_wgmma_kernel")):
+        name, found = None, 0
+        for ln in build.ptxas_report(lib).splitlines():
+            m = re.search(rf"\d{kernel}I(\w+?)EEv", ln)
+            if m:
+                args = re.findall(r"L[ib](\d+)E", m.group(1) + "E")
+                name = f"{kernel}<{', '.join(args)}>"
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if name and m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", ln)
+            if name and m:
+                log(f"{tag}: ptxas {name}: {m.group(1)} registers, spill "
+                    f"stores {spill[0]} B, loads {spill[1]} B")
+                if any(spill):
+                    raise AssertionError(f"{tag}: {name} spills")
+                name, found = None, found + 1
+        if found == 0:
+            raise AssertionError(f"{tag}: the ptxas report of {lib} names "
+                                 f"no {kernel}")
+        n += found
+    return n
+
+
 def _decode_case(torch, dtype, quant, B, H, Hkv, D, ps, max_pages,
                  lengths, seed):
     from paddle_tpu_torch.ops.cuda.paged_attention import quantize_rows_int8
@@ -354,7 +401,9 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
     HBM; 4*H*D*sum_b sum_j min(base_b + j + 1, cap) flops over the bf16
     peak. Library: SDPA over each row's window gathered beforehand into
     contiguous K/V, with the same boolean mask (the gather is not
-    timed)."""
+    timed). Timed calls also time the FMA body without split-K (the
+    kernel the tensor-core body replaced) on the same inputs,
+    ``fma_ms``."""
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     q, k, v, tables, _, sc = _decode_case(
@@ -374,10 +423,14 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
                              f"rtol={rtol}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("paged verify produced non-finite values")
-    rec = {"max_abs_err": err}
+    cap = max_pages * ps
+    rec = {"max_abs_err": err,
+           "body": pa.verify_body(q.dtype, k.dtype, D),
+           "splits": pa.verify_splits(B, m, H, Hkv, cap, torch.cuda.
+                                      get_device_properties(0).
+                                      multi_processor_count)}
     if not timed:
         return rec
-    cap = max_pages * ps
     live = [min(b + m, cap) for b in bases]
     kv_elem = 1 if quant else k.element_size()
     nbytes = (q.numel() * q.element_size() + got.numel() * 4
@@ -395,14 +448,36 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
     rec.update(
         ms=time_ms(lambda: pa.paged_verify_slab_attention(
             q, k, v, tables, base, scale_pages=sc)),
+        fma_ms=time_ms(lambda: pa._paged_verify(
+            q, k, v, tables, base, scale_pages=sc, body="fma", splits=1)),
         plain_ms=time_ms(lambda: pa.paged_verify_slab_attention_ref(
             q, k, v, tables, base, scale_pages=sc), warmup=1, reps=3),
         bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations",
         library_ms=time_ms(lib))
+    if rec["splits"] > 1:  # the split-K path's kernels, by name
+        rec["split_ms"] = _device_ms(
+            torch, lambda: pa.paged_verify_slab_attention(
+                q, k, v, tables, base, scale_pages=sc))
     del lib, want
     torch.cuda.empty_cache()
     return rec
+
+
+def _device_ms(torch, fn, reps=20):
+    """Device milliseconds a call of ``fn`` spends in each kernel, by
+    kernel name, under torch.profiler (``reps`` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def check_quant(torch, dtype, int4, M, K, N, timed, seed=5):
@@ -499,7 +574,8 @@ def check_grouped(torch, dtype, K, N, cap, valid, timed, seed=6):
         if bool(got[e * cap + v:(e + 1) * cap].any()):
             raise AssertionError(f"grouped_matmul: expert {e}'s rows past "
                                  f"its {v} kept rows are not exactly zero")
-    rec = {"max_abs_err": err}
+    rec = {"max_abs_err": err,
+           "body": gm.grouped_body(dtype, E * cap, K, N, E)}
     del want
     if timed:
         live = sum(valid)
@@ -518,6 +594,9 @@ def check_grouped(torch, dtype, K, N, cap, valid, timed, seed=6):
             bound_ms=max(b_ops, b_bytes),
             bound_by="operations" if b_ops > b_bytes else "bytes",
             library_ms=time_ms(lib), library=lib_name)
+        if rec["body"] == "wgmma":
+            rec["wmma_ms"] = time_ms(lambda: gm._grouped(
+                lhs, rhs, gs, vs, body="wmma"))
         del lib
     del lhs, rhs, got
     torch.cuda.empty_cache()
@@ -938,10 +1017,25 @@ def _row(tag, r):
     return f"kernel {tag}: max_abs_err={r['max_abs_err']:.3g}{extra}"
 
 
+def _verify_row(tag, r):
+    """A timed verify line: the body, its chunks, the FMA body's time of
+    the same run, and the merge kernel's share where split-K ran."""
+    line = (_row(f"paged_verify_attention {tag}", r)
+            + f" body={r['body']} splits={r['splits']} fma_ms="
+            f"{r['fma_ms']:.4f} (fma/ms {r['fma_ms'] / r['ms']:.1f}x)")
+    if "split_ms" in r:
+        ms = r["split_ms"]
+        merge = sum(v for k, v in ms.items() if "merge" in k)
+        line += (f"; profiled {sum(ms.values()):.4f} ms a call, the merge "
+                 f"kernel {merge:.4f} ms ({merge / sum(ms.values()):.1%})")
+    return line
+
+
 def phase_kernels():
     import torch
 
     tc_ptxas("kernels")
+    body_ptxas("kernels")
     bf16, f32 = torch.bfloat16, torch.float32
     # llama2_7b decode: B=8 slots, H=Hkv=32, D=128, page 16, 256 pages per
     # sequence (max_position 4096); ragged lengths with 0 and the cap
@@ -983,50 +1077,43 @@ def phase_kernels():
         f"{rf32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
     # llama2_7b verify shapes: spec verify (m = spec_k + 1; the last base
     # overshoots the capacity), a chunked-prefill step (m = prefill_chunk)
-    # and a suffix-prefill wave (m = the pow2 bucket of the suffixes)
+    # and a suffix-prefill wave (m = the pow2 bucket of the suffixes); the
+    # same at Mixtral-8x7B's GQA (32 q heads over 8 kv heads); bf16 and
+    # int8 pages
     ver = dict(B=8, H=32, Hkv=32, D=128, ps=16, max_pages=256)
+    gqa = dict(B=8, H=32, Hkv=8, D=128, ps=16, max_pages=256)
     cases = [("spec verify", 5, [0, 1, 17, 300, 1000, 2049, 3333, 4094]),
              ("chunked prefill", 256, [0, 0, 256, 512, 1000, 2048, 3000,
                                        3840]),
              ("suffix prefill", 512, [0, 512, 512, 1024, 1024, 2048, 0,
                                       3072])]
     log("kernel paged_verify_attention: library_ms is SDPA over windows "
-        "gathered beforehand into contiguous K/V with the same mask; the "
-        "gather is not timed")
-    for tag, m, bases in cases:
-        rv = check_verify(torch, bf16, False, m=m, bases=bases, timed=True,
-                          **ver, **tol)
-        log(f"kernel paged_verify_attention bf16 {tag} B=8 m={m} H=32 "
-            f"D=128 ps=16 bases={bases}: max_abs_err={rv['max_abs_err']:.3g}"
-            f" (atol 2e-2 rtol 2e-2) ms={rv['ms']:.4f} plain_ms="
-            f"{rv['plain_ms']:.3f} bound_ms={rv['bound_ms']:.4f} "
-            f"({rv['bound_by']}) library_ms(sdpa)={rv['library_ms']:.4f}")
-        if m == 5:
-            results["paged_verify_attention"] = rv  # the spec-verify shape
-    rv8 = check_verify(torch, bf16, True, m=5, bases=cases[0][2],
-                       timed=True, **ver, **tol)
-    log(f"kernel paged_verify_attention int8 pages, spec verify shape: "
-        f"max_abs_err={rv8['max_abs_err']:.3g} (atol 2e-2 rtol 2e-2) "
-        f"ms={rv8['ms']:.4f} plain_ms={rv8['plain_ms']:.3f} "
-        f"bound_ms={rv8['bound_ms']:.4f} ({rv8['bound_by']}) "
-        f"library_ms(sdpa)={rv8['library_ms']:.4f}")
+        "gathered beforehand into contiguous K/V with the same mask (the "
+        "gather is not timed); fma_ms is the FMA body without split-K, the "
+        "kernel the tensor-core body replaced, on the same inputs in this "
+        "run")
+    for heads, kw in (("H=32", ver), ("GQA 32/8", gqa)):
+        for tag, m, bases in cases:
+            for quant in (False, True):
+                rv = check_verify(torch, bf16, quant, m=m, bases=bases,
+                                  timed=True, **kw, **tol)
+                log(_verify_row(f"{heads} {'int8' if quant else 'bf16'} "
+                                f"pages {tag} B=8 m={m} D=128 ps=16 "
+                                f"bases={bases}", rv))
+                if (heads, m, quant) == ("H=32", 5, False):
+                    results["paged_verify_attention"] = rv
     rv32 = check_verify(torch, f32, False, B=2, m=7, H=32, Hkv=32, D=128,
                         ps=16, max_pages=16, bases=[0, 200], atol=1e-4,
                         rtol=1e-4, timed=False)
-    log(f"kernel paged_verify_attention f32 B=2 m=7: max_abs_err="
-        f"{rv32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
+    log(f"kernel paged_verify_attention f32 B=2 m=7 (body "
+        f"{rv32['body']}): max_abs_err={rv32['max_abs_err']:.3g} (atol 1e-4 "
+        f"rtol 1e-4)")
 
-    # GQA at Mixtral-8x7B widths (32 q heads over 8 kv heads), the same
-    # lengths and bases as above: #1, #3 (spec and chunked) and #2 with
-    # native GQA k/v
-    gqa = dict(B=8, H=32, Hkv=8, D=128, ps=16, max_pages=256)
+    # GQA at Mixtral-8x7B widths, the same lengths as above: #1 and #2
+    # with native GQA k/v
     r = check_decode(torch, bf16, False, lengths=lengths, timed=True,
                      **gqa, **tol)
     log(_row(f"paged_decode_attention GQA 32/8 bf16 lengths={lengths}", r))
-    for tag, m, bases in cases[:2]:
-        r = check_verify(torch, bf16, False, m=m, bases=bases, timed=True,
-                         **gqa, **tol)
-        log(_row(f"paged_verify_attention GQA 32/8 bf16 {tag} m={m}", r))
     rg = check_flash(torch, bf16, 8, 1024, 32, 128, timed=True, Hkv=8, **tol)
     log(_row("flash_attention_fwd GQA 32/8 bf16 B=8 S=1024 (k/v not "
              "expanded)", rg))
@@ -1065,9 +1152,12 @@ def phase_kernels():
     for K, N in ((4096, 14336), (14336, 4096)):
         for cap, valid in ((3, dec_valid), (1280, pre_valid)):
             r = check_grouped(torch, bf16, K, N, cap, valid, timed=True)
+            old = (f" wmma_ms={r['wmma_ms']:.4f} (the WMMA body, "
+                   f"{r['wmma_ms'] / r['ms']:.1f}x)" if "wmma_ms" in r
+                   else "")
             log(_row(f"grouped_matmul bf16 K={K} N={N} C={cap} "
                      f"valid={valid} (atol 2e-2 rtol 2e-2)", r)
-                + f" library={r['library']}")
+                + f" library={r['library']} body={r['body']}{old}")
             if (K, N, cap) == (4096, 14336, 3):
                 results["grouped_matmul"] = r
         r = check_grouped(torch, f32, K, N, 3, dec_valid, timed=False)
@@ -1739,7 +1829,9 @@ def _counters():
 
     # name -> (wrapper, its counter); the flash wrappers' ``launches``
     # include their position-mode launches, which ``pos_launches`` counts,
-    # and their tensor-core launches, which ``tc_launches`` counts
+    # and their tensor-core launches, which ``tc_launches`` counts; the
+    # verify wrapper's include its tensor-core launches (``tc_launches``)
+    # and the grouped matmul's its wgmma launches (``wgmma_launches``)
     return {"paged_decode_attention": (pa.paged_slab_decode_attention,
                                        "launches"),
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
@@ -1754,8 +1846,11 @@ def _counters():
                                         "pos_launches"),
             "paged_verify_attention": (pa.paged_verify_slab_attention,
                                        "launches"),
+            "paged_verify_attention_tc": (pa.paged_verify_slab_attention,
+                                          "tc_launches"),
             "quant_matmul": (qm.quant_matmul, "launches"),
             "grouped_matmul": (gm.grouped_matmul, "launches"),
+            "grouped_matmul_wgmma": (gm.grouped_matmul, "wgmma_launches"),
             "paged_decode_attention_v1": (pa.paged_decode_attention,
                                           "launches"),
             "decode_attention": (da.decode_attention, "launches"),
@@ -1766,9 +1861,10 @@ def _counted(run, needs=(), tc=None):
     """Zero every launch counter, ``run()``, read the counters. Fails if a
     kernel in ``needs`` was never launched. ``tc``, the tag of a pass whose
     attention is bf16 at head dim 64 or 128 throughout: logs the flash
-    wrappers' tensor-core launches and fails unless every flash launch of
-    the pass was one. Returns (run's result, launches without the
-    tensor-core counts)."""
+    wrappers' and the verify wrapper's tensor-core launches and fails
+    unless every flash and verify launch of the pass was one. Logs the
+    grouped matmul's wgmma launches where it ran. Returns (run's result,
+    launches without the tensor-core and wgmma counts)."""
     fns = _counters()
     for fn, attr in fns.values():
         setattr(fn, attr, 0)
@@ -1778,16 +1874,25 @@ def _counted(run, needs=(), tc=None):
         if got[name] <= 0:
             raise AssertionError(f"this pass never launched {name}")
     flash = ("flash_attention_fwd", "flash_attention_bwd")
-    on_tc = {name: got.pop(name + "_tc") for name in flash}
+    on_tc = {name: got.pop(name + "_tc")
+             for name in flash + ("paged_verify_attention",)}
+    wgmma = got.pop("grouped_matmul_wgmma")
     if tc is not None:
         log(f"{tc}: tensor-core flash launches: forward "
             f"{on_tc[flash[0]]} of {got[flash[0]]}, backward "
             f"{on_tc[flash[1]]} of {got[flash[1]]}")
-        for name in flash:
+        if got["paged_verify_attention"]:
+            log(f"{tc}: tensor-core verify launches: "
+                f"tc_launches {on_tc['paged_verify_attention']} of launches "
+                f"{got['paged_verify_attention']}")
+        for name in on_tc:
             if on_tc[name] != got[name]:
                 raise AssertionError(f"{tc}: {got[name] - on_tc[name]} bf16 "
                                      f"launches of {name} at head dim 64/128 "
                                      "left the tensor-core body")
+    if got["grouped_matmul"]:
+        log(f"{tc or 'pass'}: grouped matmul launches "
+            f"{got['grouped_matmul']}, wgmma_launches {wgmma}")
     return out, got
 
 
@@ -2024,9 +2129,11 @@ def phase_main(ident):
                                          moe_items), grouped + vanilla)
     moe_long = plain([(300, 48, 0.0, None), (560, 48, 0.0, None),
                       (777, 48, 0.8, 63), (1000, 48, 0.0, None)])
+    # its 256-token chunks give C >= 64 capacity rows an expert: the
+    # prefill chunks' expert GEMMs run on the wgmma body
     run_pass("main moe chunked prefill", lambda: moe_run(
         "main moe chunked prefill", moe_engine(prefill_chunk=256),
-        moe_long), grouped + verify)
+        moe_long), grouped + verify + ("grouped_matmul_wgmma",))
     log(f"main pass B: peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{ident}]")
     del moe

@@ -52,10 +52,10 @@ _SIGNATURES = {
     "flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _F, _I,
                                                                _P],
     "flash_attention_bwd": [_P] * 13 + [_I] * 5 + [_P, _I, _F, _I, _P],
-    "paged_verify_attention": [_P] * 7 + [_I] * 7 + [_LL] * 3 + [_I] * 2
-    + [_F, _P],
+    "paged_verify_attention": [_P] * 9 + [_I] * 7 + [_LL] * 3 + [_I] * 2
+    + [_F] + [_I] * 3 + [_P],
     "quant_matmul": [_P] * 6 + [_I] * 7 + [_P],
-    "grouped_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "grouped_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

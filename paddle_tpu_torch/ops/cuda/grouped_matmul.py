@@ -16,18 +16,53 @@ A CPU tensor takes :func:`grouped_matmul_ref`; a CUDA tensor launches the
 kernel or raises. ``grouped_matmul.launches`` counts kernel launches. The
 kernel reads the group sizes on the card, so a call never waits for the
 device.
+
+The kernel has two bodies, chosen from host-known shapes
+(``grouped_body``): bf16 calls with at least 64 capacity rows an expert
+(prefill waves) and K, N multiples of 8 run on ``wgmma`` fed by TMA
+(``grouped_matmul.wgmma_launches`` counts them, included in
+``.launches``); every other call (decode, f32) on the WMMA body. TMA needs
+16-byte aligned bases, so the ``wgmma`` body refuses a misaligned ``lhs``
+or ``rhs`` with a ``ValueError`` naming it; it never reroutes the call.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["aligned_segment_offsets", "grouped_matmul_ref",
-           "grouped_matmul"]
+           "grouped_matmul", "grouped_body", "check_wgmma_alignment"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the JAX package pads each group to one f32 sublane tile of rows; the CUDA
-# kernel pads to its own 64-row tile on the card
+# kernel pads each group on the card to its own row tile (64 rows on the
+# WMMA body, 128 on the wgmma body)
 _GROUP_TILE = 8
+_WGMMA_MIN_ROWS = 64  # capacity rows an expert from which wgmma pays
+_BODY_CODES = {"wmma": 0, "wgmma": 1}  # the C entry's body argument
+
+
+def grouped_body(dtype, m, k, n, num_experts) -> str:
+    """The body the grouped matmul kernel runs for lhs ``[m, k]`` and rhs
+    ``[num_experts, k, n]``, from host-known shapes only: ``"wgmma"`` for
+    bf16 with ``m / num_experts >= 64`` capacity rows an expert and k, n
+    multiples of 8 (TMA's 16-byte global strides); ``"wmma"`` for every
+    other call, decode (a few rows an expert, bound by the weight bytes)
+    and f32 (held to 1e-4, which bf16 products would break)."""
+    if (dtype == torch.bfloat16 and m >= _WGMMA_MIN_ROWS * num_experts
+            and k % 8 == 0 and n % 8 == 0):
+        return "wgmma"
+    return "wmma"
+
+
+def check_wgmma_alignment(*named):
+    """Refuse an operand the wgmma body's TMA loads cannot read: each
+    ``(name, tensor)``'s base address must be a multiple of 16 bytes.
+    Raises ``ValueError`` naming the operand."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the wgmma grouped matmul needs a "
+                             f"16-byte aligned base address, got "
+                             f"{t.data_ptr():#x}")
 
 
 def aligned_segment_offsets(group_sizes, tile: int = _GROUP_TILE):
@@ -77,9 +112,16 @@ def grouped_matmul_ref(lhs, rhs, group_sizes, valid_sizes=None):
 
 def grouped_matmul(lhs, rhs, group_sizes, valid_sizes=None):
     """``ragged_dot`` with zeroed tails. A CPU tensor takes the plain twin;
-    a CUDA tensor launches the kernel (``.launches`` counts them) or raises.
-    On the card ``group_sizes`` and ``valid_sizes`` must be int32 tensors
-    there."""
+    a CUDA tensor launches the kernel (``.launches`` counts them,
+    ``.wgmma_launches`` those on the wgmma body) or raises. On the card
+    ``group_sizes`` and ``valid_sizes`` must be int32 tensors there."""
+    return _grouped(lhs, rhs, group_sizes, valid_sizes)
+
+
+def _grouped(lhs, rhs, group_sizes, valid_sizes=None, body=None):
+    """``grouped_matmul`` on the body the caller names (``"wgmma"`` or
+    ``"wmma"``) instead of ``grouped_body``'s: how ``chip_smoke.py`` times
+    the WMMA body beside the wgmma one."""
     if lhs.dim() != 2 or rhs.dim() != 3:
         raise ValueError("grouped_matmul takes lhs [M, K] and rhs [E, K, N]")
     m, k = lhs.shape
@@ -114,15 +156,27 @@ def grouped_matmul(lhs, rhs, group_sizes, valid_sizes=None):
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
         return out
+    rule = grouped_body(lhs.dtype, m, k, n, e)
+    body = rule if body is None else body
+    code = _BODY_CODES.get(body)
+    if code is None or (code and not (lhs.dtype == torch.bfloat16
+                                      and k % 8 == 0 and n % 8 == 0)):
+        raise ValueError(f"grouped_matmul kernel has no {body!r} body for "
+                         f"{lhs.dtype} [{m}, {k}] x [{e}, {k}, {n}]")
+    if code:
+        check_wgmma_alignment(("lhs", lhs), ("rhs", rhs))
     lib = build.load("grouped_matmul")
     rc = lib.grouped_matmul(
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
         valid_sizes.data_ptr() if valid_sizes is not None else None,
-        out.data_ptr(), m, k, n, e, build.DTYPE_CODES[lhs.dtype],
+        out.data_ptr(), m, k, n, e, build.DTYPE_CODES[lhs.dtype], code,
         build.stream_ptr(lhs.device))
     build.check(rc, "grouped_matmul")
     grouped_matmul.launches += 1
+    if code:
+        grouped_matmul.wgmma_launches += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.wgmma_launches = 0

@@ -41,11 +41,17 @@ __all__ = ["PagedCacheState", "PagedKVCache", "quantize_rows_int8",
            "paged_forward", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_slab_decode_attention",
            "paged_slab_decode_attention_ref", "paged_verify_slab_attention",
-           "paged_verify_slab_attention_ref", "paged_multi_query_attention"]
+           "paged_verify_slab_attention_ref", "paged_verify_chunked_ref",
+           "verify_body", "verify_splits", "verify_chunk",
+           "paged_multi_query_attention"]
 
 NEG_INF = -1.0e30
 _HEAD_DIMS = (32, 64, 128, 256)
 _VERIFY_HEAD_DIMS = (64, 128, 256)
+_VERIFY_TC_HEAD_DIMS = (64, 128)
+_VERIFY_TILE = 64           # keys a tile of the verify kernel
+_VERIFY_WARPS_PER_SM = 8    # split-K aims the grid at this many warps an SM
+_VERIFY_MAX_SPLITS = 16
 
 
 class PagedCacheState:
@@ -435,6 +441,122 @@ def paged_verify_slab_attention_ref(q, k_pages, v_pages, block_tables,
     return torch.einsum("bmkgs,bskd->bmkgd", p, v_c).reshape(b, m, h, d)
 
 
+def verify_body(q_dtype, kv_dtype, head_dim) -> str:
+    """The body the verify kernel runs on the card, by the rule its wrapper
+    passes to ``paged_verify_attention.cu``: ``"tensor_core"`` for bf16 q at
+    D 64 and 128 with bf16 or int8 pages; ``"fma"`` for f32 at every D (its
+    checks hold it to 1e-4, which bf16 products would break) and for bf16
+    at D 256."""
+    if (q_dtype == torch.bfloat16 and head_dim in _VERIFY_TC_HEAD_DIMS
+            and kv_dtype in (torch.bfloat16, torch.int8)):
+        return "tensor_core"
+    return "fma"
+
+
+def _verify_grid(m, num_heads, num_kv_heads):
+    """(G, BQ, blocks per batch row) of the verify kernel's grid: G q heads
+    of one GQA group share a block (the largest power of two up to 16
+    dividing the group), BQ score rows (16, 32 or 64, the smallest that
+    holds m * G) hold BQ // G query positions."""
+    group = num_heads // num_kv_heads
+    g = 1
+    while g < 16 and group % (2 * g) == 0:
+        g *= 2
+    bq = next((r for r in (16, 32) if m * g <= r), 64)
+    q_tiles = -(-m // (bq // g))
+    return g, bq, q_tiles * num_kv_heads * (group // g)
+
+
+def verify_chunk(capacity, splits) -> int:
+    """Keys a split-K chunk walks: the window ``[0, capacity)`` cut into
+    ``splits`` chunks, each rounded up to whole 64-key tiles."""
+    per = -(-capacity // max(1, splits))
+    return -(-per // _VERIFY_TILE) * _VERIFY_TILE
+
+
+def verify_splits(batch, m, num_heads, num_kv_heads, capacity,
+                  sm_count) -> int:
+    """How many chunks the verify kernel cuts each row's window into
+    (split-K), from host-known values only: the call never reads
+    ``base_len`` and never waits for the card. One chunk when the grid
+    (q tiles x batch x head groups) already holds ``_VERIFY_WARPS_PER_SM``
+    warps an SM; else enough chunks to reach that, at most
+    ``_VERIFY_MAX_SPLITS`` and never more than the window's 64-key tiles.
+    The count is that of the chunks ``verify_chunk`` then makes, so no
+    chunk lies wholly past the capacity."""
+    _, bq, blocks = _verify_grid(m, num_heads, num_kv_heads)
+    warps = batch * blocks * (bq // 16)
+    want = _VERIFY_WARPS_PER_SM * sm_count
+    if warps >= want:
+        return 1
+    tiles = -(-capacity // _VERIFY_TILE)
+    splits = max(1, min(-(-want // warps), tiles, _VERIFY_MAX_SPLITS))
+    return -(-capacity // verify_chunk(capacity, splits))
+
+
+def paged_verify_chunked_ref(q, k_pages, v_pages, block_tables, base_len,
+                             scale=None, scale_pages=None, splits=1,
+                             bf16_p=False):
+    """Plain twin of the verify kernel's split-K arithmetic: each row's
+    window cut into the chunks of ``verify_chunk(capacity, splits)``, each
+    chunk's softmax over its own keys (o normalised over them, and their
+    log-sum-exp, -inf where the chunk holds no key of the row), then the
+    chunks weighed in log space as the merge kernel weighs them. With
+    ``bf16_p`` it takes the tensor-core body's rounding point instead of
+    the reference's: the unnormalised P times each key's v scale rounded
+    to bf16, against the raw (int8 or bf16) V values. Returns ``[B, m, H,
+    D]`` f32."""
+    b, m, h, d = q.shape
+    _, page_size, khd = k_pages.shape
+    h_kv = khd // d
+    group = h // h_kv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    seq = bt.shape[1] * page_size
+    k_c = k_pages[bt].float().reshape(b, seq, h_kv, d)
+    v_c = v_pages[bt].float().reshape(b, seq, h_kv, d)
+    ks = vs = torch.ones((b, seq, h_kv), device=q.device)
+    if scale_pages is not None:
+        scw = scale_pages[bt].reshape(b, seq, 128).float()
+        ks, vs = scw[..., :h_kv], scw[..., h_kv:2 * h_kv]
+    qg = q.float().reshape(b, m, h_kv, group, d)
+    s = torch.einsum("bmkgd,bskd->bmkgs", qg, k_c * ks[..., None]) * scale
+    limit = torch.clamp(base_len.long()[:, None]
+                        + torch.arange(m, device=q.device)[None] + 1,
+                        max=seq)
+    mask = (torch.arange(seq, device=q.device)[None, None]
+            < limit[..., None])[:, :, None, None, :]  # [B, m, 1, 1, S]
+    chunk = verify_chunk(seq, splits)
+    outs, lses = [], []
+    for lo in range(0, seq, chunk):
+        hi = min(lo + chunk, seq)
+        live = mask[..., lo:hi]
+        sc = torch.where(live, s[..., lo:hi], torch.full_like(
+            s[..., lo:hi], -math.inf))
+        mx = sc.amax(-1, keepdim=True)
+        empty = mx == -math.inf
+        p = torch.where(live, torch.exp(sc - torch.where(
+            empty, torch.zeros_like(mx), mx)), torch.zeros_like(sc))
+        l_c = p.sum(-1, keepdim=True)
+        if bf16_p:
+            pv = p * vs[:, lo:hi].permute(0, 2, 1)[:, None, :, None, :]
+            o = torch.einsum("bmkgs,bskd->bmkgd",
+                             pv.to(torch.bfloat16).float(), v_c[:, lo:hi])
+        else:
+            o = torch.einsum("bmkgs,bskd->bmkgd", p,
+                             v_c[:, lo:hi] * vs[:, lo:hi, :, None])
+        outs.append(o / torch.clamp(l_c, min=1e-37))
+        lses.append(torch.where(empty, mx, mx + torch.log(
+            torch.clamp(l_c, min=1e-37))))
+    lse = torch.stack(lses)                            # [C, B, m, k, g, 1]
+    top = lse.amax(0)
+    w = torch.where(lse == -math.inf, torch.zeros_like(lse),
+                    torch.exp(lse - top))
+    out = (w * torch.stack(outs)).sum(0) / torch.clamp(w.sum(0), min=1e-37)
+    return out.reshape(b, m, h, d)
+
+
 def paged_verify_slab_attention(q, k_pages, v_pages, block_tables, base_len,
                                 scale=None,
                                 scale_pages: Optional[torch.Tensor] = None):
@@ -443,8 +565,34 @@ def paged_verify_slab_attention(q, k_pages, v_pages, block_tables, base_len,
     window tokens ``< min(base_len[b] + j + 1, max_pages * page_size)``.
     ``scale_pages`` selects the int8 path. Returns ``[B, m, H, D]`` f32.
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    (``.launches`` counts them) or raises. q may be strided (its last dim
-    contiguous); the other operands must be contiguous."""
+    (``.launches`` counts them; ``.tc_launches`` those on the tensor-core
+    body, ``verify_body``) or raises. Narrow calls cut each row's window
+    into chunks (``verify_splits``) and merge them in a second kernel of
+    the same launch. q may be strided (its last dim contiguous); the other
+    operands must be contiguous."""
+    return _paged_verify(q, k_pages, v_pages, block_tables, base_len, scale,
+                         scale_pages)
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _paged_verify(q, k_pages, v_pages, block_tables, base_len, scale=None,
+                  scale_pages=None, body=None, splits=None):
+    """``paged_verify_slab_attention`` with its body (``"tensor_core"`` or
+    ``"fma"``) and its chunk count chosen by the caller instead of by
+    ``verify_body`` and ``verify_splits``: how the card tests force split-K
+    and how ``chip_smoke.py`` times the FMA body beside the tensor-core
+    one."""
     _check(q, k_pages, v_pages, block_tables, base_len, scale_pages, 4)
     if q.device.type == "cpu":
         return paged_verify_slab_attention_ref(
@@ -476,24 +624,47 @@ def paged_verify_slab_attention(q, k_pages, v_pages, block_tables, base_len,
         raise ValueError("verify kernel pages must be 16-byte aligned")
     if b > 65535 or h > 65535:
         raise ValueError("batch or heads too large for the kernel grid")
+    rule = verify_body(q.dtype, k_pages.dtype, d)
+    body = rule if body is None else body
+    if body not in ("tensor_core", "fma") or (body == "tensor_core"
+                                              and rule != body):
+        raise ValueError(f"verify kernel has no {body!r} body for {q.dtype} "
+                         f"q, {k_pages.dtype} pages at head_dim {d}")
+    cap = block_tables.shape[1] * page_size
+    if splits is None:
+        splits = verify_splits(b, m, h, h_kv, cap, _sm_count(q.device))
+    chunk = verify_chunk(cap, splits)
+    splits = -(-cap // chunk)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, m, h, d), dtype=torch.float32, device=q.device)
+    part_o = part_lse = None
+    if splits > 1:
+        part_o = torch.empty((splits, b, m, h, d), dtype=torch.float32,
+                             device=q.device)
+        part_lse = torch.empty((splits, b, m, h), dtype=torch.float32,
+                               device=q.device)
     lib = build.load("paged_verify_attention")
     rc = lib.paged_verify_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         scale_pages.data_ptr() if scale_pages is not None else None,
         block_tables.data_ptr(), base_len.data_ptr(), out.data_ptr(),
+        part_o.data_ptr() if part_o is not None else None,
+        part_lse.data_ptr() if part_lse is not None else None,
         b, m, h, h_kv, d, page_size, block_tables.shape[1],
         q.stride(0), q.stride(1), q.stride(2),
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
-        float(scale), build.stream_ptr(q.device))
+        float(scale), int(body == "tensor_core"), splits, chunk,
+        build.stream_ptr(q.device))
     build.check(rc, "paged_verify_attention")
     paged_verify_slab_attention.launches += 1
+    if body == "tensor_core":
+        paged_verify_slab_attention.tc_launches += 1
     return out
 
 
 paged_verify_slab_attention.launches = 0
+paged_verify_slab_attention.tc_launches = 0
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,

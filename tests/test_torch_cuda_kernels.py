@@ -1335,3 +1335,174 @@ def test_flash_tc_refuses_views_cp_async_cannot_take(cuda):
         1, 16, 2, 64)
     fa.flash_attention_fwd(f, f, f)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the tensor-core body and
+# split-K of #3, the wgmma body of #13
+def _verify_counts():
+    return (pa.paged_verify_slab_attention.launches,
+            pa.paged_verify_slab_attention.tc_launches)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("m", [1, 5, 17, 64, 65, 300])
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (8, 2)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_verify_tc_body_matches_plain(cuda, quant, m, H, Hkv, D):
+    """bf16 q at D 64/128 on the tensor-core body, bf16 and int8 pages,
+    GQA groups of 4: bases at 0, mid-page, at the capacity and past it
+    (every query clamped there), and one whose limits cross the capacity
+    inside the block."""
+    ps, max_pages = 16, 24
+    cap = ps * max_pages
+    bases = [0, ps // 2 + 3, cap, cap + 9, cap - m // 2 - 1]
+    q, k, v, tables, sc = _verify_inputs(cuda, torch.bfloat16, quant,
+                                         len(bases), m, H, Hkv, D, ps,
+                                         max_pages, seed=m + D)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    assert pa.verify_body(q.dtype, k.dtype, D) == "tensor_core"
+    c0 = _verify_counts()
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base,
+                                         scale_pages=sc)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(c0, _verify_counts())) == (1, 1)
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base,
+                                              scale_pages=sc)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, False),
+                                         (torch.float32, True)])
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("splits", [2, 3, 7, 16])
+def test_verify_split_k_matches_plain(cuda, dtype, quant, m, splits):
+    """Forced split-K over long windows (capacity 4096) at narrow m, on
+    both bodies: bases at 0 (every chunk but the first holds no key), in
+    the middle, at the capacity and past it; the merged result against
+    the plain twin."""
+    ps, max_pages = 16, 256
+    cap = ps * max_pages
+    bases = [0, 1000, 2049, cap - 3, cap, cap + 50]
+    q, k, v, tables, sc = _verify_inputs(cuda, dtype, quant, len(bases), m,
+                                         32, 8, 128, ps, max_pages,
+                                         seed=splits)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    got = pa._paged_verify(q, k, v, tables, base, scale_pages=sc,
+                           splits=splits)
+    torch.cuda.synchronize()
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base,
+                                              scale_pages=sc)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_verify_splits_rule_on_card(cuda):
+    """The wrapper's own choice at the spec-verify shape of llama2_7b
+    splits the window, and its merged result matches the twin."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.verify_splits(8, 5, 32, 32, 4096, sms) > 1
+    assert pa.verify_splits(8, 256, 32, 32, 4096, sms) == 1
+    q, k, v, tables, _ = _verify_inputs(cuda, torch.bfloat16, False, 8, 5,
+                                        32, 32, 128, 16, 256)
+    base = torch.tensor([0, 1, 17, 300, 1000, 2049, 3333, 4094],
+                        dtype=torch.int32, device=cuda)
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base)
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,D,quant", [(torch.bfloat16, 64, False),
+                                           (torch.bfloat16, 128, True),
+                                           (torch.bfloat16, 128, False),
+                                           (torch.float32, 64, False),
+                                           (torch.float32, 128, True),
+                                           (torch.bfloat16, 256, False)])
+def test_verify_tc_launch_counts(cuda, dtype, D, quant):
+    """bf16 at D 64 and 128 reaches the tensor-core body (tc_launches +1);
+    f32 and bf16 at D 256 stay on the FMA body. The FMA body forced on a
+    bf16 call gives the same result within the bf16 tolerance."""
+    q, k, v, tables, sc = _verify_inputs(cuda, dtype, quant, 2, 9, 4, 2, D,
+                                         16, 6)
+    base = torch.tensor([3, 70], dtype=torch.int32, device=cuda)
+    c0 = _verify_counts()
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base,
+                                         scale_pages=sc)
+    tc = int(dtype == torch.bfloat16 and D in (64, 128))
+    assert tuple(b - a for a, b in zip(c0, _verify_counts())) == (1, tc)
+    fma = pa._paged_verify(q, k, v, tables, base, scale_pages=sc,
+                           body="fma")
+    torch.testing.assert_close(got, fma, atol=TOL[dtype], rtol=TOL[dtype])
+    if not tc:
+        with pytest.raises(ValueError, match="tensor_core"):
+            pa._paged_verify(q, k, v, tables, base, scale_pages=sc,
+                             body="tensor_core")
+
+
+def _grouped_case(dev, M, K, N, sizes, valid, seed=0):
+    lhs, rhs = _grouped_inputs(dev, torch.bfloat16, M, K, N, len(sizes),
+                               seed)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    vs = None if valid is None else torch.tensor(valid, dtype=torch.int32,
+                                                 device=dev)
+    return lhs, rhs, gs, vs
+
+
+@pytest.mark.parametrize("M,K,N,sizes,valid", [
+    # ragged groups, none a multiple of 128, rows past the last group
+    (1100, 256, 200, [300, 77, 0, 500, 150], [300, 0, 0, 499, 1]),
+    # zero and full valid counts, N a multiple of 8 but of no tile
+    (1280, 4096, 1032, [640, 640], [0, 640]),
+    (520, 72, 40, [129, 260, 131], None),
+    # the down projection's depth
+    (640, 14336, 512, [320, 320], [320, 100]),
+    # the gate/up width at 64 rows an expert (the rule's edge)
+    (512, 4096, 14336, [64] * 8, [64, 63, 0, 64, 1, 64, 32, 64]),
+])
+def test_grouped_wgmma_body_matches_plain(cuda, M, K, N, sizes, valid):
+    lhs, rhs, gs, vs = _grouped_case(cuda, M, K, N, sizes, valid, seed=M)
+    assert gm.grouped_body(torch.bfloat16, M, K, N, len(sizes)) == "wgmma"
+    before = (gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches)
+    got = gm.grouped_matmul(lhs, rhs, gs, vs)
+    torch.cuda.synchronize()
+    assert (gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = gm.grouped_matmul_ref(lhs, rhs, gs, vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    dead = (want == 0).all(-1)
+    assert not bool(got[dead].any())  # dead rows exactly zero
+    end = min(sum(sizes), M)
+    assert not bool(got[end:].any())  # rows past the last group
+
+
+@pytest.mark.parametrize("dtype,M,K,N,E", [
+    (torch.bfloat16, 24, 4096, 14336, 8),   # decode, C = 3
+    (torch.float32, 1280, 256, 256, 2),     # f32
+    (torch.bfloat16, 300, 100, 70, 4),      # K, N no multiple of 8
+])
+def test_grouped_rule_sends_to_wmma_body(cuda, dtype, M, K, N, E):
+    assert gm.grouped_body(dtype, M, K, N, E) == "wmma"
+    lhs, rhs = _grouped_inputs(cuda, dtype, M, K, N, E)
+    gs = torch.full((E,), M // E, dtype=torch.int32, device=cuda)
+    before = gm.grouped_matmul.wgmma_launches
+    got = gm.grouped_matmul(lhs, rhs, gs)
+    assert gm.grouped_matmul.wgmma_launches == before
+    want = gm.grouped_matmul_ref(lhs, rhs, gs)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_grouped_wgmma_refuses_misaligned_operands(cuda):
+    """A base address TMA cannot read raises ValueError naming the
+    operand; the call is never rerouted to the WMMA body."""
+    lhs, rhs, gs, _ = _grouped_case(cuda, 256, 64, 64, [128, 128], None)
+    flat = torch.zeros(lhs.numel() + 8, dtype=lhs.dtype, device=cuda)
+    bad = flat[4:4 + lhs.numel()].view_as(lhs)
+    before = gm.grouped_matmul.launches
+    with pytest.raises(ValueError, match="^lhs: .*16-byte"):
+        gm.grouped_matmul(bad, rhs, gs)
+    flat = torch.zeros(rhs.numel() + 8, dtype=rhs.dtype, device=cuda)
+    with pytest.raises(ValueError, match="^rhs: .*16-byte"):
+        gm.grouped_matmul(lhs, flat[2:2 + rhs.numel()].view_as(rhs), gs)
+    assert gm.grouped_matmul.launches == before
