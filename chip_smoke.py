@@ -74,7 +74,17 @@ ptxas registers and spills (a spill fails), times each beside the body it
 replaced on the same inputs (``fma_ms``, ``wmma_ms``) and the merge
 kernel's share of a split call; every bf16 engine pass through #3 fails
 unless each verify launch was a tensor-core one, and the MoE chunked pass
-unless it reached the ``wgmma`` body.
+unless it reached the ``wgmma`` body. The weight-only quant matmul (#12)
+runs bf16 x on its tensor-core body, which sums its K splits inside the
+launch, and the decode body of #1, #4, #14 and #15 cuts each live window
+into chunks on the card (``decode_splits`` chunks, merged in the same
+launch): the kernels phase logs both new bodies' ptxas registers and
+spills (a spill fails) and times each beside the body it replaced on the
+same inputs (``fma_ms``: #12's FMA body and its epilogue kernel;
+``nosplit_ms``: the decode body with each window whole), logs both split
+rules against a sweep of forced split counts, and every bf16
+pass through #12 (the int8 and int4 engine and ``generate`` passes) fails
+unless each of its launches was a tensor-core one.
 
 Opt-in: ``--phases build,profile`` profiles one T1 training step, then
 times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
@@ -82,7 +92,10 @@ spec verify step and a Mixtral-width MoE decode chain, and lists the
 device kernels under torch.profiler (PERF.md "Where the time goes").
 ``--phases build,drift`` walks one ``llama2_7b`` decode step layer by
 layer with the decode kernels and their plain versions on the same inputs
-and logs each layer's attention and block error.
+and logs each layer's attention and block error. ``--phases
+build,anatomy`` times #12's tensor-core body with parts of its work cut
+out (the weight bytes, the dequant, the MMAs) at the decode and
+spec-verify rows, to show what binds it.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -95,6 +108,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -105,7 +119,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "generate", "greedy")
-OPTIONAL_PHASES = ("profile", "drift")
+OPTIONAL_PHASES = ("profile", "drift", "anatomy")
 
 
 def log(*a):
@@ -146,6 +160,10 @@ def gpu_identity():
     return out.stdout.strip().splitlines()[0]
 
 
+def _sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 # ------------------------------------------------------------ phase 1
 def phase_build():
     from paddle_tpu_torch.kernels import build
@@ -169,8 +187,6 @@ def tc_ptxas(tag):
     none, or if a library holds an FMA body for bf16 at D 64 or 128: each
     bf16 launch there must reach the tensor-core body, which is how the
     wrappers count ``tc_launches``. Returns the number of kernels read."""
-    import re
-
     from paddle_tpu_torch.kernels import build
 
     n = 0
@@ -207,25 +223,59 @@ def tc_ptxas(tag):
 
 
 # ------------------------------------------------------------ phase 2
+_MANGLED = (("13__nv_bfloat16", "bf16"), ("S2_", "bf16"), ("f", "f32"),
+            ("a", "int8"), ("NS0_9SlabPagesE", "slab pages"),
+            ("NS0_14HeadMajorPagesE", "head-major pages"),
+            ("NS0_12StridedCacheE", "strided cache"))
+
+
+def _template_args(mangled):
+    """The template arguments of a mangled kernel name, readable: integers
+    (``Li128E``, ``Lb1E``) and the decode body's types and row sources."""
+    out, rest = [], mangled
+    while rest:
+        m = re.match(r"L[ib](\d+)E", rest)
+        if m:
+            out.append(m.group(1))
+            rest = rest[m.end():]
+            continue
+        for code, word in _MANGLED:
+            if rest.startswith(code):
+                out.append(word)
+                rest = rest[len(code):]
+                break
+        else:
+            rest = rest[1:]
+    return ", ".join(out)
+
+
 def body_ptxas(tag):
     """Log the ptxas registers and spill bytes of the tensor-core verify
-    kernel (``verify_tc_kernel<D, BQ, int8 pages>``) and the wgmma grouped
-    matmul (``grouped_wgmma_kernel<BN>``), from the ``-Xptxas -v`` report
-    the build keeps beside each library. Fail if one spills or if a
-    report names none of them. Returns the number of kernels read."""
-    import re
-
+    kernel (``verify_tc_kernel<D, BQ, int8 pages>``), the wgmma grouped
+    matmul (``grouped_wgmma_kernel<BN>``), the tensor-core quant matmul
+    (``quant_tc_kernel<int4, n8 tiles, vector weight, vector x>``) and the
+    split decode body (``decode_kernel<q, kv, D, GC, rows>``, in each of
+    its three libraries), from the ``-Xptxas -v`` report the build keeps
+    beside each library: every instance of the first two, the main
+    path's of the others (the quant body's vector-load instances, the
+    decode body's at D 128), and a summary line for each. Fail if one
+    spills or if a report names none of them. Returns the number of
+    kernels read."""
     from paddle_tpu_torch.kernels import build
 
     n = 0
-    for lib, kernel in (("paged_verify_attention", "verify_tc_kernel"),
-                        ("grouped_matmul", "grouped_wgmma_kernel")):
-        name, found = None, 0
+    for lib, kernel, shown in (
+            ("paged_verify_attention", "verify_tc_kernel", ""),
+            ("grouped_matmul", "grouped_wgmma_kernel", ""),
+            ("quant_matmul", "quant_tc_kernel", ", 1, 1>"),
+            ("paged_decode_attention", "decode_kernel", ", 128, "),
+            ("paged_decode_attention_v1", "decode_kernel", ", 128, "),
+            ("decode_attention", "decode_kernel", ", 128, ")):
+        name, found, regs, spilled = None, 0, [], []
         for ln in build.ptxas_report(lib).splitlines():
             m = re.search(rf"\d{kernel}I(\w+?)EEv", ln)
             if m:
-                args = re.findall(r"L[ib](\d+)E", m.group(1) + "E")
-                name = f"{kernel}<{', '.join(args)}>"
+                name = f"{kernel}<{_template_args(m.group(1))}>"
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", ln)
@@ -234,14 +284,21 @@ def body_ptxas(tag):
                 continue
             m = re.search(r"Used (\d+) registers", ln)
             if name and m:
-                log(f"{tag}: ptxas {name}: {m.group(1)} registers, spill "
-                    f"stores {spill[0]} B, loads {spill[1]} B")
+                if shown in name or any(spill):
+                    log(f"{tag}: ptxas [{lib}] {name}: {m.group(1)} "
+                        f"registers, spill stores {spill[0]} B, loads "
+                        f"{spill[1]} B")
+                regs.append(int(m.group(1)))
                 if any(spill):
-                    raise AssertionError(f"{tag}: {name} spills")
+                    spilled.append(name)
                 name, found = None, found + 1
         if found == 0:
             raise AssertionError(f"{tag}: the ptxas report of {lib} names "
                                  f"no {kernel}")
+        if spilled:
+            raise AssertionError(f"{tag}: {lib} spills in {spilled}")
+        log(f"{tag}: ptxas [{lib}] {found} {kernel} instances, "
+            f"{min(regs)}-{max(regs)} registers, no spills")
         n += found
     return n
 
@@ -313,6 +370,9 @@ def check_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages, lengths,
         rec.update(
             ms=time_ms(lambda: pa.paged_slab_decode_attention(
                 q, k, v, tables, lens, H, scale_pages=sc)),
+            nosplit_ms=time_ms(lambda: pa._paged_slab_decode(
+                q, k, v, tables, lens, H, scale_pages=sc, splits=1)),
+            splits=pa.decode_splits(B, H, Hkv, cap, _sms(torch)),
             plain_ms=time_ms(lambda: pa.paged_slab_decode_attention_ref(
                 q, k, v, tables, lens, scale_pages=sc), warmup=1, reps=3),
             bound_ms=max(b_bytes, b_ops),
@@ -484,7 +544,9 @@ def check_quant(torch, dtype, int4, M, K, N, timed, seed=5):
     """Kernel #12 against ``quant_matmul_ref``. Bound: x, the int8 (or
     packed int4) weight, the f32 scales and the output over HBM; 2*M*K*N
     flops over the peak of x's type. Library: ``torch.matmul`` of x with
-    the bf16 weight of the same shape."""
+    the bf16 weight of the same shape. Timed bf16 calls also time the FMA
+    body (the body the tensor-core one replaced, with its epilogue kernel)
+    on the same inputs, ``fma_ms``."""
     from paddle_tpu_torch.nn.quant import weight_quantize
     from paddle_tpu_torch.ops.cuda import quant_matmul as qm
 
@@ -502,7 +564,8 @@ def check_quant(torch, dtype, int4, M, K, N, timed, seed=5):
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
         raise AssertionError(f"quant_matmul {wd} {dtype} {M}x{K}x{N}: max "
                              f"abs err {err} beyond atol=rtol={tol}")
-    rec = {"max_abs_err": err}
+    rec = {"max_abs_err": err, "body": qm.quant_body(dtype, M),
+           "splits": qm.split_plan(M, K, N, int4, qm.quant_body(dtype, M))[0]}
     if timed:
         nbytes = (x.numel() * x.element_size() + wq.numel() + sc.numel() * 4
                   + got.numel() * got.element_size())
@@ -519,8 +582,39 @@ def check_quant(torch, dtype, int4, M, K, N, timed, seed=5):
             bound_ms=max(b_ops, b_bytes),
             bound_by="operations" if b_ops > b_bytes else "bytes",
             library_ms=time_ms(lambda: torch.matmul(x, wb), reps=20))
+        if rec["body"] == "tensor_core":
+            rec["fma_ms"] = time_ms(lambda: qm._quant_matmul(
+                x, wq, sc, weight_dtype=wd, body="fma"), reps=20)
         del wb
     return rec
+
+
+def quant_split_sweep(torch, counts=(1, 2, 3, 4, 5, 7, 10, 16)):
+    """Log #12's tensor-core body's ms at forced K split counts beside the
+    count ``split_plan`` picks (one wave of ``tc_blocks_per_sm`` blocks an
+    SM), at the llama2_7b gate/up and down shapes, 8 and 40 rows, int8 and
+    int4. The plan's numbers come from here."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    for M in (8, 40):
+        for K, N in ((4096, 11008), (11008, 4096)):
+            for int4 in (False, True):
+                g = torch.Generator(device="cuda").manual_seed(5)
+                wq, sc = weight_quantize(
+                    torch.randn((K, N), generator=g, device="cuda") * 0.02,
+                    "weight_only_int4" if int4 else "weight_only_int8")
+                x = torch.randn((M, K), generator=g,
+                                device="cuda").to(torch.bfloat16)
+                wd = "int4" if int4 else "int8"
+                plan = qm.split_plan(M, K, N, int4, "tensor_core")[0]
+                ms = {n: time_ms(lambda: qm._quant_matmul(
+                    x, wq, sc, weight_dtype=wd, body="tensor_core",
+                    splits=n), reps=10) for n in sorted({*counts, plan})}
+                best = min(ms, key=ms.get)
+                log(f"quant split sweep {wd} {M}x{K}x{N}: " + " ".join(
+                    f"s{n} {t:.4f}" for n, t in ms.items())
+                    + f" ms; split_plan picks {plan}, fastest here {best}")
 
 
 def _grouped_library(torch, lhs, rhs, gs):
@@ -853,6 +947,7 @@ def check_contig_decode(torch, dtype, slab, B, H, Hkv, D, S, lengths, timed,
     ``decode_attention_ref`` on the same rows. Library: SDPA over each
     row's live window."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = torch.randn((2, B, Hkv, S, D), generator=g,
@@ -872,6 +967,11 @@ def check_contig_decode(torch, dtype, slab, B, H, Hkv, D, S, lengths, timed,
         def run():
             return da.decode_attention(q, k, v, lens)
 
+    def nosplit():  # the same launch, each window left whole
+        return da._launch(q, k, v, lens, 1.0 / math.sqrt(D),
+                          da.decode_attention_slab if slab
+                          else da.decode_attention, splits=1)
+
     def plain():
         return da.decode_attention_ref(q, k, v, lens)
 
@@ -883,7 +983,9 @@ def check_contig_decode(torch, dtype, slab, B, H, Hkv, D, S, lengths, timed,
         live = sum(min(max(n, 0), S) for n in lengths)
         bound, by = _decode_bound(q, live, Hkv, D, q.element_size(), 0)
         lib = _window_sdpa(torch, q, k.contiguous(), v.contiguous(), lens)
-        rec.update(ms=time_ms(run), plain_ms=time_ms(plain, warmup=1, reps=3),
+        rec.update(ms=time_ms(run), nosplit_ms=time_ms(nosplit),
+                   splits=pa.decode_splits(B, H, Hkv, S, _sms(torch)),
+                   plain_ms=time_ms(plain, warmup=1, reps=3),
                    bound_ms=bound, bound_by=by, library_ms=time_ms(lib))
         del lib
     del q, k, v, got
@@ -916,6 +1018,10 @@ def check_v1_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages,
         return pa.paged_decode_attention(q, k, v, tables, lens, k_scales=ks,
                                          v_scales=vs)
 
+    def nosplit():  # the same launch, each window left whole
+        return pa._paged_decode(q, k, v, tables, lens, k_scales=ks,
+                                v_scales=vs, splits=1)
+
     def plain():
         return pa.paged_decode_attention_ref(q, k, v, tables, lens,
                                              k_scales=ks, v_scales=vs)
@@ -938,7 +1044,9 @@ def check_v1_decode(torch, dtype, quant, B, H, Hkv, D, ps, max_pages,
             return w.transpose(0, 1).reshape(B, Hkv, cap, D).to(dtype)
 
         lib = _window_sdpa(torch, q, window(k, ks), window(v, vs), lens)
-        rec.update(ms=time_ms(run), plain_ms=time_ms(plain, warmup=1, reps=3),
+        rec.update(ms=time_ms(run), nosplit_ms=time_ms(nosplit),
+                   splits=pa.decode_splits(B, H, Hkv, cap, _sms(torch)),
+                   plain_ms=time_ms(plain, warmup=1, reps=3),
                    bound_ms=bound, bound_by=by, library_ms=time_ms(lib))
         del lib
     del q, k, v, got
@@ -1000,6 +1108,63 @@ def check_decode_slice(torch):
     return res
 
 
+def decode_split_sweep(torch, counts=(1, 2, 3, 4, 6, 8, 12, 16)):
+    """Log the decode body's ms at each forced chunk count beside the count
+    ``decode_splits`` picks, at the main path's shapes: #1 at the ragged
+    lengths (bf16, int8 pages, GQA 32/8; capacity 4096), #15 and #4 at
+    the generate phase's (``llama2_7b`` S=1152, GQA 32/8, GPT-2 small
+    S=640). The rule's numbers come from here."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    bf16 = torch.bfloat16
+    ragged = [0, 1, 17, 300, 1000, 2049, 3333, 4096]
+    big = [129, 300, 511, 640, 777, 900, 1024, 1152]
+    gpt = [129, 200, 257, 320, 400, 511, 600, 640]
+    cases = []
+    for tag, Hkv, quant in (("bf16", 32, False), ("int8 pages", 32, True),
+                            ("GQA 32/8", 8, False)):
+        q, k, v, tables, lens, sc = _decode_case(
+            torch, bf16, quant, 8, 32, Hkv, 128, 16, 256, ragged, 1)
+        cases.append((f"#1 {tag} H=32 cap 4096 lengths={ragged}", 32, Hkv,
+                      4096, lambda n, a=(q, k, v, tables, lens, sc):
+                      pa._paged_slab_decode(*a[:5], scale_pages=a[5],
+                                            splits=n)))
+    for tag, H, Hkv, D, S, lens_ in (
+            ("llama2_7b", 32, 32, 128, 1152, big),
+            ("GQA 32/8", 32, 8, 128, 1152, big),
+            ("GPT-2 small", 12, 12, 64, 640, gpt)):
+        g = torch.Generator(device="cuda").manual_seed(31)
+        kv = torch.randn((2, 8, S, Hkv * D), generator=g,
+                         device="cuda").to(bf16)
+        q = torch.randn((8, H, D), generator=g, device="cuda").to(bf16)
+        lens = torch.tensor(lens_, dtype=torch.int32, device="cuda")
+        k, v = da._slab_views(kv, D)
+        cases.append((f"#15 {tag} cap {S} lengths={lens_}", H, Hkv, S,
+                      lambda n, a=(q, k, v, lens, D): da._launch(
+                          *a[:4], a[4] ** -0.5, da.decode_attention_slab,
+                          splits=n)))
+    g = torch.Generator(device="cuda").manual_seed(32)
+    kp, vp = (torch.randn((32, 1 + 8 * 72, 16, 128), generator=g,
+                          device="cuda").to(bf16) for _ in range(2))
+    tables = (torch.randperm(8 * 72, generator=g, device="cuda") + 1).view(
+        8, 72).to(torch.int32)
+    q = torch.randn((8, 32, 128), generator=g, device="cuda").to(bf16)
+    lens = torch.tensor(big, dtype=torch.int32, device="cuda")
+    cases.append((f"#4 llama2_7b cap 1152 lengths={big}", 32, 32, 1152,
+                  lambda n: pa._paged_decode(q, kp, vp, tables, lens,
+                                             splits=n)))
+    for tag, H, Hkv, cap, fn in cases:
+        rule = pa.decode_splits(8, H, Hkv, cap, _sms(torch))
+        ms = {n: time_ms(lambda: fn(n), reps=10) for n in counts}
+        best = min(ms, key=ms.get)
+        log(f"decode split sweep {tag}: " + " ".join(
+            f"s{n} {t:.4f}" for n, t in ms.items())
+            + f" ms; decode_splits picks {rule}, fastest here {best}")
+    del cases, kp, vp
+    torch.cuda.empty_cache()
+
+
 def _row(tag, r):
     extra = ""
     if "ms" in r:
@@ -1008,6 +1173,12 @@ def _row(tag, r):
                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                  f"library_ms="
                  + ("none" if lib is None else f"{lib:.4f}"))
+    for old in ("fma_ms", "nosplit_ms"):  # the body this one replaced
+        if old in r:
+            extra += (f" {old}={r[old]:.4f} ({old[:-3]}/ms "
+                      f"{r[old] / r['ms']:.2f}x)")
+    if "splits" in r and "ms" in r:
+        extra += f" splits={r['splits']}"
     if "rel_norm" in r:
         extra += (f" rel_norm={r['rel_norm']:.3g} control_rel_norm="
                   f"{r['control_rel_norm']:.3g}")
@@ -1020,9 +1191,7 @@ def _row(tag, r):
 def _verify_row(tag, r):
     """A timed verify line: the body, its chunks, the FMA body's time of
     the same run, and the merge kernel's share where split-K ran."""
-    line = (_row(f"paged_verify_attention {tag}", r)
-            + f" body={r['body']} splits={r['splits']} fma_ms="
-            f"{r['fma_ms']:.4f} (fma/ms {r['fma_ms'] / r['ms']:.1f}x)")
+    line = _row(f"paged_verify_attention {tag}", r) + f" body={r['body']}"
     if "split_ms" in r:
         ms = r["split_ms"]
         merge = sum(v for k, v in ms.items() if "merge" in k)
@@ -1044,18 +1213,18 @@ def phase_kernels():
                lengths=lengths)
     results = {}
     tol = dict(atol=2e-2, rtol=2e-2)
+    log("kernel paged_decode_attention: each window cut into `splits` "
+        "chunks on the card (decode_splits); nosplit_ms is the same body "
+        "with each window whole (splits=1), the kernel the split replaced, "
+        "on the same inputs in this run; library_ms is SDPA over windows "
+        "gathered beforehand")
     r = check_decode(torch, bf16, False, timed=True, **dec, **tol)
-    log(f"kernel paged_decode_attention bf16 B=8 H=32 D=128 ps=16 "
-        f"lengths={lengths}: max_abs_err={r['max_abs_err']:.3g} "
-        f"(atol 2e-2 rtol 2e-2) ms={r['ms']:.4f} plain_ms="
-        f"{r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
-        f"({r['bound_by']})")
+    log(_row(f"paged_decode_attention bf16 B=8 H=32 D=128 ps=16 "
+             f"lengths={lengths} (atol 2e-2 rtol 2e-2)", r))
     results["paged_decode_attention"] = r
     r8 = check_decode(torch, bf16, True, timed=True, **dec, **tol)
-    log(f"kernel paged_decode_attention int8 pages, same shapes: "
-        f"max_abs_err={r8['max_abs_err']:.3g} (atol 2e-2 rtol 2e-2) "
-        f"ms={r8['ms']:.4f} plain_ms={r8['plain_ms']:.3f} "
-        f"bound_ms={r8['bound_ms']:.4f} ({r8['bound_by']})")
+    log(_row("paged_decode_attention int8 pages, same shapes (atol 2e-2 "
+             "rtol 2e-2)", r8))
     r32 = check_decode(torch, f32, False, timed=False, B=2, H=32, Hkv=32,
                        D=128, ps=16, max_pages=16, lengths=[0, 200],
                        atol=1e-4, rtol=1e-4)
@@ -1114,6 +1283,7 @@ def phase_kernels():
     r = check_decode(torch, bf16, False, lengths=lengths, timed=True,
                      **gqa, **tol)
     log(_row(f"paged_decode_attention GQA 32/8 bf16 lengths={lengths}", r))
+    decode_split_sweep(torch)
     rg = check_flash(torch, bf16, 8, 1024, 32, 128, timed=True, Hkv=8, **tol)
     log(_row("flash_attention_fwd GQA 32/8 bf16 B=8 S=1024 (k/v not "
              "expanded)", rg))
@@ -1121,8 +1291,11 @@ def phase_kernels():
     # #12 at the llama2_7b decode GEMMs (8 slots; 40 rows = 8 spec-verify
     # rows of 5), int8 and int4, bf16 timed and f32 checked; 256 rows (the
     # routing limit) and an N that is no multiple of the 128-column tile
-    log("kernel quant_matmul: library_ms is torch.matmul of x with the bf16 "
-        "weight of the same shape")
+    log("kernel quant_matmul: bf16 x on the tensor-core body (its K splits "
+        "summed inside the launch), f32 on the FMA body; fma_ms is the FMA "
+        "body and its epilogue kernel, which the tensor-core body replaced, "
+        "on the same inputs in this run; library_ms is torch.matmul of x "
+        "with the bf16 weight of the same shape")
     for M in (8, 40):
         for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
                      (4096, 32000)):
@@ -1135,6 +1308,7 @@ def phase_kernels():
                 rf = check_quant(torch, f32, int4, M, K, N, timed=False)
                 log(_row(f"quant_matmul {'int4' if int4 else 'int8'} f32 "
                          f"{M}x{K}x{N} (atol 1e-4 rtol 1e-4)", rf))
+    quant_split_sweep(torch)
     for M, K, N in ((256, 4096, 4096), (8, 4096, 1000), (5, 1030, 129)):
         for int4 in (False, True):
             for dt in (bf16, f32):
@@ -1752,6 +1926,8 @@ def main(argv=None):
         phase_profile(ident)
     if "drift" in phases:
         phase_drift(ident)
+    if "anatomy" in phases:
+        phase_anatomy(ident)
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -1830,8 +2006,9 @@ def _counters():
     # name -> (wrapper, its counter); the flash wrappers' ``launches``
     # include their position-mode launches, which ``pos_launches`` counts,
     # and their tensor-core launches, which ``tc_launches`` counts; the
-    # verify wrapper's include its tensor-core launches (``tc_launches``)
-    # and the grouped matmul's its wgmma launches (``wgmma_launches``)
+    # verify and quant wrappers' include their tensor-core launches
+    # (``tc_launches``) and the grouped matmul's its wgmma launches
+    # (``wgmma_launches``)
     return {"paged_decode_attention": (pa.paged_slab_decode_attention,
                                        "launches"),
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
@@ -1849,6 +2026,7 @@ def _counters():
             "paged_verify_attention_tc": (pa.paged_verify_slab_attention,
                                           "tc_launches"),
             "quant_matmul": (qm.quant_matmul, "launches"),
+            "quant_matmul_tc": (qm.quant_matmul, "tc_launches"),
             "grouped_matmul": (gm.grouped_matmul, "launches"),
             "grouped_matmul_wgmma": (gm.grouped_matmul, "wgmma_launches"),
             "paged_decode_attention_v1": (pa.paged_decode_attention,
@@ -1861,10 +2039,11 @@ def _counted(run, needs=(), tc=None):
     """Zero every launch counter, ``run()``, read the counters. Fails if a
     kernel in ``needs`` was never launched. ``tc``, the tag of a pass whose
     attention is bf16 at head dim 64 or 128 throughout: logs the flash
-    wrappers' and the verify wrapper's tensor-core launches and fails
-    unless every flash and verify launch of the pass was one. Logs the
-    grouped matmul's wgmma launches where it ran. Returns (run's result,
-    launches without the tensor-core and wgmma counts)."""
+    wrappers', the verify wrapper's and the quant matmul's tensor-core
+    launches and fails unless every flash, verify and quant launch of the
+    pass was one (such a pass runs its quantized Linears on bf16 x). Logs
+    the grouped matmul's wgmma launches where it ran. Returns (run's
+    result, launches without the tensor-core and wgmma counts)."""
     fns = _counters()
     for fn, attr in fns.values():
         setattr(fn, attr, 0)
@@ -1875,7 +2054,7 @@ def _counted(run, needs=(), tc=None):
             raise AssertionError(f"this pass never launched {name}")
     flash = ("flash_attention_fwd", "flash_attention_bwd")
     on_tc = {name: got.pop(name + "_tc")
-             for name in flash + ("paged_verify_attention",)}
+             for name in flash + ("paged_verify_attention", "quant_matmul")}
     wgmma = got.pop("grouped_matmul_wgmma")
     if tc is not None:
         log(f"{tc}: tensor-core flash launches: forward "
@@ -1885,11 +2064,16 @@ def _counted(run, needs=(), tc=None):
             log(f"{tc}: tensor-core verify launches: "
                 f"tc_launches {on_tc['paged_verify_attention']} of launches "
                 f"{got['paged_verify_attention']}")
+        if got["quant_matmul"]:
+            log(f"{tc}: tensor-core quant matmul launches: tc_launches "
+                f"{on_tc['quant_matmul']} of launches {got['quant_matmul']}"
+                f" (tc_launches == launches: "
+                f"{on_tc['quant_matmul'] == got['quant_matmul']})")
         for name in on_tc:
             if on_tc[name] != got[name]:
                 raise AssertionError(f"{tc}: {got[name] - on_tc[name]} bf16 "
-                                     f"launches of {name} at head dim 64/128 "
-                                     "left the tensor-core body")
+                                     f"launches of {name} left the "
+                                     "tensor-core body")
     if got["grouped_matmul"]:
         log(f"{tc or 'pass'}: grouped matmul launches "
             f"{got['grouped_matmul']}, wgmma_launches {wgmma}")
@@ -2822,6 +3006,93 @@ def _profile_train(ident):
     del model, opt
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# the cuts phase_anatomy makes in csrc/quant_matmul.cu's tensor-core body,
+# each an (old text, new text) replacement of the committed source
+_NO_WEIGHT = [("      cp_async16(sw + r * WP + col, src, ok);\n",
+               "      (void)src;\n")]
+_NO_DEQUANT = [(f"        a{t}[{i}] = i8_pair(r{a}, r{b}, {j});\n",
+                f"        a{t}[{i}] = r{a};\n")
+               for t, i, a, b, j in ((0, 0, 0, 1, 0), (0, 1, 0, 1, 1),
+                                     (0, 2, 8, 9, 0), (0, 3, 8, 9, 1),
+                                     (1, 0, 0, 1, 2), (1, 1, 0, 1, 3),
+                                     (1, 2, 8, 9, 2), (1, 3, 8, 9, 3))]
+_NO_MMA = [("          mma_bf16(acc[0][j], a0, b0, b1);\n"
+            "          mma_bf16(acc[1][j], a1, b0, b1);\n",
+            "          acc[0][j][0] += __uint_as_float(a0[0] ^ a0[3] ^ b0);\n"
+            "          acc[1][j][0] += __uint_as_float(a1[0] ^ a1[3] ^ b1);\n")]
+ANATOMY = {"the body": [], "no weight bytes": _NO_WEIGHT,
+           "no dequant": _NO_DEQUANT, "no MMA": _NO_MMA,
+           "no weight bytes, dequant or MMA": _NO_WEIGHT + _NO_DEQUANT
+           + _NO_MMA}
+
+
+def phase_anatomy(ident):
+    """Opt-in: #12's tensor-core body (int8, bf16 x) at the llama2_7b
+    gate/up shape, 8 and 40 rows, built again with parts of its work cut
+    out of the committed source (``ANATOMY``: the weight copies, the
+    dequant, the MMAs, then all three) and timed in this run beside the
+    body as committed. A cut's outputs are wrong by design; only its time
+    is read. What the body loses without a part is what that part costs
+    on the critical path; what is left with all three cut (launch, the x
+    staging, the split partials and their sum) is the body's floor."""
+    import ctypes
+    import torch
+
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    src = (build.CSRC / "quant_matmul.cu").read_text()
+    out_dir = build.BUILD_DIR / "anatomy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, cuts) in enumerate(ANATOMY.items()):
+        text = src
+        for old, new in cuts:
+            if old not in text:
+                raise AssertionError(f"anatomy: {name!r} finds no {old!r}")
+            text = text.replace(old, new)
+        cu = out_dir / f"cut{i}.cu"
+        cu.write_text(text)
+        procs[name] = (out_dir / f"cut{i}.so", subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+             str(out_dir / f"cut{i}.so"), str(cu)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait() != 0:
+            raise AssertionError(f"anatomy: nvcc failed for {name!r}")
+        lib = ctypes.CDLL(str(so))
+        lib.quant_matmul.argtypes = build._SIGNATURES["quant_matmul"]
+        lib.quant_matmul.restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda")
+    K, N = 4096, 11008
+    for M in (8, 40):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        wq, sc = weight_quantize(torch.randn(
+            (K, N), generator=g, device="cuda") * 0.02, "weight_only_int8")
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        splits, kps = qm.split_plan(M, K, N, False, "tensor_core")
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+        counters = build.arrival_counters(dev, -(-M // 64) * -(-N // 128))
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+        times = {}
+        for name, lib in libs.items():
+            def call(lib=lib):
+                build.check(lib.quant_matmul(
+                    x.data_ptr(), wq.data_ptr(), sc.data_ptr(), None,
+                    ws.data_ptr(), counters.data_ptr(), out.data_ptr(), M, K,
+                    N, splits, kps, build.DTYPE_CODES[x.dtype], 0, 1,
+                    build.stream_ptr(dev)), f"anatomy {name}")
+            times[name] = time_ms(call, reps=30)
+        nbytes = x.numel() * 2 + wq.numel() + N * 4 + M * N * 2
+        log(f"anatomy quant_matmul int8 {M}x{K}x{N} (splits {splits}, "
+            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms bytes): "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" [{ident}]")
 
 
 def phase_drift(ident, B=8, prompt=128, steps=8):

@@ -29,15 +29,23 @@ using namespace ptt::decode;
 // q's dtype, row (b, kvh, s) at k + b * sb + kvh * sh + s * ss (unit stride
 // over D); lengths [B] i32; out [B, H, D] of q's dtype, contiguous. Returns
 // the cudaError_t of the launch.
+// splits, min_chunk: each live window is cut into at most splits chunks
+// of at least min_chunk rows (decode_kernel.cuh); with splits above one,
+// part_o f32 [splits, B, H, D], part_lse f32 [splits, B, H] and counters
+// (int32, one per (b, kv head, head chunk), zero on entry, left zero).
 extern "C" int decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int H, int Hkv, int D, int max_seq, long long q_sb,
     long long q_sh, long long sb, long long sh, long long ss, int q_dtype,
-    int kv_dtype, float scale, void* stream) {
+    int kv_dtype, float scale, int splits, int min_chunk, void* part_o,
+    void* part_lse, void* counters, void* stream) {
   if (max_seq <= 0 || q_dtype != kv_dtype) return cudaErrorInvalidValue;
   const StridedCache rows{static_cast<const int*>(lengths), sb, sh, ss,
                           max_seq};
   const Args a{q, q_sb, q_sh, k, v, out, B, H, Hkv, scale,
+               Split{splits, min_chunk, static_cast<float*>(part_o),
+                     static_cast<float*>(part_lse),
+                     static_cast<int*>(counters)},
                static_cast<cudaStream_t>(stream)};
   if (q_dtype == kBF16) return launch<__nv_bfloat16, __nv_bfloat16>(D, a, rows);
   if (q_dtype == kF32) return launch<float, float>(D, a, rows);

@@ -29,7 +29,7 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "load",
            "build_all", "check", "stream_ptr", "build_seconds",
-           "ptxas_report"]
+           "ptxas_report", "arrival_counters"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,17 +44,18 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # argtypes of each library's C entry point (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address to 32 bits)
 _SIGNATURES = {
-    "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _I, _I]
+    + [_P] * 4,
     "paged_decode_attention_v1": [_P] * 8 + [_I] * 7 + [_LL] * 2
-    + [_I] * 2 + [_F, _P],
+    + [_I] * 2 + [_F, _I, _I] + [_P] * 4,
     "decode_attention": [_P] * 5 + [_I] * 5 + [_LL] * 5 + [_I] * 2
-    + [_F, _P],
+    + [_F, _I, _I] + [_P] * 4,
     "flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _F, _I,
                                                                _P],
     "flash_attention_bwd": [_P] * 13 + [_I] * 5 + [_P, _I, _F, _I, _P],
     "paged_verify_attention": [_P] * 9 + [_I] * 7 + [_LL] * 3 + [_I] * 2
     + [_F] + [_I] * 3 + [_P],
-    "quant_matmul": [_P] * 6 + [_I] * 7 + [_P],
+    "quant_matmul": [_P] * 7 + [_I] * 8 + [_P],
     "grouped_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }
 
@@ -158,3 +159,23 @@ _CUDA_ERRORS = {1: "invalid value: a shape, dtype or head_dim the kernel "
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for the kernels that merge
+    their split partials inside the launch (``last_to_arrive`` in
+    ``csrc/common.cuh``), one buffer per device and stream: zeroed once
+    when it is made (or grown), and left zeroed by every launch that uses
+    it, so the host never clears or reads it. Launches on one stream run
+    in order, so they share the buffer safely."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (idx, stream_ptr(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf

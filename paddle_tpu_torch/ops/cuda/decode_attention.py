@@ -85,10 +85,15 @@ def _slab_ref(q, kv_slab, lengths, scale=None):
     return decode_attention_ref(q, k, v, lengths, scale)
 
 
-def _launch(q, k, v, lengths, scale, counter):
+def _launch(q, k, v, lengths, scale, counter, splits=None):
     """#14/#15 on CUDA tensors: k, v [B, Hkv, S, D] views with a unit
-    stride over D (the 5-D cache's halves or the slab's)."""
+    stride over D (the 5-D cache's halves or the slab's). Each window is
+    cut into ``splits`` chunks on the card (``decode_splits`` when None;
+    ``splits=1`` is the unsplit body, which the card tests and
+    ``chip_smoke.py`` force through this entry)."""
     from ...kernels import build
+    from .paged_attention import (_decode_split_args, _ptr, _sm_count,
+                                  decode_min_chunk, decode_splits)
 
     b, h, d = q.shape
     h_kv, s_max = k.shape[1], k.shape[2]
@@ -109,6 +114,11 @@ def _launch(q, k, v, lengths, scale, counter):
     if lengths.dtype != torch.int32:
         lengths = lengths.to(torch.int32)
     lengths = lengths.contiguous()
+    if splits is None:
+        splits = decode_splits(b, h, h_kv, s_max, _sm_count(q.device))
+    part_o, part_lse, counters = _decode_split_args(q.device, b, h, d,
+                                                    splits)
+    min_chunk = decode_min_chunk(b, h, h_kv, _sm_count(q.device))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     lib = build.load("decode_attention")
     dt = build.DTYPE_CODES[q.dtype]
@@ -116,7 +126,8 @@ def _launch(q, k, v, lengths, scale, counter):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, h, h_kv, d, s_max, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2), dt, dt, float(scale),
-        build.stream_ptr(q.device))
+        int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
+        _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "decode_attention")
     counter.launches += 1
     return out

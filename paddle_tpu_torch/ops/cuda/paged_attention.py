@@ -40,6 +40,8 @@ __all__ = ["PagedCacheState", "PagedKVCache", "quantize_rows_int8",
            "paged_state_prefill", "paged_state_step", "paged_state_verify",
            "paged_forward", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_slab_decode_attention",
+           "decode_splits", "decode_chunk", "decode_min_chunk",
+           "decode_chunked_ref",
            "paged_slab_decode_attention_ref", "paged_verify_slab_attention",
            "paged_verify_slab_attention_ref", "paged_verify_chunked_ref",
            "verify_body", "verify_splits", "verify_chunk",
@@ -52,6 +54,16 @@ _VERIFY_TC_HEAD_DIMS = (64, 128)
 _VERIFY_TILE = 64           # keys a tile of the verify kernel
 _VERIFY_WARPS_PER_SM = 8    # split-K aims the grid at this many warps an SM
 _VERIFY_MAX_SPLITS = 16
+_DECODE_TILE = 16           # rows a decode chunk is rounded up to
+_DECODE_BLOCKS_PER_SM = 8   # decode split-K aims the grid at this many
+_DECODE_MAX_SPLITS = 16
+# the fewest rows of capacity a decode split is worth: 512 while the grid
+# leaves SMs without a block, 1024 once every SM has one (a split then
+# pays only against windows much longer than a block walks quickly)
+_DECODE_MIN_CAPACITY = (512, 1024)
+# the fewest rows a decode chunk holds once every SM has a block: a window
+# this short is walked whole, with no partials and no merge
+_DECODE_FULL_GRID_CHUNK = 512
 
 
 class PagedCacheState:
@@ -347,6 +359,133 @@ def _check(q, k_pages, v_pages, block_tables, lengths, scale_pages,
         raise ValueError("all operands must live on one device")
 
 
+def _decode_head_chunk(group) -> int:
+    """GC, the q heads of one GQA group a decode block serves: 4, 2 or 1,
+    the largest that divides the group (csrc/decode_kernel.cuh)."""
+    return 4 if group % 4 == 0 else (2 if group % 2 == 0 else 1)
+
+
+def _decode_blocks(batch, num_heads, num_kv_heads) -> int:
+    """The decode grid's blocks at one chunk a window."""
+    group = num_heads // num_kv_heads
+    return batch * num_kv_heads * (group // _decode_head_chunk(group))
+
+
+def decode_chunk(length, splits, min_chunk=_DECODE_TILE) -> int:
+    """Rows of a window of ``length`` live rows that one of ``splits``
+    decode chunks holds, as each block cuts it on the card:
+    ``ceil(length / splits)`` rounded up to whole 16-row tiles and to
+    ``min_chunk``. Chunk ``s`` is ``[s * chunk, min(length, (s + 1) *
+    chunk))``; a block whose chunk starts at or past the last row has
+    nothing to do."""
+    per = -(-max(0, length) // max(1, splits))
+    return max(-(-per // _DECODE_TILE) * _DECODE_TILE, min_chunk)
+
+
+def decode_min_chunk(batch, num_heads, num_kv_heads, sm_count) -> int:
+    """The fewest rows a decode chunk holds, from host-known values only:
+    16 (one tile) while the grid leaves SMs without a block, where every
+    chunk fills an idle SM; ``_DECODE_FULL_GRID_CHUNK`` once every SM has
+    one, so that only windows long enough to repay the partials and the
+    merge are cut."""
+    if _decode_blocks(batch, num_heads, num_kv_heads) < sm_count:
+        return _DECODE_TILE
+    return _DECODE_FULL_GRID_CHUNK
+
+
+def decode_splits(batch, num_heads, num_kv_heads, capacity,
+                  sm_count) -> int:
+    """How many chunks the decode kernels (#1, #4, #14, #15) cut each
+    sequence's live window into, from host-known values only: the call
+    never reads ``lengths`` (a card tensor on the engine's path) and never
+    waits for the card. One chunk when the grid (batch x kv heads x head
+    chunks) already holds ``_DECODE_BLOCKS_PER_SM`` blocks an SM; else
+    enough chunks to reach that, at most ``_DECODE_MAX_SPLITS``, and no
+    more than the capacity holds chunks of ``_DECODE_MIN_CAPACITY`` rows
+    (the larger minimum once the grid gives every SM a block): a split
+    costs each block a partial write and the merge, which short chunks do
+    not repay (measured in PERF.md). The count is that of the chunks
+    ``decode_chunk`` makes of a window at the capacity, so at the capacity
+    no chunk lies wholly past the window."""
+    blocks = _decode_blocks(batch, num_heads, num_kv_heads)
+    want = _DECODE_BLOCKS_PER_SM * sm_count
+    if blocks >= want:
+        return 1
+    fewest = _DECODE_MIN_CAPACITY[blocks >= sm_count]
+    splits = min(-(-want // blocks), capacity // fewest, _DECODE_MAX_SPLITS)
+    if splits <= 1:
+        return 1
+    return -(-capacity // decode_chunk(capacity, splits))
+
+
+def decode_chunked_ref(q, k, v, lengths, splits, scale=None,
+                       min_chunk=_DECODE_TILE):
+    """Plain twin of the decode kernels' split arithmetic: each row's live
+    window (``min(lengths[b], S)`` rows of k/v ``[B, Hkv, S, D]``, already
+    gathered and dequantized) cut into the chunks of ``decode_chunk`` (at
+    least ``min_chunk`` rows), each chunk's softmax over its own rows (o
+    normalised over them, and their log-sum-exp, -inf where the chunk
+    holds no row), then the chunks weighed in log space in split order. A
+    row of length 0 gives zeros. Returns ``[B, H, D]`` in q's dtype."""
+    b, h, d = q.shape
+    h_kv, s_max = k.shape[1], k.shape[2]
+    group = h // h_kv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, h_kv, group, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    vf = v.float()
+    out = torch.zeros((b, h_kv, group, d), dtype=torch.float32,
+                      device=q.device)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s_max)
+        if n == 0:
+            continue
+        chunk = decode_chunk(n, splits, min_chunk)
+        outs, lses = [], []
+        for sp in range(splits):
+            lo = min(n, sp * chunk)
+            hi = min(n, lo + chunk)
+            if hi == lo:
+                outs.append(torch.zeros_like(out[bi]))
+                lses.append(torch.full((h_kv, group, 1), -math.inf,
+                                       device=q.device))
+                continue
+            sc = scores[bi, :, :, lo:hi]
+            mx = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - mx)
+            l_c = p.sum(-1, keepdim=True)
+            outs.append(torch.einsum("kgs,ksd->kgd", p, vf[bi, :, lo:hi])
+                        / l_c)
+            lses.append(mx + torch.log(l_c))
+        lse = torch.stack(lses)                        # [C, Hkv, g, 1]
+        top = lse.amax(0)
+        w = torch.where(lse == -math.inf, torch.zeros_like(lse),
+                        torch.exp(lse - top))
+        out[bi] = (w * torch.stack(outs)).sum(0) / w.sum(0)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _decode_split_args(device, batch, num_heads, head_dim, splits):
+    """The scratch of a split decode launch: (part_o [splits, B, H, D],
+    part_lse [splits, B, H], the arrival counters), or three Nones for one
+    split. The tensors must stay referenced until the launch is queued."""
+    if splits <= 1:
+        return None, None, None
+    from ...kernels import build
+
+    part_o = torch.empty((splits, batch, num_heads, head_dim),
+                         dtype=torch.float32, device=device)
+    part_lse = torch.empty((splits, batch, num_heads), dtype=torch.float32,
+                           device=device)
+    return part_o, part_lse, build.arrival_counters(device,
+                                                    batch * num_heads)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def paged_slab_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                                 num_heads=None, scale=None,
                                 scale_pages: Optional[torch.Tensor] = None):
@@ -354,7 +493,20 @@ def paged_slab_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     Hkv*D]; block_tables [B, max_pages] i32; lengths [B] i32 (the new token
     already written). ``scale_pages`` selects the int8 path. Returns
     [B, H, D] in q's dtype. A CPU tensor takes the plain twin; a CUDA
-    tensor launches the kernel (``.launches`` counts them) or raises."""
+    tensor launches the kernel (``.launches`` counts them) or raises. Each
+    window is cut into ``decode_splits`` chunks on the card and merged in
+    the same launch."""
+    return _paged_slab_decode(q, k_pages, v_pages, block_tables, lengths,
+                              num_heads, scale, scale_pages)
+
+
+def _paged_slab_decode(q, k_pages, v_pages, block_tables, lengths,
+                       num_heads=None, scale=None, scale_pages=None,
+                       splits=None):
+    """``paged_slab_decode_attention`` with its chunk count chosen by the
+    caller instead of by ``decode_splits``: how the card tests force the
+    split and how ``chip_smoke.py`` times the unsplit body (``splits=1``)
+    beside the split one."""
     _check(q, k_pages, v_pages, block_tables, lengths, scale_pages, 3)
     if num_heads is not None and num_heads != q.shape[1]:
         raise ValueError("num_heads disagrees with q")
@@ -383,15 +535,22 @@ def paged_slab_decode_attention(q, k_pages, v_pages, block_tables, lengths,
         raise ValueError("too many heads for the kernel grid")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    h_kv = khd // d
+    if splits is None:
+        splits = decode_splits(b, h, h_kv, block_tables.shape[1] * page_size,
+                               _sm_count(q.device))
+    part_o, part_lse, counters = _decode_split_args(q.device, b, h, d,
+                                                    splits)
+    min_chunk = decode_min_chunk(b, h, h_kv, _sm_count(q.device))
     out = torch.empty_like(q)
     lib = build.load("paged_decode_attention")
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        scale_pages.data_ptr() if scale_pages is not None else None,
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, khd // d, d, page_size, block_tables.shape[1],
+        _ptr(scale_pages), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, h, h_kv, d, page_size, block_tables.shape[1],
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
-        float(scale), build.stream_ptr(q.device))
+        float(scale), int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
+        _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention")
     paged_slab_decode_attention.launches += 1
     return out
@@ -711,7 +870,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     written). ``k_scales``/``v_scales`` f32 [Hkv, P, page_size] select the
     int8 path (pages must then be int8). Returns [B, H, D] in q's dtype. A
     CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    (``.launches`` counts them) or raises."""
+    (``.launches`` counts them) or raises. Each window is cut into
+    ``decode_splits`` chunks on the card and merged in the same launch."""
+    return _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale,
+                         k_scales, v_scales)
+
+
+def _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale=None,
+                  k_scales=None, v_scales=None, splits=None):
+    """``paged_decode_attention`` with its chunk count chosen by the caller
+    instead of by ``decode_splits`` (``splits=1``: the unsplit body), for
+    the card tests and ``chip_smoke.py``."""
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError("q [B, H, D], pages [Hkv, P, page_size, D]")
     if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
@@ -758,6 +927,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                          "head_dim)")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if splits is None:
+        splits = decode_splits(b, h, h_kv, block_tables.shape[1] * page_size,
+                               _sm_count(q.device))
+    part_o, part_lse, counters = _decode_split_args(q.device, b, h, d,
+                                                    splits)
+    min_chunk = decode_min_chunk(b, h, h_kv, _sm_count(q.device))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     lib = build.load("paged_decode_attention_v1")
     rc = lib.paged_decode_attention_v1(
@@ -768,7 +943,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
         b, h, h_kv, d, num_pages, page_size, block_tables.shape[1],
         q.stride(0), q.stride(1),
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pages.dtype],
-        float(scale), build.stream_ptr(q.device))
+        float(scale), int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
+        _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention_v1")
     paged_decode_attention.launches += 1
     return out

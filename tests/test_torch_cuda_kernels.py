@@ -1506,3 +1506,207 @@ def test_grouped_wgmma_refuses_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="^rhs: .*16-byte"):
         gm.grouped_matmul(lhs, flat[2:2 + rhs.numel()].view_as(rhs), gs)
     assert gm.grouped_matmul.launches == before
+
+
+# ------------------------------------------------ the tensor-core body of
+# #12 and the split decode body of #1, #4, #14, #15
+def _quant_counts():
+    return qm.quant_matmul.launches, qm.quant_matmul.tc_launches
+
+
+@pytest.mark.parametrize("body", ["tensor_core", "fma"])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 65, 256])
+@pytest.mark.parametrize("bias", [True, False])
+def test_quant_bodies_match_plain(cuda, body, int4, M, bias):
+    """Both bodies of #12 on bf16 x: K = 1030 (no multiple of a split or
+    of a stage) and an odd N = 129 (no multiple of the column tile, the
+    plain-load staging path), then the llama2_7b gate shape; one launch a
+    call, on the body asked for."""
+    wd = "int4" if int4 else "int8"
+    for K, N in ((1030, 129), (4096, 11008)):
+        x, w, sc, b = _quant_inputs(cuda, torch.bfloat16, int4, M, K, N,
+                                    seed=M, bias=bias)
+        c0 = _quant_counts()
+        got = qm._quant_matmul(x, w, sc, b, weight_dtype=wd, body=body)
+        torch.cuda.synchronize()
+        tc = int(body == "tensor_core")
+        assert tuple(y - a for a, y in zip(c0, _quant_counts())) == (1, tc)
+        want = qm.quant_matmul_ref(x, w, sc, b, weight_dtype=wd)
+        assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,rows,body", [
+    (torch.bfloat16, 8, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
+    (torch.float32, 8, "fma"), (torch.float32, 256, "fma")])
+def test_quant_body_rule_on_card(cuda, dtype, rows, body):
+    """The wrapper's own choice follows ``quant_body``: bf16 x on the
+    tensor cores (tc_launches + 1), f32 on the FMA body; the tensor-core
+    body refuses f32 x."""
+    assert qm.quant_body(dtype, rows) == body
+    x, w, sc, b = _quant_inputs(cuda, dtype, False, rows, 512, 256)
+    c0 = _quant_counts()
+    got = qm.quant_matmul(x, w, sc, b)
+    tc = int(body == "tensor_core")
+    assert tuple(y - a for a, y in zip(c0, _quant_counts())) == (1, tc)
+    torch.testing.assert_close(got.float(), qm.quant_matmul_ref(
+        x, w, sc, b).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    if not tc:
+        with pytest.raises(ValueError, match="tensor_core"):
+            qm._quant_matmul(x, w, sc, b, body="tensor_core")
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_quant_tc_body_is_deterministic(cuda, int4):
+    """Two calls give bitwise-equal outputs: the last block of a tile sums
+    the splits in split order whichever block arrives last."""
+    wd = "int4" if int4 else "int8"
+    x, w, sc, b = _quant_inputs(cuda, torch.bfloat16, int4, 40, 4096, 4096)
+    assert qm.split_plan(40, 4096, 4096, int4, "tensor_core")[0] > 1
+    first = qm.quant_matmul(x, w, sc, b, weight_dtype=wd)
+    for _ in range(3):
+        assert torch.equal(qm.quant_matmul(x, w, sc, b, weight_dtype=wd),
+                           first)
+
+
+def test_quant_tc_counters_reset_between_calls(cuda):
+    """Calls in a row on different shapes (the arrival counters of one
+    call's tiles are the next call's) are all right, and the counter
+    buffer is left zeroed."""
+    from paddle_tpu_torch.kernels import build
+
+    for i, (M, K, N, int4) in enumerate(((8, 4096, 11008, False),
+                                         (40, 11008, 4096, True),
+                                         (3, 4096, 32000, False),
+                                         (8, 4096, 11008, True))):
+        wd = "int4" if int4 else "int8"
+        x, w, sc, b = _quant_inputs(cuda, torch.bfloat16, int4, M, K, N,
+                                    seed=i)
+        got = qm.quant_matmul(x, w, sc, b, weight_dtype=wd)
+        want = qm.quant_matmul_ref(x, w, sc, b, weight_dtype=wd)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    torch.cuda.synchronize()
+    assert not bool(build.arrival_counters(cuda, 1).any())
+
+
+_SPLIT_LENS = [0, 1, 15, 16, 17, 77, 128]  # capacity 128 = 8 pages of 16
+
+
+def _split_decode(cuda, layout, dtype, quant, splits, seed=0):
+    """(kernel output with ``splits`` forced, plain output) of one decode
+    layout at lengths with 0, 1, the tile edges 15/16/17 and the
+    capacity; GQA 8/2 at D 128."""
+    B, H, Hkv, D, ps, max_pages = len(_SPLIT_LENS), 8, 2, 128, 16, 8
+    lens = torch.tensor(_SPLIT_LENS, dtype=torch.int32, device=cuda)
+    if layout == "slab_pages":
+        q, k, v, tables, _, sc = _decode_inputs(
+            cuda, dtype, quant, B, H, Hkv, D, ps, max_pages, _SPLIT_LENS,
+            seed)
+        return (pa._paged_slab_decode(q, k, v, tables, lens, scale_pages=sc,
+                                      splits=splits),
+                pa.paged_slab_decode_attention_ref(q, k, v, tables, lens,
+                                                   scale_pages=sc))
+    if layout == "head_major":
+        q, k, v, tables, ks, vs = _v1_inputs(cuda, dtype, quant, B, H, Hkv,
+                                             D, ps, max_pages, seed)
+        return (pa._paged_decode(q, k, v, tables, lens, k_scales=ks,
+                                 v_scales=vs, splits=splits),
+                pa.paged_decode_attention_ref(q, k, v, tables, lens,
+                                              k_scales=ks, v_scales=vs))
+    S = ps * max_pages
+    q, cache = _contig_inputs(cuda, dtype, B, H, Hkv, D, S, seed)
+    k, v = cache[0], cache[1]
+    counter = da.decode_attention
+    if layout == "slab":
+        slab = cache.transpose(2, 3).reshape(2, B, S, Hkv * D).contiguous()
+        k, v = da._slab_views(slab, D)
+        counter = da.decode_attention_slab
+    return (da._launch(q, k, v, lens, 1.0 / D ** 0.5, counter, splits),
+            da.decode_attention_ref(q, k, v, lens))
+
+
+_LAYOUTS = ["slab_pages", "head_major", "5d", "slab"]
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_decode_split_body_matches_plain(cuda, layout, splits):
+    """The decode body at forced splits 1-16 on all four layouts: bf16 and
+    f32 (and int8 pages on the paged layouts), against the plain twins
+    (f32 within 2e-5, bf16 within one bf16 ulp of the largest entry);
+    length 0 gives exact zeros."""
+    cases = [(torch.bfloat16, False), (torch.float32, False)]
+    if layout in ("slab_pages", "head_major"):
+        cases += [(torch.bfloat16, True), (torch.float32, True)]
+    for dtype, quant in cases:
+        got, want = _split_decode(cuda, layout, dtype, quant, splits,
+                                  seed=splits)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        _ulp_close(got, want, dtype)
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_decode_split_body_is_deterministic(cuda, layout):
+    """Two calls with the same split give bitwise-equal outputs (the
+    chunks merge in split order), and calls in a row at other splits are
+    all right (the counters reset)."""
+    a, _ = _split_decode(cuda, layout, torch.bfloat16, False, 7)
+    b, _ = _split_decode(cuda, layout, torch.bfloat16, False, 7)
+    assert torch.equal(a, b)
+    for splits in (3, 16, 2):
+        got, want = _split_decode(cuda, layout, torch.float32, False, splits,
+                                  seed=splits)
+        _ulp_close(got, want, torch.float32)
+
+
+def test_decode_splits_rule_on_card(cuda):
+    """The wrappers' own choice at llama2_7b's serving shape splits each
+    window (and leaves a wide batch whole), and its result matches the
+    plain twin at the main path's ragged lengths."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.decode_splits(8, 32, 32, 4096, sms) > 1
+    assert pa.decode_splits(8, 32, 8, 4096, sms) > 1
+    assert pa.decode_splits(256, 32, 32, 4096, sms) == 1
+    lengths = [0, 1, 17, 300, 1000, 2049, 3333, 4096]
+    q, k, v, tables, lens, _ = _decode_inputs(
+        cuda, torch.bfloat16, False, 8, 32, 8, 128, 16, 256, lengths)
+    got = pa.paged_slab_decode_attention(q, k, v, tables, lens)
+    want = pa.paged_slab_decode_attention_ref(q, k, v, tables, lens)
+    _ulp_close(got, want, torch.bfloat16)
+    assert torch.equal(got, pa._paged_slab_decode(
+        q, k, v, tables, lens, splits=pa.decode_splits(8, 32, 8, 4096, sms)))
+
+
+@pytest.mark.parametrize("layout", ["slab_pages", "5d"])
+@pytest.mark.parametrize("splits", [2, 3, 4, 8])
+def test_decode_split_floor_on_a_full_grid(cuda, layout, splits):
+    """A grid that gives every SM a block (B=8, 32 kv heads) cuts only
+    windows past the 512-row floor: lengths below, at and past it and up
+    to the capacity, some rows in one chunk (written at once) and some in
+    several (merged), against the plain twin."""
+    B, H, D, ps, max_pages = 8, 32, 128, 16, 64
+    lengths = [0, 1, 511, 512, 513, 700, 1000, 1024]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.decode_min_chunk(B, H, H, sms) == 512
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        if layout == "slab_pages":
+            q, k, v, tables, _, _ = _decode_inputs(
+                cuda, dtype, False, B, H, H, D, ps, max_pages, lengths,
+                seed=splits)
+            got = pa._paged_slab_decode(q, k, v, tables, lens, splits=splits)
+            want = pa.paged_slab_decode_attention_ref(q, k, v, tables, lens)
+        else:
+            q, cache = _contig_inputs(cuda, dtype, B, H, H, D, ps * max_pages,
+                                      seed=splits)
+            got = da._launch(q, cache[0], cache[1], lens, D ** -0.5,
+                             da.decode_attention, splits)
+            want = da.decode_attention_ref(q, cache[0], cache[1], lens)
+        torch.cuda.synchronize()
+        _ulp_close(got, want, dtype)
+        assert torch.all(got[0] == 0)
