@@ -41,7 +41,26 @@ Phases, in order; any failure exits non-zero:
               general route; T4-T6 reach the remaining regimes). Each pass
               zeroes the launch counters just before it and reads them
               just after.
-5. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
+5. serve    — ``llama2_7b`` at full width and depth, bf16, random weights
+              from a seed, prefix cache on, behind the port's HTTP front
+              end (``ServingFrontend`` + ``ApiServer`` on 127.0.0.1, an
+              ephemeral port): three requests one at a time (unary, SSE)
+              held against a direct ``Engine.run`` of each alone; 24
+              requests from 8 client threads (prompts 16-1024, half on a
+              shared 256-token prefix so #3's suffix prefill runs, 4
+              sampled, two weighted tenants, SSE and unary), a client that
+              hangs up mid-stream (must end ``cancelled``, pages back in
+              the pool), a 0 ms deadline (must fail ``deadline``);
+              ``/healthz``, ``/readyz`` and a Prometheus scrape whose TTFT
+              count must match; #1, #2 and #3 must launch, on their
+              tensor-core bodies. Then three closed loops at concurrency 8
+              (tok/s, TTFT from the tickets) and a fourth under the
+              profiler (wall and device busy ms of the same engine steps)
+              against a direct run of the same items, ``multi_step=4``
+              against 1 on a pure-decode
+              round, and 2-layer f32 at ``llama2_7b`` widths: concurrent
+              HTTP greedy streams against a direct ``Engine.run``.
+6. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
               ``bench.py``'s decode shape (B=8, 128 + 512 tokens, bf16,
               then int8 and int4 weights; #2 prefill, #15 decode, #12) and
               ``llama2_7b`` at full depth (greedy and sampled); GPT-2 small
@@ -51,7 +70,7 @@ Phases, in order; any failure exits non-zero:
               each held against the same run on the plain versions; then
               2-layer full-width f32 checks: greedy streams against the
               cacheless argmax, 5-D and paged logits against the slab's.
-6. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
+7. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
               and int8 weights; Mixtral widths): the engine's greedy
               streams, plain and in each of the three modes, against the
               argmax of the same model's cacheless forward; then the train
@@ -86,6 +105,12 @@ rules against a sweep of forced split counts, and every bf16
 pass through #12 (the int8 and int4 engine and ``generate`` passes) fails
 unless each of its launches was a tensor-core one.
 
+The engine's ``step`` never raises on a recoverable fault: it requeues
+and recomputes after a failed dispatch, and a spec step drafts nothing
+when its drafter raises, so a run can come out right after a fault. Every
+``Engine`` pass of every phase (direct, behind the front end, profiled)
+therefore fails if its engine caught a step or drafter fault.
+
 Opt-in: ``--phases build,profile`` profiles one T1 training step, then
 times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
 spec verify step and a Mixtral-width MoE decode chain, and lists the
@@ -118,7 +143,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
-PHASES = ("build", "kernels", "context", "main", "generate", "greedy")
+PHASES = ("build", "kernels", "context", "main", "serve", "generate",
+          "greedy")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy")
 
 
@@ -1916,7 +1942,8 @@ def main(argv=None):
         stats, n = phase_context(ident)
         kernel_stats.update(stats)
         launches.update(n)
-    for phase, run in (("main", phase_main), ("generate", phase_generate)):
+    for phase, run in (("main", phase_main), ("serve", phase_serve),
+                       ("generate", phase_generate)):
         if phase in phases:
             for name, n in run(ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -1962,10 +1989,27 @@ def _check_done(reqs, items):
                 f"{len(r.tokens)}/{m} tokens")
 
 
-def _serve_items(engine, items):
+def _no_caught_fault(eng, tag):
+    """A fault the engine caught still fails the run. ``step`` recovers
+    from a failed dispatch (every request requeues and recomputes on the
+    same kernels) and the spec step drafts nothing when its drafter raises;
+    either can leave every stream right all the same, so each Engine pass
+    ends here. Fails if ``eng`` recovered a step, lost a draft to a
+    drafter fault or was quarantined."""
+    wd = eng._watchdog
+    drafter = eng._spec.drafter_faults if eng._spec is not None else 0
+    if wd.last_fault is not None or wd.quarantined or drafter:
+        raise AssertionError(
+            f"{tag}: the engine caught a fault: step fault "
+            f"{wd.last_fault!r}, {drafter} drafter faults, quarantined "
+            f"{wd.quarantined}")
+
+
+def _serve_items(engine, items, tag="engine pass"):
     """Queue ``items`` [(prompt, new_tokens, temperature, seed)] and run the
     engine to completion; fail unless every request finished with its full
-    budget. Returns (requests, wall seconds)."""
+    budget and the engine caught no fault. Returns (requests, wall
+    seconds)."""
     import torch
 
     reqs = [engine.add_request(p, m, temperature=t, seed=s)
@@ -1976,6 +2020,7 @@ def _serve_items(engine, items):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _check_done(reqs, items)
+    _no_caught_fault(engine, tag)
     return reqs, wall
 
 
@@ -2123,7 +2168,7 @@ def phase_main(ident):
     seen = {}
 
     def serve(tag, eng, items):
-        reqs, wall = _serve_items(eng, items)
+        reqs, wall = _serve_items(eng, items, tag)
         seen[tag] = _report(tag, reqs, wall, ident)
         return eng
 
@@ -2212,6 +2257,7 @@ def phase_main(ident):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _check_done(reqs, short + long_)
+        _no_caught_fault(eng, "main chunked prefill")
         _report("main chunked prefill", reqs, wall, ident)
 
     run_pass("main chunked prefill", chunked, verify)
@@ -2331,6 +2377,493 @@ def phase_main(ident):
         if n <= 0 and name not in GENERATE_ROWS + CONTEXT_ROWS:
             raise AssertionError(f"the main path never launched {name}")
     return total
+
+
+# ------------------------------------------------------------ serve
+class _Api:
+    """The port's ``ApiServer`` over a ``ServingFrontend`` on ``engine``,
+    on 127.0.0.1 at an ephemeral port, its event loop on a thread of its
+    own; blocking HTTP helpers for the clients."""
+
+    def __init__(self, engine, **frontend_kw):
+        import asyncio
+        import threading
+
+        from paddle_tpu_torch.serving import ServingFrontend
+        from paddle_tpu_torch.serving.server import ApiServer
+
+        self.engine = engine
+        self.frontend = ServingFrontend(engine, **frontend_kw)
+        self.srv = ApiServer(self.frontend, host="127.0.0.1", port=0,
+                             model_name="llama2-7b", grace_s=120.0)
+        self.loop = asyncio.new_event_loop()
+        self._bound = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="api-loop",
+                                        daemon=True)
+        self._thread.start()
+        if not self._bound.wait(60):
+            raise AssertionError("the API server never bound its port")
+        self.base = f"http://127.0.0.1:{self.srv.port}"
+
+    def _run(self):
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+        self.loop.run_until_complete(self.srv.start())
+        self._bound.set()
+        self.loop.run_forever()
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=60) as r:
+            return r.status, json.loads(r.read())
+
+    def complete(self, payload, tenant=None, chat=False, timeout=900):
+        """One completion: (token ids, finish_reason); SSE when the payload
+        says ``stream``."""
+        import urllib.request
+
+        path = "/v1/chat/completions" if chat else "/v1/completions"
+        headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers["X-Tenant"] = tenant
+        req = urllib.request.Request(self.base + path,
+                                     data=json.dumps(payload).encode(),
+                                     headers=headers)
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            if not payload.get("stream"):
+                choice = json.loads(r.read())["choices"][0]
+                return choice["token_ids"], choice["finish_reason"]
+            toks, finish = [], None
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: ") or line[6:] == "[DONE]":
+                    continue
+                choice = json.loads(line[6:])["choices"][0]
+                toks.extend(choice["token_ids"])
+                finish = choice["finish_reason"] or finish
+            return toks, finish
+
+    def disconnect_mid_stream(self, prompt, max_tokens):
+        """Open an SSE completion, read its first chunk, hang up."""
+        import socket
+
+        body = json.dumps({"prompt": [int(t) for t in prompt],
+                           "max_tokens": max_tokens,
+                           "stream": True}).encode()
+        with socket.create_connection(("127.0.0.1", self.srv.port),
+                                      timeout=600) as raw:
+            raw.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                        b"Content-Type: application/json\r\n"
+                        + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                        + body)
+            got = b""
+            while b'"token_ids": [' not in got:
+                chunk = raw.recv(65536)
+                if not chunk:
+                    raise AssertionError("the stream ended before a chunk")
+                got += chunk
+
+    def close(self):
+        """Drain and stop; fails if the engine thread died of a fault."""
+        import asyncio
+
+        fut = asyncio.run_coroutine_threadsafe(self.srv.shutdown(),
+                                               self.loop)
+        fut.result(timeout=300)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            raise AssertionError("the API server's loop did not stop")
+        self.loop.close()
+        if self.frontend.fault is not None:
+            raise AssertionError(
+                f"the engine thread died: {self.frontend.fault!r}")
+        _no_caught_fault(self.engine, "the API server's engine")
+
+
+def _run_clients(jobs, threads):
+    """Run the callables ``jobs`` on ``threads`` client threads; returns
+    their results in order and re-raises the first failure."""
+    import threading
+
+    results = [None] * len(jobs)
+    errors = []
+    nxt = iter(range(len(jobs)))
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            try:
+                results[i] = jobs[i]()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append((i, e))
+
+    ts = [threading.Thread(target=worker, name=f"client-{k}")
+          for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=1800)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a client thread hung")
+    if errors:
+        i, e = errors[0]
+        raise AssertionError(f"client job {i} failed: {e!r}") from e
+    return results
+
+
+def _metric(name, labels=None):
+    """A counter's total (or one label series) in the port's registry."""
+    from paddle_tpu_torch.observability import REGISTRY
+
+    m = REGISTRY.get(name)
+    if m is None:
+        return 0.0
+    return float(sum(leaf.value for key, leaf in m.series()
+                     if labels is None
+                     or dict(m.label_pairs(key)) == labels))
+
+
+def _hist(name):
+    """(count, sum) of a histogram over its label series."""
+    from paddle_tpu_torch.observability import REGISTRY
+
+    m = REGISTRY.get(name)
+    if m is None:
+        return 0, 0.0
+    leaves = [leaf for _, leaf in m.series()]
+    return sum(l.count for l in leaves), sum(l.sum for l in leaves)
+
+
+def _scrape_ttft_count():
+    """The TTFT histogram's count summed over tenants, parsed from a
+    ``render_prometheus`` scrape."""
+    from paddle_tpu_torch.observability import render_prometheus
+
+    text = render_prometheus()
+    total = 0
+    for line in text.splitlines():
+        if line.startswith("paddle_serving_ttft_seconds_count"):
+            total += int(float(line.rsplit(" ", 1)[1]))
+    if "# TYPE paddle_serving_ttft_seconds histogram" not in text:
+        raise AssertionError("the scrape has no TTFT histogram")
+    return total
+
+
+def _drained(eng):
+    """Nothing active or queued, and every page free or cached idle."""
+    return (not eng._active and not eng._queue
+            and int(eng._page_ref.sum()) == 0
+            and len(eng._free_slots) == eng.max_slots)
+
+
+def _wait_for(cond, timeout, what):
+    t_end = time.perf_counter() + timeout
+    while time.perf_counter() < t_end:
+        if cond():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _serve_items_direct(make_engine, items):
+    """A direct ``Engine.run`` of ``items`` [(prompt, budget, temperature,
+    seed)] on a fresh engine, freed after: (streams, wall seconds)."""
+    import torch
+
+    eng = make_engine()
+    reqs, wall = _serve_items(eng, items)
+    del eng
+    gc.collect()  # an engine and its runner hold each other
+    torch.cuda.empty_cache()
+    return [list(r.tokens) for r in reqs], wall
+
+
+def phase_serve(ident):
+    """``llama2_7b``, bf16, full width and depth, random weights from a
+    seed, prefix cache on, served through the port's ``ApiServer`` over
+    sockets (see the module docstring); then the multi-step round and the
+    f32 identity. Launches of the HTTP pass are counted and returned."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+    from paddle_tpu_torch.serving import ServingFrontend
+    from paddle_tpu_torch.serving.loadgen import _mk_prompt, run_closed_loop
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    # every kernel is built before any front-end thread starts
+    build.build_all()
+    cfg = llama2_7b()
+    model = init_llama(cfg, seed=4, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(4)
+    vocab = cfg.vocab_size
+    geo = dict(max_slots=8, num_pages=1024, page_size=16, chunk_size=16,
+               max_chain=4, prefix_cache=True)
+
+    def rand(n):
+        return rng.integers(0, vocab, (n,))
+
+    def engine(**kw):
+        return Engine(model, **dict(geo, **kw))
+
+    weights = {"interactive": 4.0, "batch": 1.0}
+    api = _Api(engine(multi_step=4), tenant_weights=weights)
+    eng = api.engine
+    log(f"serve: llama2_7b bf16 behind the API server at {api.base} "
+        f"(8 slots, prefix cache, multi_step 4, tenants {weights})")
+    # ---- the HTTP pass, counted ----------------------------------------
+    ident_items = [(rand(n), m, t, s) for n, m, t, s in (
+        (200, 32, 0.0, None), (600, 24, 0.0, None), (90, 40, 0.8, 77))]
+    shared = rand(256)
+    load = []
+    for i in range(24):
+        if i % 2 == 0:
+            prompt = np.concatenate([shared, rand(int(rng.integers(16, 769)))])
+        else:
+            prompt = rand(int(rng.integers(16, 1025)))
+        sampled = i in (3, 8, 15, 20)
+        load.append(dict(prompt=prompt, max_tokens=int(rng.integers(24, 49)),
+                         temperature=0.8 if sampled else 0.0,
+                         seed=500 + i if sampled else None,
+                         stream=i % 4 in (1, 2),
+                         tenant="interactive" if i % 3 == 0 else "batch"))
+    hang_up, late = rand(64), rand(40)
+    c0 = {k: _metric(k) for k in (
+        "paddle_serving_requests_completed_total",
+        "paddle_tpu_engine_recoveries_total")}
+    cancelled0 = _metric("paddle_tpu_request_failures_total",
+                         {"reason": "cancelled", "tenant": "default"})
+    ttft0 = _scrape_ttft_count()
+    box = {}
+
+    def http_pass():
+        # identity at bf16: three requests one at a time
+        outs = []
+        for i, (p, m, t, s) in enumerate(ident_items):
+            payload = {"prompt": [int(x) for x in p], "max_tokens": m,
+                       "temperature": t, "stream": i > 0}
+            if s is not None:
+                payload["seed"] = s
+            outs.append(api.complete(payload))
+        box["ident"] = outs
+        # the load: 24 requests from 8 clients, a client that hangs up
+        # mid-stream and a request whose deadline (0 ms) cannot be met
+        jobs = [lambda: api.disconnect_mid_stream(hang_up, 400),
+                lambda: api.complete({"prompt": [int(x) for x in late],
+                                      "max_tokens": 16, "deadline_ms": 0})]
+        for it in load:
+            payload = {"prompt": [int(x) for x in it["prompt"]],
+                       "max_tokens": it["max_tokens"],
+                       "temperature": it["temperature"],
+                       "stream": it["stream"]}
+            if it["seed"] is not None:
+                payload["seed"] = it["seed"]
+            jobs.append(lambda payload=payload, it=it: api.complete(
+                payload, tenant=it["tenant"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["load"] = _run_clients(jobs, 8)[1:]
+        box["load_wall"] = time.perf_counter() - t0
+        _wait_for(lambda: _drained(eng), 600, "the engine to drain")
+
+    _, launches = _counted(http_pass, needs=(
+        "paged_decode_attention", "flash_attention_fwd",
+        "paged_verify_attention"), tc="serve")
+    log(f"serve: launches {launches}")
+    if launches.pop("flash_attention_bwd"):
+        raise AssertionError("serving launched the backward")
+    deadline_out, *load_out = box["load"]
+    if deadline_out != ([], "deadline"):
+        raise AssertionError(f"the short-deadline request ended "
+                             f"{deadline_out}")
+    for it, (toks, finish) in zip(load, load_out):
+        if finish != "stop" or len(toks) != it["max_tokens"]:
+            raise AssertionError(f"a load request ended {finish} with "
+                                 f"{len(toks)}/{it['max_tokens']} tokens")
+    cancelled = _metric("paddle_tpu_request_failures_total",
+                        {"reason": "cancelled", "tenant": "default"}) \
+        - cancelled0
+    if cancelled != 1:
+        raise AssertionError(f"{cancelled} requests ended cancelled, not 1 "
+                             "(the client that hung up)")
+    completed = _metric("paddle_serving_requests_completed_total") \
+        - c0["paddle_serving_requests_completed_total"]
+    ttft_n = _scrape_ttft_count() - ttft0
+    # every request that delivered a first token: the 27 that finished and
+    # the one cancelled mid-stream (the deadline one delivered none)
+    if completed != 27 or ttft_n != completed + 1:
+        raise AssertionError(f"{completed} finished, TTFT count {ttft_n}")
+    if _metric("paddle_tpu_engine_recoveries_total") \
+            != c0["paddle_tpu_engine_recoveries_total"]:
+        raise AssertionError("a step fault was recovered in the serve pass")
+    _no_caught_fault(eng, "serve HTTP pass")
+    for name in ("/healthz", "/readyz"):
+        status, body = api.get(name)
+        if status != 200 or body.get("status") not in ("ok", "ready"):
+            raise AssertionError(f"{name}: {status} {body}")
+    pages = eng._cache.k_pages + eng._cache.v_pages
+    if any(p.grad_fn is not None or p.requires_grad for p in pages):
+        raise AssertionError("the engine thread recorded autograd history")
+    toks = sum(len(t) for t, _ in load_out)
+    log(f"serve: 24 requests over HTTP from 8 clients ({sum(it['stream'] for it in load)} "
+        f"SSE, 4 sampled, 12 on a shared 256-token prefix), a client that "
+        f"hung up mid-stream (cancelled, its pages back in the pool) and a "
+        f"0 ms deadline (failed 'deadline'): {toks} tokens in "
+        f"{box['load_wall']:.3f} s = {toks / box['load_wall']:.1f} tok/s; "
+        f"{eng._pcache.hits} prefix hits; /healthz, /readyz 200; the "
+        f"scrape's TTFT count {ttft_n} = 27 finished + 1 cancelled; the "
+        f"pass took {time.perf_counter() - t_phase:.1f} s [{ident}]")
+    # identity at bf16: each request alone on a fresh engine
+    for (p, m, t, s), (got, finish) in zip(ident_items, box["ident"]):
+        want, _ = _serve_items_direct(engine, [(p, m, t, s)])
+        if finish != "stop" or got != want[0]:
+            raise AssertionError(
+                f"serve bf16 identity: HTTP {got[:8]}... ({finish}) != "
+                f"direct {want[0][:8]}...")
+    log("serve: bf16 identity: 3 requests one at a time over HTTP (1 unary, "
+        "2 SSE, 1 sampled) equal a direct Engine.run of each alone")
+    api.close()
+    del api, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- closed loop through a front end with no tenant weights --------
+    # (the API server's weights make every share hard: its default tenant
+    # would hold one slot)
+    t0 = time.perf_counter()
+    n_cl, budget, prange, seed = 32, 32, (16, 1024), 9
+    loops = []
+    # the same items four times, each on a fresh engine (the prefix cache
+    # starts empty): the host is shared, so the repeats give the spread;
+    # the fourth runs under the profiler, and its engine steps give both
+    # the wall (the step_seconds histogram) and the device busy time
+    for rep in range(4):
+        fe = ServingFrontend(engine(multi_step=4)).start()
+        s0 = _hist("paddle_tpu_engine_steps_per_roundtrip")
+        h0 = _hist("paddle_serving_step_seconds")
+        with (profile(activities=[ProfilerActivity.CUDA]) if rep == 3
+              else contextlib.nullcontext()) as prof:
+            stats = run_closed_loop(
+                fe, concurrency=8, n_requests=n_cl, vocab=vocab,
+                prompt_range=prange, budget=budget, seed=seed,
+                timeout_s=900)
+            torch.cuda.synchronize()
+        s1 = _hist("paddle_tpu_engine_steps_per_roundtrip")
+        h1 = _hist("paddle_serving_step_seconds")
+        fe.drain(grace_s=60.0)
+        if fe.fault is not None:
+            raise AssertionError(f"the engine thread died: {fe.fault!r}")
+        _no_caught_fault(fe.engine, "serve closed loop")
+        if stats["completed"] != n_cl:
+            raise AssertionError(f"closed loop: {stats}")
+        steps = s1[0] - s0[0]
+        tag = (f"closed loop {rep + 1} of 4"
+               + (" (under the profiler)" if prof is not None else ""))
+        log(f"serve: {tag} through the front end, concurrency 8, {n_cl} "
+            f"requests of {budget} tokens, prompts {prange[0]}-{prange[1]}: "
+            f"{stats['tokens_per_sec']:.1f} tok/s, TTFT ms median "
+            f"{stats['ttft_p50_ms']:.1f} p99 {stats['ttft_p99_ms']:.1f} (the "
+            f"tickets); {steps} engine steps, steps_per_roundtrip mean "
+            f"{(s1[1] - s0[1]) / max(1, steps):.2f} [{ident}]")
+        if prof is not None:
+            wall_ms = 1e3 * (h1[1] - h0[1])
+            busy_ms = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            log(f"serve: {tag}: the same {steps} engine steps took wall "
+                f"{wall_ms / max(1, steps):.1f} ms a step, device busy "
+                f"{busy_ms / max(1, steps):.1f} ms a step (idle "
+                f"{max(0.0, 1 - busy_ms / max(wall_ms, 1e-9)):.0%} of the "
+                f"steps' wall) [{ident}]")
+        else:
+            loops.append(stats["tokens_per_sec"])
+        del fe
+        gc.collect()  # an engine and its runner hold each other
+        torch.cuda.empty_cache()
+    r = np.random.default_rng(seed)
+    direct, wall = _serve_items_direct(engine, [
+        (_mk_prompt(r, vocab, *prange), budget, 0.0, seed + i)
+        for i in range(n_cl)])
+    d_toks = sum(len(t) for t in direct)
+    log(f"serve: closed loops 1-3 {min(loops):.1f}-{max(loops):.1f} tok/s "
+        f"(max/min {max(loops) / min(loops):.2f}); a direct Engine.run of "
+        f"the same items queued at once: {d_toks / wall:.1f} tok/s; "
+        f"{time.perf_counter() - t0:.1f} s [{ident}]")
+    # ---- multi_step 4 against 1 on a pure-decode round -----------------
+    t0 = time.perf_counter()
+    items = [(rand(128), 96, t, s) for t, s in
+             ((0.0, None), (0.0, None), (0.8, 81), (0.0, None))]
+    rounds = {}
+    for ms in (1, 4):
+        c, s = _hist("paddle_tpu_engine_steps_per_roundtrip")
+        # one-chunk chains: the rest of the round is several chains, which
+        # multi_step=4 launches back to back behind one fetch
+        streams, wall = _serve_items_direct(
+            lambda: engine(multi_step=ms, max_chain=1), items)
+        c1, s1_ = _hist("paddle_tpu_engine_steps_per_roundtrip")
+        rounds[ms] = (streams, (s1_ - s) / max(1, c1 - c), c1 - c,
+                      384 / wall)
+    if rounds[1][0] != rounds[4][0]:
+        raise AssertionError("serve: multi_step=4 streams differ from "
+                             "multi_step=1")
+    if not rounds[4][1] > 1.0:
+        raise AssertionError("serve: the multi-step path never engaged")
+    log(f"serve: pure-decode round (4 requests, 128 + 96 tokens): "
+        f"multi_step=4 streams equal multi_step=1; steps_per_roundtrip mean "
+        f"{rounds[1][1]:.2f} over {rounds[1][2]} steps vs "
+        f"{rounds[4][1]:.2f} over {rounds[4][2]} steps; "
+        f"{rounds[1][3]:.1f} vs {rounds[4][3]:.1f} tok/s; "
+        f"{time.perf_counter() - t0:.1f} s [{ident}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- identity at f32: llama2_7b widths, 2 layers -------------------
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    try:
+        cfg32 = LlamaConfig(num_layers=2)
+        m32 = init_llama(cfg32, seed=5, device="cuda", dtype=torch.float32)
+
+        def engine32(**kw):
+            return Engine(m32, max_slots=8, num_pages=256, page_size=16,
+                          chunk_size=16, max_chain=4, prefix_cache=True,
+                          **kw)
+
+        items32 = [(rand(n), m, 0.0, None) for n, m in (
+            (40, 24), (100, 32), (300, 24), (77, 40), (500, 24), (12, 32))]
+        api = _Api(engine32(multi_step=4))
+        got = _run_clients([
+            lambda p=p, m=m, i=i: api.complete(
+                {"prompt": [int(x) for x in p], "max_tokens": m,
+                 "stream": i % 2 == 0})
+            for i, (p, m, _t, _s) in enumerate(items32)], 6)
+        api.close()
+        want, _ = _serve_items_direct(engine32, items32)
+        if [g[0] for g in got] != want or any(g[1] != "stop" for g in got):
+            raise AssertionError("serve f32 identity: concurrent HTTP "
+                                 "streams differ from Engine.run")
+        log("serve: f32 identity (llama2_7b widths, 2 layers): 6 concurrent "
+            f"greedy HTTP streams (3 SSE) equal a direct Engine.run; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del api, m32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ------------------------------------------------------------ generate
@@ -2935,6 +3468,7 @@ def _profile_step(eng, tag, steps, ident):
     """``_profile_call`` of one ``eng.step()``; ``steps`` token steps make
     up one engine step."""
     _profile_call(eng.step, tag, steps, ident)
+    _no_caught_fault(eng, f"profile: {tag}")
 
 
 def _profile_call(fn, tag, steps, ident):

@@ -15,6 +15,10 @@ first) before it reports the pool empty, so the engine's preemption ladder
 only runs once no idle cached page is left. ``cow_pending`` holds the
 copy-on-write page copies an admission owes before any program writes into
 its spliced table (:meth:`flush_cow`).
+
+There is no host tier: :meth:`drain_tier` and :meth:`shutdown_tier` are the
+reference coordinator's calls with ``kv_host_pages=0``, no-ops, so the
+serving front end drives either engine the same way.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability.tracing import TRACER as _TRACER
 from .prefix_cache import PrefixCache
 
 __all__ = ["CacheCoordinator"]
@@ -92,6 +97,9 @@ class CacheCoordinator:
             page = self.pcache.evict_lru(self.page_ref)
             if page is None:
                 return None
+            m = self.engine._m
+            if m is not None:
+                m.pc_evictions.inc()
         else:
             return None
         self.page_ref[page] = 1
@@ -120,6 +128,14 @@ class CacheCoordinator:
             n += self.pcache.evictable_count(self.page_ref)
         return n
 
+    # ------------------------------------------------------- host tier
+    def drain_tier(self):
+        """Apply the host tier's completions: a no-op, there is no tier
+        (the reference's behaviour with ``kv_host_pages=0``)."""
+
+    def shutdown_tier(self):
+        """Stop the host tier's spill worker: a no-op, there is none."""
+
     # ---------------------------------------------------- prefix cache
     def splice(self, row, prefix) -> int:
         """Splice the cached block-aligned prefix of ``prefix`` into the
@@ -135,6 +151,13 @@ class CacheCoordinator:
         if self.pcache is None:
             return 0
         pages, matched = self.pcache.lookup(prefix)
+        m = self.engine._m
+        if m is not None:
+            (m.pc_hits if matched else m.pc_misses).inc()
+        if _TRACER.enabled:
+            _TRACER.instant("cache.prefix_lookup", "cache",
+                            matched=int(matched),
+                            prefix_len=int(prefix.size))
         if not matched:
             return 0
         cow = None
@@ -154,6 +177,8 @@ class CacheCoordinator:
             row[len(pages) - 1] = cow
             matched -= 1  # the recomputed final token
         self.cached_tokens += matched
+        if m is not None:
+            m.pc_cached_tokens.inc(matched)
         return matched
 
     def peek(self, prefix) -> Tuple[int, int]:

@@ -56,15 +56,44 @@
   each forward runs under the router-stats tap (``_moe_tap``). The stats
   stay device tensors until the step boundary or :meth:`moe_stats`, so the
   decode chain never waits for the device.
+* **Fault tolerance.** ``step()`` never raises on a recoverable fault:
+  request-scoped faults (validation, pool exhaustion, non-finite logits,
+  a raising ``on_token``, a deadline, ``cancel``) fail ONE request with a
+  taxonomy reason (``errors.py``); anything else that escapes a step is an
+  engine-scoped fault, recovered by ``_recover_step_fault`` (every active
+  request requeues with its live key and re-prefills, the allocator
+  resets) and counted by the :class:`~.watchdog.Watchdog`, which degrades
+  spec to vanilla decode and then halves the admission cap rather than
+  dying. A CUDA error that leaves the context unusable (an illegal
+  address) cannot be recovered on the card: ``step`` re-raises it.
+  Admission is bounded (``max_queue`` raises ``QueueFull``;
+  ``deadline_s``, per request or engine-wide).
+* **Multi-step** (``multi_step=N`` or ``step(n)``). In pure-decode rounds
+  (active slots, empty queue, spec off or degraded, no prompt mid-chunk)
+  up to N decode chains launch back to back, each chain's device outputs
+  (last token, lengths, keys) feeding the next with no host round trip,
+  and ONE fetch harvests them in order: the streams are identical to N
+  single steps.
+* **Telemetry** (``metrics=True``, the default). The reference's
+  operational surface in the port's process-global registry
+  (``paddle_tpu_torch.observability``): TTFT/TPOT/queue-wait histograms,
+  batch and chain-depth distributions, failure, preemption and
+  prefix-cache counters, page-pool gauges, ``steps_per_roundtrip``, with
+  the reference's names, labels and buckets. With tracing on
+  (``configure_tracing``) the engine records the reference's spans and
+  events, and a step fault dumps a flight record.
+
+Threading: the engine is single-threaded; ``serving.ServingFrontend``
+runs every call on one engine thread. ``step`` runs under
+``torch.no_grad()`` (grad mode is per thread in PyTorch) and on the
+engine's CUDA device.
 
 The modes combine as in the reference: chunked with the prefix cache,
 chunked with spec, spec with the prefix cache. Left out of the reference
-(``ROADMAP.md`` queue A lists them): the draft-model drafter, pre-admission,
-the host KV tier, the watchdog and whole-step fault recovery (an exception
-inside a dispatch raises out of ``step``), fault injection, integrity
-audits, multi-step, metrics and tracing (the MoE stats included),
-deadlines and cancellation, ``max_queue``, disaggregation and tp/ep.
-Passing any of their constructor arguments raises ``TypeError``.
+(``ROADMAP.md`` queue A lists them): the draft-model drafter, pre-admission
+and the measured chain-boundary cost, the host KV tier, fault injection,
+integrity audits, disaggregation and tp/ep. Passing any of their
+constructor arguments raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -79,13 +108,17 @@ import torch
 
 from ..framework.device import resolve_device, resolve_dtype
 from ..models.llama import moe_stats_size, moe_stats_tap
+from ..observability.tracing import TRACER as _TRACER
+from ..observability.tracing import flight_record as _flight_record
 from ..ops.cuda.paged_attention import PagedCacheState
 from .cache_coord import CacheCoordinator
-from .errors import (AdmissionRejected, CallbackError, NumericsError,
-                     PoolExhausted, RequestError, RetriesExhausted,
-                     StepFault, ValidationError, failure_reason)
+from .errors import (AdmissionRejected, CallbackError, CancelledError,
+                     DeadlineExceeded, NumericsError, PoolExhausted,
+                     QueueFull, RequestError, RetriesExhausted, StepFault,
+                     ValidationError, failure_reason)
 from .runner import ModelRunner
 from .sampling import advance_sample_key, key_from_seed, select_token
+from .watchdog import Watchdog
 
 __all__ = ["Engine", "Request", "make_mixed_step_fn"]
 
@@ -147,15 +180,24 @@ class Request:
     on_token: Optional[Callable] = None  # streaming callback(list[int])
     temperature: float = 0.0  # 0 → greedy argmax
     seed: Optional[int] = None  # sampling seed (None → rid)
+    tenant: str = "default"  # labels the TTFT/queue-wait/failure metrics
     tokens: List[int] = field(default_factory=list)  # generated tokens
     done: bool = False
     slot: Optional[int] = None
+    deadline: Optional[float] = None   # absolute perf_counter deadline
     retries: int = 0                   # recompute re-queues so far
     failure: Optional[BaseException] = None
     failure_reason: Optional[str] = None
     _key: Optional[np.ndarray] = None  # live PRNG key (survives preemption)
-    _t_arrival: float = 0.0            # add_request time (host clock)
+    # parent span context (wire string) the engine's spans nest under
+    trace: Optional[str] = None
+    # host clock (perf_counter) marks:
+    _t_arrival: float = 0.0            # add_request time (TTFT base)
+    _t_submit: Optional[float] = None  # upstream submit time (placement)
+    _t_admit: Optional[float] = None   # first slot admission
     _t_first: Optional[float] = None   # first generated-token harvest
+    _t_last: Optional[float] = None    # latest harvest (TPOT base)
+    _admitted: bool = False            # queue wait recorded once
 
     @property
     def failed(self) -> bool:
@@ -173,6 +215,242 @@ class Request:
         return "QUEUED"
 
 
+class _EngineMetrics:
+    """The engine's serving telemetry, after the reference's
+    ``_EngineMetrics``: the same metric names, labels and buckets, in the
+    port's process-global registry (get-or-create by name, so several
+    engines in one process aggregate into one scrape). Every record site
+    is host code between dispatches."""
+
+    _TENANT_CAP = 24  # distinct tenant label values before "other"
+    _EXPERT_CAP = 32  # distinct expert label values before "other"
+
+    def __init__(self):
+        from ..observability import SIZE_BUCKETS, counter, gauge, histogram
+
+        self.ttft = histogram(
+            "paddle_serving_ttft_seconds",
+            "request arrival to first generated token, by tenant",
+            labelnames=("tenant",))
+        self.tpot = histogram(
+            "paddle_serving_tpot_seconds",
+            "mean inter-token latency per harvest (time-per-output-token)")
+        self.queue_wait = histogram(
+            "paddle_serving_queue_wait_seconds",
+            "request arrival to slot admission, by tenant",
+            labelnames=("tenant",))
+        # the components partition [submit, first token] on one clock:
+        # placement + queue_wait + promote_wait + prefill = TTFT
+        self.ttft_component = histogram(
+            "paddle_serving_ttft_component_seconds",
+            "TTFT decomposition: placement|queue_wait|promote_wait|"
+            "prefill component of arrival-to-first-token",
+            labelnames=("component",))
+        self.step_seconds = histogram(
+            "paddle_serving_step_seconds",
+            "wall time of one scheduling step (dispatch+harvest fence)")
+        self.prefill_batch = histogram(
+            "paddle_serving_prefill_batch_size",
+            "requests per bucketed prefill wave", buckets=SIZE_BUCKETS)
+        self.decode_batch = histogram(
+            "paddle_serving_decode_batch_size",
+            "active slots per decode chain dispatch", buckets=SIZE_BUCKETS)
+        self.chain_depth = counter(
+            "paddle_serving_chain_depth_total",
+            "decode chains dispatched, by chosen chunk depth",
+            labelnames=("depth",))
+        self.preemptions = counter(
+            "paddle_serving_preemptions_total",
+            "requests evicted under page-pool pressure (recompute policy)")
+        self.page_evictions = counter(
+            "paddle_serving_page_evictions_total",
+            "KV pages recycled by preemption")
+        self.requests = counter(
+            "paddle_serving_requests_total", "requests accepted")
+        self.completed = counter(
+            "paddle_serving_requests_completed_total", "requests finished")
+        self.tokens = counter(
+            "paddle_serving_tokens_total", "generated tokens delivered")
+        self.compiled = counter(
+            "paddle_serving_compiled_programs_total",
+            "engine programs compiled, by kind", labelnames=("kind",))
+        self.pages_in_use = gauge(
+            "paddle_serving_pages_in_use", "KV pages currently allocated")
+        self.pages_total = gauge(
+            "paddle_serving_pages_total", "allocatable KV pages in the pool")
+        self.active_slots = gauge(
+            "paddle_serving_active_slots", "slots currently decoding")
+        self.queue_depth = gauge(
+            "paddle_serving_queue_depth", "requests waiting for a slot")
+        # the reason label mirrors the errors.py slugs one to one
+        self.failures = counter(
+            "paddle_tpu_request_failures_total",
+            "requests moved to terminal FAILED, by taxonomy reason and "
+            "tenant", labelnames=("reason", "tenant"))
+        self.admission_rejected = counter(
+            "paddle_tpu_admission_rejected_total",
+            "requests rejected at add_request (validation, capacity, "
+            "queue backpressure)")
+        self.retries = counter(
+            "paddle_tpu_request_retries_total",
+            "recompute re-queues (preemption or step-fault recovery)")
+        self.recoveries = counter(
+            "paddle_tpu_engine_recoveries_total",
+            "whole-step fault recoveries (requeue-all + page-pool reset)")
+        self.degraded = gauge(
+            "paddle_tpu_engine_degraded",
+            "degraded-mode level: 0 healthy, 1 spec decode disabled, "
+            "2 admission cap halved on top")
+        self.ready = gauge(
+            "paddle_tpu_engine_ready",
+            "watchdog readiness: 1 = accepting new traffic, 0 = "
+            "degraded past the readiness threshold (in-flight work "
+            "still completes)")
+        self.pc_hits = counter(
+            "paddle_tpu_prefix_cache_hits_total",
+            "admissions that spliced a cached block-aligned prefix")
+        self.pc_misses = counter(
+            "paddle_tpu_prefix_cache_misses_total",
+            "admissions that found no cached prefix")
+        self.pc_evictions = counter(
+            "paddle_tpu_prefix_cache_evictions_total",
+            "idle cached pages reclaimed under pool pressure (LRU)")
+        self.pc_cached_tokens = counter(
+            "paddle_tpu_prefix_cached_prefill_tokens_total",
+            "prefill tokens served from cached pages (compute skipped)")
+        self.pc_computed_tokens = counter(
+            "paddle_tpu_prefix_computed_prefill_tokens_total",
+            "prefill tokens actually computed by a prefill wave")
+        self.pc_pages = gauge(
+            "paddle_tpu_prefix_cache_pages",
+            "physical pages currently mapped by the prefix cache "
+            "(pool share = this / paddle_serving_pages_total)")
+        self.moe_dropped = counter(
+            "paddle_tpu_moe_tokens_dropped_total",
+            "(token, expert-choice) pairs dropped by the capacity "
+            "factor; combine weights renormalize over the survivors")
+        self.moe_expert_tokens = counter(
+            "paddle_tpu_moe_expert_tokens_total",
+            "routed (token, choice) pairs kept per expert (bounded "
+            "cardinality: experts past the cap share 'other')",
+            labelnames=("expert",))
+        self.moe_router_entropy = gauge(
+            "paddle_tpu_moe_router_entropy_nats",
+            "mean router-distribution entropy of the most recently "
+            "drained MoE dispatches")
+        self.prefill_chunks = counter(
+            "paddle_tpu_prefill_chunks_total",
+            "prompt chunks admitted into the mixed chunk+decode step")
+        self.slab_dispatch = counter(
+            "paddle_tpu_slab_verify_dispatch_total",
+            "multi-query slab-attention programs dispatched, by path "
+            "(the fused Pallas kernel on TPU, its jnp twin on CPU)",
+            labelnames=("path",))
+        self.steps_per_roundtrip = histogram(
+            "paddle_tpu_engine_steps_per_roundtrip",
+            "engine iterations batched behind one host round trip "
+            "(multi-step scheduling; 1 = classic per-iteration stepping)",
+            buckets=SIZE_BUCKETS)
+        # label children cached: .labels() costs a tuple build and a dict
+        # probe per call; the seen-set bounds tenant label cardinality
+        self._moe_expert_children: Dict[int, object] = {}
+        self._depth_children: Dict[int, object] = {}
+        self._tenant_seen: set = set()
+        self._ttft_children: Dict[str, object] = {}
+        self._qwait_children: Dict[str, object] = {}
+        self._component_children: Dict[str, object] = {
+            c: self.ttft_component.labels(component=c)
+            for c in ("placement", "queue_wait", "promote_wait",
+                      "prefill")}
+
+    def moe_expert_at(self, e: int):
+        child = self._moe_expert_children.get(e)
+        if child is None:
+            label = str(e) if e < self._EXPERT_CAP else "other"
+            child = self.moe_expert_tokens.labels(expert=label)
+            self._moe_expert_children[e] = child
+        return child
+
+    def chain_depth_at(self, k: int):
+        child = self._depth_children.get(k)
+        if child is None:
+            child = self.chain_depth.labels(depth=k)
+            self._depth_children[k] = child
+        return child
+
+    def _tenant_label(self, tenant: str) -> str:
+        t = tenant or "default"
+        if t not in self._tenant_seen:
+            if len(self._tenant_seen) >= self._TENANT_CAP:
+                return "other"
+            self._tenant_seen.add(t)
+        return t
+
+    def ttft_for(self, tenant: str):
+        t = self._tenant_label(tenant)
+        child = self._ttft_children.get(t)
+        if child is None:
+            child = self.ttft.labels(tenant=t)
+            self._ttft_children[t] = child
+        return child
+
+    def queue_wait_for(self, tenant: str):
+        t = self._tenant_label(tenant)
+        child = self._qwait_children.get(t)
+        if child is None:
+            child = self.queue_wait.labels(tenant=t)
+            self._qwait_children[t] = child
+        return child
+
+    def on_harvest(self, req: Request, fresh: int):
+        """Per-request token latency, once per harvest with the number of
+        fresh tokens delivered (a chain lands k * chunk_size, a verify
+        step 1..spec_k+1): TPOT is normalised by the delivered count."""
+        now = time.perf_counter()
+        if req._t_first is None:
+            req._t_first = now
+            self.ttft_for(req.tenant).observe(now - req._t_arrival)
+            self._on_first_token(req, now)
+            if fresh > 1:
+                # first token and decode tokens land at once: attribute
+                # the span evenly to the decode tokens
+                self.tpot.observe((now - req._t_arrival) / fresh)
+        elif req._t_last is not None and fresh:
+            self.tpot.observe((now - req._t_last) / fresh)
+        req._t_last = now
+        self.tokens.inc(fresh)
+
+    def _on_first_token(self, req: Request, now: float):
+        """TTFT attribution at the first harvest: placement (submit to
+        arrival: the front end's queue, with tracing on), queue wait
+        (arrival to admission), promote wait, prefill (admission to first
+        token). Always observed into the labelled histogram; laid down as
+        retroactive spans when the request carries a trace. The port has
+        no host KV tier, so the promote wait is 0; it stays a component so
+        that the labels and span names are the reference's."""
+        base = req._t_submit if req._t_submit is not None \
+            else req._t_arrival
+        admit = req._t_admit if req._t_admit is not None \
+            else req._t_arrival
+        comps = (
+            ("placement", base, req._t_arrival - base),
+            ("queue_wait", req._t_arrival, admit - req._t_arrival),
+            ("promote_wait", admit, 0.0),
+            ("prefill", admit, now - admit),
+        )
+        for cname, _, dur in comps:
+            self._component_children[cname].observe(max(0.0, dur))
+        if _TRACER.enabled and req.trace is not None:
+            wall = time.time()
+            for cname, t0, dur in comps:
+                _TRACER.complete(f"ttft.{cname}", "ttft",
+                                 wall - (now - t0), dur,
+                                 parent=req.trace, rid=req.rid)
+            _TRACER.complete("ttft", "ttft", wall - (now - base),
+                             now - base, parent=req.trace,
+                             rid=req.rid, tenant=req.tenant)
+
+
 class Engine:
     """Continuous-batching engine; see module docstring."""
 
@@ -188,7 +466,10 @@ class Engine:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  spec: Optional[str] = None, spec_k: int = 4,
-                 capacity_factor: Optional[float] = None, device=None):
+                 capacity_factor: Optional[float] = None, device=None,
+                 metrics: bool = True, max_queue: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
+                 watchdog: Optional[dict] = None, multi_step: int = 1):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -247,6 +528,11 @@ class Engine:
                     mod.capacity_factor = cf
         # mid-prefill slot -> prompt tokens not yet written (chunked mode)
         self._chunk_left: Dict[int, np.ndarray] = {}
+        # process-global serving telemetry; metrics=False drops every
+        # record site to one None check
+        self._m = _EngineMetrics() if metrics else None
+        if self._m is not None:
+            self._m.pages_total.set(self.num_pages - 1)  # page 0 is trash
         self.runner = ModelRunner(self)
         self._cache = CacheCoordinator(self, prefix_cache=prefix_cache)
         self._queue: List[Request] = []
@@ -257,11 +543,24 @@ class Engine:
         self._next_rid = 0
         self._stall_steps = 0
         self.preemptions = 0
+        # decode iterations batched per round trip when step() gets no n
+        self.multi_step = max(1, int(multi_step))
         self._spec = None
         if spec not in (None, "off"):
             from .spec import SpecDecoder
 
             self._spec = SpecDecoder(self, mode=spec, k=spec_k)
+        self.max_queue = max_queue
+        self.deadline_s = deadline_s
+        self._has_deadlines = deadline_s is not None
+        # requests popped from the queue whose prefill is in flight: a step
+        # fault before they reach _active must requeue them
+        self._pending_inflight: List = []
+        # the watchdog owns _spec_enabled and _slot_cap (spec to vanilla,
+        # then the admission cap halved, with recovery probing)
+        self._spec_enabled = True
+        self._slot_cap = self.max_slots
+        self._watchdog = Watchdog(self, **(watchdog or {}))
 
     # ------------------------------------------------ allocator delegation
     @property
@@ -289,12 +588,28 @@ class Engine:
         return self._cache.pcache
 
     # ------------------------------------------------------------ requests
+    def _reject(self, exc):
+        """Reject at submission: count it and raise the taxonomy error."""
+        if self._m is not None:
+            self._m.admission_rejected.inc()
+        raise exc
+
     def add_request(self, prompt, max_new_tokens, on_token=None,
                     temperature=0.0, seed=None,
-                    resume_tokens=None) -> Request:
+                    deadline_s: Optional[float] = None,
+                    tenant: Optional[str] = None,
+                    resume_tokens=None, trace=None,
+                    t_submit: Optional[float] = None) -> Request:
         """Submit a request. Everything that could make it unservable is
         checked here: malformed input → ``ValidationError``, a sequence the
-        pool or table can never hold → ``AdmissionRejected``.
+        pool or table can never hold → ``AdmissionRejected``, a full
+        bounded queue (``max_queue``) → ``QueueFull``.
+
+        ``deadline_s`` (default the engine's) fails the request with reason
+        ``deadline`` once that many seconds pass after submission, queued
+        or mid-decode. ``tenant`` labels its metrics. ``trace`` (a span
+        context wire string) and ``t_submit`` (the upstream submit time,
+        host ``perf_counter``) feed tracing and the TTFT decomposition.
 
         ``resume_tokens`` are tokens the stream already emitted elsewhere:
         they count against ``max_new_tokens``, are never re-delivered, and
@@ -303,31 +618,31 @@ class Engine:
         which burns keys per verify step)."""
         raw = np.asarray(prompt)
         if raw.dtype.kind not in "iu":
-            raise ValidationError(
-                f"prompt must be integer token ids, got dtype {raw.dtype}")
+            self._reject(ValidationError(
+                f"prompt must be integer token ids, got dtype {raw.dtype}"))
         prompt = raw.astype(np.int32).reshape(-1)
         if prompt.size == 0:
-            raise ValidationError("empty prompt")
+            self._reject(ValidationError("empty prompt"))
         if int(prompt.min()) < 0 or int(prompt.max()) >= self.cfg.vocab_size:
-            raise ValidationError(
+            self._reject(ValidationError(
                 f"prompt token ids must lie in [0, {self.cfg.vocab_size}); "
-                f"got range [{int(prompt.min())}, {int(prompt.max())}]")
+                f"got range [{int(prompt.min())}, {int(prompt.max())}]"))
         if int(max_new_tokens) <= 0:
-            raise ValidationError(
-                f"max_new_tokens must be positive, got {max_new_tokens}")
+            self._reject(ValidationError(
+                f"max_new_tokens must be positive, got {max_new_tokens}"))
         if float(temperature) < 0.0:
-            raise ValidationError(
-                f"temperature must be >= 0, got {temperature}")
+            self._reject(ValidationError(
+                f"temperature must be >= 0, got {temperature}"))
         # one chunk of headroom below max_position; chain overshoot is
         # bounded by the length cap and the positions() clamp instead
         limit = self.cfg.max_position - self.chunk_size - 1
         if prompt.size + max_new_tokens > limit:
             clamped = max(0, limit - prompt.size)
             if clamped == 0:
-                raise ValidationError(
+                self._reject(ValidationError(
                     f"prompt ({prompt.size}) leaves no room to generate: "
                     f"prompt + generation must stay under max_position - "
-                    f"chunk_size ({limit})")
+                    f"chunk_size ({limit})"))
             warnings.warn(
                 f"max_new_tokens clamped {max_new_tokens} -> {clamped}: "
                 f"prompt ({prompt.size}) + generation must stay under "
@@ -338,36 +653,42 @@ class Engine:
                                    + self.chunk_size)
         cap = min(self.max_pages_per_seq, self.num_pages - 1)
         if worst > cap:
-            raise AdmissionRejected(
+            self._reject(AdmissionRejected(
                 f"request needs up to {worst} pages but the pool/table caps "
-                f"at {cap} — grow num_pages or shrink the request")
+                f"at {cap} — grow num_pages or shrink the request"))
+        # bounded wait queue (backpressure): refuse to buffer unboundedly
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            self._reject(QueueFull(
+                f"wait queue full ({len(self._queue)}/{self.max_queue}); "
+                "retry later or raise max_queue"))
         resumed: List[int] = []
         if resume_tokens is not None and len(resume_tokens):
             raw_r = np.asarray(resume_tokens)
             if raw_r.dtype.kind not in "iu":
-                raise ValidationError(
+                self._reject(ValidationError(
                     f"resume_tokens must be integer token ids, got dtype "
-                    f"{raw_r.dtype}")
+                    f"{raw_r.dtype}"))
             resumed = [int(t) for t in raw_r.reshape(-1)]
             if min(resumed) < 0 or max(resumed) >= self.cfg.vocab_size:
-                raise ValidationError(
-                    f"resume_tokens must lie in [0, {self.cfg.vocab_size})")
+                self._reject(ValidationError(
+                    f"resume_tokens must lie in [0, {self.cfg.vocab_size})"))
             if len(resumed) >= int(max_new_tokens):
-                raise ValidationError(
+                self._reject(ValidationError(
                     f"resume_tokens ({len(resumed)}) already meet the "
-                    f"generation budget ({max_new_tokens})")
+                    f"generation budget ({max_new_tokens})"))
             if self.eos_id is not None and self.eos_id in resumed:
-                raise ValidationError("resume_tokens contain eos")
+                self._reject(ValidationError("resume_tokens contain eos"))
             if float(temperature) > 0.0 and self._spec is not None:
-                raise ValidationError(
+                self._reject(ValidationError(
                     "sampled resume on a spec engine: spec decode burns "
                     "keys per verify step, not per token, so the key state "
-                    "cannot be rebuilt from the emitted tokens")
+                    "cannot be rebuilt from the emitted tokens"))
             if float(temperature) > 0.0 and seed is None:
-                raise ValidationError(
-                    "sampled resume needs an explicit seed")
+                self._reject(ValidationError(
+                    "sampled resume needs an explicit seed"))
         req = Request(self._next_rid, prompt, int(max_new_tokens), on_token,
-                      temperature=float(temperature), seed=seed)
+                      temperature=float(temperature), seed=seed,
+                      tenant=str(tenant) if tenant else "default")
         if resumed:
             req.tokens = resumed
             if req.temperature > 0.0:
@@ -375,9 +696,34 @@ class Engine:
                 req._key = advance_sample_key(key0, len(resumed)).numpy() \
                     .astype(np.uint32)
         req._t_arrival = time.perf_counter()
+        if _TRACER.enabled:
+            req.trace = trace if isinstance(trace, str) and trace else None
+            if t_submit is not None:
+                req._t_submit = float(t_submit)
+            _TRACER.instant("engine.enqueue", "engine",
+                            parent=req.trace, rid=req.rid,
+                            prompt_len=int(prompt.size),
+                            queue_depth=len(self._queue))
+        ttl = deadline_s if deadline_s is not None else self.deadline_s
+        if ttl is not None:
+            req.deadline = req._t_arrival + float(ttl)
+            self._has_deadlines = True
         self._next_rid += 1
         self._queue.append(req)
+        if self._m is not None:
+            self._m.requests.inc()
         return req
+
+    def cancel(self, rid: int) -> bool:
+        """Fail the request (terminal FAILED, reason ``cancelled``) wherever
+        it lives, queued or mid-decode, recycling its slot and pages at
+        once. False when the id is unknown or already terminal."""
+        for req in list(self._active.values()) + list(self._queue):
+            if req.rid == rid and not req.done:
+                self._fail_request(req, CancelledError(
+                    f"request {rid} cancelled by caller", rid=rid))
+                return True
+        return False
 
     def _fail_request(self, req: Request, exc: BaseException):
         """Move ONE request to terminal FAILED and recycle its slot."""
@@ -394,6 +740,23 @@ class Engine:
             self._queue.remove(req)
         if self._spec is not None:
             self._spec.controller.forget(req)
+        if self._m is not None:
+            self._m.failures.labels(
+                reason=req.failure_reason,
+                tenant=self._m._tenant_label(req.tenant)).inc()
+
+    def _expire_deadlines(self):
+        """Fail every queued or active request whose deadline passed
+        (reason ``deadline``), at the top of each step: the engine's only
+        host-visible clock edge."""
+        now = time.perf_counter()
+        for req in list(self._active.values()) + list(self._queue):
+            if req.deadline is not None and now > req.deadline \
+                    and not req.done:
+                self._fail_request(req, DeadlineExceeded(
+                    f"request {req.rid} exceeded its deadline "
+                    f"({now - req._t_arrival:.3f}s since arrival)",
+                    rid=req.rid))
 
     def _note_stall(self):
         """Queued requests, nothing active, nothing admissible: after a
@@ -456,6 +819,10 @@ class Engine:
         req = self._active.pop(slot)
         req._key = self._keys[slot].copy()
         self.preemptions += 1
+        if self._m is not None:
+            self._m.preemptions.inc()
+            self._m.page_evictions.inc(
+                int(np.count_nonzero(self.tables[slot])))
         self._free_slot(slot)
         req.slot = None
         self._requeue(req)
@@ -463,6 +830,8 @@ class Engine:
     def _requeue(self, req):
         """Front-of-queue requeue with a hard retry bound."""
         req.retries += 1
+        if self._m is not None:
+            self._m.retries.inc()
         if req.retries > self.max_retries:
             self._fail_request(req, RetriesExhausted(
                 f"request {req.rid} re-queued more than max_retries="
@@ -484,6 +853,16 @@ class Engine:
         self._free_slots.append(slot)
         if self._spec is not None:
             self._spec.drafter.release(slot)
+
+    def _reset_pool(self):
+        """Empty the allocator after a step fault: every page and slot free,
+        the prefix cache flushed. The page buffers stay: a kernel that
+        raised through ``build.check`` leaves them usable, and every
+        requeued request re-prefills its prefix, so nothing is lost."""
+        self._cache.reset()
+        self._chunk_left.clear()
+        if self._spec is not None:
+            self._spec.drafter.reset()
 
     def _reserve_step_pages(self, k, target_len):
         """Allocate this step's pages for every active slot — shrinking the
@@ -616,12 +995,37 @@ class Engine:
             self._drain_moe_stats()
 
     def _drain_moe_stats(self):
-        """Fold the pending stats vectors into the host aggregates (host
-        code between dispatches)."""
+        """Fold the pending stats vectors into the host aggregates and
+        record the MoE metrics over the tapped programs the reference taps
+        (all but spec verify; host code between dispatches)."""
         pend, self._moe_pending = self._moe_pending, []
+        agg = np.zeros_like(self._moe_tot)
+        n_agg = 0
         for vec, verify in pend:
-            tot = self._moe_tot_verify if verify else self._moe_tot
-            tot += vec.double().cpu().numpy()
+            v = vec.double().cpu().numpy()
+            if verify:
+                self._moe_tot_verify += v
+            else:
+                agg += v
+                n_agg += 1
+        self._moe_tot += agg
+        if not n_agg:
+            return
+        e = self._moe_stats_n - 3
+        if _TRACER.enabled:
+            _TRACER.instant("engine.moe_dispatch", "moe",
+                            dispatches=n_agg,
+                            kept=float(np.sum(agg[:e])),
+                            dropped=float(agg[e]))
+        if self._m is not None:
+            if agg[e]:
+                self._m.moe_dropped.inc(float(agg[e]))
+            for i in range(e):
+                if agg[i]:
+                    self._m.moe_expert_at(i).inc(float(agg[i]))
+            routed = float(agg[e + 2])
+            if routed > 0:
+                self._m.moe_router_entropy.set(float(agg[e + 1]) / routed)
 
     @staticmethod
     def _moe_summary(t, e):
@@ -686,7 +1090,8 @@ class Engine:
         device tensors the step fetches together with its decode chain."""
         admits = []  # (req, slot, prefix, base)
         while (self._queue and self._free_slots
-               and len(self._active) + len(admits) < self.max_slots):
+               and len(self._active) + len(admits) < self._slot_cap):
+            # _slot_cap is max_slots when healthy; the watchdog halves it
             req = self._queue[0]
             prefix = self._prefix(req)
             need = (self._pages_needed(prefix.size + self.chunk_size)
@@ -711,6 +1116,9 @@ class Engine:
             admits.append((req, slot, prefix, base))
         if not admits:
             return [], None, None, None
+        # popped from the queue but not yet active: a fault in the prefill
+        # dispatch must requeue them (_recover_step_fault)
+        self._pending_inflight = admits
         tok, new_keys, bad = self._prefill_wave(
             [(req, prefix, self.tables[slot], base)
              for req, slot, prefix, base in admits])
@@ -721,7 +1129,24 @@ class Engine:
             self._temps[slot] = req.temperature
             if req._key is not None:
                 self._keys[slot] = req._key
+            self._note_admitted(req)
+        self._pending_inflight = []
         return admits, tok, new_keys, bad
+
+    def _note_admitted(self, req):
+        """Queue-wait telemetry at a request's FIRST slot admission
+        (re-admission after preemption is preemption cost)."""
+        if req._admitted:
+            return
+        req._admitted = True
+        req._t_admit = time.perf_counter()
+        if self._m is not None:
+            self._m.queue_wait_for(req.tenant).observe(
+                req._t_admit - req._t_arrival)
+        if _TRACER.enabled:
+            _TRACER.instant("engine.admit", "engine",
+                            parent=req.trace, rid=req.rid,
+                            slot=req.slot)
 
     def _prefill_wave(self, rows):
         """Launch ONE bucketed prefill for ``rows`` of (req, prefix,
@@ -730,8 +1155,17 @@ class Engine:
         uncached suffixes) to a shared pow2 length capped at max_position.
         A wave with any cache hit takes the suffix program; pending COW
         copies flush first."""
+        if self._m is not None:
+            self._m.prefill_batch.observe(len(rows))
+        if _TRACER.enabled:
+            _TRACER.instant(
+                "engine.prefill_wave", "engine", wave=len(rows),
+                rids=[req.rid for req, *_ in rows])
         self._cache.flush_cow()
         suffix_mode = any(base for *_, base in rows)
+        if suffix_mode and self._m is not None:
+            # the suffix program rides the verify kernel
+            self._m.slab_dispatch.labels(path="suffix_prefill").inc()
         seq_bucket = min(_pow2ceil(max(p.size - b for _, p, _, b in rows)),
                          self.cfg.max_position)
         nb = _pow2ceil(self.max_slots)
@@ -748,6 +1182,8 @@ class Engine:
             bases[i] = base
             tables[i] = table_row
             temps[i] = req.temperature
+            if self._m is not None:
+                self._m.pc_computed_tokens.inc(int(suf.size))
             keys[i] = self._seed_key(req)
         prefill = self.runner.get_prefill((nb, seq_bucket),
                                           bool(np.any(temps > 0.0)),
@@ -796,6 +1232,7 @@ class Engine:
         """Append generated tokens, honouring eos and the budget. Returns
         how many were consumed (a multi-token block truncates at an eos or
         the budget)."""
+        was_done = req.done
         fresh = []
         for t in toks:
             if req.done or len(req.tokens) >= req.max_new_tokens:
@@ -807,8 +1244,19 @@ class Engine:
                 req.done = True
             elif len(req.tokens) >= req.max_new_tokens:
                 req.done = True
-        if fresh and req._t_first is None:
+        if self._m is not None:
+            if fresh:
+                self._m.on_harvest(req, len(fresh))
+            if req.done and not was_done:
+                self._m.completed.inc()
+        elif fresh and req._t_first is None:
             req._t_first = time.perf_counter()
+        if _TRACER.enabled and fresh:
+            # the flight record's last decode steps of each request
+            _TRACER.instant("engine.harvest", "engine",
+                            parent=req.trace, rid=req.rid,
+                            fresh=len(fresh), total=len(req.tokens),
+                            done=req.done)
         if fresh and req.on_token is not None:
             try:
                 req.on_token(fresh)
@@ -844,24 +1292,21 @@ class Engine:
         limit = req.prompt.size + req.max_new_tokens + 1
         return min(int(self.lengths[req.slot]) + k * self.chunk_size, limit)
 
-    def _chain_dispatch(self, slots, k, admits, pre_tok, pre_keys):
-        """Launch a decode chain over ``slots`` compacted into their pow2
-        bucket. Freshly admitted slots take their first token and key from
-        the prefill's device outputs, so no host sync happens between the
-        two. Returns the chain tuple; never waits."""
+    def _chain_dispatch(self, slots, k, budget, admits, pre_tok, pre_keys):
+        """Launch ``budget`` decode chains over ``slots`` compacted into
+        their pow2 bucket, back to back: each chain's last-token column,
+        lengths and keys feed the next as device tensors (no host copy
+        between them, so no sync). Freshly admitted slots take their first
+        token and key from the prefill's device outputs, so no host sync
+        happens between the two either. Returns (slots, their requests,
+        [(toks, lengths, keys, bad)] a chain); never waits."""
         slot_reqs = [self._active[s] for s in slots]
         n = len(slots)
         nb = _pow2ceil(n)
-        tables_c = np.zeros((nb, self.max_pages_per_seq), np.int32)
-        lengths_c = np.zeros((nb,), np.int32)
-        last_c = np.zeros((nb,), np.int64)
-        temps_c = np.zeros((nb,), np.float32)
-        keys_c = np.zeros((nb, 2), np.int64)
-        tables_c[:n] = self.tables[slots]
-        lengths_c[:n] = self.lengths[slots]
-        last_c[:n] = self._last_tok[slots]
-        temps_c[:n] = self._temps[slots]
-        keys_c[:n] = self._keys[slots]
+        if self._m is not None:
+            self._m.decode_batch.observe(n)
+        tables_c, lengths_c, last_c, temps_c, keys_c = self._pack_rows(
+            slots, nb)
         last_in, keys_in = self._dev(last_c), self._dev(keys_c)
         if admits:
             row_of = {s: i for i, s in enumerate(slots)}
@@ -875,12 +1320,34 @@ class Engine:
                 dst_t = self._dev(dst, torch.int64)
                 last_in[dst_t] = pre_tok[src_t]
                 keys_in[dst_t] = pre_keys[src_t]
-        sampling = bool(np.any(temps_c > 0.0))
-        decode = self.runner.get_decode(nb, k, sampling)
-        toks, lengths, keys, bad = decode(
-            self._dev(tables_c), self._dev(lengths_c), last_in,
-            self._dev(temps_c), keys_in)
-        return slots, slot_reqs, toks, lengths, keys, bad
+        decode = self.runner.get_decode(nb, k, bool(np.any(temps_c > 0.0)))
+        tables_d, temps_d = self._dev(tables_c), self._dev(temps_c)
+        lengths_in = self._dev(lengths_c)
+        chains = []
+        for _ in range(budget):
+            toks, lengths_in, keys_in, bad = decode(
+                tables_d, lengths_in, last_in, temps_d, keys_in)
+            last_in = toks[:, -1]  # the handoff stays on the device
+            chains.append((toks, lengths_in, keys_in, bad))
+            if self._m is not None:
+                self._m.chain_depth_at(k).inc()
+        return slots, slot_reqs, chains
+
+    def _pack_rows(self, slots, nb):
+        """Host rows of a decode dispatch over ``slots`` padded to ``nb``:
+        (tables, lengths, last token, temperatures, keys)."""
+        n = len(slots)
+        tables_c = np.zeros((nb, self.max_pages_per_seq), np.int32)
+        lengths_c = np.zeros((nb,), np.int32)
+        last_c = np.zeros((nb,), np.int64)
+        temps_c = np.zeros((nb,), np.float32)
+        keys_c = np.zeros((nb, 2), np.int64)
+        tables_c[:n] = self.tables[slots]
+        lengths_c[:n] = self.lengths[slots]
+        last_c[:n] = self._last_tok[slots]
+        temps_c[:n] = self._temps[slots]
+        keys_c[:n] = self._keys[slots]
+        return tables_c, lengths_c, last_c, temps_c, keys_c
 
     def _chain_harvest(self, slots, slot_reqs, toks, lengths_h, keys_h,
                        bad_h):
@@ -908,52 +1375,186 @@ class Engine:
             except Exception as e:
                 self._fail_request(req, self._wrap_step_fault(e, req))
 
-    def step(self) -> int:
+    @torch.no_grad()
+    def step(self, n: Optional[int] = None) -> int:
         """One scheduling round trip: the mixed step while a prompt streams
         in chunked mode (or a queued request can take a slot there), a
-        spec-decode step on a spec engine, else the chained step. Request-
-        scoped faults fail one request; an exception inside a dispatch
-        raises. Returns the number of live requests."""
-        if self._wants_mixed():
-            self._mixed_step()
-        elif self._spec is not None:
-            self._spec_step()
-        else:
-            self._chained_step()
+        spec-decode step on a spec engine the watchdog keeps in spec mode,
+        up to ``n`` chained decode dispatches behind one fetch in a pure-
+        decode round (``n`` defaults to ``multi_step``), else the chained
+        step. Never raises on a recoverable fault: request-scoped faults
+        fail one request inside the per-request isolation blocks, anything
+        else that escapes is handled by ``_recover_step_fault``. Returns
+        the number of live requests (queued + active).
+
+        Runs under ``torch.no_grad()`` and on the engine's CUDA device:
+        both are per thread in PyTorch, and the serving front end calls
+        ``step`` from its own thread."""
+        t0 = time.perf_counter()
+        if self._watchdog.quarantined:
+            # fail-stop on proven corruption: no further token is minted;
+            # requests stay live for whoever fences this engine
+            return len(self._queue) + len(self._active)
+        if self.device.type == "cuda" \
+                and torch.cuda.current_device() != self.device.index:
+            torch.cuda.set_device(self.device)
+        if self._has_deadlines:
+            self._expire_deadlines()
+        budget = self.multi_step if n is None else max(1, int(n))
+        batched = 1
+        try:
+            if self._wants_mixed():
+                self._mixed_step()
+            elif self._spec is not None and self._spec_enabled:
+                self._spec_step()
+            else:
+                # multi-step in a pure-decode round only, as in the
+                # reference: a waiting request is admitted step by step
+                batched = self._chained_step(1 if self._queue else budget)
+            self._watchdog.note_step_ok()
+        except Exception as e:
+            self._recover_step_fault(e)
         if self._moe_pending:
             # the step's harvest fetched what produced them: no wait here
             self._drain_moe_stats()
+        if self._m is not None:
+            self._m.steps_per_roundtrip.observe(batched)
+            self._m.step_seconds.observe(time.perf_counter() - t0)
+            self._m.active_slots.set(len(self._active))
+            self._m.queue_depth.set(len(self._queue))
+            self._m.pages_in_use.set(
+                self.num_pages - 1 - len(self._free_pages))
+            if self._pcache is not None:
+                self._m.pc_pages.set(self._pcache.n_pages)
+        if _TRACER.enabled:
+            # retroactive step span: start and duration are known here
+            _TRACER.complete(
+                "engine.step", "engine",
+                time.time() - (time.perf_counter() - t0),
+                time.perf_counter() - t0,
+                active=len(self._active), queued=len(self._queue),
+                batched=batched)
         return len(self._queue) + len(self._active)
 
-    def _chained_step(self):
-        """Launch the admission prefill and the decode chain back to back,
-        then fetch both once and harvest. In chunked mode the mixed step
-        owns admission, so this runs pure decode chains."""
+    def _context_usable(self) -> bool:
+        """Whether the engine's CUDA context survived a fault: a kernel
+        that raised through ``build.check`` (a refused shape, a launch
+        error) leaves it usable; an illegal address leaves every later
+        call failing, which a synchronize shows."""
+        if self.device.type != "cuda":
+            return True
+        try:
+            torch.cuda.synchronize(self.device)
+        except Exception:  # noqa: BLE001 - any error means a dead context
+            return False
+        return True
+
+    def _recover_step_fault(self, exc: BaseException):
+        """Engine-scoped fault recovery (a dispatch raised, or the step's
+        host spine did with bookkeeping mid-commit). The recompute policy
+        of preemption, generalised: every active request requeues at the
+        front (retry-bounded) with its live key, requests whose prefill was
+        in flight requeue too, and the allocator resets. The requeued work
+        recomputes on the same kernels; nothing moves to another path. The
+        watchdog counts the fault and degrades the engine on repeats.
+
+        A fault that left the CUDA context unusable is no fault of one
+        step: it re-raises, and the run fails."""
+        if not self._context_usable():
+            raise exc
+        self._watchdog.note_step_fault(exc)
+        if _TRACER.enabled:
+            # dump the postmortem BEFORE recovery rewrites the state
+            _TRACER.instant("engine.step_fault", "fault",
+                            error=type(exc).__name__, msg=str(exc)[:200])
+            _flight_record(f"step-fault-{type(exc).__name__}")
+        if self._m is not None:
+            self._m.recoveries.inc()
+        for slot in sorted(self._active):
+            req = self._active.pop(slot)
+            req._key = self._keys[slot].copy()
+            req.slot = None
+            self._requeue(req)
+        # a wave popped from the queue whose prefill never committed; the
+        # _queue check keeps a request the loop above requeued from
+        # going in twice
+        for req, slot, *_ in self._pending_inflight:
+            if req.slot == slot:
+                req.slot = None
+            if not req.done and req not in self._queue:
+                self._requeue(req)
+        self._pending_inflight = []
+        # router stats of the failed step's programs: the requeued work
+        # recounts on recompute
+        self._moe_pending = []
+        self._reset_pool()
+
+    def _multi_budget(self, k: int, budget: int) -> int:
+        """Chains of depth ``k`` to launch behind one fetch: at most
+        ``budget``, none past every request's remaining budget (pure
+        overshoot), and halved under pool pressure before anyone is
+        preempted (pages for every chain are reserved up front)."""
+        max_rem = max(req.max_new_tokens - len(req.tokens)
+                      for req in self._active.values())
+        budget = max(1, min(budget, -(-max_rem // (k * self.chunk_size))))
+
+        def need_for(b):
+            return sum(
+                max(0, self._pages_needed(self._alloc_len(req, b * k))
+                    - int(np.count_nonzero(self.tables[slot])))
+                for slot, req in self._active.items())
+
+        while budget > 1 and need_for(budget) > self._cache.available_pages():
+            budget //= 2
+        return budget
+
+    def _chained_step(self, budget: int = 1) -> int:
+        """Launch the admission prefill and the decode chains back to back,
+        then fetch all of them once and harvest. In chunked mode the mixed
+        step owns admission, so this runs pure decode chains. ``budget`` >
+        1 is multi-step (``step`` passes it with the queue empty, so
+        nothing is admitted): up to that many chains behind the one fetch,
+        harvested in chain order through ``_chain_harvest``. A request that
+        finishes or fails at chain i frees its slot there, and its rows in
+        later chains are skipped like chain overshoot; once the active set
+        drains the remaining chains are discarded. Per-row work is the
+        single chain's, so the streams equal ``budget`` single steps.
+        Returns the chains harvested (1 when none ran)."""
         if self.prefill_chunk is None:
             admits, pre_tok, pre_keys, pre_bad = self._admit_dispatch()
         else:
             admits, pre_tok, pre_keys, pre_bad = [], None, None, None
-        chain = None
+        dispatched = None
         if self._active:
             self._stall_steps = 0
+            k = self._chain_depth()
+            if budget > 1:
+                budget = self._multi_budget(k, budget)
             k = self._reserve_step_pages(
-                self._chain_depth(),
-                lambda slot, req, kk: self._alloc_len(req, kk))
+                k, lambda slot, req, kk: self._alloc_len(req, kk * budget))
             if self._active:
-                chain = self._chain_dispatch(sorted(self._active), k,
-                                             admits, pre_tok, pre_keys)
+                dispatched = self._chain_dispatch(
+                    sorted(self._active), k, budget, admits, pre_tok,
+                    pre_keys)
         elif self._queue and not admits:
             self._note_stall()
-        # ---- the one fetch of the step: prefill and chain together ----
+        # ---- the one fetch of the step: prefill and chains together ----
         if admits:
             self._harvest_admits(admits, pre_tok.cpu().numpy(),
                                  pre_keys.cpu().numpy(),
                                  pre_bad.cpu().numpy())
-        if chain:
-            slots, slot_reqs, toks, lengths, keys, bad = chain
-            self._chain_harvest(slots, slot_reqs, toks.cpu().numpy(),
-                                lengths.cpu().numpy(), keys.cpu().numpy(),
-                                bad.cpu().numpy())
+        if dispatched is None:
+            return 1
+        slots, slot_reqs, chains = dispatched
+        toks_h, lengths_h, keys_h, bad_h = (
+            (torch.stack(part) if len(part) > 1 else part[0][None])
+            .cpu().numpy() for part in zip(*chains))
+        for i in range(len(chains)):
+            self._chain_harvest(slots, slot_reqs, toks_h[i], lengths_h[i],
+                                keys_h[i], bad_h[i])
+            if not self._active:
+                break  # everyone finished or failed: the rest is overshoot
+        return i + 1
 
     # ------------------------------------------------------ chunked prefill
     def _wants_mixed(self) -> bool:
@@ -966,7 +1567,7 @@ class Engine:
         if self._chunk_left:
             return True
         return (bool(self._queue) and bool(self._free_slots)
-                and len(self._active) < self.max_slots)
+                and len(self._active) < self._slot_cap)
 
     def _bind_chunked(self):
         """Chunked admission: bind queued requests to slots WITHOUT a
@@ -974,7 +1575,7 @@ class Engine:
         are taken for the first chunk only."""
         chunk = self.prefill_chunk
         while (self._queue and self._free_slots
-               and len(self._active) < self.max_slots):
+               and len(self._active) < self._slot_cap):
             req = self._queue[0]
             prefix = self._prefix(req)
             # pages this admission needs now: its first chunk only
@@ -1004,6 +1605,7 @@ class Engine:
             self._active[slot] = req
             self._temps[slot] = req.temperature
             self._keys[slot] = self._seed_key(req)
+            self._note_admitted(req)
 
     def _mixed_step(self):
         """One chunked-prefill iteration: bind queued requests, reserve this
@@ -1053,6 +1655,7 @@ class Engine:
         lengths_c[:n] = self.lengths[slots]
         temps_c[:n] = self._temps[slots]
         keys_c[:n] = self._keys[slots]
+        n_chunks = chunk_toks = 0
         for i, slot in enumerate(slots):
             left = self._chunk_left.get(slot)
             if left is not None:
@@ -1060,9 +1663,21 @@ class Engine:
                 ids[i, :w] = left[:w]
                 widths[i] = w
                 emit[i] = int(w == left.size)
+                n_chunks += 1
+                chunk_toks += w
             else:
                 ids[i, 0] = self._last_tok[slot]
                 emit[i] = 1
+        if self._m is not None:
+            self._m.decode_batch.observe(n)
+            if n_chunks:
+                self._m.prefill_chunks.inc(n_chunks)
+                self._m.pc_computed_tokens.inc(chunk_toks)
+            self._m.slab_dispatch.labels(path="chunked_prefill").inc()
+        if _TRACER.enabled and n_chunks:
+            _TRACER.instant("engine.prefill_chunk", "engine",
+                            chunks=n_chunks, tokens=chunk_toks,
+                            decode_rows=n - n_chunks)
         self._cache.flush_cow()
         sampling = bool(np.any(temps_c > 0.0))
         mixed = self.runner.get_mixed(nb, sampling)
@@ -1139,40 +1754,43 @@ class Engine:
         want = [spec.controller.draft_len(r) for r in reqs]
         try:
             drafts, dlen = spec.drafter.propose(self, slots, reqs, want, k)
+            self._watchdog.note_drafter_ok()
         except Exception as e:
             # a drafter fault drafts nothing this step: a zero-draft
-            # verify is a vanilla decode step
+            # verify is a vanilla decode step; the watchdog decides whether
+            # spec stays on
             spec.note_drafter_fault(e)
+            self._watchdog.note_drafter_fault()
             drafts = np.zeros((nb, k), np.int32)
             dlen = np.zeros((n,), np.int32)
-        tables_c = np.zeros((nb, self.max_pages_per_seq), np.int32)
-        lengths_c = np.zeros((nb,), np.int32)
-        last_c = np.zeros((nb,), np.int64)
-        temps_c = np.zeros((nb,), np.float32)
-        keys_c = np.zeros((nb, 2), np.int64)
+        tables_c, lengths_c, last_c, temps_c, keys_c = self._pack_rows(
+            slots, nb)
         dlen_c = np.zeros((nb,), np.int32)
-        tables_c[:n] = self.tables[slots]
-        lengths_c[:n] = self.lengths[slots]
-        last_c[:n] = self._last_tok[slots]
-        temps_c[:n] = self._temps[slots]
-        keys_c[:n] = self._keys[slots]
         dlen_c[:n] = dlen
         sampling = bool(np.any(temps_c > 0.0))
         verify = self.runner.get_verify(sampling)
+        self.runner.note_verify_shape(nb, sampling)
+        if self._m is not None:
+            self._m.decode_batch.observe(n)
+            self._m.slab_dispatch.labels(path="verify").inc()
         outs = verify(self._dev(tables_c), self._dev(lengths_c),
                       self._dev(last_c), self._dev(drafts, torch.int64),
                       self._dev(dlen_c), self._dev(temps_c),
                       self._dev(keys_c))
         toks, nem, lengths_h, keys_h, bad_h = (a.cpu().numpy() for a in outs)
+        step_proposed = step_accepted = 0
         for i, (slot, req) in enumerate(zip(slots, reqs)):
             try:
                 if bad_h[i]:
                     raise NumericsError(
                         "non-finite logits in verify block", rid=req.rid)
                 n_emit = int(nem[i])
+                accepted = n_emit - 1  # drafts accepted (the bonus is free)
                 consumed = self._harvest(req, toks[i, :n_emit].tolist())
-                spec.note(req, proposed=int(dlen[i]), accepted=n_emit - 1,
+                spec.note(req, proposed=int(dlen[i]), accepted=accepted,
                           landed=consumed)
+                step_proposed += int(dlen[i])
+                step_accepted += min(accepted, int(dlen[i]))
                 if req.done:
                     # eos or budget mid-block: freeing the slot recycles
                     # every page, the rows past the eos included
@@ -1192,10 +1810,16 @@ class Engine:
             except Exception as e:
                 self._fail_request(req, self._wrap_step_fault(e, req))
         spec.observe_step(time.perf_counter() - t0)
+        # a full window of near-zero acceptance makes drafting pure
+        # overhead: the watchdog degrades spec to vanilla, probes back later
+        self._watchdog.note_acceptance(step_proposed, step_accepted)
 
     def run(self, requests=None) -> List[Request]:
-        """Serve ``requests`` (or whatever is queued) to completion."""
+        """Serve ``requests`` (or whatever is queued) to completion. A
+        quarantined engine returns early with work still live (``step`` is
+        a no-op there)."""
         done = list(requests) if requests else list(self._queue)
         while self.step():
-            pass
+            if self._watchdog.quarantined:
+                break
         return done

@@ -5,8 +5,11 @@
 that request to the terminal ``FAILED`` state with ``failure_reason`` set
 to the class's ``reason`` slug and keeps serving the others. Admission-time
 classes also subclass ``ValueError``, so callers that catch ``ValueError``
-on ``add_request`` keep working. The slugs are the JAX package's, so both
-engines report failures by the same names.
+on ``add_request`` keep working. ``EngineFault`` is a whole-step fault: a
+dispatch raised, and ``Engine.step`` recovers by requeueing every active
+request (``_recover_step_fault``). The slugs are the JAX package's, so
+both engines report failures by the same names (they are the ``reason``
+label of ``paddle_tpu_request_failures_total``).
 
 Pure stdlib.
 """
@@ -16,8 +19,9 @@ from typing import Optional
 
 __all__ = [
     "EngineError", "RequestError", "ValidationError", "AdmissionRejected",
-    "PoolExhausted", "NumericsError", "StepFault", "CallbackError",
-    "RetriesExhausted", "failure_reason",
+    "QueueFull", "DeadlineExceeded", "CancelledError", "PoolExhausted",
+    "NumericsError", "StepFault", "CallbackError", "RetriesExhausted",
+    "EngineFault", "failure_reason",
 ]
 
 
@@ -53,6 +57,27 @@ class AdmissionRejected(RequestError, ValueError):
     reason = "admission_rejected"
 
 
+class QueueFull(AdmissionRejected):
+    """Backpressure: the bounded wait queue (``Engine(max_queue=...)``) or
+    a tenant's backlog in the front end is at capacity; shed or retry
+    later (the HTTP server answers 429)."""
+
+    reason = "queue_full"
+
+
+class DeadlineExceeded(RequestError):
+    """The request's deadline elapsed, queued or mid-decode; the engine
+    expires it at the top of the next step."""
+
+    reason = "deadline"
+
+
+class CancelledError(RequestError):
+    """``Engine.cancel(rid)`` hit the request before it finished."""
+
+    reason = "cancelled"
+
+
 class PoolExhausted(RequestError):
     """KV page pressure the request cannot survive: alone in the batch and
     still short of pages, or outgrowing the per-sequence table."""
@@ -84,6 +109,14 @@ class RetriesExhausted(RequestError):
     times."""
 
     reason = "retries_exhausted"
+
+
+class EngineFault(EngineError):
+    """A whole-step fault: a dispatch (or the step's host spine) raised.
+    Recovery is engine-level (requeue every active request, reset the
+    allocator), not per request."""
+
+    reason = "engine"
 
 
 def failure_reason(exc: BaseException) -> str:

@@ -23,6 +23,36 @@ __all__ = ["SpecDecoder", "NgramDrafter", "AdaptiveDraftController",
            "accept_tokens", "make_verify_fn"]
 
 
+class _SpecMetrics:
+    """The reference's spec-decode metrics (registered only on a spec
+    engine with metrics on), in the port's registry."""
+
+    def __init__(self, drafter_name: str):
+        from ...observability import SIZE_BUCKETS, counter, histogram
+
+        self.proposed = counter(
+            "paddle_tpu_spec_proposed_total",
+            "draft tokens proposed to the verifier",
+            labelnames=("drafter",)).labels(drafter=drafter_name)
+        self.accepted = counter(
+            "paddle_tpu_spec_accepted_total",
+            "draft tokens accepted by the verifier",
+            labelnames=("drafter",)).labels(drafter=drafter_name)
+        self.draft_len = histogram(
+            "paddle_tpu_spec_draft_len",
+            "drafts proposed per request per verify step",
+            buckets=SIZE_BUCKETS)
+        self.tokens_per_step = histogram(
+            "paddle_tpu_spec_tokens_per_verify_step",
+            "tokens landed per request per verify step (1 + accepted)",
+            buckets=SIZE_BUCKETS)
+        self.drafter_faults = counter(
+            "paddle_tpu_spec_drafter_faults_total",
+            "drafter proposals that raised (step fell back to zero "
+            "drafts — vanilla-equivalent)",
+            labelnames=("drafter",)).labels(drafter=drafter_name)
+
+
 class SpecDecoder:
     """Engine-side spec-decode state: the drafter, the per-request adaptive
     controller and the rolling totals :meth:`stats` reports."""
@@ -40,6 +70,8 @@ class SpecDecoder:
         self.k = max(1, min(int(k), engine.chunk_size))
         self.engine = engine
         self.controller = AdaptiveDraftController(self.k)
+        self._m = (_SpecMetrics(self.drafter.name)
+                   if engine._m is not None else None)
         self.verify_steps = 0      # verify dispatches
         self.request_steps = 0     # per-request verify rows harvested
         self.tokens_landed = 0     # tokens delivered by verify steps
@@ -56,6 +88,12 @@ class SpecDecoder:
         self.tokens_landed += landed
         self.drafts_proposed += proposed
         self.drafts_accepted += min(accepted, proposed)
+        if self._m is not None:
+            if proposed:
+                self._m.proposed.inc(proposed)
+                self._m.accepted.inc(min(accepted, proposed))
+            self._m.draft_len.observe(proposed)
+            self._m.tokens_per_step.observe(landed)
 
     def observe_step(self, wall: float):
         self.verify_steps += 1
@@ -68,6 +106,8 @@ class SpecDecoder:
         self.drafter_faults += 1
         self.last_drafter_fault = exc
         self.drafter.reset()
+        if self._m is not None:
+            self._m.drafter_faults.inc()
 
     def stats(self) -> dict:
         """Rolling summary: landed tokens per request-row per verify step,

@@ -13,6 +13,11 @@ never loaded. :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
+
+Thread safety: the first launch of a kernel may come from any thread (the
+serving front end runs the engine on a thread of its own), so one lock
+covers the check, the build and the ``ctypes`` load in :func:`load` and
+:func:`build_all`: two threads never start two ``nvcc`` runs on one target.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -61,6 +67,8 @@ _SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+# held over the check, the build and the load (re-entrant: build_all loads)
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -112,27 +120,33 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
     """Build every kernel library (one nvcc per source, all started
     together) and return the seconds each build took (0 when cached)."""
     names = list(names or _SIGNATURES)
-    procs = [_start(n) for n in names]
-    for p in procs:
-        _finish(p)
-    for n in names:
-        build_seconds.setdefault(n, 0.0)
-        load(n)
-    return {n: build_seconds[n] for n in names}
+    with _LOCK:
+        procs = [_start(n) for n in names if n not in _LIBS]
+        for p in procs:
+            _finish(p)
+        for n in names:
+            build_seconds.setdefault(n, 0.0)
+            load(n)
+        return {n: build_seconds[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (once,
+    whichever threads ask at the same time)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if name not in _SIGNATURES:
-            raise KeyError(f"unknown kernel library {name!r}")
-        _finish(_start(name))
-        lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if name not in _SIGNATURES:
+                raise KeyError(f"unknown kernel library {name!r}")
+            _finish(_start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = _SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
@@ -161,6 +175,10 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# Process-global, keyed by (device, stream). Safe with the serving front
+# end: the engine runs on ONE engine thread, and launches on one stream run
+# in order; a second thread launching on the same stream at the same time
+# would race the buffer's (re)allocation below.
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 

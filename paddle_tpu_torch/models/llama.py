@@ -208,7 +208,9 @@ class LlamaMLP(nn.Module):
 # Router-stats side channel: the engine arms the tap around each forward of
 # an MoE model; every MoE layer then appends one [E+3] f32 device vector
 # (per-expert kept pairs, dropped pairs, router-entropy sum, routed
-# tokens). Unarmed, the layers compute no stats.
+# tokens). Unarmed, the layers compute no stats. Process-global: safe while
+# one thread runs the engine's forwards (the serving front end's engine
+# thread); two threads forwarding MoE models at once would share the tap.
 _MOE_STATS_TAP = None
 
 

@@ -54,6 +54,8 @@ def _serve_both(models, spec, num_pages=64, **kw):
         reqs = [eng.add_request(p, m, temperature=t, seed=s)
                 for p, (n, m, t, s) in zip(prompts, spec)]
         eng.run()
+        # a recovered step fault can leave the streams equal all the same
+        assert eng._watchdog.last_fault is None, eng._watchdog.last_fault
         out.append(reqs)
     return je, te, out[0], out[1]
 
@@ -155,9 +157,10 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_host_pages=8), dict(max_queue=4), dict(spec="draft"),
-    dict(tp=2), dict(metrics=False), dict(multi_step=2),
-    dict(disaggregate=True), dict(watchdog={})])
+    dict(kv_host_pages=8), dict(fault_plan="nan-logits:rid=0"),
+    dict(spec="draft"), dict(tp=2), dict(ep=2),
+    dict(integrity="audit"), dict(disaggregate=True),
+    dict(draft_model=object())])
 def test_unported_knobs_raise_type_error(models, knob):
     _, tm = models
     with pytest.raises(TypeError):

@@ -283,17 +283,16 @@ def _serve_both(qpair, spec, num_pages=64, **kw):
     jm, tm, _, _ = qpair
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 128, (n,)) for n, *_ in spec]
-    jkw = dict(kw)
-    if kw.get("spec"):
-        jkw["watchdog"] = dict(accept_floor=0.0)
     je = JaxEngine(jm, num_pages=num_pages, dtype=jnp.float32,
-                   metrics=False, **GEOM, **jkw)
+                   metrics=False, **GEOM, **kw)
     te = Engine(tm, num_pages=num_pages, device="cpu", **GEOM, **kw)
     out = []
     for eng in (je, te):
         reqs = [eng.add_request(p, m, temperature=t, seed=s)
                 for p, (_, m, t, s) in zip(prompts, spec)]
         eng.run()
+        # a recovered step fault can leave the streams equal all the same
+        assert eng._watchdog.last_fault is None, eng._watchdog.last_fault
         out.append(reqs)
     for j, t in zip(*out):
         assert t.failure_reason is None and j.failure_reason is None
@@ -328,14 +327,15 @@ def test_engine_streams_match_spec_ngram(int8_pair):
     jm, tm, _, _ = int8_pair
     prompts = [np.tile(span, 3), np.concatenate([span, span[:4]])]
     je = JaxEngine(jm, num_pages=64, dtype=jnp.float32, metrics=False,
-                   spec="ngram", spec_k=4, watchdog=dict(accept_floor=0.0),
-                   **GEOM)
+                   spec="ngram", spec_k=4, **GEOM)
     te = Engine(tm, num_pages=64, device="cpu", spec="ngram", spec_k=4,
                 **GEOM)
     out = []
     for eng in (je, te):
         reqs = [eng.add_request(p, 12) for p in prompts]
         eng.run()
+        # a recovered step fault can leave the streams equal all the same
+        assert eng._watchdog.last_fault is None, eng._watchdog.last_fault
         out.append([r.tokens for r in reqs])
     assert out[0] == out[1]
     assert te._spec.verify_steps > 0

@@ -5,9 +5,9 @@ decoding, alone and combined. The same requests must give token-identical
 streams in both engines, and the cache must score the same hits.
 
 The JAX engine runs as its own tests run it on the CPU (its multi-query
-attention takes ``_paged_multi_query_ref``), with metrics off; for spec
-decoding its watchdog's acceptance-collapse switch is disabled (the port
-has no watchdog), so both engines stay in spec mode throughout.
+attention takes ``_paged_multi_query_ref``), with metrics off. Both engines
+run their default watchdog: for spec decoding its acceptance-collapse
+switch is live on both sides and must turn spec off at the same step.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -41,11 +41,8 @@ def models():
 
 def _engines(models, max_slots=3, num_pages=64, **kw):
     jm, tm = models
-    jkw = dict(kw)
-    if kw.get("spec"):
-        jkw["watchdog"] = dict(accept_floor=0.0)
     je = JaxEngine(jm, max_slots=max_slots, num_pages=num_pages,
-                   dtype=jnp.float32, metrics=False, **GEOM, **jkw)
+                   dtype=jnp.float32, metrics=False, **GEOM, **kw)
     te = Engine(tm, max_slots=max_slots, num_pages=num_pages, device="cpu",
                 **GEOM, **kw)
     return je, te
@@ -66,6 +63,8 @@ def _serve(eng, waves):
 def _serve_both(models, waves, **kw):
     je, te = _engines(models, **kw)
     jr, tr = _serve(je, waves), _serve(te, waves)
+    # a recovered step fault can leave the streams equal all the same
+    assert je._watchdog.last_fault is None and te._watchdog.last_fault is None
     for j, t in zip(jr, tr):
         assert j.failure_reason is None and t.failure_reason is None, \
             (j.failure_reason, t.failure_reason)
