@@ -35,7 +35,12 @@ Phases, in order; any failure exits non-zero:
               decoding). Pass A serves it again with weight-only int8 and
               int4 weights (kernel #12); pass B builds a LLaMA-MoE at
               Mixtral-8x7B-v0.1 widths, 16 of its 32 layers, and serves it
-              (kernel #13). Then the trainer: ``gpt2_medium()`` at full
+              (kernel #13). The engines run their decode chains and
+              verify steps as CUDA graph replays (``inference/runner.py``);
+              the bf16 pass (1), the int8-weight pass, the spec pass and
+              the MoE pass also run eagerly on the same items (graphs off,
+              the same bodies), and the streams (and the MoE router stats)
+              must be equal. Then the trainer: ``gpt2_medium()`` at full
               depth, O2 bf16, ``loss.backward()`` and ``AdamW.step()`` on
               one fixed batch (T1 packed 12 x 1024, T2 8 x 2048, T3 the
               general route; T4-T6 reach the remaining regimes). Each pass
@@ -63,7 +68,9 @@ Phases, in order; any failure exits non-zero:
 6. generate — ``GenerationMixin.generate``: GPT-2 small at full depth in
               ``bench.py``'s decode shape (B=8, 128 + 512 tokens, bf16,
               then int8 and int4 weights; #2 prefill, #15 decode, #12) and
-              ``llama2_7b`` at full depth (greedy and sampled); GPT-2 small
+              ``llama2_7b`` at full depth (greedy and sampled), the decode
+              step replayed as a CUDA graph and each bf16 run timed again
+              with the step eager (equal ids required); GPT-2 small
               on user-allocated 5-D caches (#14) and one
               ``masked_multihead_attention`` step; GPT-2 small and
               ``llama2_7b`` on ``PagedKVCache`` (#4, bf16 and int8 pages),
@@ -109,12 +116,19 @@ The engine's ``step`` never raises on a recoverable fault: it requeues
 and recomputes after a failed dispatch, and a spec step drafts nothing
 when its drafter raises, so a run can come out right after a fault. Every
 ``Engine`` pass of every phase (direct, behind the front end, profiled)
-therefore fails if its engine caught a step or drafter fault.
+therefore fails if its engine caught a step or drafter fault (a failed
+graph capture or replay among them), and, unless it turned its graphs
+off, if any of its decode chains or verify steps ran eagerly. A replay
+calls no kernel wrapper: the runner adds each graph's launch counts,
+recorded at its capture, on every replay, so the launch counts and the
+tensor-core gates cover the replayed kernels.
 
 Opt-in: ``--phases build,profile`` profiles one T1 training step, then
-times 7B decode chains (bf16 and int8 weights), a chunked mixed step, a
-spec verify step and a Mixtral-width MoE decode chain, and lists the
-device kernels under torch.profiler (PERF.md "Where the time goes").
+times 7B decode chains (bf16 and int8 weights), a spec verify step and a
+Mixtral-width MoE decode chain, each eager and as CUDA graph replays (one
+``profile row`` line each: wall, busy, idle, kernels, capture ms, pool
+bytes), and a chunked mixed step, and lists the device kernels under
+torch.profiler (PERF.md "Where the time goes").
 ``--phases build,drift`` walks one ``llama2_7b`` decode step layer by
 layer with the decode kernels and their plain versions on the same inputs
 and logs each layer's attention and block error. ``--phases
@@ -1994,8 +2008,10 @@ def _no_caught_fault(eng, tag):
     from a failed dispatch (every request requeues and recomputes on the
     same kernels) and the spec step drafts nothing when its drafter raises;
     either can leave every stream right all the same, so each Engine pass
-    ends here. Fails if ``eng`` recovered a step, lost a draft to a
-    drafter fault or was quarantined."""
+    ends here. Fails if ``eng`` recovered a step (a failed graph capture
+    or replay among them), lost a draft to a drafter fault or was
+    quarantined, or, unless the pass turned its graphs off, if a decode
+    chain or verify step of the pass ran other than as a CUDA graph."""
     wd = eng._watchdog
     drafter = eng._spec.drafter_faults if eng._spec is not None else 0
     if wd.last_fault is not None or wd.quarantined or drafter:
@@ -2003,6 +2019,41 @@ def _no_caught_fault(eng, tag):
             f"{tag}: the engine caught a fault: step fault "
             f"{wd.last_fault!r}, {drafter} drafter faults, quarantined "
             f"{wd.quarantined}")
+    graphs = eng.runner._graphs
+    if graphs.enabled and any(st.graph is None
+                              for st in graphs.steps.values()):
+        raise AssertionError(f"{tag}: a step ran eagerly with graphs on")
+
+
+def _graph_note(eng):
+    """The captured steps of ``eng``: how many, their capture ms, the
+    graph pool's bytes."""
+    steps = [st for st in eng.runner._graphs.steps.values()
+             if st.graph is not None]
+    pool = _pool_bytes(eng.runner._graphs)
+    return (f"{len(steps)} graphs, capture "
+            f"{sum(st.capture_ms for st in steps):.1f} ms, pool "
+            + ("not measured" if pool is None else f"{pool} bytes"))
+
+
+def _pool_bytes(graphs):
+    """Bytes of the segments of ``graphs``'s private memory pool
+    (``torch.cuda.memory_snapshot``), or None where the snapshot does not
+    name its segments' pool."""
+    import torch
+
+    if graphs._pool is None:
+        return 0
+    want = tuple(graphs._pool)
+    total, named = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        named = True
+        if tuple(pid) == want:
+            total += seg["total_size"]
+    return total if named else None
 
 
 def _serve_items(engine, items, tag="engine pass"):
@@ -2165,11 +2216,28 @@ def phase_main(ident):
         gc.collect()  # an engine and its runner hold each other
         torch.cuda.empty_cache()
 
-    seen = {}
+    seen, streams = {}, {}
 
     def serve(tag, eng, items):
         reqs, wall = _serve_items(eng, items, tag)
         seen[tag] = _report(tag, reqs, wall, ident)
+        streams[tag] = [list(r.tokens) for r in reqs]
+        log(f"{tag}: {_graph_note(eng)}")
+        return eng
+
+    def eager_twin(tag, eng, items):
+        """The items of pass ``tag`` again on ``eng``, a fresh engine with
+        its graphs off (the same bodies run eagerly): the streams must
+        equal the graph pass's."""
+        eng.runner._graphs.enabled = False
+        serve(f"{tag} eager", eng, items)
+        if streams[f"{tag} eager"] != streams[tag]:
+            raise AssertionError(f"{tag}: the graph and eager streams "
+                                 "differ")
+        log(f"{tag}: graph and eager streams equal; graphs "
+            f"{seen[tag][0]:.1f} tok/s, TTFT median {seen[tag][1]:.1f} ms; "
+            f"eager {seen[tag + ' eager'][0]:.1f} tok/s, "
+            f"{seen[tag + ' eager'][1]:.1f} ms [{ident}]")
         return eng
 
     def rand(n):
@@ -2189,6 +2257,8 @@ def phase_main(ident):
     peak_bf16 = _peak_pass(torch, lambda: run_pass(
         "main bf16 pages", lambda: serve("main bf16 pages", engine(),
                                          items1), vanilla))
+    run_pass("main bf16 pages eager", lambda: eager_twin(
+        "main bf16 pages", engine(), items1), vanilla)
     # pass 2: int8 KV pages
     items = plain([(100, 48, 0.0, None), (600, 32, 0.8, 21),
                    (250, 64, 0.0, None), (40, 64, 0.0, None)])
@@ -2264,10 +2334,12 @@ def phase_main(ident):
 
     # pass 6: n-gram speculative decoding over prompts that repeat a
     # 64-token span, so the drafter finds matches
+    spec_items = [(np.tile(rand(64), -(-n // 64))[:n], 96, 0.0, None)
+                  for n in (200, 280, 360, 440, 520, 600)]
+
     def spec():
-        items = [(np.tile(rand(64), -(-n // 64))[:n], 96, 0.0, None)
-                 for n in (200, 280, 360, 440, 520, 600)]
-        eng = serve("main spec ngram", engine(spec="ngram", spec_k=4), items)
+        eng = serve("main spec ngram", engine(spec="ngram", spec_k=4),
+                    spec_items)
         st = eng._spec.stats()
         steps = max(1, st["verify_steps"])
         log(f"main spec ngram: {st['verify_steps']} verify steps, "
@@ -2277,6 +2349,9 @@ def phase_main(ident):
             f"request-row per step")
 
     run_pass("main spec ngram", spec, verify)
+    run_pass("main spec ngram eager", lambda: eager_twin(
+        "main spec ngram", engine(spec="ngram", spec_k=4), spec_items),
+        verify)
     peak_dense = torch.cuda.max_memory_allocated()
 
     # ---- pass A: weight-only int8 and int4 weights (kernel #12) --------
@@ -2291,6 +2366,8 @@ def phase_main(ident):
     peaks["int8"] = _peak_pass(torch, lambda: run_pass(
         "main int8 weights", lambda: serve("main int8 weights", engine(),
                                            items1), quant + vanilla))
+    run_pass("main int8 weights eager", lambda: eager_twin(
+        "main int8 weights", engine(), items1), quant + vanilla)
 
     def spec_int8():
         items = [(np.tile(rand(64), -(-n // 64))[:n], 96, 0.0, None)
@@ -2338,9 +2415,17 @@ def phase_main(ident):
         return Engine(moe, max_slots=8, num_pages=512, page_size=16,
                       chunk_size=16, **kw)
 
-    def moe_run(tag, eng, items):
-        serve(tag, eng, items)
-        st = eng.moe_stats()
+    moe_seen = {}
+
+    def moe_run(tag, eng, items, twin_of=None):
+        if twin_of is None:
+            serve(tag, eng, items)
+        else:
+            eager_twin(twin_of, eng, items)
+            if eng.moe_stats() != moe_seen[twin_of]:
+                raise AssertionError(f"{tag}: the graph and eager router "
+                                     "stats differ")
+        st = moe_seen[tag] = eng.moe_stats()
         log(f"{tag}: moe_stats tokens_routed={st['tokens_routed']:.0f} "
             f"pairs_kept={st['pairs_kept']:.0f} "
             f"pairs_dropped={st['pairs_dropped']:.0f} "
@@ -2357,6 +2442,9 @@ def phase_main(ident):
         (450, 32, 0.0, None), (260, 56, 0.0, None))]
     run_pass("main moe", lambda: moe_run("main moe", moe_engine(),
                                          moe_items), grouped + vanilla)
+    run_pass("main moe eager", lambda: moe_run(
+        "main moe eager", moe_engine(), moe_items, twin_of="main moe"),
+        grouped + vanilla)
     moe_long = plain([(300, 48, 0.0, None), (560, 48, 0.0, None),
                       (777, 48, 0.8, 63), (1000, 48, 0.0, None)])
     # its 256-token chunks give C >= 64 capacity rows an expert: the
@@ -2913,6 +3001,44 @@ def _generate_ms(model, ids, new, max_seq, reps=3, **kw):
     return 1e3 * sorted(diffs)[reps // 2] / (new - short), out
 
 
+def _two_windows(llama, lids, ident):
+    """``generate`` on ``llama2_7b`` with a 1024-token window, then a
+    2048-token one: the model keeps one captured step after a call, so the
+    second call drops the first's slab caches before it makes its own.
+    Logs each window's caches, the bytes held after the call returns and
+    the peak during it, both over the weights; fails if the first's
+    caches outlive the second call or the two are ever held at once."""
+    import torch
+
+    cfg = llama.config
+    batch = lids.shape[0]
+    llama.__dict__.pop("_decode_graph_set", None)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rows = []
+    for window in (1024, 2048):
+        torch.cuda.reset_peak_memory_stats()
+        llama.generate(lids, max_new_tokens=32, max_seq=window,
+                       temperature=0.0)
+        torch.cuda.synchronize()
+        caches = (cfg.num_layers * 2 * batch * window * cfg.num_kv_heads
+                  * cfg.head_dim * 2)
+        rows.append((window, caches, torch.cuda.memory_allocated() - base,
+                     torch.cuda.max_memory_allocated() - base))
+    gib = 2**30
+    for window, caches, held, peak in rows:
+        log(f"generate G2 two windows: window {window}: slab caches "
+            f"{caches / gib:.3f} GiB, held after return {held / gib:.3f} "
+            f"GiB, peak during the call {peak / gib:.3f} GiB, both over the "
+            f"weights [{ident}]")
+    (_, c1, _, _), (_, c2, h2, p2) = rows
+    if len(llama._decode_graphs().steps) != 1 or h2 >= c2 + c1 // 2 \
+            or p2 >= c2 + c1 // 2:
+        raise AssertionError("G2 two windows: the first window's caches "
+                             "were held with the second's")
+
+
 def _report_decode(tag, ms, model, batch, prompt, total, kv_width, layers,
                    peak, ident):
     """Log ms a step, tokens/s and ``bench.py``'s per-step HBM floor:
@@ -3095,6 +3221,8 @@ def phase_generate(ident):
       then with int8 and int4 weights (#12);
     - G2: ``llama2_7b``, full depth, bf16, B=8, prompt 128, 128 new
       tokens, greedy and sampled (temperature 0.8, top-k 40, seed 3);
+      then a 1024-token window and a 2048-token one in turn, with the
+      memory each leaves held and its peak;
     - G3: GPT-2 small on user-allocated [2, B, H, S, D] caches (#14) and
       one ``masked_multihead_attention`` step;
     - G4: GPT-2 small and ``llama2_7b`` on ``PagedKVCache`` (16-row
@@ -3138,11 +3266,13 @@ def phase_generate(ident):
                         device="cuda")
     figures = {}
 
-    def g1(tag, model, reps):
+    def g1(tag, model, reps, graphs=True):
         gc.collect()
+        model._decode_graphs().enabled = graphs
         torch.cuda.reset_peak_memory_stats()
         ms, out = _generate_ms(model, ids, new, max_seq, reps,
                                temperature=0.0)
+        model._decode_graphs().enabled = True
         if out.shape != (B, prompt + new) or not bool(
                 ((out >= 0) & (out < cfg.vocab_size)).all()):
             raise AssertionError(f"G1 {tag}: bad output {tuple(out.shape)}")
@@ -3159,6 +3289,14 @@ def phase_generate(ident):
     log(f"generate G1: one generate pass (B=8, 128 + 512) launches "
         f"{ {k: v for k, v in per_pass.items() if v} }")
     out_bf16 = run("G1 bf16", lambda: g1("bf16", gpt, 3), slab)
+    # the same decode step run eagerly (graphs off): equal ids
+    out_eager = run("G1 bf16 eager", lambda: g1("bf16 eager", gpt, 3,
+                                                graphs=False), slab)
+    if not torch.equal(out_eager, out_bf16):
+        raise AssertionError("G1: the graph and eager ids differ")
+    log(f"generate G1: graph and eager ids equal; "
+        f"{figures['bf16']['ms']:.4f} against "
+        f"{figures['bf16 eager']['ms']:.4f} ms a decode step [{ident}]")
     # one decode step under the profiler: host wall against device busy
     caches = gpt.init_caches(B, max_seq, bf16)
     with torch.no_grad():
@@ -3213,16 +3351,27 @@ def phase_generate(ident):
     outs = {}
     for tag, kw in (("greedy", dict(temperature=0.0)),
                     ("sampled", dict(temperature=0.8, top_k=40, seed=3))):
-        def g2(tag=tag, kw=kw):
+        def g2(tag=tag, kw=kw, graphs=True):
             gc.collect()
+            llama._decode_graphs().enabled = graphs
+            name = tag if graphs else f"{tag} eager"
             torch.cuda.reset_peak_memory_stats()
-            ms, outs[tag] = _generate_ms(llama, lids, 128, prompt + 128,
-                                         1, **kw)
-            figures[f"llama {tag}"] = _report_decode(
-                f"G2 llama2_7b bf16 {tag}", ms, llama, B, prompt,
+            ms, outs[name] = _generate_ms(llama, lids, 128, prompt + 128,
+                                          1, **kw)
+            llama._decode_graphs().enabled = True
+            figures[f"llama {name}"] = _report_decode(
+                f"G2 llama2_7b bf16 {name}", ms, llama, B, prompt,
                 prompt + 128, lcfg.num_kv_heads * lcfg.head_dim,
                 lcfg.num_layers, torch.cuda.max_memory_allocated(), ident)
         run(f"G2 {tag}", g2, slab)
+        run(f"G2 {tag} eager", lambda g2=g2: g2(graphs=False), slab)
+        if not torch.equal(outs[tag], outs[f"{tag} eager"]):
+            raise AssertionError(f"G2 {tag}: the graph and eager ids "
+                                 "differ")
+        log(f"generate G2 {tag}: graph and eager ids equal; "
+            f"{figures['llama ' + tag]['ms']:.4f} against "
+            f"{figures['llama ' + tag + ' eager']['ms']:.4f} ms a decode "
+            f"step [{ident}]")
     again = llama.generate(lids, max_new_tokens=128, max_seq=prompt + 128,
                            temperature=0.8, top_k=40, seed=3)
     if not torch.equal(again, outs["sampled"]):
@@ -3231,6 +3380,7 @@ def phase_generate(ident):
                  .mean())
     log(f"generate G2: the sampled stream repeats itself; it equals the "
         f"greedy one on {same:.3f} of positions")
+    run("G2 two windows", lambda: _two_windows(llama, lids, ident), slab)
 
     # ---- G4 (llama2_7b): PagedKVCache ----------------------------------
     # 32 bf16 layers amplify the one-ulp differences of the attention
@@ -3467,8 +3617,9 @@ def _peak_pass(torch, run):
 def _profile_step(eng, tag, steps, ident):
     """``_profile_call`` of one ``eng.step()``; ``steps`` token steps make
     up one engine step."""
-    _profile_call(eng.step, tag, steps, ident)
+    out = _profile_call(eng.step, tag, steps, ident)
     _no_caught_fault(eng, f"profile: {tag}")
+    return out
 
 
 def _profile_call(fn, tag, steps, ident):
@@ -3498,6 +3649,62 @@ def _profile_call(fn, tag, steps, ident):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<6d} {e.key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "kernels": launches}
+
+
+def _profile_pair(tag, make, steps, warm, ident):
+    """The same engine step eager and as CUDA graph replays: ``make()``
+    gives a fresh engine with its requests queued (the same prompts each
+    time); graphs off, then on; ``warm`` steps (admission, the first
+    chain or verify step: the graph engine's captures), then
+    ``_profile_step``. Logs one row: host wall ms a token step, device
+    busy ms a token step, idle share, kernels a token step, eager and
+    graph, and the graph engine's capture ms and pool bytes."""
+    rows = {}
+    for mode in ("eager", "graph"):
+        eng = make()
+        eng.runner._graphs.enabled = mode == "graph"
+        for _ in range(warm):
+            eng.step()
+        rows[mode] = _profile_step(eng, f"{tag} [{mode}]", steps, ident)
+        if mode == "graph":
+            note = _graph_note(eng)
+        del eng
+        gc.collect()
+
+    def fmt(r):
+        idle = max(0.0, 1 - r["busy_ms"] / r["wall_ms"])
+        return (f"wall {r['wall_ms'] / steps:.3f} ms, busy "
+                f"{r['busy_ms'] / steps:.3f} ms, idle {idle:.0%}, "
+                f"{r['kernels'] / steps:.0f} kernels a token step")
+
+    log(f"profile row: {tag}: eager {fmt(rows['eager'])}; graph "
+        f"{fmt(rows['graph'])}; {note} [{ident}]")
+    return rows
+
+
+def _profile_ordered(tag, make, steps, warm, ident):
+    """The dense graph step with its page writes as the card lands them
+    (a dense engine's rule) and in order (an MoE engine's,
+    ``Engine._ordered_writes``), in one run: what the order costs."""
+    rows = {}
+    for ordered in (False, True):
+        eng = make()
+        eng._ordered_writes = ordered
+        for _ in range(warm):
+            eng.step()
+        rows[ordered] = _profile_step(
+            eng, f"{tag} [graph, {'ordered' if ordered else 'unordered'} "
+            "writes]", steps, ident)
+        del eng
+        gc.collect()
+    off, on = rows[False], rows[True]
+    log(f"profile row: ordered page writes, {tag}: busy "
+        f"{on['busy_ms'] / steps:.3f} against {off['busy_ms'] / steps:.3f} "
+        f"ms a token step ({on['busy_ms'] / off['busy_ms'] - 1:+.2%}), wall "
+        f"{on['wall_ms'] / steps:.3f} against {off['wall_ms'] / steps:.3f} "
+        f"ms, kernels {on['kernels'] / steps:.0f} against "
+        f"{off['kernels'] / steps:.0f} a token step [{ident}]")
 
 
 def _profile_train(ident):
@@ -3739,10 +3946,12 @@ def phase_drift(ident, B=8, prompt=128, steps=8):
 
 def phase_profile(ident):
     """Opt-in (not in the default run): where the time goes in one T1
-    training step; then at llama2_7b, 8 active slots, bf16, in one decode
-    chain, one chunked-prefill mixed step and one spec-decode verify step;
-    then one decode chain with int8 weights and one of the 16-layer
-    Mixtral-width MoE."""
+    training step; then at llama2_7b, 8 active slots, bf16, one decode
+    chain and one spec-decode verify step, each eager and as CUDA graph
+    replays, and one chunked-prefill mixed step (eager: it is not
+    captured); then one decode chain with int8 weights and one of the
+    16-layer Mixtral-width MoE, each eager and as graph replays; the 7B
+    bf16 graph chain also with its page writes in order (the MoE rule)."""
     import numpy as np
     import torch
 
@@ -3756,52 +3965,49 @@ def phase_profile(ident):
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     rng = np.random.default_rng(3)
 
-    def engine(prompt_len, **kw):
-        eng = Engine(model, max_slots=8, num_pages=1024, page_size=16,
-                     chunk_size=16, **kw)
-        for _ in range(8):
-            eng.add_request(rng.integers(0, cfg.vocab_size, (prompt_len,)),
-                            200)
-        return eng
+    def prompts(n, vocab=cfg.vocab_size):
+        return [rng.integers(0, vocab, (n,)) for _ in range(8)]
 
-    eng = engine(512, max_chain=1)
-    eng.step()  # admission wave + first chain (warms up)
-    eng.step()
-    _profile_step(eng, "one 16-step decode chain, ~512-token contexts",
-                  eng.chunk_size, ident)
-    del eng
+    def engine(ps, m=None, num_pages=1024, **kw):
+        def make():
+            eng = Engine(model if m is None else m, max_slots=8,
+                         num_pages=num_pages, page_size=16, chunk_size=16,
+                         **kw)
+            for p in ps:
+                eng.add_request(p, 200)
+            return eng
+        return make
+
+    chain = prompts(512)
+    _profile_pair("7B bf16: one 16-step decode chain, ~512-token contexts",
+                  engine(chain, max_chain=1), 16, 2, ident)
+    _profile_ordered("7B bf16, one 16-step decode chain",
+                     engine(chain, max_chain=1), 16, 2, ident)
     # 8 prompts of 2048 tokens stream in 256-token chunks: each mixed step
     # is one [8, 256] forward through the verify kernel
-    eng = engine(2048, prefill_chunk=256)
+    eng = engine(prompts(2048), prefill_chunk=256)()
     eng.step()
     _profile_step(eng, "one chunked-prefill mixed step, 8 rows x 256 "
                   "prompt tokens over 256 (wall) and 512 (profiled) cached "
                   "tokens", 1, ident)
     del eng
-    eng = engine(512, spec="ngram", spec_k=4)
-    eng.step()  # blocking admission + the first verify step
-    _profile_step(eng, "one spec verify step, 8 rows x 5 tokens, "
-                  "~512-token contexts", 1, ident)
-    del eng
+    _profile_pair("7B bf16: one spec verify step, 8 rows x 5 tokens, "
+                  "~512-token contexts", engine(prompts(512), spec="ngram",
+                                                spec_k=4), 1, 1, ident)
     quantize_for_decode(model, algo="weight_only_int8")
-    eng = engine(512, max_chain=1)
-    eng.step()
-    eng.step()
-    _profile_step(eng, "int8 weights: one 16-step decode chain, ~512-token "
-                  "contexts", eng.chunk_size, ident)
-    del eng, model
+    _profile_pair("7B int8 weights: one 16-step decode chain, ~512-token "
+                  "contexts", engine(chain, max_chain=1), 16, 2, ident)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
-    model = init_llama(mixtral_8x7b(num_layers=16), seed=2, device="cuda",
-                       dtype=torch.bfloat16)
-    eng = Engine(model, max_slots=8, num_pages=512, page_size=16,
-                 chunk_size=16, max_chain=1)
-    for _ in range(8):
-        eng.add_request(rng.integers(0, 32000, (512,)), 200)
-    eng.step()
-    eng.step()
-    _profile_step(eng, "Mixtral widths, 16 layers (MoE): one 16-step decode "
-                  "chain, ~512-token contexts", eng.chunk_size, ident)
-    del eng, model
+    moe = init_llama(mixtral_8x7b(num_layers=16), seed=2, device="cuda",
+                     dtype=torch.bfloat16)
+    _profile_pair("Mixtral widths, 16 layers (MoE): one 16-step decode "
+                  "chain, ~512-token contexts",
+                  engine(prompts(512, 32000), m=moe, num_pages=512,
+                         max_chain=1), 16, 2, ident)
+    del moe
+    gc.collect()
     torch.cuda.empty_cache()
 
 

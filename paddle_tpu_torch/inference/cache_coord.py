@@ -22,6 +22,7 @@ serving front end drives either engine the same way.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +74,19 @@ class CacheCoordinator:
                 for _ in range(cfg.num_layers)]
         else:
             self.scale_pages = [None] * cfg.num_layers
+
+    @contextlib.contextmanager
+    def trash_kept(self):
+        """The trash page (physical page 0) of every layer as the block
+        found it: a captured step's warm-up runs on idle rows, whose writes
+        land there, and must not change what later discarded rows read."""
+        saved = [(t, t[0].clone()) for t in self.k_pages + self.v_pages
+                 + [s for s in self.scale_pages if s is not None]]
+        try:
+            yield
+        finally:
+            for t, page in saved:
+                t[0].copy_(page)
 
     def reset(self):
         """Empty the allocator: every page free (page 0 stays the trash

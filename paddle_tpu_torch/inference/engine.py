@@ -8,12 +8,15 @@
   forward: rows pad to the fixed ``max_slots`` pow2 bucket, prompts to a
   shared pow2 length bucket capped at ``max_position``. Prefill attention
   is the flash kernel; the prompt's K/V go into the pages.
-* **Chained decode.** Decode runs ``k * chunk_size`` steps per dispatch as
-  a Python loop over the functional ``PagedCacheState`` (the JAX
-  ``lax.scan``), each step one token per active slot through the paged
-  decode kernel. Nothing inside the chain waits for the device: tokens,
-  lengths, keys and the NaN flag stay on the card until the one fetch at
-  the end of the step, which also harvests the admission wave. The depth
+* **Chained decode.** Decode runs ``k * chunk_size`` token steps per
+  dispatch (the JAX ``lax.scan``), each one token per active slot through
+  the paged decode kernel. The token step is written to be captured: on
+  the card it is one CUDA graph per ``(nb, sampling)`` bucket, captured at
+  its first use and replayed ``k * chunk_size`` times back to back
+  (``runner.py``); on the CPU the same body runs eagerly. Nothing inside
+  the chain waits for the device: tokens, lengths, keys and the NaN flag
+  stay on the card until the one fetch at the end of the step, which also
+  harvests the admission wave. The depth
   ``k`` maximises useful tokens per chain boundary; stragglers may
   overshoot their budget (the tokens are discarded, the writes land in
   pages the harvest frees, and lengths cap at the table capacity).
@@ -101,6 +104,7 @@ import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -512,6 +516,12 @@ class Engine:
         self._moe_pending: List = []
         self._moe_tot = np.zeros((self._moe_stats_n,), np.float64)
         self._moe_tot_verify = np.zeros((self._moe_stats_n,), np.float64)
+        # an MoE model's discarded rows read back colliding page writes and
+        # route through the same expert capacity as the live rows: their
+        # writes land in order, so a stream does not depend on the card's
+        # scatter order (a dense model's discarded rows change nothing
+        # live; PERF.md gives what the order costs a dense step)
+        self._ordered_writes = bool(self._moe_stats_n)
         if capacity_factor is not None:
             if not self._moe_stats_n:
                 raise ValueError(
@@ -912,7 +922,8 @@ class Engine:
         return [PagedCacheState(c.k_pages[i], c.v_pages[i],
                                 c.scale_pages[i], tables, lengths,
                                 self.page_size, prefill_valid=prefill_valid,
-                                verify=verify)
+                                verify=verify,
+                                ordered_writes=self._ordered_writes)
                 for i in range(self.cfg.num_layers)]
 
     def _select(self, lg, sampling, temps, keys):
@@ -948,38 +959,47 @@ class Engine:
 
         return prefill
 
-    def _make_decode_raw(self, k, sampling):
-        """The chained decode: ``k * chunk_size`` steps, one token per slot
-        each, with no host sync inside (an MoE model's router stats add up
-        on the card across the steps). Returns (tokens [nb, steps],
-        lengths, keys, bad)."""
+    def _decode_step(self, nb, sampling):
+        """The chained decode's token step over ``nb`` rows, written to be
+        captured (``runner.CapturedStep``): one token per slot, read from
+        static buffers and written back into them in place (last token,
+        lengths, keys, the non-finite flag ORed in, an MoE model's router
+        stats summed on the card), the token stored at column ``idx`` of
+        ``toks`` [nb, max_chain * chunk_size], and ``idx`` advanced on the
+        device. Nothing waits for the host. Returns (body, buffers)."""
         model = self.model
-        steps = k * self.chunk_size
         moe_n = self._moe_stats_n
 
-        @torch.no_grad()
-        def decode_chain(tables, lengths, last_tok, temps, keys):
-            bad = torch.zeros(last_tok.shape, dtype=torch.bool,
-                              device=last_tok.device)
-            toks = []
-            last = last_tok
-            mstat = None
-            for _ in range(steps):
-                states = self._states_from(tables, lengths)
-                with _moe_tap(moe_n) as tap:
-                    logits, new_states = model(last[:, None], caches=states)
-                if tap:
-                    st = torch.stack(tap).sum(0)
-                    mstat = st if mstat is None else mstat + st
-                last, keys, b = self._select(logits[:, -1].float(),
-                                             sampling, temps, keys)
-                bad = bad | b
-                lengths = new_states[0].lengths
-                toks.append(last)
-            self._note_moe_stats([mstat] if mstat is not None else None)
-            return torch.stack(toks, dim=1), lengths, keys, bad
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        return decode_chain
+        b = SimpleNamespace(
+            tables=zeros((nb, self.max_pages_per_seq), torch.int32),
+            lengths=zeros((nb,), torch.int32),
+            last=zeros((nb,), torch.int64),
+            temps=zeros((nb,), torch.float32),
+            keys=zeros((nb, 2), torch.int64),
+            bad=zeros((nb,), torch.bool),
+            toks=zeros((nb, self.max_chain * self.chunk_size), torch.int64),
+            idx=zeros((1,), torch.int64),
+            mstat=zeros((moe_n,), torch.float32) if moe_n else None)
+
+        def decode_token_step():
+            states = self._states_from(b.tables, b.lengths)
+            with _moe_tap(moe_n) as tap:
+                logits, new_states = model(b.last[:, None], caches=states)
+            if tap:
+                b.mstat.add_(torch.stack(tap).sum(0))
+            tok, keys, bad = self._select(logits[:, -1].float(), sampling,
+                                          b.temps, b.keys)
+            b.bad.logical_or_(bad)
+            b.lengths.copy_(new_states[0].lengths)
+            b.keys.copy_(keys)
+            b.last.copy_(tok)
+            b.toks.index_copy_(1, b.idx, tok[:, None])
+            b.idx.add_(1)
+
+        return decode_token_step, b
 
     # ------------------------------------------------------ MoE router stats
     def _note_moe_stats(self, tap, verify=False):
@@ -1295,11 +1315,12 @@ class Engine:
     def _chain_dispatch(self, slots, k, budget, admits, pre_tok, pre_keys):
         """Launch ``budget`` decode chains over ``slots`` compacted into
         their pow2 bucket, back to back: each chain's last-token column,
-        lengths and keys feed the next as device tensors (no host copy
-        between them, so no sync). Freshly admitted slots take their first
-        token and key from the prefill's device outputs, so no host sync
-        happens between the two either. Returns (slots, their requests,
-        [(toks, lengths, keys, bad)] a chain); never waits."""
+        lengths and keys are copied on the device into the next chain's
+        static inputs (no host copy between them, so no sync). Freshly
+        admitted slots take their first token and key from the prefill's
+        device outputs, so no host sync happens between the two either.
+        Returns (slots, their requests, [(toks, lengths, keys, bad)] a
+        chain); never waits."""
         slot_reqs = [self._active[s] for s in slots]
         n = len(slots)
         nb = _pow2ceil(n)
@@ -1457,6 +1478,11 @@ class Engine:
         in flight requeue too, and the allocator resets. The requeued work
         recomputes on the same kernels; nothing moves to another path. The
         watchdog counts the fault and degrades the engine on repeats.
+
+        The captured graphs are kept: they point at the page buffers,
+        which ``_reset_pool`` keeps, and at static buffers that every
+        dispatch loads in full. A capture that raised stored no graph, so
+        its bucket captures again at its next use.
 
         A fault that left the CUDA context unusable is no fault of one
         step: it re-raises, and the run fails."""

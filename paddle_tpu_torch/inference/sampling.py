@@ -83,8 +83,10 @@ def uniform(key, shape, minval=0.0, maxval=1.0):
     bits = random_bits(key, shape)
     fl = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     fl = fl - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=fl.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=fl.device)
+    # the bounds as f32 device scalars filled on the device (no host copy,
+    # so a CUDA graph can capture the draw); hi - lo is taken in f32
+    lo = torch.full((), minval, dtype=torch.float32, device=fl.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=fl.device)
     return torch.maximum(lo, fl * (hi - lo) + lo)
 
 

@@ -35,7 +35,8 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "load",
            "build_all", "check", "stream_ptr", "build_seconds",
-           "ptxas_report", "arrival_counters"]
+           "ptxas_report", "arrival_counters", "launch_counter",
+           "LAUNCH_COUNTERS"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -175,11 +176,28 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# (wrapper, attribute) of every kernel launch counter, registered where the
+# wrapper is defined: a CUDA graph's replay calls no wrapper, so the
+# runner adds each counter's delta over the capture on every replay
+LAUNCH_COUNTERS: List[tuple] = []
+
+
+def launch_counter(fn, *attrs: str):
+    """Give wrapper ``fn`` the launch counters ``attrs`` (each starting at
+    0) and register them in :data:`LAUNCH_COUNTERS`."""
+    for attr in attrs:
+        setattr(fn, attr, 0)
+        LAUNCH_COUNTERS.append((fn, attr))
+
+
 # Process-global, keyed by (device, stream). Safe with the serving front
 # end: the engine runs on ONE engine thread, and launches on one stream run
 # in order; a second thread launching on the same stream at the same time
 # would race the buffer's (re)allocation below.
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+# buffers a larger one replaced: a CUDA graph captured on the stream keeps
+# launching its kernels on the old pointer, so the old buffer stays alive
+_OUTGROWN: List[torch.Tensor] = []
 
 
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -188,12 +206,17 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     ``csrc/common.cuh``), one buffer per device and stream: zeroed once
     when it is made (or grown), and left zeroed by every launch that uses
     it, so the host never clears or reads it. Launches on one stream run
-    in order, so they share the buffer safely."""
+    in order, so they share the buffer safely; so do the replays of the
+    graphs captured on a stream, which run on one stream in turn. A step
+    is warmed up on its capture stream before the capture, so the buffer
+    is made outside the graph."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     key = (idx, stream_ptr(device))
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf

@@ -43,12 +43,12 @@ def naive_attention(q, k, v, causal=False, scale=None):
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, training=True, generator=None):
     """Inputs ``[batch, seq, num_heads, head_dim]``. Returns ``(out,
-    None)`` like the reference API (the second slot is the softmax the
-    reference can return on request; the port never materialises it).
+    None)`` like the reference API, or ``(out, probs)`` with
+    ``return_softmax``: the attention probabilities ``[batch, num_heads,
+    seq_q, seq_k]`` in f32, computed in plain PyTorch beside the kernel's
+    output as the reference does (no kernel materialises them).
     ``dropout`` applies to the output, outside the kernel, when
     ``training``, with its mask from ``generator``."""
-    if return_softmax:
-        raise TypeError("flash_attention: return_softmax is not ported")
     q, k, v = amp_cast("attention", query, key, value)
     if not get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
         out = naive_attention(q, k, v, causal=causal)
@@ -59,4 +59,22 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
         out = flash_attention_fwd(q, k, v, causal=causal)
     if dropout > 0.0 and training:
         out = _dropout(out, p=dropout, training=True, generator=generator)
+    if return_softmax:
+        return out, _softmax_probs(query, key, causal)
     return out, None
+
+
+def _softmax_probs(q, k, causal):
+    """The reference's ``_softmax_probs``: q.k^T over sqrt(head_dim) in the
+    inputs' dtype, then f32, the causal mask a lower triangle over the key
+    length, softmax over the keys."""
+    d = q.shape[-1]
+    qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qt, kt).float() / (d ** 0.5)
+    if causal:
+        s = logits.shape[-1]
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits,
+                             torch.full_like(logits, float("-inf")))
+    return torch.softmax(logits, dim=-1)

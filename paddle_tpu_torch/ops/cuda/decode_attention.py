@@ -41,6 +41,8 @@ import math
 
 import torch
 
+from ...kernels.build import launch_counter
+
 __all__ = ["decode_attention", "decode_attention_ref",
            "decode_attention_slab", "make_kv_slab", "cache_prefill_write",
            "cache_decode_step"]
@@ -194,7 +196,7 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     return _apply(q, k_cache, v_cache, lengths, scale, decode_attention)
 
 
-decode_attention.launches = 0
+launch_counter(decode_attention, "launches")
 
 
 def decode_attention_slab(q, kv_slab, lengths, scale=None):
@@ -210,7 +212,7 @@ def decode_attention_slab(q, kv_slab, lengths, scale=None):
     return _apply(q, k, v, lengths, scale, decode_attention_slab)
 
 
-decode_attention_slab.launches = 0
+launch_counter(decode_attention_slab, "launches")
 
 
 # ------------------------------------------------- shared cache plumbing

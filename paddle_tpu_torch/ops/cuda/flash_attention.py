@@ -52,6 +52,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...kernels.build import launch_counter
+
 __all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "FlashAttentionFunction",
            "flash_attention_fused", "flash_attention_with_lse", "flash_body",
@@ -312,9 +314,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     return (out, lse) if return_lse else out
 
 
-flash_attention_fwd.launches = 0
-flash_attention_fwd.tc_launches = 0
-flash_attention_fwd.pos_launches = 0
+launch_counter(flash_attention_fwd, "launches", "tc_launches",
+               "pos_launches")
 
 
 def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
@@ -390,9 +391,8 @@ def flash_attention_bwd(q, k, v, out, do, lse, dlse=None, causal=True,
     return tuple(grads)
 
 
-flash_attention_bwd.launches = 0
-flash_attention_bwd.tc_launches = 0
-flash_attention_bwd.pos_launches = 0
+launch_counter(flash_attention_bwd, "launches", "tc_launches",
+               "pos_launches")
 
 
 class FlashAttentionFunction(torch.autograd.Function):

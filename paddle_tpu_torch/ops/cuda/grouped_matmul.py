@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from ...kernels.build import launch_counter
+
 __all__ = ["aligned_segment_offsets", "grouped_matmul_ref",
            "grouped_matmul", "grouped_body", "check_wgmma_alignment"]
 
@@ -178,5 +180,4 @@ def _grouped(lhs, rhs, group_sizes, valid_sizes=None, body=None):
     return out
 
 
-grouped_matmul.launches = 0
-grouped_matmul.wgmma_launches = 0
+launch_counter(grouped_matmul, "launches", "wgmma_launches")

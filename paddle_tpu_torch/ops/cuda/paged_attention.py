@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...kernels.build import launch_counter
+
 __all__ = ["PagedCacheState", "PagedKVCache", "quantize_rows_int8",
            "paged_state_prefill", "paged_state_step", "paged_state_verify",
            "paged_forward", "paged_decode_attention",
@@ -74,10 +76,12 @@ class PagedCacheState:
     ``prefill_valid`` ([B] i32) marks an admission forward and carries each
     row's valid prompt width. ``verify`` marks a multi-query forward over
     the cache (spec verify, suffix prefill, chunked prefill): see
-    :func:`paged_state_verify`."""
+    :func:`paged_state_verify`. ``ordered_writes`` makes colliding page
+    writes land as they would one by one (:func:`_last_writers`)."""
 
     def __init__(self, k_pages, v_pages, scale_pages, block_tables, lengths,
-                 page_size, prefill_valid=None, verify=False):
+                 page_size, prefill_valid=None, verify=False,
+                 ordered_writes=False):
         self.k_pages = k_pages
         self.v_pages = v_pages
         self.scale_pages = scale_pages
@@ -86,6 +90,7 @@ class PagedCacheState:
         self.page_size = int(page_size)
         self.prefill_valid = prefill_valid
         self.verify = bool(verify)
+        self.ordered_writes = bool(ordered_writes)
 
     @property
     def quantized(self):
@@ -107,7 +112,8 @@ class PagedCacheState:
         fields = dict(k_pages=self.k_pages, v_pages=self.v_pages,
                       scale_pages=self.scale_pages,
                       block_tables=self.block_tables, lengths=self.lengths,
-                      prefill_valid=self.prefill_valid, verify=self.verify)
+                      prefill_valid=self.prefill_valid, verify=self.verify,
+                      ordered_writes=self.ordered_writes)
         fields.update(kw)
         return PagedCacheState(page_size=self.page_size, **fields)
 
@@ -138,8 +144,32 @@ def _store_rows(state, k, v):
     return kq.reshape(flat), vq.reshape(flat), sc
 
 
+def _last_writers(state, phys, slotpos):
+    """For each write (row-major over ``phys``), the index of the last write
+    to the same (page, slot): the one that lands when the writes go one by
+    one, as on the CPU and in the reference. Writes collide on the trash
+    page (idle rows, padding, a chain's overshoot past its pages) and where
+    a verify block clamps at the capacity, and the card's scatter lands an
+    unordered one of them. Discarded rows then read that slot back, which
+    is harmless for a dense model but not for an MoE one, whose discarded
+    rows compete with the live ones for expert capacity."""
+    key = (phys.long() * state.page_size + slotpos.long()).reshape(-1)
+    idx = torch.arange(key.numel(), device=key.device)
+    last = torch.full((state.k_pages.shape[0] * state.page_size,), -1,
+                      dtype=torch.long, device=key.device)
+    last.scatter_reduce_(0, key, idx, reduce="amax")
+    return last[key]
+
+
 def _write(state, phys, slotpos, k, v):
     kq, vq, sc = _store_rows(state, k, v)
+    if state.ordered_writes:
+        # every colliding write carries the last writer's row, so the
+        # scatter lands the same bytes whichever of them it keeps
+        src = _last_writers(state, phys, slotpos)
+        kq, vq, sc = (None if t is None else
+                      t.reshape(src.numel(), -1)[src].reshape(t.shape)
+                      for t in (kq, vq, sc))
     idx = (phys, slotpos)
     state.k_pages.index_put_(idx, kq)
     state.v_pages.index_put_(idx, vq)
@@ -556,7 +586,7 @@ def _paged_slab_decode(q, k_pages, v_pages, block_tables, lengths,
     return out
 
 
-paged_slab_decode_attention.launches = 0
+launch_counter(paged_slab_decode_attention, "launches")
 
 
 def paged_verify_slab_attention_ref(q, k_pages, v_pages, block_tables,
@@ -822,8 +852,7 @@ def _paged_verify(q, k_pages, v_pages, block_tables, base_len, scale=None,
     return out
 
 
-paged_verify_slab_attention.launches = 0
-paged_verify_slab_attention.tc_launches = 0
+launch_counter(paged_verify_slab_attention, "launches", "tc_launches")
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
@@ -950,7 +979,7 @@ def _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale=None,
     return out
 
 
-paged_decode_attention.launches = 0
+launch_counter(paged_decode_attention, "launches")
 
 
 class PagedKVCache:

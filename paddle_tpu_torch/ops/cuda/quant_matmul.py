@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from ...kernels.build import launch_counter
+
 __all__ = ["PALLAS_MAX_ROWS", "unpack_int4", "quant_matmul_ref",
            "quant_matmul", "quant_body", "split_plan", "tc_blocks_per_sm",
            "quant_matmul_tc_ref"]
@@ -247,5 +249,4 @@ def _quant_matmul(x, wq, scales, bias=None, weight_dtype="int8", body=None,
     return out.reshape(*lead, n)
 
 
-quant_matmul.launches = 0
-quant_matmul.tc_launches = 0
+launch_counter(quant_matmul, "launches", "tc_launches")

@@ -20,7 +20,11 @@ largest entry), and tiny models generating on the card against the CPU;
 the position forms of the flash forward and backward (zig-zag chunk pairs,
 rows that see no key, ragged unequal lengths, ``llama2_7b`` widths, equal
 to the causal kernels on 0..S-1) and the ring on a one-rank NCCL world
-against its materialized-logits version.
+against its materialized-logits version; the compiled step: the engine's
+decode chain and verify step and ``generate``'s decode step as CUDA graph
+replays against the same steps run eagerly (bitwise), the launch counts
+after replays, two engines in one process, an MoE engine with drops run
+four times, and a capture while dead graphs await collection.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -955,9 +959,13 @@ def test_generate_on_card_matches_cpu(cuda):
         for kw in (dict(temperature=0.0), dict(temperature=0.9, top_k=8,
                                                seed=2)):
             before = da.decode_attention_slab.launches
+            held = list(card_m._decode_graphs().steps.values())
             got = card_m.generate(ids.to(cuda), max_new_tokens=12, **kw)
-            assert da.decode_attention_slab.launches == before + 11 * \
-                card_m.config.num_layers
+            # 11 decode steps, replayed; a key's first use adds the one
+            # eager warm-up run of its step before the capture
+            new = int(list(card_m._decode_graphs().steps.values()) != held)
+            assert da.decode_attention_slab.launches == before + (
+                11 + new) * card_m.config.num_layers
             want = cpu_m.generate(ids, max_new_tokens=12, **kw)
             assert torch.equal(got.cpu(), want), kw
         cfg = card_m.config
@@ -1710,3 +1718,253 @@ def test_decode_split_floor_on_a_full_grid(cuda, layout, splits):
         torch.cuda.synchronize()
         _ulp_close(got, want, dtype)
         assert torch.all(got[0] == 0)
+
+
+# ------------------------------------------------ the compiled step: the
+# decode token step, the verify step and generate's decode step as CUDA
+# graphs (inference/runner.py)
+def _graph_models(dev):
+    """A tiny bf16 LLaMA at head dim 64 (the tensor-core bodies), its
+    int8-weight twin and a tiny bf16 MoE."""
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.models.llama import (tiny_llama_config,
+                                               tiny_moe_llama_config)
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    cfg = dict(hidden_size=256, num_heads=4, num_kv_heads=2,
+               max_position=256)
+    dense = init_llama(tiny_llama_config(**cfg), seed=0, device=dev,
+                       dtype=torch.bfloat16)
+    int8 = init_llama(tiny_llama_config(**cfg), seed=0, device=dev,
+                      dtype=torch.bfloat16)
+    quantize_for_decode(int8)
+    moe = init_llama(tiny_moe_llama_config(**cfg), seed=1, device=dev,
+                     dtype=torch.bfloat16)
+    return {"dense": dense, "int8": int8, "moe": moe}
+
+
+def _graph_items(kind, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind == "spec":
+        rep = np.tile(rng.integers(0, 128, (6,)), 5)
+        return [(rep, 14, 0.0, None), (rep[:20], 14, 0.8, 5)]
+    return [(rng.integers(0, 128, (n,)), m, t, s) for n, m, t, s in (
+        (5, 13, 0.0, None), (37, 11, 0.8, 3), (70, 12, 0.0, None))]
+
+
+def _graph_serve(model, items, graphs, **kw):
+    from paddle_tpu_torch.inference.engine import Engine
+
+    eng = Engine(model, max_slots=2, num_pages=64, page_size=8,
+                 chunk_size=4, **kw)
+    eng.runner._graphs.enabled = graphs
+    reqs = [eng.add_request(p, m, temperature=t, seed=s)
+            for p, m, t, s in items]
+    eng.run()
+    torch.cuda.synchronize()
+    assert eng._watchdog.last_fault is None, eng._watchdog.last_fault
+    assert all(r.state == "FINISHED" for r in reqs)
+    return eng, [list(r.tokens) for r in reqs]
+
+
+@pytest.mark.parametrize("case", ["dense", "int8", "moe", "spec"])
+def test_graph_replay_equals_eager_bitwise(cuda, case):
+    """The engine's decode chain (and, with spec, its verify step) as CUDA
+    graph replays against the same bodies run eagerly, bf16: equal token
+    streams, equal KV pages bit for bit (page 0, the trash page the
+    warm-up writes, aside) and, for the MoE model, equal router stats."""
+    models = _graph_models(cuda)
+    model = models["dense" if case == "spec" else case]
+    kw = dict(spec="ngram", spec_k=3) if case == "spec" else {}
+    if case == "moe":
+        kw["capacity_factor"] = 4.0
+    items = _graph_items(case)
+    g, want = _graph_serve(model, items, True, **kw)
+    e, got = _graph_serve(model, items, False, **kw)
+    assert got == want
+    steps = g.runner._graphs.steps.values()
+    assert steps and all(s.graph is not None for s in steps)
+    assert all(s.graph is None for s in e.runner._graphs.steps.values())
+    for a, b in zip(g._cache.k_pages + g._cache.v_pages,
+                    e._cache.k_pages + e._cache.v_pages):
+        assert torch.equal(a[1:], b[1:])
+    if case == "moe":
+        assert g.moe_stats() == e.moe_stats()
+
+
+def test_graph_replays_add_capture_deltas(cuda):
+    """After N chains of a captured bucket the launch counters have grown
+    by N times the chain's token steps times the capture's deltas: one
+    launch of #1 a layer a token step, nothing else counted."""
+    model = _graph_models(cuda)["dense"]
+    eng, _ = _graph_serve(model, _graph_items("dense"), True)
+    (key, step), = [(k, s) for k, s in eng.runner._graphs.steps.items()
+                    if k[0][:2] == ("decode", 2)][:1]
+    assert step.deltas == ((pa.paged_slab_decode_attention, "launches",
+                            model.config.num_layers),)
+    chain = eng.runner.get_decode(2, 2, key[0][2])
+    dev = eng.device
+    args = (torch.zeros((2, eng.max_pages_per_seq), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((2,), dtype=torch.int32, device=dev),
+            torch.zeros((2,), dtype=torch.int64, device=dev),
+            torch.zeros((2,), dtype=torch.float32, device=dev),
+            torch.zeros((2, 2), dtype=torch.int64, device=dev))
+    before = pa.paged_slab_decode_attention.launches
+    with torch.no_grad():
+        for _ in range(3):
+            chain(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_slab_decode_attention.launches - before == \
+        3 * 2 * eng.chunk_size * model.config.num_layers
+
+
+def test_second_engine_captures_its_own_graphs(cuda):
+    """Two engines over one model in one process, stepped in turns: each
+    captures its own graphs into its own pool, and both serve the eager
+    streams."""
+    from paddle_tpu_torch.inference.engine import Engine
+
+    model = _graph_models(cuda)["dense"]
+    items = _graph_items("dense")
+    _, want = _graph_serve(model, items, False)
+    engines = [Engine(model, max_slots=2, num_pages=64, page_size=8,
+                      chunk_size=4) for _ in range(2)]
+    reqs = [[eng.add_request(p, m, temperature=t, seed=s)
+             for p, m, t, s in items] for eng in engines]
+    live = [True, True]
+    while any(live):
+        for i, eng in enumerate(engines):
+            if live[i]:
+                live[i] = bool(eng.step())
+    torch.cuda.synchronize()
+    for eng, rs in zip(engines, reqs):
+        assert eng._watchdog.last_fault is None
+        assert [list(r.tokens) for r in rs] == want
+    a, b = (e.runner._graphs for e in engines)
+    assert a.pool != b.pool and a.steps and b.steps
+    assert not {id(s.graph) for s in a.steps.values()} & {
+        id(s.graph) for s in b.steps.values()}
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_generate_graph_equals_eager_bitwise(cuda, family):
+    """``generate``'s decode step replayed as a CUDA graph against the same
+    step run eagerly: equal ids, greedy and sampled, bf16; a second call
+    replays the captured step."""
+    from paddle_tpu_torch.convert import init_gpt, init_llama
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.models.llama import tiny_llama_config
+
+    if family == "gpt":
+        model = init_gpt(GPTConfig(vocab_size=96, hidden_size=128,
+                                   num_layers=2, num_heads=2,
+                                   max_position=128), seed=3, device=cuda,
+                         dtype=torch.bfloat16).eval()
+    else:
+        model = init_llama(tiny_llama_config(hidden_size=256, num_heads=4,
+                                             num_kv_heads=2,
+                                             max_position=128),
+                           seed=3, device=cuda, dtype=torch.bfloat16)
+    ids = torch.randint(0, 96, (3, 9), generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+    for kw in (dict(temperature=0.0), dict(temperature=0.9, top_k=8,
+                                           seed=2)):
+        graphs = model._decode_graphs()
+        graphs.enabled = True
+        got, kept = [], []
+        for _ in range(2):
+            got.append(model.generate(ids, max_new_tokens=20, **kw))
+            kept.append(list(graphs.steps.values()))
+        # one step kept, captured by the first call, replayed by the second
+        assert len(kept[0]) == 1 and kept[0] == kept[1], kw
+        assert kept[0][0].graph is not None, kw
+        graphs.enabled = False
+        want = model.generate(ids, max_new_tokens=20, **kw)
+        assert torch.equal(got[0], want) and torch.equal(got[1], want), kw
+
+
+def test_generate_second_window_frees_the_first(cuda):
+    """``generate`` keeps one captured step after it returns: a call with
+    a second window drops the first window's slab caches before it makes
+    its own, so the two are never held at once and the bytes left held
+    are the second window's caches."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.convert import init_gpt
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=96, hidden_size=512, num_layers=2,
+                    num_heads=4, max_position=2048)
+    model = init_gpt(cfg, seed=3, device=cuda, dtype=torch.bfloat16).eval()
+    ids = torch.randint(0, 96, (4, 9), generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    caches, held, peak, first = {}, {}, {}, None
+    for window in (1024, 2048):
+        torch.cuda.reset_peak_memory_stats()
+        model.generate(ids, max_new_tokens=4, max_seq=window,
+                       temperature=0.0)
+        torch.cuda.synchronize()
+        steps = list(model._decode_graphs().steps.values())
+        assert len(steps) == 1 and steps[0].graph is not None
+        if first is None:
+            first = weakref.ref(steps[0].bufs.caches[0])
+        del steps
+        caches[window] = cfg.num_layers * 2 * 4 * window * 512 * 2
+        held[window] = torch.cuda.memory_allocated() - base
+        peak[window] = torch.cuda.max_memory_allocated() - base
+    assert first() is None
+    # what both calls leave besides the caches: the capture stream's
+    # arrival counters and cuBLAS workspace, the small static buffers
+    extra = held[1024] - caches[1024]
+    assert 0 <= extra < 2**26
+    assert abs(held[2048] - caches[2048] - extra) < 2**20
+    assert peak[2048] - extra < caches[2048] + caches[1024] // 2
+
+
+def test_moe_engine_with_drops_is_reproducible(cuda):
+    """A tiny bf16 MoE at capacity factor 0.5 (pairs drop), with chains
+    that overshoot their budgets onto the trash page: two eager runs and
+    two graph runs give one set of streams and router stats. The discarded
+    rows read back colliding page writes and compete for expert capacity,
+    so those writes must land in order (``ordered_writes``) and a capture's
+    warm-up must leave the trash page as it found it."""
+    model = _graph_models(cuda)["moe"]
+    items = _graph_items("moe")
+    runs = [_graph_serve(model, items, graphs, capacity_factor=0.5)
+            for graphs in (False, False, True, True)]
+    want = runs[0][1]
+    for eng, got in runs:
+        assert got == want
+        assert eng.moe_stats() == runs[0][0].moe_stats()
+    assert runs[0][0].moe_stats()["pairs_dropped"] > 0
+
+
+def test_capture_with_dead_graphs_awaiting_collection(cuda):
+    """An engine whose graphs are garbage (held only in reference cycles)
+    while another engine captures, with the collector set to run at nearly
+    every allocation: the collection must not run inside a capture, where
+    freeing a graph is refused. The second engine serves the eager
+    streams."""
+    import gc
+
+    model = _graph_models(cuda)["dense"]
+    items = _graph_items("dense")
+    _, want = _graph_serve(model, items, False)
+    first, _ = _graph_serve(model, items, True)
+    assert first.runner._graphs.steps
+    del first
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng, got = _graph_serve(model, items, True)
+    finally:
+        gc.set_threshold(*old)
+    assert got == want
+    assert all(s.graph is not None for s in eng.runner._graphs.steps.values())

@@ -215,5 +215,31 @@ def test_f_flash_attention_dropout_and_training():
     dropped = outs[0] == 0
     assert 0.3 < dropped.float().mean().item() < 0.7
     torch.testing.assert_close(outs[0][~dropped], 2 * plain[~dropped])
-    with pytest.raises(TypeError):
-        TF.flash_attention(tq, tk, tv, return_softmax=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f_flash_attention_return_softmax_matches_reference(causal):
+    """``return_softmax=True`` gives ``(out, probs)`` as the JAX
+    ``F.flash_attention`` does: the output is the kernel's (here its plain
+    twin's, equal to ``return_softmax=False``), the probabilities
+    [B, H, Sq, Sk] f32 from the reference's ``_softmax_probs`` rule. f32
+    inputs; atol 1e-6 on probabilities in [0, 1] (einsum order)."""
+    import paddle_tpu as paddle
+    from paddle_tpu.nn import functional as JF
+
+    q, k, v, _, _ = _inputs(11, 2, 24, 24, 3, 32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, probs = TF.flash_attention(tq, tk, tv, causal=causal,
+                                    return_softmax=True)
+    plain, _ = TF.flash_attention(tq, tk, tv, causal=causal)
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+    jout, jprobs = JF.flash_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), causal=causal,
+        return_softmax=True)
+    jprobs = np.asarray(jprobs.numpy())
+    assert probs.dtype == torch.float32 and probs.shape == jprobs.shape
+    np.testing.assert_allclose(probs.numpy(), jprobs, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout.numpy()),
+                               atol=ATOL, rtol=0)
+    if causal:
+        assert float(probs[..., 0, 1:].abs().max()) == 0.0
