@@ -37,13 +37,26 @@ Phases, in order; any failure exits non-zero:
               Mixtral-8x7B-v0.1 widths, 16 of its 32 layers, and serves it
               (kernel #13). The engines run their decode chains and
               verify steps as CUDA graph replays (``inference/runner.py``);
-              the bf16 pass (1), the int8-weight pass, the spec pass and
-              the MoE pass also run eagerly on the same items (graphs off,
-              the same bodies), and the streams (and the MoE router stats)
-              must be equal. Then the trainer: ``gpt2_medium()`` at full
-              depth, O2 bf16, ``loss.backward()`` and ``AdamW.step()`` on
-              one fixed batch (T1 packed 12 x 1024, T2 8 x 2048, T3 the
-              general route; T4-T6 reach the remaining regimes). Each pass
+              the bf16 pass (1), the int8-weight pass, the spec pass, the
+              disaggregated pass and the MoE pass also run eagerly on the
+              same items (graphs off, the same bodies), both runs pinned
+              to the prior chain-boundary cost (``Engine._cost_pin``), and
+              the streams (and the MoE router stats) must be equal. The
+              scheduler: pass (1) runs unpinned and must pre-admit its two
+              queued requests ("scheduler:" lines: pre-admitted rids,
+              steps, chains by depth, the boundary cost, probes); a
+              calibration round (8 x 192 tokens, depths 1 and 2) measures
+              the boundary cost on graphs and eagerly; a chaos pass
+              (``fault_plan``) on pass (1)'s items must fail requests 1 and
+              3 with the reference's reasons and stream the rest as the
+              clean pinned run; chunked prefill runs again with
+              ``disaggregate=True`` (the mixed step and a graph-replayed
+              chain in the same steps), both under the profiler (wall and
+              device busy ms a step). Then the trainer: ``gpt2_medium()``
+              at full depth, O2 bf16, ``loss.backward()`` and
+              ``AdamW.step()`` on one fixed batch (T1 packed 12 x 1024, T2
+              8 x 2048, T3 the general route; T4-T6 reach the remaining
+              regimes). Each pass
               zeroes the launch counters just before it and reads them
               just after.
 5. serve    — ``llama2_7b`` at full width and depth, bf16, random weights
@@ -80,7 +93,9 @@ Phases, in order; any failure exits non-zero:
 7. greedy   — 2-layer full-width f32 models (``llama2_7b`` widths, plain
               and int8 weights; Mixtral widths): the engine's greedy
               streams, plain and in each of the three modes, against the
-              argmax of the same model's cacheless forward; then the train
+              argmax of the same model's cacheless forward; 12 greedy
+              requests on 4 slots, pre-admitted and then disaggregated,
+              each equal to the request served alone; then the train
               check: loss, gradients and three AdamW steps of 2-layer
               GPT-medium and ``llama2_7b`` widths with the kernels against
               plain attention.
@@ -134,7 +149,11 @@ layer with the decode kernels and their plain versions on the same inputs
 and logs each layer's attention and block error. ``--phases
 build,anatomy`` times #12's tensor-core body with parts of its work cut
 out (the weight bytes, the dequant, the MMAs) at the decode and
-spec-verify rows, to show what binds it.
+spec-verify rows, to show what binds it. ``--phases build,sched`` runs
+each scheduler piece against the same engine without it, in turns:
+pre-admission on pass (1)'s items, the measured boundary cost against the
+pinned prior on a steady decode round, ``disaggregate=True`` against the
+plain mixed step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -159,7 +178,7 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy")
-OPTIONAL_PHASES = ("profile", "drift", "anatomy")
+OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched")
 
 
 def log(*a):
@@ -1969,6 +1988,8 @@ def main(argv=None):
         phase_drift(ident)
     if "anatomy" in phases:
         phase_anatomy(ident)
+    if "sched" in phases:
+        phase_sched(ident)
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -2080,6 +2101,82 @@ def _serve(engine, specs, rng, vocab):
     new_tokens, temperature, seed)]."""
     return _serve_items(engine, [(rng.integers(0, vocab, (n,)), m, t, s)
                                  for n, m, t, s in specs])
+
+
+def _sched_probe(eng):
+    """Instrument ``eng``'s scheduler (instance attributes over its
+    methods): the requests its pre-admission waves take, its steps and
+    their host wall, its chains by depth, and the disaggregated steps that
+    ran both roles. Returns the dict it fills."""
+    note = {"preadmitted": [], "steps": 0, "step_s": 0.0, "depths": {},
+            "both_roles": 0, "disagg_steps": 0}
+    roles = set()
+    preadmit, chain, mixed = (eng._preadmit_dispatch, eng._chain_dispatch,
+                              eng._mixed_dispatch)
+    step, disagg = eng.step, eng._disagg_step
+
+    def preadmit_w(k, exclude=()):
+        out = preadmit(k, exclude)
+        note["preadmitted"] += [r.rid for r, *_ in out[0]]
+        return out
+
+    def chain_w(slots, k, budget, *a):
+        roles.add("chain")
+        note["depths"][k] = note["depths"].get(k, 0) + budget
+        return chain(slots, k, budget, *a)
+
+    def mixed_w(slots):
+        roles.add("mixed")
+        return mixed(slots)
+
+    def disagg_w():
+        roles.clear()
+        disagg()
+        note["disagg_steps"] += 1
+        note["both_roles"] += roles == {"chain", "mixed"}
+
+    def step_w(n=None):
+        t0 = time.perf_counter()
+        out = step(n)
+        note["step_s"] += time.perf_counter() - t0
+        note["steps"] += 1
+        return out
+
+    eng._preadmit_dispatch, eng._chain_dispatch = preadmit_w, chain_w
+    eng._mixed_dispatch, eng._disagg_step, eng.step = (mixed_w, disagg_w,
+                                                       step_w)
+    return note
+
+
+def _sched_line(eng, note):
+    """The scheduler's record of one pass, as one log fragment."""
+    ratio = eng._dispatch_ratio
+    cost = (f"pinned {eng._cost_pin}" if eng._cost_pin is not None else
+            "the prior 8.0 throughout" if ratio is None else
+            f"measured {ratio!r} chunks")
+    return (f"{len(note['preadmitted'])} pre-admitted (rids "
+            f"{note['preadmitted']}), {note['steps']} steps, chains by "
+            f"depth {dict(sorted(note['depths'].items()))}, boundary cost "
+            f"{cost}, {2 - eng._probe_budget} probes, {eng._chain_obs} "
+            "samples")
+
+
+def _at_prior(eng):
+    """Whether every chain depth ``eng`` chose used the prior boundary cost
+    (no probe, no measured ratio): its schedule is a pinned run's."""
+    return eng._dispatch_ratio is None and eng._probe_budget == 2
+
+
+def _device_busy_ms(prof):
+    """The device time of every CUDA event (kernels, copies, fills) under
+    ``prof``, summed from the raw trace: a whole engine pass replays
+    ~10^6 kernels, which ``key_averages()`` takes minutes to tabulate."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not e.is_user_annotation()
+               ) / 1e6
 
 
 def _report(tag, reqs, wall, ident):
@@ -2207,8 +2304,10 @@ def phase_main(ident):
     def run_pass(tag, run, needs):
         """``run()`` serves one pass on an engine of its own; the launch
         counters are zeroed just before and read just after."""
+        t_pass = time.perf_counter()
         got = _counted(run, needs, tc=tag)[1]  # its engine is gone here
-        log(f"{tag}: launches {got}")
+        log(f"{tag}: launches {got}; "
+            f"{time.perf_counter() - t_pass:.1f} s")
         if got.pop("flash_attention_bwd"):
             raise AssertionError(f"{tag}: serving launched the backward")
         for name, n in got.items():
@@ -2216,21 +2315,30 @@ def phase_main(ident):
         gc.collect()  # an engine and its runner hold each other
         torch.cuda.empty_cache()
 
-    seen, streams = {}, {}
+    seen, streams, notes, reqs_of = {}, {}, {}, {}
 
-    def serve(tag, eng, items):
+    def serve(tag, eng, items, pin=False):
+        """Serve ``items`` on ``eng``. ``pin`` fixes the chain-boundary
+        cost at the prior (``Engine._cost_pin``, no probes): the measured
+        cost follows the host's clock, so a graph run and its eager twin
+        would choose other depths and co-batch other rows."""
+        if pin:
+            _pin(eng)
+        note = notes[tag] = _sched_probe(eng)
         reqs, wall = _serve_items(eng, items, tag)
         seen[tag] = _report(tag, reqs, wall, ident)
         streams[tag] = [list(r.tokens) for r in reqs]
+        reqs_of[tag] = reqs
         log(f"{tag}: {_graph_note(eng)}")
+        log(f"{tag}: scheduler: {_sched_line(eng, note)} [{ident}]")
         return eng
 
     def eager_twin(tag, eng, items):
         """The items of pass ``tag`` again on ``eng``, a fresh engine with
-        its graphs off (the same bodies run eagerly): the streams must
-        equal the graph pass's."""
+        its graphs off (the same bodies run eagerly), both pinned to the
+        prior boundary cost: the streams must equal the graph pass's."""
         eng.runner._graphs.enabled = False
-        serve(f"{tag} eager", eng, items)
+        serve(f"{tag} eager", eng, items, pin=True)
         if streams[f"{tag} eager"] != streams[tag]:
             raise AssertionError(f"{tag}: the graph and eager streams "
                                  "differ")
@@ -2248,17 +2356,103 @@ def phase_main(ident):
 
     vanilla = ("paged_decode_attention", "flash_attention_fwd")
     verify = ("paged_verify_attention",)
-    # pass 1: 10 mixed requests, two of them sampled
+    # pass 1: 10 mixed requests, two of them sampled, on 8 slots, no eos:
+    # the two queued requests are pre-admitted in a chain's shadow. The
+    # boundary cost is measured (not pinned), graphs and eager
     items1 = plain([(16, 64, 0.0, None), (1024, 32, 0.0, None),
                     (300, 128, 0.8, 11), (64, 96, 0.0, None),
                     (700, 48, 0.8, 12), (128, 128, 0.0, None),
                     (33, 40, 0.0, None), (512, 64, 0.0, None),
                     (900, 32, 0.0, None), (200, 80, 0.0, None)])
+    at_prior = {}
+
+    def main1(tag, graphs):
+        eng = engine()
+        eng.runner._graphs.enabled = graphs
+        serve(tag, eng, items1, pin=False)
+        if not notes[tag]["preadmitted"]:
+            raise AssertionError(f"{tag}: no request was pre-admitted")
+        queued = [round((r._t_first - r._t_arrival) * 1e3, 1)
+                  for r in reqs_of[tag][8:]]
+        log(f"{tag}: TTFT of the 2 queued requests {queued} ms; "
+            f"{notes[tag]['step_s'] * 1e3 / notes[tag]['steps']:.1f} ms a "
+            f"step [{ident}]")
+        at_prior[tag] = _at_prior(eng)
+
     peak_bf16 = _peak_pass(torch, lambda: run_pass(
-        "main bf16 pages", lambda: serve("main bf16 pages", engine(),
-                                         items1), vanilla))
-    run_pass("main bf16 pages eager", lambda: eager_twin(
-        "main bf16 pages", engine(), items1), vanilla)
+        "main bf16 pages", lambda: main1("main bf16 pages", True), vanilla))
+    run_pass("main bf16 pages eager",
+             lambda: main1("main bf16 pages eager", False), vanilla)
+    # the twins, both pinned to the prior: a run that never left the
+    # prior (no probe, no measured ratio) made a pinned run's choices
+    for tag, graphs in (("main bf16 pages", True),
+                        ("main bf16 pages eager", False)):
+        if at_prior[tag]:
+            streams[f"{tag} pinned"] = streams[tag]
+            log(f"{tag}: every depth used the prior: it is the pinned run")
+            continue
+        def pinned(tag=tag, graphs=graphs):
+            eng = engine()
+            eng.runner._graphs.enabled = graphs
+            serve(f"{tag} pinned", eng, items1, pin=True)
+
+        run_pass(f"{tag} pinned", pinned, vanilla)
+    if streams["main bf16 pages eager pinned"] != \
+            streams["main bf16 pages pinned"]:
+        raise AssertionError("main bf16 pages: the graph and eager streams "
+                             "differ")
+    log("main bf16 pages: graph and eager streams equal at the pinned "
+        "boundary cost")
+
+    # the boundary cost measured: pass 1 ends in three steps, too few for
+    # a sample; 8 requests of 192 tokens at depths 1 and 2 give the fit
+    # its samples (three at one depth, then the probes), graphs and eager
+    r_cal = np.random.default_rng(40)  # leaves the passes' prompts be
+    calib = [(r_cal.integers(0, cfg.vocab_size, (128,)), 192, 0.0, None)
+             for _ in range(8)]
+
+    def calibrate(graphs):
+        tag = "main calibration" + ("" if graphs else " eager")
+        eng = engine(max_chain=2)
+        eng.runner._graphs.enabled = graphs
+        serve(tag, eng, calib)
+        if eng._dispatch_ratio is None:
+            raise AssertionError(f"{tag}: the boundary cost was not "
+                                 "measured")
+        ema = {nb: {k: round(t * 1e3, 3) for k, t in sorted(b.items())}
+               for nb, b in eng._chain_time_ema.items()}
+        log(f"{tag}: measured boundary cost {eng._dispatch_ratio!r} "
+            f"chunks; step wall EMA ms by bucket and depth {ema} [{ident}]")
+
+    run_pass("main calibration", lambda: calibrate(True), vanilla)
+    run_pass("main calibration eager", lambda: calibrate(False), vanilla)
+
+    # the chaos pass: the main items, pinned, with two injected faults
+    # that fail requests 1 and 3 at their admission's harvest; the rest
+    # must stream as the clean pinned run does
+    def chaos():
+        plan = "nan-logits:rid=1,times=1;step-exception:rid=3,times=1"
+        eng = _pin(engine(fault_plan=plan))
+        reqs = [eng.add_request(p, m, temperature=t, seed=q)
+                for p, m, t, q in items1]
+        eng.run()
+        torch.cuda.synchronize()
+        _no_caught_fault(eng, "main chaos")
+        failed = {r.rid: r.failure_reason for r in reqs if r.failed}
+        if failed != {1: "nan_logits", 3: "step_fault"}:
+            raise AssertionError(f"main chaos: failed {failed}")
+        if type(reqs[3].failure.__cause__).__name__ != "InjectedFault":
+            raise AssertionError("main chaos: request 3 failed with "
+                                 f"{reqs[3].failure!r}")
+        for r, want in zip(reqs, streams["main bf16 pages pinned"]):
+            if r.rid not in failed and (not r.done or r.tokens != want):
+                raise AssertionError(f"main chaos: request {r.rid} differs "
+                                     "from the clean pinned run")
+        log(f"main chaos: plan {plan!r}: requests 1 (nan_logits) and 3 "
+            f"(step_fault, InjectedFault) failed; the other 8 streams equal "
+            f"the clean pinned run; no engine-scoped fault [{ident}]")
+
+    run_pass("main chaos", chaos, vanilla)
     # pass 2: int8 KV pages
     items = plain([(100, 48, 0.0, None), (600, 32, 0.8, 21),
                    (250, 64, 0.0, None), (40, 64, 0.0, None)])
@@ -2307,30 +2501,96 @@ def phase_main(ident):
     run_pass("main prefix cache", prefix_cache, verify)
 
     # pass 5: chunked prefill. Two short prompts are decoding when six
-    # long ones arrive and stream in 256 tokens a step
-    def chunked():
-        eng = engine(prefill_chunk=256)
-        short = plain([(20, 64, 0.0, None), (40, 64, 0.8, 51)])
-        long_ = plain([(300, 64, 0.0, None), (600, 64, 0.0, None),
-                       (900, 64, 0.8, 52), (1200, 64, 0.0, None),
-                       (1600, 64, 0.0, None), (2000, 64, 0.0, None)])
+    # long ones arrive and stream in 256 tokens a step; then the same items
+    # with the roles split (disaggregate=True): the long prompts' chunks
+    # through the mixed step (#3) beside the decoding slots' graph-replayed
+    # chains (#1), in one step. Both under the profiler (the device's busy
+    # time of the same steps)
+    short = plain([(20, 64, 0.0, None), (40, 64, 0.8, 51)])
+    long_ = plain([(300, 64, 0.0, None), (600, 64, 0.0, None),
+                   (900, 64, 0.8, 52), (1200, 64, 0.0, None),
+                   (1600, 64, 0.0, None), (2000, 64, 0.0, None)])
+
+    def chunked(tag, make, profiled=True):
+        """Pass 5's items on ``make()``: the two short prompts a step
+        ahead of the six long ones. ``profiled``: the fifth step of the
+        same items on a second engine under the profiler (wall and device
+        busy ms of one step; a whole pass replays ~10^6 kernels). Its
+        chain replays a graph captured a step before: in a disaggregated
+        run the fifth is the first step that runs both roles and
+        captures nothing."""
+        from torch.profiler import ProfilerActivity, profile
+
+        def start(eng):
+            reqs = [eng.add_request(p, m, temperature=t, seed=s)
+                    for p, m, t, s in short]
+            eng.step()  # binds both and runs their single chunk
+            if not all(len(r.tokens) == 1 for r in reqs):
+                raise AssertionError("the short prompts are not decoding")
+            return reqs + [eng.add_request(p, m, temperature=t, seed=s)
+                           for p, m, t, s in long_]
+
+        eng = make()
+        note = notes[tag] = _sched_probe(eng)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reqs = [eng.add_request(p, m, temperature=t, seed=s)
-                for p, m, t, s in short]
-        eng.step()  # binds both and runs their single chunk
-        if not all(len(r.tokens) == 1 for r in reqs):
-            raise AssertionError("the short prompts are not decoding")
-        reqs += [eng.add_request(p, m, temperature=t, seed=s)
-                 for p, m, t, s in long_]
+        reqs = start(eng)
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _check_done(reqs, short + long_)
-        _no_caught_fault(eng, "main chunked prefill")
-        _report("main chunked prefill", reqs, wall, ident)
+        _no_caught_fault(eng, tag)
+        seen[tag] = _report(tag, reqs, wall, ident)
+        streams[tag] = [list(r.tokens) for r in reqs]
+        line = (f"{tag}: scheduler: {_sched_line(eng, note)}; wall "
+                f"{note['step_s'] * 1e3 / note['steps']:.1f} ms a step")
+        if eng.disaggregate:
+            line += (f"; {note['both_roles']} of {note['disagg_steps']} "
+                     "disaggregated steps ran the mixed step and a chain")
+            if not note["both_roles"]:
+                raise AssertionError(f"{tag}: no step ran both roles")
+        if profiled:
+            eng = make()
+            start(eng)
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+            busy_ms = _device_busy_ms(prof)
+            _no_caught_fault(eng, tag)
+            line += (f"; its fifth step under the profiler: wall "
+                     f"{step_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle "
+                     f"{max(0.0, 1 - busy_ms / step_ms):.0%})")
+        log(line + f" [{ident}]")
 
-    run_pass("main chunked prefill", chunked, verify)
+    run_pass("main chunked prefill", lambda: chunked(
+        "main chunked prefill", lambda: _pin(engine(prefill_chunk=256))),
+        verify)
+    disagg = ("paged_decode_attention", "paged_verify_attention")
+
+    def disagg_engine(graphs=True):
+        eng = _pin(engine(prefill_chunk=256, disaggregate=True))
+        eng.runner._graphs.enabled = graphs
+        return eng
+
+    run_pass("main disaggregated", lambda: chunked(
+        "main disaggregated", disagg_engine), disagg)
+
+    def disagg_eager():
+        chunked("main disaggregated eager", lambda: disagg_engine(False),
+                profiled=False)
+        if streams["main disaggregated eager"] != \
+                streams["main disaggregated"]:
+            raise AssertionError("main disaggregated: the graph and eager "
+                                 "streams differ")
+        log("main disaggregated: graph and eager streams equal at the "
+            "pinned boundary cost")
+
+    run_pass("main disaggregated eager", disagg_eager, disagg)
 
     # pass 6: n-gram speculative decoding over prompts that repeat a
     # 64-token span, so the drafter finds matches
@@ -2339,7 +2599,7 @@ def phase_main(ident):
 
     def spec():
         eng = serve("main spec ngram", engine(spec="ngram", spec_k=4),
-                    spec_items)
+                    spec_items, pin=True)
         st = eng._spec.stats()
         steps = max(1, st["verify_steps"])
         log(f"main spec ngram: {st['verify_steps']} verify steps, "
@@ -2365,7 +2625,8 @@ def phase_main(ident):
     peaks = {"bf16": peak_bf16}
     peaks["int8"] = _peak_pass(torch, lambda: run_pass(
         "main int8 weights", lambda: serve("main int8 weights", engine(),
-                                           items1), quant + vanilla))
+                                           items1, pin=True),
+        quant + vanilla))
     run_pass("main int8 weights eager", lambda: eager_twin(
         "main int8 weights", engine(), items1), quant + vanilla)
 
@@ -2419,7 +2680,7 @@ def phase_main(ident):
 
     def moe_run(tag, eng, items, twin_of=None):
         if twin_of is None:
-            serve(tag, eng, items)
+            serve(tag, eng, items, pin=True)
         else:
             eager_twin(twin_of, eng, items)
             if eng.moe_stats() != moe_seen[twin_of]:
@@ -2830,7 +3091,7 @@ def phase_serve(ident):
     # (the API server's weights make every share hard: its default tenant
     # would hold one slot)
     t0 = time.perf_counter()
-    n_cl, budget, prange, seed = 32, 32, (16, 1024), 9
+    n_cl, budget, prange, seed = 16, 32, (16, 1024), 9
     loops = []
     # the same items four times, each on a fresh engine (the prefix cache
     # starts empty): the host is shared, so the repeats give the spread;
@@ -3769,6 +4030,132 @@ ANATOMY = {"the body": [], "no weight bytes": _NO_WEIGHT,
            + _NO_MMA}
 
 
+def phase_sched(ident):
+    """Opt-in: what each scheduler piece does on the card, against the same
+    engine without it, in one call and in turns (with, without, without,
+    with), ``llama2_7b`` bf16 at full depth on graphs: pre-admission on the
+    main pass's items (the wave's method swapped for one that takes
+    nothing); the measured boundary cost against the pinned prior on a
+    steady decode round (8 x 1024 tokens); ``disaggregate=True`` against
+    the plain mixed step on chunked prefill's items, both at the prior.
+    Also the device busy time of one profiled mixed step summed from the
+    raw trace (``_device_busy_ms``) beside ``key_averages()``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    cfg = llama2_7b()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)  # the main phase's first draws
+
+    def plain(specs):
+        return [(rng.integers(0, cfg.vocab_size, (n,)), m, t, s)
+                for n, m, t, s in specs]
+
+    items1 = plain([(16, 64, 0.0, None), (1024, 32, 0.0, None),
+                    (300, 128, 0.8, 11), (64, 96, 0.0, None),
+                    (700, 48, 0.8, 12), (128, 128, 0.0, None),
+                    (33, 40, 0.0, None), (512, 64, 0.0, None),
+                    (900, 32, 0.0, None), (200, 80, 0.0, None)])
+    steady = plain([(128, 1024, 0.0, None)] * 8)
+    short = plain([(20, 64, 0.0, None), (40, 64, 0.8, 51)])
+    long_ = plain([(300, 64, 0.0, None), (600, 64, 0.0, None),
+                   (900, 64, 0.8, 52), (1200, 64, 0.0, None),
+                   (1600, 64, 0.0, None), (2000, 64, 0.0, None)])
+
+    def engine(**kw):
+        return Engine(model, max_slots=8, num_pages=1024, page_size=16,
+                      chunk_size=16, **kw)
+
+    def run(tag, eng, items, first=None):
+        """Serve ``items`` (``first`` a step ahead); one result row."""
+        note = _sched_probe(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = []
+        if first:
+            reqs = [eng.add_request(p, m, temperature=t, seed=s)
+                    for p, m, t, s in first]
+            eng.step()
+        reqs += [eng.add_request(p, m, temperature=t, seed=s)
+                 for p, m, t, s in items]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_done(reqs, (first or []) + items)
+        _no_caught_fault(eng, tag)
+        ttft = sorted((r._t_first - r._t_arrival) * 1e3 for r in reqs)
+        toks = sum(len(r.tokens) for r in reqs)
+        log(f"sched {tag}: {toks / wall:.1f} tok/s, TTFT ms median "
+            f"{statistics.median(ttft):.1f} max {ttft[-1]:.1f}; "
+            f"{_sched_line(eng, note)} [{ident}]")
+        row = (toks / wall, statistics.median(ttft), ttft[-1],
+               note["steps"], [list(r.tokens) for r in reqs])
+        del eng
+        gc.collect()
+        return row
+
+    def pairs(name, with_, without, items, first=None):
+        """``with_`` and ``without`` make the two engines; they serve
+        ``items`` in turns: with, without, without, with."""
+        rows = {"with": [], "without": []}
+        for side in ("with", "without", "without", "with"):
+            make = with_ if side == "with" else without
+            rows[side].append(run(f"{name} {side}", make(), items, first))
+        for side, got in rows.items():
+            log(f"sched {name} {side}: tok/s {[round(r[0], 1) for r in got]}"
+                f", TTFT median ms {[round(r[1], 1) for r in got]}, max "
+                f"{[round(r[2], 1) for r in got]}, steps "
+                f"{[r[3] for r in got]} [{ident}]")
+        return rows
+
+    def no_preadmit():
+        eng = engine()
+        eng._preadmit_dispatch = lambda k, exclude=(): ([], None, None,
+                                                        None)
+        return eng
+
+    # a first engine of the process pays the kernels' loads and cuBLAS's
+    # set-up: a run that is not recorded
+    run("warm-up", engine(), items1)
+    rows = pairs("pre-admission", engine, no_preadmit, items1)
+    if rows["with"][0][4] != rows["without"][0][4]:
+        log("sched pre-admission: the streams differ with and without "
+            "(other co-batching in bf16)")
+
+    pairs("measured cost", engine, lambda: _pin(engine()), steady)
+    pairs("disaggregated", lambda: _pin(engine(prefill_chunk=256,
+                                               disaggregate=True)),
+          lambda: _pin(engine(prefill_chunk=256)), long_, first=short)
+    # the raw-trace busy sum against key_averages on one mixed step
+    eng = engine(prefill_chunk=256)
+    for p, m, t, s in short + long_:
+        eng.add_request(p, m, temperature=t, seed=s)
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    raw = _device_busy_ms(prof)
+    tab = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    log(f"sched: one mixed step's device busy {raw:.3f} ms from the raw "
+        f"trace, {tab:.3f} ms from key_averages [{ident}]")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pin(eng):
+    """``eng`` pinned to the prior boundary cost."""
+    eng._cost_pin = eng.DISPATCH_COST_CHUNKS_PRIOR
+    return eng
+
+
 def phase_anatomy(ident):
     """Opt-in: #12's tensor-core body (int8, bf16 x) at the llama2_7b
     gate/up shape, 8 and 40 rows, built again with parts of its work cut
@@ -4042,6 +4429,51 @@ def _match_cacheless(model, reqs, tag):
             "tokens")
 
 
+def identity_f32(model):
+    """f32, TF32 off: 12 greedy requests on 4 slots, the queue pre-admitted
+    in the chains' shadow, and the same items with the roles split
+    (``disaggregate=True``, 64-token chunks): each stream must equal the
+    request served alone on a fresh engine. The pool holds every request
+    at once: no preemption (a re-prefill computes its tokens another
+    way)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.engine import Engine
+
+    def engine(**kw):
+        return Engine(model, max_slots=4, num_pages=256, page_size=16,
+                      chunk_size=16, **kw)
+
+    vocab = model.config.vocab_size
+    t0 = time.perf_counter()
+    r = np.random.default_rng(12)
+    items = [(r.integers(0, vocab, (n,)), m, 0.0, None) for n, m in (
+        (20, 24), (150, 40), (64, 16), (300, 32), (33, 48), (90, 24),
+        (200, 20), (12, 36), (48, 28), (120, 16), (260, 40), (75, 32))]
+    alone = [_serve_items(engine(), [it])[0][0].tokens for it in items]
+    for tag, kw in (("pre-admission", {}),
+                    ("disaggregated", dict(prefill_chunk=64,
+                                           disaggregate=True))):
+        eng = engine(**kw)
+        note = _sched_probe(eng)
+        reqs, _ = _serve_items(eng, items, f"identity f32 {tag}")
+        if [list(q.tokens) for q in reqs] != [list(a) for a in alone]:
+            bad = [q.rid for q, a in zip(reqs, alone) if q.tokens != a]
+            raise AssertionError(f"identity f32 {tag}: requests {bad} "
+                                 "differ from the request served alone")
+        if eng.preemptions:
+            raise AssertionError(f"identity f32 {tag}: a preemption")
+        if tag == "pre-admission" and not note["preadmitted"]:
+            raise AssertionError("identity f32: no request pre-admitted")
+        if kw and not note["both_roles"]:
+            raise AssertionError("identity f32: no step ran both roles")
+        log(f"identity f32 (llama2_7b widths, 2 layers, TF32 off), {tag}: "
+            f"12 greedy streams on 4 slots equal each request served alone "
+            f"on a fresh engine; {_sched_line(eng, note)}; "
+            f"{note['both_roles']} steps ran both roles")
+    log(f"identity f32: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_greedy(ident):
     """2-layer full-width f32: engine greedy streams (plain, prefix cache,
     chunked prefill, n-gram spec; then with int8 weights; then a
@@ -4070,6 +4502,7 @@ def phase_greedy(ident):
     reqs, _ = _serve(engine(), [(40, 24, 0.0, None), (150, 24, 0.0, None)],
                      rng, cfg.vocab_size)
     _match_cacheless(model, reqs, "plain")
+    identity_f32(model)
 
     # prefix cache: the second wave splices the first wave's 64-token
     # preamble; one request repeats a whole-page prompt (copy-on-write)

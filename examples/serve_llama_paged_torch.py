@@ -106,6 +106,12 @@ def main():
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: stream prompts into the cache "
                          "this many tokens per mixed chunk+decode step")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode roles in one step (needs "
+                         "--prefill-chunk): mid-prompt slots stream "
+                         "chunks through the mixed step while decoding "
+                         "slots ride deep chains; output tokens are "
+                         "identical either way")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request TTL: a request not finished this "
                          "many ms after submission fails with reason "
@@ -113,6 +119,13 @@ def main():
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded wait queue: add_request raises "
                          "QueueFull once this many requests wait")
+    ap.add_argument("--fault-inject", default=None,
+                    help="deterministic fault-injection plan "
+                         "(paddle_tpu_torch.testing.faultinject grammar, "
+                         "e.g. 'nan-logits:rid=2,times=1'); defaults to "
+                         "FLAGS_fault_inject / PADDLE_TPU_FAULT_INJECT. "
+                         "Faulted requests end FAILED with a taxonomy "
+                         "reason; the engine never dies")
     ap.add_argument("--multi-step", type=int, default=1,
                     help="batch up to N decode iterations behind one host "
                          "round trip in pure-decode phases; streams are "
@@ -146,6 +159,8 @@ def main():
                  max_queue=args.max_queue,
                  prefix_cache=args.prefix_cache == "on",
                  prefill_chunk=args.prefill_chunk,
+                 disaggregate=args.disaggregate,
+                 fault_plan=args.fault_inject,
                  multi_step=args.multi_step, device=args.device)
 
     if args.api_port is not None:

@@ -58,3 +58,12 @@ define_flag("FLAGS_use_flash_attention", True,
 define_flag("FLAGS_use_packed_attention", None,
             "packed-QKV causal kernel on the GPT train path: None = auto "
             "(CUDA activations), True = force, False = off")
+define_flag("FLAGS_fault_inject",
+            os.environ.get("PADDLE_TPU_FAULT_INJECT", ""),
+            "deterministic fault-injection plan for the serving engine "
+            "(paddle_tpu_torch.testing.faultinject). Grammar: "
+            "'point[:key=val,...][;point2:...]', e.g. "
+            "'nan-logits:rid=2,times=1;slow-step:every=4,delay_ms=30'. "
+            "Empty (the default) disables injection; also settable via "
+            "env PADDLE_TPU_FAULT_INJECT. Engine(fault_plan=...) "
+            "overrides per instance")

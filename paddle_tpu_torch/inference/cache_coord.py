@@ -154,7 +154,9 @@ class CacheCoordinator:
     def splice(self, row, prefix) -> int:
         """Splice the cached block-aligned prefix of ``prefix`` into the
         fresh table ``row`` (refcount + 1 per shared page) and return the
-        tokens the prefill may skip (0 without a prefix cache).
+        tokens the prefill may skip (0 without a prefix cache). The
+        engine's ``prefix-cache-corruption`` and ``bit-flip-kv`` fault
+        points fire here, on a hit (``Engine._fi``).
 
         A FULL-prompt match still recomputes the last prompt token (its
         logits give the first generated token), and that token's K/V land
@@ -165,6 +167,28 @@ class CacheCoordinator:
         if self.pcache is None:
             return 0
         pages, matched = self.pcache.lookup(prefix)
+        fi = self.engine._fi
+        if matched and fi is not None \
+                and fi.fire("prefix-cache-corruption"):
+            # invalidate on doubt: the doubted page's bytes are damaged
+            # (when idle), it and every descendant block leave the cache,
+            # and this admission recomputes from scratch — a miss, never a
+            # wrong token
+            doubted = pages[-1]
+            if int(self.page_ref[doubted]) == 0:
+                self.corrupt_page(doubted)
+            for p in self.pcache.invalidate_page(doubted):
+                if int(self.page_ref[p]) == 0:
+                    self.free_pages.append(p)
+            pages, matched = [], 0
+            self.pcache.hits -= 1
+            self.pcache.misses += 1
+        if matched and fi is not None and fi.fire("bit-flip-kv"):
+            # silent damage, nothing invalidates: only an integrity check
+            # could catch it, and the port has none yet
+            doomed = pages[-1]
+            if int(self.page_ref[doomed]) == 0:
+                self.corrupt_page(doomed)
         m = self.engine._m
         if m is not None:
             (m.pc_hits if matched else m.pc_misses).inc()
@@ -242,3 +266,11 @@ class CacheCoordinator:
                 if p is not None:
                     p[dst] = p[src]
         self.cow_pending = []
+
+    def corrupt_page(self, page: int):
+        """The ``prefix-cache-corruption`` / ``bit-flip-kv`` fault points'
+        damage: garbage layer-0 K rows for one cached page, written in
+        place (the captured graphs hold these buffers). A page is only read
+        below ``lengths``, rows its next owner rewrites first."""
+        self.k_pages[0][int(page)].fill_(
+            57 if self.engine.quantized else 1e3)

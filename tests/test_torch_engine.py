@@ -4,7 +4,10 @@ same weights: the same mixed-length requests (f32, ``max_slots=2``,
 mix with temperatures and seeds, a pool small enough to force recompute
 preemption, and an eos. Plus the port's up-front validation, streaming,
 the resume path, and ``TypeError`` for every unported engine knob (the
-modes that ride the verify kernel are in ``test_torch_serving_modes.py``)."""
+modes that ride the verify kernel are in ``test_torch_serving_modes.py``;
+pre-admission, the measured boundary cost, ``disaggregate=`` and
+``fault_plan=`` in ``test_torch_scheduler.py`` and
+``test_torch_faultinject.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,13 +45,25 @@ def _prompts(spec, seed=0):
     return [rng.integers(0, 128, (n,)) for n, *_ in spec]
 
 
+def _synthetic_clock(eng):
+    """Feed ``eng``'s measured boundary cost the same step time ``3 + 2k``
+    on both engines in place of the wall: chain depths follow the cost, and
+    the schedule (retries, router stats, metrics) with them."""
+    observe = eng._observe_chain_time
+    eng._observe_chain_time = lambda nb, k, wall: observe(nb, k,
+                                                          3.0 + 2.0 * k)
+    return eng
+
+
 def _serve_both(models, spec, num_pages=64, **kw):
     """spec: [(prompt_len, max_new, temperature, seed)]."""
     jm, tm = models
     prompts = _prompts(spec)
-    je = JaxEngine(jm, num_pages=num_pages, dtype=jnp.float32,
-                   metrics=False, **GEOM, **kw)
-    te = Engine(tm, num_pages=num_pages, device="cpu", **GEOM, **kw)
+    je = _synthetic_clock(JaxEngine(jm, num_pages=num_pages,
+                                    dtype=jnp.float32, metrics=False,
+                                    **GEOM, **kw))
+    te = _synthetic_clock(Engine(tm, num_pages=num_pages, device="cpu",
+                                 **GEOM, **kw))
     out = []
     for eng in (je, te):
         reqs = [eng.add_request(p, m, temperature=t, seed=s)
@@ -157,10 +172,8 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_host_pages=8), dict(fault_plan="nan-logits:rid=0"),
-    dict(spec="draft"), dict(tp=2), dict(ep=2),
-    dict(integrity="audit"), dict(disaggregate=True),
-    dict(draft_model=object())])
+    dict(kv_host_pages=8), dict(spec="draft"), dict(tp=2), dict(ep=2),
+    dict(integrity="audit"), dict(draft_model=object())])
 def test_unported_knobs_raise_type_error(models, knob):
     _, tm = models
     with pytest.raises(TypeError):

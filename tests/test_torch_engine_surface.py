@@ -54,14 +54,26 @@ def models():
     return jm, tm
 
 
+def _synthetic_clock(eng):
+    """Feed ``eng``'s measured boundary cost the same step time ``3 + 2k``
+    on both engines in place of the wall: chain depths follow the cost, and
+    the schedule (retries, router stats, metrics) with them."""
+    observe = eng._observe_chain_time
+    eng._observe_chain_time = lambda nb, k, wall: observe(nb, k,
+                                                          3.0 + 2.0 * k)
+    return eng
+
+
 def _jax(models, max_slots=3, num_pages=64, **kw):
-    return JaxEngine(models[0], max_slots=max_slots, num_pages=num_pages,
-                     dtype=jnp.float32, **GEOM, **kw)
+    return _synthetic_clock(JaxEngine(
+        models[0], max_slots=max_slots, num_pages=num_pages,
+        dtype=jnp.float32, **GEOM, **kw))
 
 
 def _port(models, max_slots=3, num_pages=64, **kw):
-    return Engine(models[1], max_slots=max_slots, num_pages=num_pages,
-                  device="cpu", **GEOM, **kw)
+    return _synthetic_clock(Engine(
+        models[1], max_slots=max_slots, num_pages=num_pages, device="cpu",
+        **GEOM, **kw))
 
 
 def _items(lens, budgets, temps, seed=0):

@@ -155,6 +155,16 @@ def _on_previous_programs(eng):
     return eng
 
 
+def _synthetic_clock(eng):
+    """Feed ``eng``'s measured boundary cost the same step time ``3 + 2k``
+    on both engines in place of the wall: chain depths follow the cost, and
+    the schedule (retries, router stats, metrics) with them."""
+    observe = eng._observe_chain_time
+    eng._observe_chain_time = lambda nb, k, wall: observe(nb, k,
+                                                          3.0 + 2.0 * k)
+    return eng
+
+
 @torch.no_grad()
 def _previous_generate(model, ids, max_new_tokens, temperature=1.0, top_k=0,
                        seed=0, max_seq=None):
@@ -288,8 +298,8 @@ def _port(case, eager=False, **extra):
     """The port's engine for ``case``; ``eager`` turns its graphs off (the
     stand-in tests' baseline)."""
     kind, kw, _ = ENGINE_CASES[case]
-    eng = Engine(_pair(kind)[1], num_pages=64, device="cpu", **GEOM, **kw,
-                 **extra)
+    eng = _synthetic_clock(Engine(_pair(kind)[1], num_pages=64,
+                                  device="cpu", **GEOM, **kw, **extra))
     eng.runner._graphs.enabled = not eager
     return eng
 
@@ -307,8 +317,9 @@ def test_engine_step_bodies_match_reference_and_previous(case):
     MoE engine's router stats equal both."""
     kind, kw, _ = ENGINE_CASES[case]
     items = _items(case)
-    je = JaxEngine(_pair(kind)[0], num_pages=64, dtype=jnp.float32,
-                   metrics=False, **GEOM, **kw)
+    je = _synthetic_clock(JaxEngine(_pair(kind)[0], num_pages=64,
+                                    dtype=jnp.float32, metrics=False,
+                                    **GEOM, **kw))
     want = _serve(je, items)
     port = _port(case)
     assert _serve(port, items) == want
@@ -336,11 +347,12 @@ def test_compiled_programs_lattice_matches_reference():
     by kind on both engines, though the port captures one decode graph per
     ``(nb, sampling)`` and no depth."""
     counts = []
-    for make, reg in ((lambda **kw: JaxEngine(
+    for make, reg in ((lambda **kw: _synthetic_clock(JaxEngine(
             _pair("dense")[0], num_pages=64, dtype=jnp.float32, **GEOM,
-            **kw), JAX_REGISTRY),
-            (lambda **kw: Engine(_pair("dense")[1], num_pages=64,
-                                 device="cpu", **GEOM, **kw), REGISTRY)):
+            **kw)), JAX_REGISTRY),
+            (lambda **kw: _synthetic_clock(Engine(
+                _pair("dense")[1], num_pages=64, device="cpu", **GEOM,
+                **kw)), REGISTRY)):
         before = _compiled(reg)
         vanilla = make(max_slots=4)
         _serve(vanilla, _items("sampled") + _items("greedy", seed=1)[:1])

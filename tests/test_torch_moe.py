@@ -43,6 +43,16 @@ GEOM = dict(max_slots=2, page_size=8, chunk_size=4, max_chain=2)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+def _synthetic_clock(eng):
+    """Feed ``eng``'s measured boundary cost the same step time ``3 + 2k``
+    on both engines in place of the wall: chain depths follow the cost, and
+    the schedule (retries, router stats, metrics) with them."""
+    observe = eng._observe_chain_time
+    eng._observe_chain_time = lambda nb, k, wall: observe(nb, k,
+                                                          3.0 + 2.0 * k)
+    return eng
+
+
 @pytest.fixture(autouse=True)
 def jax_grouped_through_ref(monkeypatch):
     mod = sys.modules["paddle_tpu.ops.pallas.grouped_matmul"]
@@ -216,8 +226,9 @@ def _serve_both(models, prompts, budget, temps=(0.0,), on_port=None, **kw):
     """Serve ``prompts`` through both engines; ``on_port(engine)`` may
     instrument the port's engine before it runs."""
     jm, tm = models
-    je = JaxEngine(jm, dtype=jnp.float32, metrics=False, **GEOM, **kw)
-    te = Engine(tm, device="cpu", **GEOM, **kw)
+    je = _synthetic_clock(JaxEngine(jm, dtype=jnp.float32, metrics=False,
+                                    **GEOM, **kw))
+    te = _synthetic_clock(Engine(tm, device="cpu", **GEOM, **kw))
     if on_port is not None:
         on_port(te)
     out = []

@@ -39,13 +39,23 @@ def models():
     return jm, tm
 
 
+def _synthetic_clock(eng):
+    """Feed ``eng``'s measured boundary cost the same step time ``3 + 2k``
+    on both engines in place of the wall: chain depths follow the cost, and
+    the schedule (retries, router stats, metrics) with them."""
+    observe = eng._observe_chain_time
+    eng._observe_chain_time = lambda nb, k, wall: observe(nb, k,
+                                                          3.0 + 2.0 * k)
+    return eng
+
+
 def _engines(models, max_slots=3, num_pages=64, **kw):
     jm, tm = models
     je = JaxEngine(jm, max_slots=max_slots, num_pages=num_pages,
                    dtype=jnp.float32, metrics=False, **GEOM, **kw)
     te = Engine(tm, max_slots=max_slots, num_pages=num_pages, device="cpu",
                 **GEOM, **kw)
-    return je, te
+    return _synthetic_clock(je), _synthetic_clock(te)
 
 
 def _serve(eng, waves):
