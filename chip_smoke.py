@@ -99,6 +99,31 @@ Phases, in order; any failure exits non-zero:
               check: loss, gradients and three AdamW steps of 2-layer
               GPT-medium and ``llama2_7b`` widths with the kernels against
               plain attention.
+8. tier     — ``llama2_7b`` at full width and depth, bf16, random weights
+              from a seed. (a) The host KV tier under churn: 16 templates
+              of 512 tokens (512 pages, 4 GiB) against a 256-page pool and
+              a 512-page pinned slab, 32-token tails, 32 new tokens, two
+              rounds whose requests arrive together; every promoted page
+              is hashed on the card right after its restore and must equal
+              its bytes at demotion; demotions, promotions, the worker's
+              backlog, each copy direction's waves (device ms, bytes)
+              beside the 64 GB/s link, round 2's TTFT tier on and off in
+              turns. (b) ``integrity="audit"``: the weight baseline's
+              time, weight probes, checksum waves of 1, 8 and 32 pages and
+              the checksum's width invariance, tok/s audit on and off in
+              turns; zero failures, nonzero weight and kv checks. (c)
+              ``bit-flip-kv`` detected and contained; ``bit-flip-weight``
+              quarantines the engine and ``/readyz`` over the ApiServer
+              says so (the bit is put back); (d) strict: the shadow every
+              4 steps on clean greedy streams, its margins against
+              ``shadow_tol``; (e) the handoff: a 1024-token prompt's pages
+              exported from one ApiServer (``POST /v1/kv``) and imported
+              into another, the payload's size, each stage's ms and the
+              importer's TTFT against a fresh engine's; then the weight
+              flip on int8 weights (#12's buffers). Then f32, TF32 off,
+              two layers: the tier under churn, the audit with
+              ``bit-flip-kv`` and a handed-off prompt each give the plain
+              run's streams, greedy and sampled.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -177,7 +202,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
-          "greedy")
+          "greedy", "tier")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched")
 
 
@@ -1976,7 +2001,7 @@ def main(argv=None):
         kernel_stats.update(stats)
         launches.update(n)
     for phase, run in (("main", phase_main), ("serve", phase_serve),
-                       ("generate", phase_generate)):
+                       ("generate", phase_generate), ("tier", phase_tier)):
         if phase in phases:
             for name, n in run(ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -2734,7 +2759,7 @@ class _Api:
     on 127.0.0.1 at an ephemeral port, its event loop on a thread of its
     own; blocking HTTP helpers for the clients."""
 
-    def __init__(self, engine, **frontend_kw):
+    def __init__(self, engine, grace_s=120.0, **frontend_kw):
         import asyncio
         import threading
 
@@ -2744,7 +2769,7 @@ class _Api:
         self.engine = engine
         self.frontend = ServingFrontend(engine, **frontend_kw)
         self.srv = ApiServer(self.frontend, host="127.0.0.1", port=0,
-                             model_name="llama2-7b", grace_s=120.0)
+                             model_name="llama2-7b", grace_s=grace_s)
         self.loop = asyncio.new_event_loop()
         self._bound = threading.Event()
         self._thread = threading.Thread(target=self._run, name="api-loop",
@@ -2814,8 +2839,49 @@ class _Api:
                     raise AssertionError("the stream ended before a chunk")
                 got += chunk
 
-    def close(self):
-        """Drain and stop; fails if the engine thread died of a fault."""
+    def post_raw(self, path, body: bytes, timeout=900):
+        """(status, JSON reply, reply bytes) of one POST of ``body``."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                raw = r.read()
+                return r.status, json.loads(raw), len(raw)
+        except urllib.error.HTTPError as e:
+            raw = e.read()
+            return e.code, json.loads(raw), len(raw)
+
+    def first_token_s(self, prompt, max_tokens):
+        """Seconds from sending an SSE completion to its first token chunk
+        (the client's TTFT), and the stream's tokens."""
+        import urllib.request
+
+        body = json.dumps({"prompt": [int(t) for t in prompt],
+                           "max_tokens": max_tokens,
+                           "stream": True}).encode()
+        req = urllib.request.Request(
+            self.base + "/v1/completions", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        first, toks = None, []
+        with urllib.request.urlopen(req, timeout=900) as r:
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: ") or line[6:] == "[DONE]":
+                    continue
+                got = json.loads(line[6:])["choices"][0]["token_ids"]
+                if got and first is None:
+                    first = time.perf_counter() - t0
+                toks.extend(got)
+        return first, toks
+
+    def close(self, check=True):
+        """Drain and stop; fails if the engine thread died of a fault (and,
+        with ``check``, if the engine caught one or was quarantined)."""
         import asyncio
 
         fut = asyncio.run_coroutine_threadsafe(self.srv.shutdown(),
@@ -2829,7 +2895,8 @@ class _Api:
         if self.frontend.fault is not None:
             raise AssertionError(
                 f"the engine thread died: {self.frontend.fault!r}")
-        _no_caught_fault(self.engine, "the API server's engine")
+        if check:
+            _no_caught_fault(self.engine, "the API server's engine")
 
 
 def _run_clients(jobs, threads):
@@ -4714,6 +4781,745 @@ def train_check(ident):
         torch.cuda.empty_cache()
     finally:
         set_flags(saved)
+
+
+# ------------------------------------------------------------- phase 8
+LINK_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one way
+
+
+def _tier_churn(eng, tpls, tail, new, tag, rounds=2, temp=0.0):
+    """``rounds`` rounds over the templates ``tpls``, each template with a
+    tail of its own per round; a round's requests arrive together (those
+    queued behind the slots give their promotions time to land) and run to
+    the end, and the next round arrives once the host tier's worker has
+    finished its jobs (the seconds it took are the round's settle time).
+    Every request must finish with its budget and the engine catch no
+    fault. Returns the rounds' requests and settle seconds."""
+    import numpy as np
+
+    vocab = eng.cfg.vocab_size
+    out, settle = [], []
+    for rnd in range(rounds):
+        reqs = []
+        for t, tpl in enumerate(tpls):
+            r = np.random.default_rng(1000 + 100 * rnd + t)
+            prompt = np.concatenate([tpl, r.integers(0, vocab, (tail,))])
+            reqs.append(eng.add_request(
+                prompt, new, temperature=temp,
+                seed=77 + 100 * rnd + t if temp else None))
+        eng.run()
+        out.append(reqs)
+        t_s = time.perf_counter()
+        if eng.kv_tier is not None:
+            _wait_for(eng.kv_tier.idle, 300, f"{tag}: the tier's worker")
+            eng._cache.drain_tier()
+        settle.append(time.perf_counter() - t_s)
+    for reqs in out:
+        for r in reqs:
+            if r.failed or not r.done or len(r.tokens) != new:
+                raise AssertionError(
+                    f"{tag}: request {r.rid} ended {r.state} reason="
+                    f"{r.failure_reason} with {len(r.tokens)}/{new} tokens")
+    _no_caught_fault(eng, tag)
+    return out, settle
+
+
+def _promoted_digest_check(eng):
+    """Wrap ``eng``'s host tier so that every page it promotes is hashed
+    (blake2b over its device bytes, k, v, scale per layer) right after the
+    restore and held to the digest taken at its demotion. Returns the
+    count of pages checked (a dict the wrapper fills)."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch.inference.kv_tier import page_bytes
+
+    tier = eng.kv_tier
+    real = tier._land_promotions
+    state = {"pages": 0}
+
+    def land(promotes):
+        want = {id(ent): tier._digest.get(hslot)
+                for ent, hslot, *_ in promotes}
+        real(promotes)
+        torch.cuda.synchronize()
+        flat = eng._cache.pages_flat()
+        for ent, *_ in promotes:
+            if ent.tier != "hbm" or not ent.page:
+                continue  # no page for it: it stayed on the host
+            d = hashlib.blake2b(digest_size=16)
+            for b in flat:
+                d.update(page_bytes(b[ent.page].cpu()))
+            if d.digest() != want[id(ent)]:
+                raise AssertionError(
+                    f"tier: promoted page {ent.page} differs from its bytes "
+                    "at demotion")
+            state["pages"] += 1
+
+    tier._land_promotions = land
+    return state
+
+
+def _copy_summary(tier, tag, ident):
+    """Log the tier's timed copies, each way, beside the host link's bound
+    (bytes over ``LINK_BYTES_PER_S``)."""
+    for way in ("d2h", "h2d"):
+        waves = [w for w in tier.copy_log if w[0] == way]
+        if not waves:
+            raise AssertionError(f"{tag}: no {way} copy was timed")
+        pages = sum(w[1] for w in waves)
+        nbytes = sum(w[2] for w in waves)
+        ms = sum(w[3] for w in waves)
+        bound = nbytes / LINK_BYTES_PER_S * 1e3
+        log(f"{tag}: {way} {len(waves)} waves, {pages} pages, "
+            f"{nbytes / 2**20:.1f} MiB in {ms:.3f} ms device time = "
+            f"{nbytes / ms / 1e6:.2f} GB/s; link bound {bound:.3f} ms "
+            f"at 64 GB/s ({ms / bound:.2f}x); a wave: median "
+            f"{statistics.median(w[3] for w in waves):.3f} ms for "
+            f"{statistics.median(w[1] for w in waves)} pages, max "
+            f"{max(w[3] for w in waves):.3f} ms [{ident}]")
+
+
+def _ttft_ms(reqs):
+    return statistics.median((r._t_first - r._t_arrival) * 1e3
+                             for r in reqs)
+
+
+def _two_waves(eng, shared, tails, new, tag, temp=0.0):
+    """Wave 1 registers ``shared`` + a tail each, wave 2 splices it (other
+    tails); every request must finish with its budget. Returns the
+    requests."""
+    import numpy as np
+
+    reqs = []
+    for wave in range(2):
+        items = [(np.concatenate([shared, t]), new, temp,
+                  11 + i if temp else None)
+                 for i, t in enumerate(tails[wave])]
+        reqs += _serve_items(eng, items, tag)[0]
+    return reqs
+
+
+def phase_tier(ident):
+    """``llama2_7b``, bf16, full width and depth, random weights from a
+    seed: the host KV tier under churn, the integrity sentinel (audit,
+    faults, strict) and the KV handoff over ``/v1/kv``; then the f32
+    identities at two layers (the module docstring, phase 8). Returns the
+    launches by kernel row."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.inference.integrity import (IntegritySentinel,
+                                                      page_checksums)
+    from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+    from paddle_tpu_torch.serving.replica import (decode_kv_payload,
+                                                  encode_kv_payload)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama2_7b()
+    t0 = time.perf_counter()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"tier: llama2_7b bf16 initialised in {time.perf_counter() - t0:.1f}"
+        " s")
+    vocab = cfg.vocab_size
+    total = {name: 0 for name in KERNELS}
+    vanilla = ("paged_decode_attention", "flash_attention_fwd")
+    spliced = vanilla + ("paged_verify_attention",)
+
+    def run_pass(tag, run, needs, tc=True):
+        t_pass = time.perf_counter()
+        out, got = _counted(run, needs, tc=tag if tc else None)
+        log(f"{tag}: launches {got}; {time.perf_counter() - t_pass:.1f} s")
+        if got.pop("flash_attention_bwd"):
+            raise AssertionError(f"{tag}: serving launched the backward")
+        for name, n in got.items():
+            total[name] += n
+        gc.collect()  # an engine and its runner hold each other
+        torch.cuda.empty_cache()
+        return out
+
+    def integrity_counts():
+        return {k: {t: _metric(f"paddle_tpu_integrity_{k}_total",
+                               {"target": t})
+                    for t in ("weights", "kv", "shadow", "sentinel",
+                              "kv_tier", "kv_handoff")}
+                for k in ("checks", "failures")}
+
+    def delta(before):
+        now = integrity_counts()
+        return {k: {t: now[k][t] - before[k][t] for t in now[k]}
+                for k in now}
+
+    # ---- (a) the tier under churn: 16 templates of 512 tokens (512
+    # pages, 4 GiB) against a 256-page pool (2 GiB) and a 512-page pinned
+    # slab (4 GiB); 32-token tails, 32 new tokens, greedy, two rounds
+    NT, TLEN, TAIL, NEW, POOL, HOST, PS = 16, 512, 32, 32, 256, 512, 16
+    page_bytes_ = (2 * cfg.num_layers * PS * cfg.num_kv_heads
+                   * cfg.head_dim * 2)
+    tpls = [np.random.default_rng(300 + i).integers(0, vocab, (TLEN,))
+            for i in range(NT)]
+    log(f"tier churn: {NT} templates x {TLEN} tokens "
+        f"({NT * TLEN // PS} pages, {NT * TLEN // PS * page_bytes_ / 2**30:.1f}"
+        f" GiB), {TAIL}-token tails, {NEW} new tokens, greedy, 2 rounds of "
+        f"{NT} requests arriving together; pool {POOL} pages "
+        f"({POOL * page_bytes_ / 2**30:.1f} GiB), kv_host_pages={HOST} "
+        f"({HOST * page_bytes_ / 2**30:.1f} GiB pinned), 4 slots, a page "
+        f"{page_bytes_ / 2**20:.0f} MiB")
+
+    def tier_engine(hp):
+        return Engine(model, max_slots=4, num_pages=POOL + 1, page_size=PS,
+                      chunk_size=16, prefix_cache=True, kv_host_pages=hp)
+
+    def churn(tag, hp, check=False):
+        """Two churn rounds on a fresh engine (``kv_host_pages=hp``), then
+        one request on template 0, which the churn has moved off the card:
+        with the tier its chain is promoted first (the promote time), then
+        the request splices it; without, it recomputes. Returns (round 2's
+        median TTFT, the one request's TTFT, the promote ms)."""
+        t_build = time.perf_counter()
+        eng = tier_engine(hp)
+        build_s = time.perf_counter() - t_build
+        state = _promoted_digest_check(eng) if check else None
+        try:
+            rounds, settle = _tier_churn(eng, tpls, TAIL, NEW, tag)
+            r2 = rounds[1]
+            ttft = _ttft_ms(r2)
+            line = (f"{tag}: built in {build_s:.2f} s; round 2 TTFT median "
+                    f"{ttft:.1f} ms, max "
+                    f"{max((r._t_first - r._t_arrival) * 1e3 for r in r2):.1f};"
+                    f" prefix hits {eng._pcache.hits} misses "
+                    f"{eng._pcache.misses}, cached tokens "
+                    f"{eng._cache.cached_tokens}")
+            tier = eng.kv_tier
+            if tier is not None:
+                # how long the worker ran on after each round's last
+                # request (its digests are host work)
+                line += ("; the worker's backlog cleared "
+                         + ", ".join(f"{x:.2f}" for x in settle)
+                         + " s after rounds 1, 2")
+                waits = [r._t_promote_wait * 1e3 for r in r2]
+                line += (f"; demotions {tier.demotions}, promotions "
+                         f"{tier.promotions}, promote requests (hits) "
+                         f"{tier.hits}, drops {tier.drops}; promote_wait "
+                         f"round 2 median {statistics.median(waits):.2f} "
+                         f"ms, max {max(waits):.2f}, sum {sum(waits):.1f}")
+            log(line + f" [{ident}]")
+            # template 0 once more, promoted first where there is a tier
+            tpl = tpls[0]
+            prompt = np.concatenate([tpl, np.random.default_rng(7).integers(
+                0, vocab, (TAIL,))])
+            _, on_card, demoted = eng._pcache.lookup(tpl, touch=False,
+                                                     tiers=True)
+            t_p = time.perf_counter()
+            if tier is not None and demoted:
+                tier.request_promote(demoted)
+                tier.await_promotions(demoted, budget_s=120.0)
+                torch.cuda.synchronize()
+            promote_ms = (time.perf_counter() - t_p) * 1e3
+            after = eng._pcache.lookup(tpl, touch=False)[1]
+            hits0 = eng._pcache.hits
+            req = _serve_items(eng, [(prompt, NEW, 0.0, None)], tag)[0][0]
+            one = (req._t_first - req._t_arrival) * 1e3
+            spliced = eng._pcache.hits > hits0
+            log(f"{tag}: template 0 after the churn: {on_card} of {TLEN} "
+                f"tokens on the card, {len(demoted)} pages on the host; "
+                + (f"promoted in {promote_ms:.1f} ms ({after} tokens on "
+                   "the card after); " if tier is not None else "")
+                + f"a request on it (+{TAIL} tokens) TTFT {one:.1f} ms, "
+                f"{'spliced' if spliced else 'recomputed'} [{ident}]")
+            if check:
+                if not tier.demotions or not tier.promotions:
+                    raise AssertionError(f"{tag}: the tier never engaged")
+                if not state["pages"] or after != TLEN or not spliced:
+                    raise AssertionError(
+                        f"{tag}: template 0 did not come back whole "
+                        f"({after} tokens, {state['pages']} pages checked)")
+                log(f"{tag}: {state['pages']} promoted pages, each equal "
+                    "byte for byte (blake2b) to its demotion")
+                _copy_summary(tier, tag, ident)
+            return ttft, one, promote_ms if tier is not None else None
+        finally:
+            eng._cache.shutdown_tier()
+
+    ttft = {}
+    ttft["check"] = run_pass("tier churn", lambda: churn(
+        "tier churn (digest check)", HOST, check=True), spliced)
+    for i, hp in enumerate((0, HOST, HOST, 0)):
+        tag = f"tier churn {'on' if hp else 'off'} #{i}"
+        ttft[tag] = run_pass(tag, lambda hp=hp, tag=tag: churn(tag, hp),
+                             vanilla)
+    runs = list(ttft)[1:]
+    log("tier churn, in turns off/on/on/off: round 2 TTFT median ms "
+        + ", ".join(f"{ttft[k][0]:.1f}" for k in runs)
+        + "; template 0's request TTFT ms "
+        + ", ".join(f"{ttft[k][1]:.1f}" for k in runs)
+        + "; its promotion ms (tier on) "
+        + ", ".join(f"{ttft[k][2]:.1f}" for k in runs if ttft[k][2])
+        + f" (the digest-check run: {ttft['check'][0]:.1f}, "
+        f"{ttft['check'][1]:.1f}, {ttft['check'][2]:.1f}) [{ident}]")
+
+    # ---- (b) integrity audit: weight baseline, probes, checksum waves,
+    # and tok/s with the audit on and off, in turns
+    shared = np.random.default_rng(41).integers(0, vocab, (512,))
+    tails = [[np.random.default_rng(50 + 10 * w + i).integers(
+        0, vocab, (32,)) for i in range(4)] for w in range(2)]
+    audit_spec = "audit"  # the preset: a weight probe every 16 steps
+
+    def audit_run(tag, on):
+        eng = Engine(model, max_slots=8, num_pages=512, page_size=PS,
+                     chunk_size=16, prefix_cache=True, max_chain=2)
+        if on:  # the sentinel is built last, as Engine.__init__ builds it
+            t_b = time.perf_counter()
+            eng._integrity = IntegritySentinel.build(eng, audit_spec)
+            torch.cuda.synchronize()
+            base_s = time.perf_counter() - t_b
+            nbytes = sum(p.numel() * p.element_size() for p in eng._params)
+            log(f"{tag}: weight baseline {nbytes / 1e9:.2f} GB, "
+                f"{len(eng._integrity._probe_targets)} blocks, digested in "
+                f"{base_s:.2f} s ({nbytes / base_s / 1e9:.2f} GB/s) "
+                f"[{ident}]")
+        before = integrity_counts()
+        t_r = time.perf_counter()
+        reqs = _two_waves(eng, shared, tails, 64, tag)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_r
+        toks = sum(len(r.tokens) for r in reqs)
+        d = delta(before)
+        log(f"{tag}: {toks / wall:.1f} tok/s ({toks} tokens in {wall:.3f} "
+            f"s); integrity checks {d['checks']}, failures {d['failures']}"
+            f" [{ident}]")
+        if any(d["failures"].values()):
+            raise AssertionError(f"{tag}: a clean run failed a check")
+        if on and not d["checks"]["kv"]:
+            raise AssertionError(f"{tag}: no kv check ran")
+        return eng, toks / wall
+
+    def audit_probes(eng):
+        ig = eng._integrity
+        targets = ig._probe_targets
+        times = []
+        for _ in range(24):
+            i, b = targets[ig._probe_cursor % len(targets)]
+            a, e, _ = ig._weight_base[i][1][b]
+            t_p = time.perf_counter()
+            if not ig.audit_weights_once():
+                raise AssertionError("integrity: a clean probe failed")
+            times.append(((time.perf_counter() - t_p) * 1e3,
+                          (e - a) * eng._params[i].element_size()))
+        big = max(times, key=lambda t: t[1])
+        log(f"integrity audit: one weight probe (24 consecutive): median "
+            f"{statistics.median(t[0] for t in times):.2f} ms, max "
+            f"{max(t[0] for t in times):.2f}; the largest block "
+            f"({big[1] / 2**20:.1f} MiB) {big[0]:.2f} ms [{ident}]")
+        pages = sorted(eng._pcache._by_page)[:32]
+        if len(pages) < 32:
+            raise AssertionError("integrity: fewer than 32 cached pages")
+        flat = eng._cache.pages_flat()
+        for w in (1, 8, 32):
+            idx = torch.tensor(pages[:w], device=eng.device)
+            dev = time_ms(lambda idx=idx: page_checksums(flat, idx))
+            t_h = time.perf_counter()
+            ig._page_sums(pages[:w])
+            host = (time.perf_counter() - t_h) * 1e3
+            log(f"integrity audit: checksum wave of {w} pages "
+                f"({w * page_bytes_ / 2**20:.0f} MiB): {dev:.3f} ms device, "
+                f"{host:.3f} ms host with the fetch; bytes bound "
+                f"{w * page_bytes_ / HBM_BYTES_PER_S * 1e3:.3f} ms [{ident}]")
+        p = pages[5]
+        want = int(page_checksums(flat, torch.tensor([p],
+                                                    device=eng.device))[0])
+        others = [q for q in pages if q != p]
+        for w in (1, 2, 4, 8, 16, 32):
+            for at in sorted({0, w // 2, w - 1}):
+                idx = others[:at] + [p] + others[at:w - 1]
+                got = page_checksums(flat, torch.tensor(idx, device=eng.device))
+                if int(got[at]) != want:
+                    raise AssertionError(
+                        f"integrity: page {p}'s checksum at width {w} "
+                        f"position {at} differs from width 1")
+        cpu = int(page_checksums([b.cpu() for b in flat],
+                                 torch.tensor([p]))[0])
+        if cpu != want:
+            raise AssertionError("integrity: the card's checksum is not the "
+                                 "CPU's")
+        log("integrity audit: a page's checksum is the same in waves of "
+            "widths 1, 2, 4, 8, 16, 32 at every position tried, and equal to "
+            "the CPU's")
+
+    tps = {}
+    for i, on in enumerate((False, True, True, False)):
+        tag = f"integrity audit {'on' if on else 'off'} #{i}"
+
+        def go(tag=tag, on=on):
+            before = integrity_counts()
+            eng, tps[tag] = audit_run(tag, on)
+            if on and i == 2:
+                audit_probes(eng)
+                d = delta(before)
+                if not d["checks"]["weights"] or any(d["failures"].values()):
+                    raise AssertionError(f"{tag}: weight checks {d}")
+
+        run_pass(tag, go, spliced)
+
+    log("integrity audit: tok/s in turns off/on/on/off: "
+        + ", ".join(f"{v:.1f}" for v in tps.values()) + f" [{ident}]")
+
+    # ---- (c) faults: bit-flip-kv; bit-flip-weight behind the ApiServer;
+    # the same weight flip on int8 weights comes after (e)
+    def kv_fault():
+        eng = Engine(model, max_slots=8, num_pages=512, page_size=PS,
+                     chunk_size=16, prefix_cache=True,
+                     fault_plan="bit-flip-kv:at=1",
+                     integrity={"mode": "audit", "weight_audit_every": 0})
+        bad = []
+        real = eng._contain_kv_corruption
+        eng._contain_kv_corruption = lambda b: (bad.append(list(b)),
+                                                real(b))
+        before = integrity_counts()
+        _two_waves(eng, shared, tails, 16, "fault bit-flip-kv")
+        d = delta(before)
+        if eng._fi.fired("bit-flip-kv") != 1 or not bad \
+                or d["failures"]["kv"] < 1:
+            raise AssertionError(f"fault bit-flip-kv: not detected ({d})")
+        log(f"fault bit-flip-kv: fired once, pages {bad} failed their "
+            f"checksum and were invalidated with their descendants; prefix "
+            f"misses {eng._pcache.misses}, every request finished; kv "
+            f"checks {d['checks']['kv']:.0f}, failures "
+            f"{d['failures']['kv']:.0f}")
+
+    run_pass("fault bit-flip-kv", kv_fault, vanilla)
+
+    def flip_recorder(eng, restore):
+        """Record what ``bit-flip-weight`` changes; ``restore`` keeps a copy
+        of the parameter to put back (the flip writes the shared model)."""
+        ig = eng._integrity
+        real = ig._flip_weight_bit
+        rec = {}
+
+        def flip(i, a, e, fi):
+            p = eng._params[i]
+            rec.update(i=i, dtype=p.dtype, shape=tuple(p.shape),
+                       saved=p.detach().clone() if restore else None)
+            real(i, a, e, fi)
+            rec["changed"] = int((int_view(p) != int_view(rec["saved"]))
+                                 .sum()) if restore else None
+
+        ig._flip_weight_bit = flip
+        return rec
+
+    def int_view(t):
+        from paddle_tpu_torch.inference.runner import int_words
+
+        return int_words(t.detach())
+
+    def weight_fault():
+        import urllib.error
+
+        eng = Engine(model, max_slots=4, num_pages=256, page_size=PS,
+                     chunk_size=16, fault_plan="bit-flip-weight:at=1",
+                     integrity={"mode": "audit", "weight_audit_every": 1})
+        rec = flip_recorder(eng, restore=True)
+        before = integrity_counts()
+        api = _Api(eng, grace_s=5.0)
+        try:
+            api.frontend.submit(shared[:64], 64)
+            ready, t_end = None, time.perf_counter() + 300
+            while time.perf_counter() < t_end:
+                try:
+                    status, ready = api.get("/readyz")
+                except urllib.error.HTTPError as e:
+                    status, ready = e.code, json.loads(e.read())
+                if status == 503 and ready.get("quarantined"):
+                    break
+                time.sleep(0.05)
+            else:
+                raise AssertionError("fault bit-flip-weight: /readyz never "
+                                     f"reported the quarantine ({ready})")
+        finally:
+            api.close(check=False)
+            if "saved" in rec:
+                with torch.no_grad():
+                    eng._params[rec["i"]].copy_(rec["saved"])
+        d = delta(before)
+        if not eng._watchdog.quarantined or d["failures"]["weights"] < 1 \
+                or rec["changed"] != 1:
+            raise AssertionError(f"fault bit-flip-weight: {rec}, {d}")
+        log(f"fault bit-flip-weight: one bit of parameter {rec['i']} "
+            f"({rec['dtype']}, {rec['shape']}) flipped in place; the audit "
+            f"failed it ({d['failures']['weights']:.0f}), the engine is "
+            f"quarantined and /readyz over the ApiServer answers 503 "
+            f"{ready}; the bit put back")
+
+    run_pass("fault bit-flip-weight", weight_fault, ("flash_attention_fwd",))
+
+    # ---- (d) strict: the shadow every 4 steps on clean greedy streams
+    def strict():
+        eng = Engine(model, max_slots=8, num_pages=1024, page_size=PS,
+                     chunk_size=16, max_chain=1,
+                     integrity={"mode": "strict", "shadow_every": 4,
+                                "weight_audit_every": 0})
+        ig = eng._integrity
+        real = ig.shadow_check
+        margins = []
+
+        def shadow():
+            ok = real()
+            if ok is not None:
+                margins.append((ig.last_margin, ok))
+            return ok
+
+        ig.shadow_check = shadow
+        rng = np.random.default_rng(61)
+        reqs = [eng.add_request(rng.integers(0, vocab, (n,)), 512)
+                for n in (64, 200, 333, 512, 700, 900, 1024, 128)]
+        eng.run()
+        failed = [r.rid for r in reqs if r.failed]
+        if any(r.failure_reason not in (None, "integrity") for r in reqs) \
+                or not all(r.done for r in reqs):
+            raise AssertionError("integrity strict: a request ended other "
+                                 "than by the shadow")
+        _no_caught_fault(eng, "integrity strict")
+        if not margins:
+            raise AssertionError("integrity strict: no shadow check ran")
+        rel = [m / s for (m, s), _ in margins]
+        tol = ig.cfg.shadow_tol
+        log(f"integrity strict: {len(margins)} shadow checks on clean bf16 "
+            f"greedy streams, margin / logit scale median "
+            f"{statistics.median(rel):.4f}, max {max(rel):.4f} against "
+            f"shadow_tol {tol}; {sum(not ok for _, ok in margins)} over it, "
+            f"requests failed by the shadow {failed} [{ident}]")
+
+    run_pass("integrity strict", strict, vanilla)
+
+    # ---- (e) the handoff: two engines, each behind its own ApiServer
+    def handoff():
+        P = np.random.default_rng(71).integers(0, vocab, (1024,))
+        ptoks = [int(t) for t in P]
+
+        def make():
+            return Engine(model, max_slots=4, num_pages=257, page_size=PS,
+                          chunk_size=16, prefix_cache=True)
+
+        A, B, C = _Api(make()), _Api(make()), _Api(make())
+        try:
+            A.complete({"prompt": ptoks, "max_tokens": 16})
+            t_x = time.perf_counter()
+            st, exp, nbytes = A.post_raw("/v1/kv", json.dumps(
+                {"op": "export", "tokens": ptoks}).encode())
+            export_s = time.perf_counter() - t_x
+            if st != 200 or not exp["payload"]:
+                raise AssertionError(f"handoff: export answered {st}")
+            t_c = time.perf_counter()
+            pay = A.frontend.export_kv(ptoks, timeout=300)
+            capture_s = time.perf_counter() - t_c
+            t_e = time.perf_counter()
+            enc = encode_kv_payload(pay)
+            encode_s = time.perf_counter() - t_e
+            body = json.dumps({"op": "import", "payload": exp["payload"]})
+            t_j = time.perf_counter()
+            json.loads(body)
+            parse_s = time.perf_counter() - t_j
+            t_d = time.perf_counter()
+            dec = decode_kv_payload(enc)
+            decode_s = time.perf_counter() - t_d
+            t_i = time.perf_counter()
+            st, got, _ = B.post_raw("/v1/kv", body.encode())
+            import_s = time.perf_counter() - t_i
+            if st != 200 or got["adopted"] != len(pay["pages"]):
+                raise AssertionError(f"handoff: import answered {st} {got}")
+            t_a = time.perf_counter()
+            n = C.frontend.import_kv(dec, timeout=300)
+            torch.cuda.synchronize()
+            adopt_s = time.perf_counter() - t_a
+            if n != len(pay["pages"]):
+                raise AssertionError(f"handoff: adopt took {n} pages")
+            # B spliced the adopted pages; a fresh engine recomputes
+            ttft_b, _ = B.first_token_s(P, 16)
+            D = _Api(make())
+            try:
+                ttft_d, _ = D.first_token_s(P, 16)
+            finally:
+                D.close()
+            if B.engine._pcache.hits < 1:
+                raise AssertionError("handoff: B's admission missed")
+            mb = nbytes / 2**20
+            log(f"handoff: {len(pay['pages'])} pages ({pay['nbytes'] / 2**20:.0f}"
+                f" MiB raw), export reply {mb:.1f} MB of JSON; export POST "
+                f"{export_s * 1e3:.0f} ms (capture {capture_s * 1e3:.0f}, "
+                f"encode {encode_s * 1e3:.0f}); import POST {import_s * 1e3:.0f}"
+                f" ms (JSON parse {parse_s * 1e3:.0f}, decode "
+                f"{decode_s * 1e3:.0f}, adopt {adopt_s * 1e3:.0f}, the rest "
+                f"{(import_s - parse_s - decode_s - adopt_s) * 1e3:.0f} the "
+                f"transfer); B's TTFT with adoption {ttft_b * 1e3:.1f} ms, a "
+                f"fresh engine's {ttft_d * 1e3:.1f} ms [{ident}]")
+        finally:
+            for api in (A, B, C):
+                api.close()
+
+    run_pass("handoff", handoff, spliced)
+
+    # ---- (c, int8) the weight flip on #12's buffers: the probe is
+    # pointed at the first int8 weight, so the flip lands there
+    def int8_fault():
+        quantize_for_decode(model, algo="weight_only_int8")
+        eng = Engine(model, max_slots=4, num_pages=256, page_size=PS,
+                     chunk_size=16, max_chain=1,
+                     fault_plan="bit-flip-weight:at=1",
+                     integrity={"mode": "audit", "weight_audit_every": 1})
+        ig = eng._integrity
+        ig._probe_cursor = next(
+            k for k, (i, _) in enumerate(ig._probe_targets)
+            if eng._params[i].dtype == torch.int8)
+        rec = flip_recorder(eng, restore=False)
+        before = integrity_counts()
+        req = eng.add_request(shared[:64], 128)
+        eng.run()  # returns at the quarantine
+        d = delta(before)
+        if not eng._watchdog.quarantined or rec.get("dtype") != torch.int8 \
+                or d["failures"]["weights"] < 1 or req.done:
+            raise AssertionError(f"fault bit-flip-weight int8: {rec} {d}")
+        log(f"fault bit-flip-weight, int8 weights: parameter {rec['i']} "
+            f"(int8, {rec['shape']}, read by #12) flipped in place; the audit "
+            f"failed it, the engine is quarantined after "
+            f"{len(req.tokens)} tokens and mints no more")
+
+    run_pass("fault bit-flip-weight int8", int8_fault, ("quant_matmul",))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier_identity_f32(ident, total)
+    return total
+
+
+def tier_identity_f32(ident, total):
+    """f32, TF32 off, two layers at ``llama2_7b``'s widths: the tier on
+    under churn, the audit with ``bit-flip-kv``, and a handed-off prompt
+    must give the plain run's streams (tier off, integrity off, B's own
+    recompute), greedy and sampled."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = init_llama(LlamaConfig(num_layers=2), seed=5, device="cuda",
+                           dtype=torch.float32)
+        vocab = model.config.vocab_size
+        tpls = [np.random.default_rng(90 + i).integers(0, vocab, (256,))
+                for i in range(8)]
+
+        def engine(**kw):
+            return Engine(model, max_slots=2, num_pages=65, page_size=16,
+                          chunk_size=16, prefix_cache=True, **kw)
+
+        def counted(tag, run, needs=("paged_decode_attention",
+                                     "flash_attention_fwd")):
+            got = _counted(run, needs)[1]
+            got.pop("flash_attention_bwd")
+            for name, n in got.items():
+                total[name] += n
+
+        for temp in (0.0, 0.8):
+            kind = "sampled" if temp else "greedy"
+            out = {}
+
+            def churn(hp, temp=temp, out=out):
+                eng = engine(kv_host_pages=hp)
+                try:
+                    rounds = _tier_churn(eng, tpls, 16, 24,
+                                         f"identity f32 tier {hp}",
+                                         temp=temp)[0]
+                    out[hp] = [list(r.tokens) for rs in rounds for r in rs]
+                    if hp:
+                        out["tier"] = (eng.kv_tier.demotions,
+                                       eng.kv_tier.promotions)
+                finally:
+                    eng._cache.shutdown_tier()
+
+            counted(f"identity f32 tier {kind}", lambda: (churn(256),
+                                                          churn(0)))
+            if out[256] != out[0]:
+                raise AssertionError(f"identity f32 tier {kind}: the tier's "
+                                     "streams differ from the plain run's")
+            dem, pro = out["tier"]
+            if not dem or not pro:
+                raise AssertionError(f"identity f32 tier {kind}: the tier "
+                                     f"never engaged ({dem}, {pro})")
+            log(f"identity f32 (llama2_7b widths, 2 layers, TF32 off), tier "
+                f"on under churn, {kind}: 16 streams equal the tier-off run "
+                f"({dem} demotions, {pro} promotions)")
+
+        shared = np.random.default_rng(95).integers(0, vocab, (128,))
+        tails = [[np.random.default_rng(96 + 10 * w + i).integers(
+            0, vocab, (20,)) for i in range(2)] for w in range(2)]
+        for temp in (0.0, 0.8):
+            kind = "sampled" if temp else "greedy"
+            got = {}
+
+            def kv(temp=temp, got=got):
+                eng = engine(fault_plan="bit-flip-kv:at=1",
+                             integrity={"mode": "audit",
+                                        "weight_audit_every": 0})
+                got["audit"] = [list(r.tokens) for r in _two_waves(
+                    eng, shared, tails, 24, "identity f32 audit", temp)]
+                if eng._fi.fired("bit-flip-kv") != 1 \
+                        or eng._integrity.last_error is None:
+                    raise AssertionError("identity f32 audit: the flip was "
+                                         "not detected")
+                got["plain"] = [list(r.tokens) for r in _two_waves(
+                    Engine(model, max_slots=2, num_pages=65, page_size=16,
+                           chunk_size=16), shared, tails, 24,
+                    "identity f32 plain", temp)]
+
+            counted(f"identity f32 audit {kind}", kv)
+            if got["audit"] != got["plain"]:
+                raise AssertionError(f"identity f32 audit {kind}: streams "
+                                     "differ from the plain run's")
+            log(f"identity f32, integrity audit with bit-flip-kv, {kind}: "
+                "detected, and 4 streams equal the plain run's")
+
+        P = np.random.default_rng(97).integers(0, vocab, (256,))
+        for temp in (0.0, 0.8):
+            kind = "sampled" if temp else "greedy"
+            got = {}
+
+            def handoff(temp=temp, got=got):
+                a = engine()
+                a.add_request(P, 8)
+                a.run()
+                pay = a._cache.export_handoff(P)
+                b = engine()
+                if b.adopt_kv_pages(pay) != len(pay["pages"]):
+                    raise AssertionError("identity f32 handoff: not adopted")
+                for key, eng in (("b", b), ("own", engine())):
+                    r = eng.add_request(P, 24, temperature=temp, seed=5)
+                    eng.run()
+                    got[key] = list(r.tokens)
+                if b._pcache.hits != 1:
+                    raise AssertionError("identity f32 handoff: B missed")
+
+            counted(f"identity f32 handoff {kind}", handoff,
+                    ("paged_decode_attention", "flash_attention_fwd",
+                     "paged_verify_attention"))
+            if got["b"] != got["own"]:
+                raise AssertionError(f"identity f32 handoff {kind}: B's "
+                                     "stream differs from its recompute")
+            log(f"identity f32, handoff {kind}: B's stream from the adopted "
+                "pages equals B's own recompute")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 if __name__ == "__main__":

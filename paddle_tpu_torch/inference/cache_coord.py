@@ -1,5 +1,5 @@
-"""Page pool, allocator and prefix cache of the serving engine, after
-``paddle_tpu/inference/cache_coord.py`` without the host tier.
+"""Page pool, allocator, prefix cache and host KV tier of the serving
+engine, after ``paddle_tpu/inference/cache_coord.py``.
 
 The device page buffers (``k_pages`` / ``v_pages`` per layer, plus bf16
 ``scale_pages`` when the cache is int8) are allocated ONCE on the engine's
@@ -16,13 +16,22 @@ only runs once no idle cached page is left. ``cow_pending`` holds the
 copy-on-write page copies an admission owes before any program writes into
 its spliced table (:meth:`flush_cow`).
 
-There is no host tier: :meth:`drain_tier` and :meth:`shutdown_tier` are the
-reference coordinator's calls with ``kv_host_pages=0``, no-ops, so the
-serving front end drives either engine the same way.
+With ``kv_host_pages=N`` (which needs the prefix cache) the host tier
+(``kv_tier.HostTier``) sits under the pool: reclamation demotes an idle
+cached page to pinned host memory instead of evicting it, a later hit
+promotes it back (:meth:`drain_tier` applies the tier's completions,
+:meth:`shutdown_tier` stops its worker), and :meth:`export_handoff` ships a
+prompt's cached pages to another engine. The splice and the registration
+of the prefix cache carry the reference engine's tiered lookup, its
+bounded promote wait and the integrity sentinel's checksum probes
+(``integrity.py``): in the reference these sit in the engine's
+``_splice_prefix`` and ``_register_prefix``, here in :meth:`splice` and
+:meth:`register`.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -37,7 +46,8 @@ __all__ = ["CacheCoordinator"]
 class CacheCoordinator:
     """Paged KV pool + host allocator + prefix cache for one engine."""
 
-    def __init__(self, engine, prefix_cache: bool = False):
+    def __init__(self, engine, prefix_cache: bool = False,
+                 kv_host_pages: int = 0):
         self.engine = engine
         self.num_pages = engine.num_pages
         self.page_size = engine.page_size
@@ -54,6 +64,18 @@ class CacheCoordinator:
         self.v_pages: List[torch.Tensor] = []
         self.scale_pages: List[Optional[torch.Tensor]] = []
         self._allocate()
+        # the host tier: idle cached pages demote to host memory instead
+        # of being evicted, and a later hit promotes them back
+        self.tier = None
+        if kv_host_pages:
+            if self.pcache is None:
+                raise ValueError(
+                    "kv_host_pages > 0 requires prefix_cache=True (the "
+                    "host tier spills idle PREFIX-CACHE pages; without "
+                    "the cache there is nothing to demote)")
+            from .kv_tier import HostTier
+
+            self.tier = HostTier(self, kv_host_pages)
         self.reset()
 
     def _allocate(self):
@@ -75,6 +97,14 @@ class CacheCoordinator:
         else:
             self.scale_pages = [None] * cfg.num_layers
 
+    def pages_flat(self) -> List[torch.Tensor]:
+        """Every pool buffer in the reference's order: k, v, then (int8
+        pages) the scales, one per layer each."""
+        out = list(self.k_pages) + list(self.v_pages)
+        if self.engine.quantized:
+            out += list(self.scale_pages)
+        return out
+
     @contextlib.contextmanager
     def trash_kept(self):
         """The trash page (physical page 0) of every layer as the block
@@ -91,7 +121,13 @@ class CacheCoordinator:
     def reset(self):
         """Empty the allocator: every page free (page 0 stays the trash
         page), every slot free, the prefix cache flushed. Page content is
-        left as is: data only counts below a slot's ``lengths``."""
+        left as is: data only counts below a slot's ``lengths``. The page
+        checksums and the host tier go too: they describe a pool whose
+        state a fault left in doubt."""
+        ig = getattr(self.engine, "_integrity", None)
+        if ig is not None:
+            # getattr: construction resets before the sentinel exists
+            ig.reset_kv()
         self.tables[:] = 0
         self.lengths[:] = 0
         self.page_ref[:] = 0
@@ -99,24 +135,39 @@ class CacheCoordinator:
         self.free_slots = list(range(self.engine.max_slots - 1, -1, -1))
         if self.pcache is not None:
             self.pcache.clear()
+        if self.tier is not None:
+            self.tier.reset()
         self.cow_pending = []
 
     def alloc_page(self) -> Optional[int]:
         """Claim one physical page (refcount 1): the free list first, then
-        LRU reclamation of an idle cached page. None when neither has
+        LRU reclamation of an idle cached page, which the host tier, when
+        armed, demotes (its bytes are gathered on the engine's stream
+        before this returns) instead of evicting. None when neither has
         one."""
         if self.free_pages:
             page = self.free_pages.pop()
         elif self.pcache is not None:
-            page = self.pcache.evict_lru(self.page_ref)
-            if page is None:
-                return None
+            if self.tier is not None:
+                taken = self.pcache.take_for_demotion(self.page_ref)
+                if taken is None:
+                    return None
+                page, ent = taken
+                self.tier.demote(page, ent)
+            else:
+                page = self.pcache.evict_lru(self.page_ref)
+                if page is None:
+                    return None
             m = self.engine._m
             if m is not None:
                 m.pc_evictions.inc()
         else:
             return None
         self.page_ref[page] = 1
+        ig = getattr(self.engine, "_integrity", None)
+        if ig is not None:
+            # a new owner: the checksum of the old content is stale
+            ig.forget_page(page)
         return page
 
     def release_page(self, page: int):
@@ -144,11 +195,28 @@ class CacheCoordinator:
 
     # ------------------------------------------------------- host tier
     def drain_tier(self):
-        """Apply the host tier's completions: a no-op, there is no tier
-        (the reference's behaviour with ``kv_host_pages=0``)."""
+        """Apply the host tier's completions (no-op without a tier): landed
+        spills become host-resident entries, verified promotions restore
+        into the pool. Engine thread, at step and admission boundaries."""
+        if self.tier is not None:
+            self.tier.drain()
 
     def shutdown_tier(self):
-        """Stop the host tier's spill worker: a no-op, there is none."""
+        """Stop the host tier's worker (front-end drain or shutdown,
+        quarantine). Idempotent; a no-op without a tier."""
+        if self.tier is not None:
+            self.tier.stop()
+
+    def export_handoff(self, tokens) -> Optional[dict]:
+        """The prompt's cached KV pages as a handoff payload
+        (``kv_tier.capture_handoff_spill``) for another engine's
+        ``adopt_kv_pages``. Engine thread; waits for the device-to-host
+        copy. None when nothing is cached."""
+        if self.pcache is None:
+            return None
+        from .kv_tier import capture_handoff_spill
+
+        return capture_handoff_spill(self.engine, tokens)
 
     # ---------------------------------------------------- prefix cache
     def splice(self, row, prefix) -> int:
@@ -158,16 +226,39 @@ class CacheCoordinator:
         engine's ``prefix-cache-corruption`` and ``bit-flip-kv`` fault
         points fire here, on a hit (``Engine._fi``).
 
+        With the host tier, demoted blocks of the chain are promoted (most
+        already are in flight: ``add_request`` prefetched them) and given a
+        bounded wait (``Engine._last_promote_wait_s`` records it); what
+        landed splices like any cached page, what did not rides the
+        suffix prefill. With the integrity sentinel, the matched pages'
+        checksums are verified before the splice commits: a mismatch
+        invalidates and contains them, and the admission recomputes.
+
         A FULL-prompt match still recomputes the last prompt token (its
         logits give the first generated token), and that token's K/V land
         in the last matched page, which is shared: the page is copied to a
         fresh one (``cow_pending``, flushed before the next program) and the
         splice reports ``prefix.size - 1`` cached tokens. Partial matches
         end at a page boundary, so their suffix opens fresh pages."""
+        eng = self.engine
+        eng._last_promote_wait_s = 0.0
         if self.pcache is None:
             return 0
+        if self.tier is not None:
+            _, _, demoted = self.pcache.lookup(prefix, touch=False,
+                                               tiers=True)
+            if demoted:
+                self.tier.request_promote(demoted)
+                t0 = time.perf_counter()
+                self.tier.await_promotions(demoted)
+                eng._last_promote_wait_s = time.perf_counter() - t0
+                if _TRACER.enabled:
+                    _TRACER.instant(
+                        "kvtier.promote_wait", "cache",
+                        waited_s=eng._last_promote_wait_s,
+                        pages=len(demoted))
         pages, matched = self.pcache.lookup(prefix)
-        fi = self.engine._fi
+        fi = eng._fi
         if matched and fi is not None \
                 and fi.fire("prefix-cache-corruption"):
             # invalidate on doubt: the doubted page's bytes are damaged
@@ -184,12 +275,22 @@ class CacheCoordinator:
             self.pcache.hits -= 1
             self.pcache.misses += 1
         if matched and fi is not None and fi.fire("bit-flip-kv"):
-            # silent damage, nothing invalidates: only an integrity check
-            # could catch it, and the port has none yet
+            # silent damage, nothing invalidates: only the checksum probe
+            # below stands between this flip and a wrong token
             doomed = pages[-1]
             if int(self.page_ref[doomed]) == 0:
                 self.corrupt_page(doomed)
-        m = self.engine._m
+        ig = eng._integrity
+        if matched and ig is not None:
+            # the lookup's token compare proves the entry; the probe
+            # proves the page's bytes since its registration
+            bad = ig.verify_pages(pages)
+            if bad:
+                eng._contain_kv_corruption(bad)
+                pages, matched = [], 0
+                self.pcache.hits -= 1
+                self.pcache.misses += 1
+        m = eng._m
         if m is not None:
             (m.pc_hits if matched else m.pc_misses).inc()
         if _TRACER.enabled:
@@ -234,13 +335,23 @@ class CacheCoordinator:
     def register(self, prefix, row):
         """Publish the freshly prefilled FULL pages of ``prefix`` (table
         ``row``) in the prefix cache. Blocks already cached keep their page
-        (the COW copy stays private)."""
+        (the COW copy stays private). With the integrity sentinel, every
+        page now backing these blocks is checksummed: a fresh page records
+        its sum, a page already cached (perhaps idle since its first
+        registration) is verified against it."""
         if self.pcache is None:
             return
         full = int(prefix.size) // self.page_size
         if full:
-            self.pcache.register(prefix[:full * self.page_size],
-                                 [int(row[i]) for i in range(full)])
+            blocks = prefix[:full * self.page_size]
+            self.pcache.register(blocks, [int(row[i]) for i in range(full)])
+            ig = self.engine._integrity
+            if ig is not None:
+                # the canonical pages (dedup may keep another's): a peek
+                pages, _ = self.pcache.lookup(blocks, touch=False)
+                bad = ig.note_registered(pages)
+                if bad:
+                    self.engine._contain_kv_corruption(bad)
 
     def drop_cow(self, row):
         """Cancel pending COW copies into ``row`` (an admission aborted
@@ -271,6 +382,7 @@ class CacheCoordinator:
         """The ``prefix-cache-corruption`` / ``bit-flip-kv`` fault points'
         damage: garbage layer-0 K rows for one cached page, written in
         place (the captured graphs hold these buffers). A page is only read
-        below ``lengths``, rows its next owner rewrites first."""
+        below ``lengths``, rows its next owner rewrites first, and a spliced
+        one is checked first when the integrity sentinel is on."""
         self.k_pages[0][int(page)].fill_(
             57 if self.engine.quantized else 1e3)

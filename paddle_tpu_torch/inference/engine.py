@@ -108,15 +108,33 @@ runs every call on one engine thread. ``step`` runs under
 ``torch.no_grad()`` (grad mode is per thread in PyTorch) and on the
 engine's CUDA device.
 
+* **Host KV tier** (``kv_host_pages=N``, with the prefix cache).
+  Reclaimed idle cached pages demote to a pinned host slab instead of
+  being evicted, and a later hash-chain hit promotes them back,
+  digest-verified (``kv_tier.py``); ``add_request`` prefetches the
+  promotions of a queued request's chain, the splice waits for them a
+  bounded time (the TTFT's ``promote_wait``), and completions apply at
+  every step and admission boundary (``drain_tier``).
+* **Data integrity** (``integrity="audit" | "strict" | {...}``). Weight
+  audits against load-time digests (a mismatch quarantines the engine),
+  KV page checksums verified at splice and re-registration (a mismatch
+  invalidates and preempts: a miss, never a wrong token) and, strict,
+  a shadow recompute of one greedy row every N steps
+  (``integrity.py``).
+* **KV handoff.** ``_cache.export_handoff(tokens)`` captures a prompt's
+  cached pages; :meth:`adopt_kv_pages` verifies and restores them in
+  another engine, whose next admission of the prompt splices them.
+
 The modes combine as in the reference: chunked with the prefix cache,
-chunked with spec, spec with the prefix cache. Left out of the reference
-(``ROADMAP.md`` queue A lists them): the draft-model drafter, the host KV
-tier, integrity audits and tp/ep. Passing any of their constructor
-arguments raises ``TypeError``.
+chunked with spec, spec with the prefix cache, the tier and the sentinel
+with any of them. Left out of the reference (``ROADMAP.md`` queue A lists
+them): the draft-model drafter and tp/ep. Passing any of their
+constructor arguments raises ``TypeError``.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -236,6 +254,7 @@ class Request:
     _t_first: Optional[float] = None   # first generated-token harvest
     _t_last: Optional[float] = None    # latest harvest (TPOT base)
     _admitted: bool = False            # queue wait recorded once
+    _t_promote_wait: float = 0.0       # host-tier promote wait in admit
 
     @property
     def failed(self) -> bool:
@@ -384,6 +403,34 @@ class _EngineMetrics:
             "multi-query slab-attention programs dispatched, by path "
             "(the fused Pallas kernel on TPU, its jnp twin on CPU)",
             labelnames=("path",))
+        # the host KV tier: spills, verified restores, lookups that reached
+        # host-resident content, blocks lost (host full, a failed digest),
+        # pages per tier, and a promotion's time from hit to landing
+        self.kv_demotions = counter(
+            "paddle_tpu_kv_tier_demotions_total",
+            "idle cached KV pages spilled device -> host (eviction "
+            "turned demotion)")
+        self.kv_promotions = counter(
+            "paddle_tpu_kv_tier_promotions_total",
+            "demoted KV pages restored host -> device after their "
+            "checksum verified")
+        self.kv_tier_hits = counter(
+            "paddle_tpu_kv_tier_hits_total",
+            "admission lookups whose hash chain reached host-tier "
+            "content (the hit that triggers an async promote-back)")
+        self.kv_drops = counter(
+            "paddle_tpu_kv_tier_drops_total",
+            "demoted blocks lost: host slab full, or a promotion "
+            "failed its demotion-time digest (invalidate + recompute)")
+        self.kv_tier_pages = gauge(
+            "paddle_tpu_kv_tier_pages",
+            "prefix-cache pages resident per tier (hbm = spliceable "
+            "device pages, host = spilled slab rows)",
+            labelnames=("tier",))
+        self.kv_promote_seconds = histogram(
+            "paddle_tpu_kv_tier_promote_seconds",
+            "hash-chain hit on a demoted page to its verified bytes "
+            "landing back in the device pool")
         self.steps_per_roundtrip = histogram(
             "paddle_tpu_engine_steps_per_roundtrip",
             "engine iterations batched behind one host round trip "
@@ -461,19 +508,21 @@ class _EngineMetrics:
     def _on_first_token(self, req: Request, now: float):
         """TTFT attribution at the first harvest: placement (submit to
         arrival: the front end's queue, with tracing on), queue wait
-        (arrival to admission), promote wait, prefill (admission to first
-        token). Always observed into the labelled histogram; laid down as
-        retroactive spans when the request carries a trace. The port has
-        no host KV tier, so the promote wait is 0; it stays a component so
-        that the labels and span names are the reference's."""
+        (arrival to admission, less the promote wait spent inside the
+        admission's splice), the promote wait, prefill (admission to first
+        token); their sum is the TTFT. Always observed into the labelled
+        histogram; laid down as retroactive spans when the request carries
+        a trace."""
         base = req._t_submit if req._t_submit is not None \
             else req._t_arrival
         admit = req._t_admit if req._t_admit is not None \
             else req._t_arrival
+        promote = req._t_promote_wait
         comps = (
             ("placement", base, req._t_arrival - base),
-            ("queue_wait", req._t_arrival, admit - req._t_arrival),
-            ("promote_wait", admit, 0.0),
+            ("queue_wait", req._t_arrival,
+             (admit - req._t_arrival) - promote),
+            ("promote_wait", admit - promote, promote),
             ("prefill", admit, now - admit),
         )
         for cname, _, dur in comps:
@@ -510,7 +559,8 @@ class Engine:
                  metrics: bool = True, max_queue: Optional[int] = None,
                  deadline_s: Optional[float] = None,
                  watchdog: Optional[dict] = None, multi_step: int = 1,
-                 fault_plan=None, disaggregate: bool = False):
+                 fault_plan=None, disaggregate: bool = False,
+                 kv_host_pages: int = 0, integrity=None):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -587,7 +637,16 @@ class Engine:
         if self._m is not None:
             self._m.pages_total.set(self.num_pages - 1)  # page 0 is trash
         self.runner = ModelRunner(self)
-        self._cache = CacheCoordinator(self, prefix_cache=prefix_cache)
+        # what the programs consume, in the reference's order: parameters,
+        # then buffers (a quantized model's int8/int4 weights and scales)
+        self._params = [p for _, p in model.named_parameters()]
+        self._params += [b for _, b in model.named_buffers()
+                         if b is not None]
+        # kv_host_pages > 0 arms the host tier under the pool
+        self._cache = CacheCoordinator(self, prefix_cache=prefix_cache,
+                                       kv_host_pages=kv_host_pages)
+        # the splice's promote wait, for the admitting request's TTFT
+        self._last_promote_wait_s = 0.0
         self._queue: List[Request] = []
         self._active: Dict[int, Request] = {}  # slot -> request
         self._last_tok = np.zeros((self.max_slots,), np.int64)
@@ -627,6 +686,12 @@ class Engine:
         self._spec_enabled = True
         self._slot_cap = self.max_slots
         self._watchdog = Watchdog(self, **(watchdog or {}))
+        # the integrity sentinel, built last: its weight baseline digests
+        # the weights as loaded, and the coordinator reads it by getattr
+        # while it is built above
+        from .integrity import IntegritySentinel
+
+        self._integrity = IntegritySentinel.build(self, integrity)
 
     # ------------------------------------------------ allocator delegation
     @property
@@ -652,6 +717,11 @@ class Engine:
     @property
     def _pcache(self):
         return self._cache.pcache
+
+    @property
+    def kv_tier(self):
+        """The host KV tier, or None with ``kv_host_pages=0``."""
+        return self._cache.tier
 
     # ------------------------------------------------------------ requests
     def _reject(self, exc):
@@ -776,6 +846,13 @@ class Engine:
             self._has_deadlines = True
         self._next_rid += 1
         self._queue.append(req)
+        if self._cache.tier is not None:
+            # promote prefetch: a demoted prefix starts its way back while
+            # the request queues; a peek, no stamp and no hit or miss
+            _, _, demoted = self._pcache.lookup(self._prefix(req),
+                                                touch=False, tiers=True)
+            if demoted:
+                self._cache.tier.request_promote(demoted)
         if self._m is not None:
             self._m.requests.inc()
         return req
@@ -933,6 +1010,119 @@ class Engine:
         self._free_slots.append(slot)
         if self._spec is not None:
             self._spec.drafter.release(slot)
+
+    def _contain_kv_corruption(self, bad_pages):
+        """The integrity sentinel's KV containment: a page whose checksum
+        failed leaves the cache with every descendant block (later lookups
+        miss and recompute), and every active slot whose table references
+        one of them is preempted (it re-prefills prompt plus generated
+        tokens, so its stream goes on exactly). A miss or a re-prefill,
+        never a wrong token."""
+        dead = set()
+        for pg in bad_pages:
+            for p in self._pcache.invalidate_page(int(pg)):
+                dead.add(int(p))
+                if self._integrity is not None:
+                    self._integrity.forget_page(p)
+                if int(self._page_ref[p]) == 0:
+                    self._free_pages.append(p)
+        dead.update(int(p) for p in bad_pages)
+        for slot in list(self._active):
+            if any(int(p) in dead for p in self.tables[slot] if p):
+                self._preempt(slot)
+
+    def adopt_kv_pages(self, payload) -> int:
+        """Adopt a KV handoff payload (``_cache.export_handoff`` of another
+        engine, or of the reference's): verify each page's digest, restore
+        the pages into fresh pool pages and publish them in the prefix
+        cache, so the next admission of the prompt splices them. Returns
+        the pages adopted; 0 on any mismatch or pool pressure (the caller
+        recomputes: a bad payload costs a miss, never a wrong token).
+
+        Verification stops at the first digest mismatch (chain keys commit
+        to the whole prefix, so the clean prefix stands on its own). Blocks
+        cached already on the device are skipped; a block whose entry sits
+        in the host tier re-binds to the restored page. With the integrity
+        sentinel, each adopted page is checksummed from its restored bytes
+        (the shipped ``dev_sums`` are the exporter's, and the reference's
+        f32 sums are not this sentinel's)."""
+        from .integrity import count_integrity_check
+        from .kv_tier import page_bytes
+
+        if self._pcache is None or not payload:
+            return 0
+        pc = self._pcache
+        if int(payload.get("page_size", -1)) != self.page_size:
+            return 0
+        tokens = np.asarray(payload.get("tokens", ()), np.int32)
+        rows_per_page = payload.get("pages") or []
+        digests = payload.get("digests") or []
+        n_blocks = min(tokens.size // self.page_size, len(rows_per_page),
+                       len(digests))
+        good = 0
+        for j in range(n_blocks):
+            d = hashlib.blake2b(digest_size=16)
+            for a in rows_per_page[j]:
+                d.update(page_bytes(a))
+            if d.hexdigest() != digests[j]:
+                break  # later blocks chain through this one
+            good += 1
+        count_integrity_check("kv_handoff", good == n_blocks)
+        if not good:
+            return 0
+        # skip what is resident already (a peek)
+        _, matched = pc.lookup(tokens[:good * self.page_size], touch=False)
+        fresh = []  # (block index, page)
+        for j in range(matched // self.page_size, good):
+            page = self._cache.alloc_page()
+            if page is None:
+                break  # pool pressure: adopt the prefix that fits
+            fresh.append((j, int(page)))
+        if not fresh:
+            return 0
+        pages_flat = self._cache.pages_flat()
+
+        def row(j, i):  # a host tensor, whatever the payload holds
+            a = rows_per_page[j][i]
+            return a if isinstance(a, torch.Tensor) \
+                else torch.from_numpy(np.array(a))
+
+        if any(len(rows_per_page[j]) != len(pages_flat)
+               or row(j, i).dtype != b.dtype
+               or tuple(row(j, i).shape) != tuple(b.shape[1:])
+               for j, _ in fresh[:1] for i, b in enumerate(pages_flat)):
+            # another pool's layout (dtype, width, int8 pages): no restore
+            for _, p in fresh:
+                self._cache.release_page(p)
+            return 0
+        for off in range(0, len(fresh), 32):
+            chunk = fresh[off:off + 32]
+            payload_dev = [torch.stack([row(j, i) for j, _ in chunk])
+                           .to(self.device)
+                           for i in range(len(pages_flat))]
+            idx = torch.as_tensor([p for _, p in chunk], dtype=torch.int64,
+                                  device=self.device)
+            self.runner.restore_pages(pages_flat, idx, payload_dev)
+        end = fresh[-1][0] + 1
+        table = [0] * end
+        for j, p in fresh:
+            table[j] = p
+        pc.register(tokens[:end * self.page_size], table)
+        adopted = []
+        for _, p in fresh:
+            # ref 1 -> 0: a registered page stays cached and idle, one an
+            # existing entry beat goes back to the free list
+            registered = pc.contains_page(p)
+            self._cache.release_page(p)
+            if registered:
+                adopted.append(p)
+        if self._integrity is not None and adopted:
+            self._integrity.note_registered(adopted)
+        if _TRACER.enabled:
+            _TRACER.instant("cluster.kv_adopt", "cache",
+                            adopted=len(adopted), shipped=int(n_blocks),
+                            verified=int(good))
+        return len(adopted)
 
     def _reset_pool(self):
         """Empty the allocator after a step fault: every page and slot free,
@@ -1178,6 +1368,8 @@ class Engine:
         """Launch one bucketed prefill for every admissible queued request
         without waiting for it. Returns ``(admits, tok, keys, bad)`` with
         device tensors the step fetches together with its decode chain."""
+        # a promotion landed since the last step splices in this wave
+        self._cache.drain_tier()
         admits: List[_AdmitRec] = []
         while (self._queue and self._free_slots
                and len(self._active) + len(admits) < self._slot_cap):
@@ -1191,6 +1383,10 @@ class Engine:
             slot = self._free_slots.pop()
             self._queue.pop(0)
             base = self._cache.splice(self.tables[slot], prefix)
+            if not req._admitted:
+                # the splice's promote wait is this request's TTFT
+                # component (first admission only, as the queue wait)
+                req._t_promote_wait += self._last_promote_wait_s
             try:
                 got = self._ensure_pages(slot, prefix.size)
             except RequestError as e:
@@ -1236,7 +1432,8 @@ class Engine:
         if _TRACER.enabled:
             _TRACER.instant("engine.admit", "engine",
                             parent=req.trace, rid=req.rid,
-                            slot=req.slot)
+                            slot=req.slot,
+                            promote_wait_s=req._t_promote_wait)
 
     def _prefill_wave(self, rows):
         """Launch ONE bucketed prefill for ``rows`` of (req, prefix,
@@ -1661,6 +1858,9 @@ class Engine:
         budget = self.multi_step if n is None else max(1, int(n))
         batched = 1
         try:
+            # the host tier's completions land at every step boundary, so
+            # the tier converges while the engine decodes
+            self._cache.drain_tier()
             if self._wants_mixed():
                 if self.disaggregate:
                     self._disagg_step()
@@ -1674,6 +1874,10 @@ class Engine:
                 batched = self._chained_step(
                     1 if self._queue else budget, t0)
             self._watchdog.note_step_ok()
+            if self._integrity is not None:
+                # the weight probe on idle steps, the shadow every N;
+                # detections quarantine or fail a request inside
+                self._integrity.on_step()
         except Exception as e:
             self._recover_step_fault(e)
         if self._moe_pending:
@@ -1921,6 +2125,7 @@ class Engine:
         prefill; their first chunk rides the very next mixed step. Pages
         are taken for the first chunk only."""
         chunk = self.prefill_chunk
+        self._cache.drain_tier()  # landed promotions splice here
         while (self._queue and self._free_slots
                and len(self._active) < self._slot_cap):
             req = self._queue[0]
@@ -1934,6 +2139,8 @@ class Engine:
             slot = self._free_slots.pop()
             self._queue.pop(0)
             base = self._cache.splice(self.tables[slot], prefix)
+            if not req._admitted:
+                req._t_promote_wait += self._last_promote_wait_s
             try:
                 got = self._ensure_pages(slot, min(prefix.size, base + chunk))
             except RequestError as e:

@@ -21,7 +21,7 @@ __all__ = [
     "EngineError", "RequestError", "ValidationError", "AdmissionRejected",
     "QueueFull", "DeadlineExceeded", "CancelledError", "PoolExhausted",
     "NumericsError", "StepFault", "CallbackError", "RetriesExhausted",
-    "EngineFault", "failure_reason",
+    "IntegrityError", "EngineFault", "failure_reason",
 ]
 
 
@@ -109,6 +109,20 @@ class RetriesExhausted(RequestError):
     times."""
 
     reason = "retries_exhausted"
+
+
+class IntegrityError(RequestError):
+    """Silent data corruption caught by the integrity layer
+    (``integrity.py``): a KV page's checksum changed between registration
+    and splice, a weight block's audit digest drifted from the load-time
+    baseline, or a shadow-recomputed token disagrees with the one the
+    paged path delivered. Its cause is never the request: the containment
+    ladder decides the blast radius (a cache miss for KV, a requeue or a
+    failed request for an active page or a shadow divergence, quarantine
+    for weights). A handler that can absorb it must re-raise it or route
+    it into the taxonomy."""
+
+    reason = "integrity"
 
 
 class EngineFault(EngineError):

@@ -16,6 +16,12 @@ eagerly. Each new program key counts one
 its compiles (decode per ``(nb, k, sampling)``), so both engines report
 the same program lattice. There is no mesh.
 
+The host KV tier, the KV handoff and the integrity sentinel reach the
+pool and the weights through three helpers: :meth:`ModelRunner.capture_pages`
+(a gather of whole pages), :meth:`ModelRunner.restore_pages` (an in-place
+``index_copy_`` into the pool's tensors, which the captured graphs hold)
+and :meth:`ModelRunner.fetch_param_slice` (the bytes a program consumes).
+
 :class:`GraphSet` and :class:`CapturedStep` carry the capture and the
 replay; ``GenerationMixin.generate`` captures its decode step with them
 too.
@@ -26,13 +32,35 @@ import contextlib
 import gc
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import build
 
-__all__ = ["ModelRunner", "GraphSet", "CapturedStep"]
+__all__ = ["ModelRunner", "GraphSet", "CapturedStep", "int_words",
+           "host_words"]
+
+# the integer word of each element size: a tensor viewed as these words
+# keeps its bytes, and numpy holds every one of them (it has no bf16)
+_WORDS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def int_words(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as signed integer words of its element size (a bf16
+    tensor as int16): the same bytes, in a dtype every backend sums
+    exactly and numpy can hold."""
+    if not t.dtype.is_floating_point:
+        return t
+    return t.view(_WORDS[t.element_size()])
+
+
+def host_words(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``'s raw words (``int_words``): its bytes
+    are the tensor's bytes, in the layout the reference's host copy of the
+    same values has."""
+    return int_words(t.detach()).contiguous().cpu().numpy()
 
 
 class _CudaGraph:
@@ -284,6 +312,58 @@ class ModelRunner:
         if (nb, sampling) not in self._verify_shapes:
             self._verify_shapes.add((nb, sampling))
             self._count("verify")
+
+    # ------------------------------------------------- page and weight bytes
+    @staticmethod
+    def capture_pages(pages_flat: List[torch.Tensor],
+                      idx: torch.Tensor) -> List[torch.Tensor]:
+        """Gather pages ``idx`` out of every pool buffer (``pages_flat``
+        order: k, v, scale per layer), on the current stream: fresh
+        ``[len(idx), page_size, lanes]`` tensors, so later writes into the
+        pages leave them as they were."""
+        return [b.index_select(0, idx) for b in pages_flat]
+
+    @staticmethod
+    def restore_pages(pages_flat: List[torch.Tensor], idx: torch.Tensor,
+                      payload: List[torch.Tensor]):
+        """Write ``payload`` (one ``[len(idx), ...]`` tensor per buffer, on
+        the pool's device) into pages ``idx`` of every pool buffer, in
+        place: the captured graphs read these buffers by address."""
+        for b, x in zip(pages_flat, payload):
+            b.index_copy_(0, idx, x)
+
+    @staticmethod
+    def capture_page_row(pages_flat: List[torch.Tensor],
+                         page: int) -> torch.Tensor:
+        """One page of every pool buffer as one contiguous byte row
+        (``uint8``, ``pages_flat`` order), gathered on the current stream
+        in one concatenation: the host tier moves a page as one copy."""
+        return torch.cat([b[int(page)].reshape(-1).view(torch.uint8)
+                          for b in pages_flat])
+
+    @classmethod
+    def restore_page_rows(cls, pages_flat: List[torch.Tensor],
+                          idx: torch.Tensor, rows: torch.Tensor):
+        """Inverse of :meth:`capture_page_row` for ``len(idx)`` pages:
+        ``rows`` (``uint8 [n, page bytes]``, on the pool's device) split
+        into each buffer's views and written by :meth:`restore_pages`."""
+        payload, off = [], 0
+        for b in pages_flat:
+            size = b[0].numel() * b.element_size()
+            payload.append(rows[:, off:off + size].view(b.dtype)
+                           .view((rows.shape[0],) + tuple(b.shape[1:])))
+            off += size
+        cls.restore_pages(pages_flat, idx, payload)
+
+    def fetch_param_slice(self, i: int, start: int,
+                          stop: Optional[int]) -> np.ndarray:
+        """Host copy of elements ``[start, stop)`` (row-major flat order;
+        ``stop=None``: to the end) of parameter ``i`` of
+        ``Engine._params``, as raw words (``host_words``): the bytes the
+        programs consume, in the reference's byte order."""
+        flat = self.engine._params[i].detach().reshape(-1)
+        return host_words(flat[int(start):None if stop is None
+                               else int(stop)])
 
     def get_verify(self, sampling: bool) -> Callable:
         """The spec-decode verify step (one callable per sampling flag; it

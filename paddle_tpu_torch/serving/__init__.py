@@ -10,6 +10,7 @@
 * :mod:`server`: ``ApiServer``, an OpenAI-compatible streaming HTTP server
   (stdlib asyncio; SSE ``/v1/completions`` and ``/v1/chat/completions``).
 * :mod:`loadgen`: open- and closed-loop load that drives a front end.
+* :mod:`replica`: the KV handoff payload's JSON codec (``POST /v1/kv``).
 
 The reference's multi-replica layer (``Router``, ``Replica``,
 ``ClusterCoordinator``) is not ported yet.

@@ -346,6 +346,21 @@ class ServingFrontend:
             raise box["exc"]
         return box["result"]
 
+    # ------------------------------------------------------- KV handoff
+    def export_kv(self, tokens, timeout: float = 10.0) -> Optional[Dict]:
+        """The prompt's cached KV pages as a handoff payload
+        (``CacheCoordinator.export_handoff``), captured on the engine
+        thread through :meth:`call`; None when nothing is cached."""
+        return self.call(
+            lambda: self.engine._cache.export_handoff(tokens), timeout)
+
+    def import_kv(self, payload, timeout: float = 10.0) -> int:
+        """Adopt a handoff payload into this engine's pool
+        (``Engine.adopt_kv_pages``, digest-verified) on the engine thread;
+        returns the pages adopted (0: the caller recomputes)."""
+        return self.call(
+            lambda: self.engine.adopt_kv_pages(payload), timeout)
+
     def cancel(self, ticket: StreamTicket):
         """Cancel a stream (any thread): a queued ticket dies in the
         fair queue; an admitted one goes through ``Engine.cancel`` on

@@ -20,13 +20,19 @@ Endpoints (the vLLM-compatible subset):
   in bounds); 503 with ``Retry-After`` otherwise.
 * ``GET /v1/models``: the configured model id.
 * ``GET /debug/trace``: the tracer's ring (tracing mode ``on`` only).
+* ``POST /v1/kv``: the KV handoff. ``{"op": "export", "tokens": [...]}``
+  answers ``{"payload": ...}`` (the prompt's cached pages, encoded by
+  ``replica.encode_kv_payload``, or null); ``{"op": "import", "payload":
+  ...}`` adopts one and answers ``{"adopted": n}``. 400 on bad JSON or an
+  unknown ``op``, 503 (``kv_handoff``) when the handoff fails. Both run in
+  the executor, so the event loop goes on streaming. A payload is the
+  pages' bytes (8 MiB a page at ``llama2_7b``, bf16, page size 16), so
+  this route takes bodies up to 2 GiB where the others stop at 8 MiB.
 
 Completions accept ``resume_tokens`` (tokens the stream already emitted
 elsewhere): the engine re-admits prompt plus them and streams only the
 continuation. 429s carry ``Retry-After`` from the queue depth;
 engine-scoped faults map to 503 with the taxonomy slug, never a bare 500.
-The reference's cluster KV handoff (``POST /v1/kv``) is not ported: the
-path answers 404 like any unknown route.
 
 Tenancy: the ``X-Tenant`` header (or the OpenAI ``user`` field) keys
 admission control and weighted fairness. Backpressure (``QueueFull``)
@@ -51,6 +57,7 @@ from .frontend import ServingFrontend
 __all__ = ["ApiServer", "encode_text", "render_tokens"]
 
 _MAX_BODY = 8 << 20  # request bodies beyond 8 MiB are refused
+_MAX_KV_BODY = 2 << 30  # but a handoff's pages may reach 2 GiB
 
 
 def encode_text(text: str, vocab_size: int) -> List[int]:
@@ -159,7 +166,7 @@ class ApiServer:
             if _:
                 headers[name.strip().lower()] = value.strip()
         length = int(headers.get("content-length", "0") or "0")
-        if length > _MAX_BODY:
+        if length > (_MAX_KV_BODY if path == "/v1/kv" else _MAX_BODY):
             return None
         body = await reader.readexactly(length) if length else b""
         return method, path, headers, body
@@ -225,6 +232,8 @@ class ApiServer:
                 "mode": TRACER.mode, "process": TRACER.process,
                 "capacity": TRACER.capacity,
                 "records": TRACER.snapshot()})
+        if method == "POST" and path == "/v1/kv":
+            return await self._kv(body, writer)
         if method == "POST" and path in ("/v1/completions",
                                          "/v1/chat/completions"):
             try:
@@ -250,6 +259,44 @@ class ApiServer:
             "not_found", f"no route {method} {path}"))
 
     # --------------------------------------------------------- completions
+    async def _kv(self, body, writer) -> bool:
+        """``POST /v1/kv``: export the prompt's cached pages, or import a
+        shipped payload; both blocking, so both run in the executor."""
+        from .replica import decode_kv_payload, encode_kv_payload
+
+        loop = asyncio.get_running_loop()
+        try:
+            # an import body is the pages' bytes: parse it off the loop
+            payload = await loop.run_in_executor(
+                None, json.loads, body.decode() or "{}")
+        except (ValueError, UnicodeDecodeError):
+            return await self._send(writer, 400, _err(
+                "invalid_json", "body is not valid JSON"))
+        try:
+            op = payload.get("op")
+            if op == "export":
+                toks = payload.get("tokens") or []
+                out = await loop.run_in_executor(
+                    None, self.frontend.export_kv, toks)
+                enc = None if not out else await loop.run_in_executor(
+                    None, encode_kv_payload, out)
+                return await self._send(writer, 200, {"payload": enc})
+            if op == "import":
+                shipped = payload.get("payload") or {}
+                dec = {} if not shipped else await loop.run_in_executor(
+                    None, decode_kv_payload, shipped)
+                adopted = await loop.run_in_executor(
+                    None, self.frontend.import_kv, dec)
+                return await self._send(writer, 200,
+                                        {"adopted": int(adopted)})
+            return await self._send(writer, 400, _err(
+                "validation", "op must be 'export' or 'import'"))
+        except Exception as e:  # noqa: BLE001 - the caller recomputes
+            # a failed handoff is a recompute on the caller's side, never
+            # a wedged endpoint
+            return await self._send(writer, 503, _err(
+                "kv_handoff", f"{type(e).__name__}: {e}"))
+
     def _prompt_ids(self, payload: dict, chat: bool) -> List[int]:
         if chat:
             msgs = payload.get("messages")

@@ -24,7 +24,11 @@ against its materialized-logits version; the compiled step: the engine's
 decode chain and verify step and ``generate``'s decode step as CUDA graph
 replays against the same steps run eagerly (bitwise), the launch counts
 after replays, two engines in one process, an MoE engine with drops run
-four times, and a capture while dead graphs await collection.
+four times, and a capture while dead graphs await collection; the host
+KV tier's demote/promote round trip while decode graphs replay over the
+pool, the integrity sentinel's page checksum at every wave width (and
+equal to the CPU's), and ``bit-flip-weight``'s in-place write seen by a
+replayed graph.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -1968,3 +1972,115 @@ def test_capture_with_dead_graphs_awaiting_collection(cuda):
         gc.set_threshold(*old)
     assert got == want
     assert all(s.graph is not None for s in eng.runner._graphs.steps.values())
+
+
+# ------------------------------------- the host KV tier and the integrity
+# sentinel on the card (inference/kv_tier.py, inference/integrity.py)
+def test_tier_round_trip_under_replaying_graphs_keeps_bytes(cuda):
+    """Pages demoted while decode graphs replay over the pool (and write
+    into the surrendered pages right after) come back byte for byte: the
+    gather runs on the engine's stream before any later write, the copy
+    to pinned memory on the tier's own stream."""
+    import time
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference.engine import Engine
+
+    model = _graph_models(cuda)["dense"]
+    eng = Engine(model, max_slots=2, num_pages=24, page_size=8,
+                 chunk_size=4, prefix_cache=True, kv_host_pages=64)
+    tier = eng.kv_tier
+    seen = {}
+    real = tier.demote
+
+    def demote(page, ent):  # what the page held when it was surrendered
+        seen[ent.key] = [b[page].clone() for b in eng._cache.pages_flat()]
+        real(page, ent)
+
+    tier.demote = demote
+    try:
+        tpl = np.random.default_rng(3).integers(0, 128, (48,))
+        eng.add_request(np.concatenate([tpl, [1, 2, 3]]), 2)
+        eng.run()
+        pc = eng._pcache
+        ents = [pc._by_page[p] for p in pc.lookup(tpl, touch=False)[0]]
+        r = np.random.default_rng(9)
+        for _ in range(8):
+            eng.add_request(r.integers(0, 128, (40,)), 12)
+        eng.run()
+        assert any(s.graph is not None
+                   for s in eng.runner._graphs.steps.values())
+        dl = time.monotonic() + 30
+        while time.monotonic() < dl and \
+                not all(e.tier == "host" for e in ents):
+            eng._cache.drain_tier()
+            time.sleep(0.01)
+        assert all(e.tier == "host" for e in ents)
+        _, _, demoted = pc.lookup(tpl, touch=False, tiers=True)
+        tier.request_promote(demoted)
+        tier.await_promotions(demoted, budget_s=30.0)
+        pages, matched = pc.lookup(tpl, touch=False)
+        assert matched == 48
+        torch.cuda.synchronize()
+        for p in pages:
+            want = seen[pc._by_page[p].key]
+            for b, w in zip(eng._cache.pages_flat(), want):
+                assert torch.equal(b[p], w)
+        assert tier.promotions >= len(pages) and tier.drops == 0
+        assert {d for d, *_ in tier.copy_log} == {"d2h", "h2d"}
+    finally:
+        eng._cache.shutdown_tier()
+
+
+def test_page_checksum_is_invariant_to_wave_width(cuda):
+    """One page's checksum in waves of widths 1..32 at ``llama2_7b``'s
+    page shape (bf16, 32 layers of k and v), and equal to the CPU's: the
+    integer sum has no reduction order."""
+    from paddle_tpu_torch.inference.integrity import page_checksums
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bufs = [torch.randn((40, 16, 4096), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(64)]
+    want = int(page_checksums([b.cpu() for b in bufs],
+                              torch.tensor([7]))[0])
+    for width in (1, 2, 4, 8, 16, 32):
+        others = [p for p in range(40) if p != 7][:width - 1]
+        for at in {0, width // 2, width - 1}:
+            idx = others[:at] + [7] + others[at:]
+            got = page_checksums(bufs, torch.tensor(idx, device=cuda))
+            assert int(got[at]) == want, (width, at)
+
+
+def test_bit_flip_weight_is_seen_by_a_replayed_graph(cuda):
+    """The sentinel's ``bit-flip-weight`` writes into the tensor a captured
+    graph reads: a graph that copies the weight, replayed after the flip,
+    copies the flipped weight, and the audit catches it."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.inference.runner import GraphSet
+
+    model = _graph_models(cuda)["dense"]
+    eng = Engine(model, max_slots=2, num_pages=32, page_size=8,
+                 chunk_size=4, fault_plan="bit-flip-weight:at=1",
+                 integrity={"mode": "audit", "weight_audit_every": 1})
+    w = eng._params[0]
+    before = w.detach().clone()
+    out = torch.empty_like(before)
+    graphs = GraphSet(cuda)
+    step = graphs.get("copy", lambda: (lambda: out.copy_(w), None))
+    assert step.graph is not None
+    try:
+        assert not eng._integrity.audit_weights_once()
+        assert eng._watchdog.quarantined
+        step.run()
+        torch.cuda.synchronize()
+        assert torch.equal(out, w) and not torch.equal(out, before)
+        diff = (out.view(torch.int16) != before.view(torch.int16))
+        assert int(diff.sum()) == 1
+    finally:
+        with torch.no_grad():  # the model is shared by the other tests
+            w.copy_(before)
+    assert np.array_equal(w.view(torch.int16).cpu().numpy(),
+                          before.view(torch.int16).cpu().numpy())

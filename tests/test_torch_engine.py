@@ -3,7 +3,10 @@ same weights: the same mixed-length requests (f32, ``max_slots=2``,
 ``page_size=8``) must give token-identical streams — all greedy, a sampled
 mix with temperatures and seeds, a pool small enough to force recompute
 preemption, and an eos. Plus the port's up-front validation, streaming,
-the resume path, and ``TypeError`` for every unported engine knob (the
+the resume path, ``TypeError`` for every unported engine knob, and the
+construction rules of ``kv_host_pages=`` and ``integrity=`` against the
+reference's (their behaviour is in ``test_torch_kv_tier.py`` and
+``test_torch_integrity.py``; the
 modes that ride the verify kernel are in ``test_torch_serving_modes.py``;
 pre-admission, the measured boundary cost, ``disaggregate=`` and
 ``fault_plan=`` in ``test_torch_scheduler.py`` and
@@ -172,12 +175,52 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_host_pages=8), dict(spec="draft"), dict(tp=2), dict(ep=2),
-    dict(integrity="audit"), dict(draft_model=object())])
+    dict(spec="draft"), dict(tp=2), dict(ep=2), dict(draft_model=object())])
 def test_unported_knobs_raise_type_error(models, knob):
     _, tm = models
     with pytest.raises(TypeError):
         Engine(tm, num_pages=32, device="cpu", **GEOM, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(prefix_cache=True, kv_host_pages=8), dict(integrity="audit"),
+    dict(integrity="strict"), dict(integrity={"shadow_every": 2}),
+    dict(prefix_cache=True, kv_host_pages=8, integrity="audit")])
+def test_tier_and_integrity_knobs_construct(models, knob):
+    """The two knobs build what the reference builds: a host tier of the
+    asked size with its worker, a sentinel of the asked mode."""
+    jm, tm = models
+    je = JaxEngine(jm, num_pages=32, dtype=jnp.float32, **GEOM, **knob)
+    te = Engine(tm, num_pages=32, device="cpu", **GEOM, **knob)
+    try:
+        assert (te.kv_tier is None) == (je.kv_tier is None)
+        if te.kv_tier is not None:
+            assert te.kv_tier.host_pages == je.kv_tier.host_pages == 8
+            assert te.kv_tier._worker.is_alive()
+        assert (te._integrity is None) == (je._integrity is None)
+        if te._integrity is not None:
+            for f in ("mode", "weight_audit_every", "weight_blocks",
+                      "kv_checksums", "shadow_every", "shadow_tol"):
+                assert getattr(te._integrity.cfg, f) == \
+                    getattr(je._integrity.cfg, f), f
+            # one digest a (parameter, block), the reference's count
+            assert len(te._integrity._probe_targets) == \
+                len(je._integrity._probe_targets)
+    finally:
+        te._cache.shutdown_tier()
+        je._cache.shutdown_tier()
+    assert te.kv_tier is None or not te.kv_tier._worker.is_alive()
+
+
+def test_kv_host_pages_needs_the_prefix_cache(models):
+    jm, tm = models
+    with pytest.raises(ValueError, match="prefix_cache"):
+        JaxEngine(jm, num_pages=32, dtype=jnp.float32, kv_host_pages=8,
+                  **GEOM)
+    with pytest.raises(ValueError, match="prefix_cache"):
+        Engine(tm, num_pages=32, device="cpu", kv_host_pages=8, **GEOM)
+    with pytest.raises(ValueError, match="integrity="):
+        Engine(tm, num_pages=32, device="cpu", integrity="paranoid", **GEOM)
 
 
 @pytest.mark.parametrize("prompt,budget,kw,exc", [

@@ -513,7 +513,7 @@ class TestApiServer:
                 == b2["choices"][0]["token_ids"])
 
     def test_unknown_routes_answer_404(self, server):
-        for method, path in (("GET", "/nope"), ("POST", "/v1/kv")):
+        for method, path in (("GET", "/nope"), ("POST", "/v1/embeddings")):
             req = urllib.request.Request(
                 server.base + path, method=method,
                 data=b"{}" if method == "POST" else None)
