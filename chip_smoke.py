@@ -124,6 +124,33 @@ Phases, in order; any failure exits non-zero:
               two layers: the tier under churn, the audit with
               ``bit-flip-kv`` and a handed-off prompt each give the plain
               run's streams, greedy and sampled.
+9. cluster  — multi-replica serving at ``llama2_7b`` bf16 full depth,
+              prefix cache on, every kernel built before any engine
+              thread or worker starts. (a) Two ``InProcReplica``s on one
+              model (4 slots, 512 pages each) behind ``Router(heartbeat_s=
+              0.1)``, ``hedge_ms`` and ``stall_s`` set from a warm
+              replica's TTFT: 16 requests from 4 client threads (prompts
+              16-512, 128 new, 4 sampled), replica 0 poisoned once 16
+              tokens reached the clients; no request failure, a
+              migration, the supervised restart back ready, device memory
+              after it within one pool of before; the migrated streams'
+              stall, the others' TTFT, the restart's seconds. (b)
+              ``pools={"prefill": 1, "decode": 1}``: 8 requests on a
+              shared 512-token prefix (served once on each replica first)
+              with 32-token tails, 64 new, from one client: handoffs (each
+              export's and adoption's ms, pages and bytes, the decode
+              leg's TTFT), then the same under ``kv-handoff-corrupt:
+              every=1``: fallbacks. (c) Two ``SubprocessReplica`` workers
+              of ``examples/serve_llama_paged_torch.py --model llama2_7b``
+              (prefix cache off), one SIGKILLed mid-stream: no failure, a
+              migration, the restarted worker ready; the workers stop
+              before the next part. bf16 rounds a re-prefill, the suffix
+              kernel and another batch size apart from the direct run, so
+              at bf16 the streams equal to it are counted and logged;
+              then f32, TF32 off, two layers at ``llama2_7b`` widths, (a)
+              and (b) again, and (c) with the example's f32 ``small``
+              workers: there every stream must equal the direct run (the
+              unkilled worker's stream). #1/#2/#3 launch counts a part.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -178,7 +205,11 @@ spec-verify rows, to show what binds it. ``--phases build,sched`` runs
 each scheduler piece against the same engine without it, in turns:
 pre-admission on pass (1)'s items, the measured boundary cost against the
 pinned prior on a steady decode round, ``disaggregate=True`` against the
-plain mixed step.
+plain mixed step. ``--phases build,loadgen`` runs the four ported
+serving benches (``serving/loadgen.py``: slo, trace, failover, cluster)
+at ``gpt2_small()`` bf16 and logs each returned dict; only their
+correctness parts (no request failure, the failover bench's migrations)
+fail it.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -202,8 +233,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
-          "greedy", "tier")
-OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched")
+          "greedy", "tier", "cluster")
+OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen")
 
 
 def log(*a):
@@ -2001,7 +2032,8 @@ def main(argv=None):
         kernel_stats.update(stats)
         launches.update(n)
     for phase, run in (("main", phase_main), ("serve", phase_serve),
-                       ("generate", phase_generate), ("tier", phase_tier)):
+                       ("generate", phase_generate), ("tier", phase_tier),
+                       ("cluster", phase_cluster)):
         if phase in phases:
             for name, n in run(ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -2015,6 +2047,8 @@ def main(argv=None):
         phase_anatomy(ident)
     if "sched" in phases:
         phase_sched(ident)
+    if "loadgen" in phases:
+        phase_loadgen(ident)
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -5520,6 +5554,609 @@ def tier_identity_f32(ident, total):
         torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ------------------------------------------------------------ phase 9
+def _warm_graphs(eng):
+    """Capture ``eng``'s decode token step for every slot bucket, greedy
+    and sampled, at depth 1 (one graph serves every depth): no measured
+    window or restart then pays a first capture. The dummy chains write
+    only to the trash page."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import _pow2ceil
+
+    nb_full = _pow2ceil(eng.max_slots)
+    for nb in [1 << i for i in range(nb_full.bit_length())]:
+        for sampling in (False, True):
+            def z(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=eng.device)
+            eng.runner.get_decode(nb, 1, sampling)(
+                z((nb, eng.max_pages_per_seq), torch.int32),
+                z((nb,), torch.int32), z((nb,), torch.int64),
+                z((nb,), torch.float32), z((nb, 2), torch.int64))
+    torch.cuda.synchronize()
+
+
+def _two_phase_warm(eng, shared):
+    """Serve ``shared`` once on ``eng`` (one token), so its blocks are in
+    the prefix cache before any item arrives."""
+    req = eng.add_request(shared, 1)
+    eng.run()
+    if req.failed:
+        raise AssertionError(f"warming the shared prefix: {req.state}")
+
+
+def _two_phase(make_engine, items, shared, fresh_decode):
+    """The path a handed-off request takes, on engines with no router, one
+    item at a time as the pools pass sends them: an engine with ``shared``
+    cached serves each item to its first token, then an engine with the
+    item's prompt cached (the same one) or, with ``fresh_decode``, a fresh
+    one with only ``shared`` cached (a fallback recomputes there) resumes
+    each item from its first token. Returns the streams."""
+    import torch
+
+    def one(eng, p, m, t, s, resume=None):
+        req = eng.add_request(p, m, temperature=t, seed=s,
+                              resume_tokens=resume)
+        eng.run()
+        return req
+
+    eng = make_engine()
+    _two_phase_warm(eng, shared)
+    first = [one(eng, p, 1, t, s) for p, _m, t, s in items]
+    if fresh_decode:
+        del eng
+        gc.collect()
+        eng = make_engine()
+        _two_phase_warm(eng, shared)
+    reqs = [one(eng, p, m, t, s, list(f.tokens))
+            for (p, m, t, s), f in zip(items, first)]
+    for r, (p, m, _t, _s) in zip(reqs, items):
+        if r.failed or len(r.tokens) != m:
+            raise AssertionError(f"two-phase run: {r.state} "
+                                 f"{len(r.tokens)}/{m}")
+    out = [list(r.tokens) for r in reqs]
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_diff(tag, got, want):
+    """The items whose stream differs from the target, logged with the
+    first token where each parts; returns their count."""
+    bad = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            bad += 1
+            at = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                      min(len(g), len(w)))
+            log(f"{tag}: item {i} parts from the direct run at token {at} "
+                f"of {len(w)} (got {len(g)} tokens)")
+    return bad
+
+
+class _TimedReplicaMixin:
+    """Times an in-process replica's KV export and import, and the first
+    token of every resumed stream it runs (the decode leg of a handoff or a
+    migration), for the cluster phase's report."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.times = {"export": [], "import": [], "leg_ttft": []}
+
+    def export_kv(self, tokens):
+        t0 = time.perf_counter()
+        out = super().export_kv(tokens)
+        self.times["export"].append(
+            ((time.perf_counter() - t0) * 1e3,
+             len(out["pages"]) if out else 0,
+             int(out.get("nbytes", 0)) if out else 0))
+        return out
+
+    def import_kv(self, payload):
+        t0 = time.perf_counter()
+        n = super().import_kv(payload)
+        self.times["import"].append(((time.perf_counter() - t0) * 1e3,
+                                         n))
+        return n
+
+    def launch(self, stream):
+        if stream.spec.resume_tokens:
+            t0 = time.perf_counter()
+            inner, seen = stream.on_chunk, []
+
+            def first(s, toks):
+                if not seen:
+                    seen.append(1)
+                    self.times["leg_ttft"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                inner(s, toks)
+
+            stream.on_chunk = first
+        return super().launch(stream)
+
+
+def _route_items(router, items, threads, on_progress=None):
+    """Serve ``items`` [(prompt, new, temperature, seed)] through
+    ``router`` from ``threads`` client threads (each submits its next item
+    when its last one ends). Returns the tickets in item order and each
+    ticket's chunk arrival times (host clock)."""
+    import threading
+
+    tickets, arrivals = [None] * len(items), [[] for _ in items]
+    lock = threading.Lock()
+
+    def job(i):
+        p, m, t, s = items[i]
+
+        def on_chunk(chunk, i=i):
+            if chunk:
+                arrivals[i].append(time.perf_counter())
+                if on_progress is not None:
+                    on_progress(len(chunk))
+
+        tk = router.submit(p, m, temperature=t, seed=s, on_chunk=on_chunk)
+        with lock:
+            tickets[i] = tk
+        tk.result(timeout=900)
+        if tk.failure_reason is not None or len(tk.tokens) != m:
+            raise AssertionError(f"item {i} ended {tk.failure_reason} with "
+                                 f"{len(tk.tokens)}/{m} tokens")
+        return tk
+
+    _run_clients([lambda i=i: job(i) for i in range(len(items))], threads)
+    return tickets, arrivals
+
+
+def _failover_pass(tag, model, geo, items, want, ident, hard=True):
+    """Two in-process replicas sharing ``model`` behind a ``Router``; once
+    16 tokens reached the clients, replica 0 is poisoned. Checks: every
+    stream equals ``want`` (``hard``: else the equal count is logged), no
+    request failure, a migration, the supervised restart back ready, and
+    device memory after it within one pool of the memory before the kill.
+    Returns the victim's restart seconds."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.serving import InProcReplica, Router, ServingFrontend
+
+    def factory():
+        eng = Engine(model, **geo)
+        _warm_graphs(eng)
+        return ServingFrontend(eng)
+
+    reps = [InProcReplica(factory, name=f"{tag[:1]}{i}", index=i)
+            for i in range(2)]
+    for r in reps:
+        r.start()
+    # the router's hedge and stall budgets from a warm replica's TTFT
+    plen = min(512, model.config.max_position // 2)
+    probe = reps[1].frontend.submit(
+        np.random.default_rng(1).integers(0, model.config.vocab_size,
+                                          (plen,)), 1)
+    probe.result(timeout=300)
+    if probe.failure_reason is not None:
+        raise AssertionError(f"{tag}: the TTFT probe ended "
+                             f"{probe.failure_reason}")
+    ttft = probe.ttft_s
+    # under the phase's load a first token waits behind running chains
+    # (about ten times the idle TTFT): the hedge is for a first token far
+    # slower than that, and a stall past the restart's seconds
+    hedge_ms, stall_s = 50 * ttft * 1e3, max(30.0, 100 * ttft)
+    log(f"{tag}: a warm replica's TTFT at {plen} tokens {ttft * 1e3:.1f} ms: "
+        f"hedge_ms {hedge_ms:.0f}, stall_s {stall_s:.1f}")
+    router = Router(reps, heartbeat_s=0.1, stall_s=stall_s,
+                    hedge_ms=hedge_ms, restart_backoff_s=0.05).start()
+    e = model.config
+    pool_bytes = (2 * e.num_layers * geo["num_pages"] * geo["page_size"]
+                  * e.num_kv_heads * e.head_dim
+                  * torch.finfo(model.dtype).bits // 8)
+    fails0 = _metric("paddle_tpu_request_failures_total")
+    mig0 = _metric("paddle_tpu_router_migrations_total")
+    kill = {}
+    delivered = [0]
+    lock = threading.Lock()
+
+    def progress(n):
+        with lock:
+            delivered[0] += n
+            go = delivered[0] >= 16 and "t" not in kill
+            if go:
+                kill["t"] = None  # claimed
+        if go:
+            torch.cuda.synchronize()
+            kill["mem"] = torch.cuda.memory_allocated()
+            kill["t"] = time.perf_counter()
+            reps[0].kill()
+
+    try:
+        tickets, arrivals = _route_items(router, items, 4, progress)
+        if kill.get("t") is None:
+            raise AssertionError(f"{tag}: the streams ended before the kill")
+        t_kill = kill["t"]
+        ok = time.perf_counter()
+        while time.perf_counter() - ok < 300:
+            if reps[0].alive() and reps[0].restarts >= 1 \
+                    and reps[0].ready().get("ready"):
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError(f"{tag}: the restart never came back ready")
+        restart_s = time.perf_counter() - t_kill
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        got = [list(t.tokens) for t in tickets]
+        migrated = [i for i, t in enumerate(tickets) if t.migrations]
+        fails = _metric("paddle_tpu_request_failures_total") - fails0
+        migs = _metric("paddle_tpu_router_migrations_total") - mig0
+        stalls = [(next((a for a in arrivals[i] if a > t_kill), t_kill)
+                   - t_kill) * 1e3 for i in migrated]
+        ttfts = sorted(t.ttft_s * 1e3 for i, t in enumerate(tickets)
+                       if i not in migrated)
+        bad = _stream_diff(tag, got, want)
+        log(f"{tag}: {len(items)} streams from 4 clients, replica 0 poisoned "
+            f"after 16 delivered tokens ({delivered[0]} in all); "
+            f"{len(migrated)} streams migrated ({int(migs)} migrations), "
+            f"their stall kill -> next token "
+            + ", ".join(f"{s:.1f}" for s in stalls)
+            + f" ms; TTFT of the {len(ttfts)} not migrated: median "
+            f"{statistics.median(ttfts):.1f}, max {max(ttfts):.1f} ms; the "
+            f"restart back ready {restart_s:.2f} s after the kill; "
+            f"{len(items) - bad} of {len(items)} streams equal the direct "
+            f"run; {int(fails)} request failures; device memory before the "
+            f"kill {kill['mem'] / 2**30:.2f} GiB, after the restart "
+            f"{mem_after / 2**30:.2f} GiB (a pool {pool_bytes / 2**30:.2f} "
+            f"GiB) [{ident}]")
+        if fails or not migs or not migrated:
+            raise AssertionError(f"{tag}: failures {fails}, migrations "
+                                 f"{migs}")
+        if abs(mem_after - kill["mem"]) > pool_bytes:
+            raise AssertionError(f"{tag}: device memory moved more than a "
+                                 "pool across the restart")
+        if hard and bad:
+            raise AssertionError(f"{tag}: {bad} streams differ from the "
+                                 "direct run")
+        for r in reps:
+            _no_caught_fault(r.frontend.engine, tag)
+        return restart_s
+    finally:
+        router.shutdown()
+        del reps, router
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _pools_pass(tag, model, geo, items, want, ident, fault_plan=None,
+                hard=True, shared=None, threads=None):
+    """A prefill replica and a decode replica (``pools``) behind a Router,
+    sharing ``model``; ``shared``, a prefix each replica serves once
+    before the load (so every item's admission splices it, whatever
+    arrives with it); ``threads`` clients (default one an item). Checks:
+    every stream equals ``want`` (``hard``; else the equal count is
+    logged), no request failure; without a fault plan a handoff, with
+    ``kv-handoff-corrupt`` a fallback. Returns the timings."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.serving import InProcReplica, Router, ServingFrontend
+
+    class Timed(_TimedReplicaMixin, InProcReplica):
+        pass
+
+    def factory():
+        eng = Engine(model, **geo)
+        _warm_graphs(eng)
+        if shared is not None:
+            _two_phase_warm(eng, shared)
+        return ServingFrontend(eng)
+
+    reps = [Timed(factory, name=f"{tag[:1]}p{i}", index=i) for i in range(2)]
+    router = Router(reps, heartbeat_s=0.1, stall_s=60.0,
+                    pools={"prefill": 1, "decode": 1},
+                    fault_plan=fault_plan).start()
+    c0 = {k: _metric(f"paddle_tpu_{k}_total") for k in (
+        "cluster_handoffs", "cluster_handoff_bytes", "cluster_fallbacks",
+        "request_failures")}
+    try:
+        _wait_for(lambda: router.cluster._page_size is not None, 120,
+                  f"{tag}: the router's first sweep")
+        tickets, _ = _route_items(router, items, threads or len(items))
+        d = {k: _metric(f"paddle_tpu_{k}_total") - v for k, v in c0.items()}
+        got = [list(t.tokens) for t in tickets]
+        bad = _stream_diff(tag, got, want)
+        exp = [x for r in reps for x in r.times["export"]]
+        imp = [x for r in reps for x in r.times["import"]]
+        legs = [x for r in reps for x in r.times["leg_ttft"]]
+        log(f"{tag}: {len(items)} streams, handoffs "
+            f"{int(d['cluster_handoffs'])}, fallbacks "
+            f"{int(d['cluster_fallbacks'])}, "
+            f"{d['cluster_handoff_bytes'] / 2**20:.1f} MiB shipped; exports "
+            "(ms, pages, MiB) "
+            + ", ".join(f"({a:.1f}, {b}, {c / 2**20:.0f})" for a, b, c in exp)
+            + "; adoptions (ms, pages) "
+            + ", ".join(f"({a:.1f}, {b})" for a, b in imp)
+            + "; decode-leg TTFT ms "
+            + ", ".join(f"{x:.1f}" for x in legs)
+            + f"; {len(items) - bad} of {len(items)} streams equal the "
+            f"unpooled run; {int(d['request_failures'])} request failures "
+            f"[{ident}]")
+        if d["request_failures"]:
+            raise AssertionError(f"{tag}: request failures")
+        if fault_plan is None and d["cluster_handoffs"] < 1:
+            raise AssertionError(f"{tag}: no handoff")
+        if fault_plan is not None and d["cluster_fallbacks"] < 1:
+            raise AssertionError(f"{tag}: no fallback")
+        if hard and bad:
+            raise AssertionError(f"{tag}: {bad} streams differ from the "
+                                 "unpooled run")
+        for r in reps:
+            _no_caught_fault(r.frontend.engine, tag)
+        return exp, imp, legs
+    finally:
+        router.shutdown()
+        del reps, router
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _subprocess_pass(tag, ident, root, model_args, vocab, new=256,
+                     kill_after=16, hard=True):
+    """Two ``serve_llama_paged_torch.py --api-port 0`` workers
+    (``model_args``, prefix cache off) behind a Router; the one hosting a
+    stream gets a real SIGKILL mid-stream. Checks: zero failures, a
+    migration, the restarted worker ready, and (``hard``; else the equal
+    count is logged) both streams equal the unkilled worker's own stream
+    of the same prompt. The workers are stopped before returning."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from paddle_tpu_torch.serving import Router, SubprocessReplica
+
+    argv = [sys.executable, "-u",
+            str(root / "examples" / "serve_llama_paged_torch.py"),
+            *model_args, "--api-port", "0", "--prefix-cache", "off",
+            "--fault-inject", "slow-step:every=1,delay_ms=200"]
+    reps = [SubprocessReplica(argv, name=f"w{i}", index=i, cwd=str(root),
+                              startup_timeout_s=600) for i in range(2)]
+    t0 = time.perf_counter()
+    errs = []
+
+    def start(r):
+        try:
+            r.start()
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    ths = [threading.Thread(target=start, args=(r,)) for r in reps]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=700)
+    router = None
+    try:
+        if errs or not all(r.alive() for r in reps):
+            raise AssertionError(f"{tag}: a worker did not start {errs}")
+        start_s = time.perf_counter() - t0
+        prompt = [int(t) for t in
+                  np.random.default_rng(12).integers(0, vocab, (64,))]
+        req = urllib.request.Request(
+            f"http://{reps[1].host}:{reps[1].port}/v1/completions",
+            data=json.dumps({"prompt": prompt, "max_tokens": new}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            ref = json.loads(r.read())["choices"][0]["token_ids"]
+        if len(ref) < 32:  # an eos may end it before ``new``
+            raise AssertionError(f"{tag}: the unkilled stream is short")
+        fails0 = _metric("paddle_tpu_request_failures_total")
+        router = Router(reps, heartbeat_s=0.1, stall_s=120.0,
+                        restart_dead=True, restart_backoff_s=0.1).start()
+        ta = router.submit(prompt, new)
+        tb = router.submit(prompt, new)
+        _wait_for(lambda: min(len(ta.tokens), len(tb.tokens)) >= kill_after,
+                  600, f"{tag}: {kill_after} tokens on both streams")
+        live = [t for t in (ta, tb) if not t.done]
+        if not live:
+            raise AssertionError(f"{tag}: the streams ended before the kill")
+        hit = live[0]
+        victim = next(r for r in reps if r.name == hit.replica)
+        at_kill = len(hit.tokens)
+        t_kill = time.perf_counter()
+        victim.kill()  # a real SIGKILL
+        out_a, out_b = ta.result(timeout=900), tb.result(timeout=900)
+        t_done = time.perf_counter()
+        _wait_for(lambda: victim.alive() and victim.restarts >= 1
+                  and victim.ready().get("ready"), 900,
+                  f"{tag}: the restarted worker ready")
+        restart_s = time.perf_counter() - t_kill
+        fails = _metric("paddle_tpu_request_failures_total") - fails0
+        bad = _stream_diff(tag, [out_a, out_b], [ref, ref])
+        log(f"{tag}: two workers ({' '.join(model_args)}) up in "
+            f"{start_s:.1f} s; SIGKILL of {victim.name} with {at_kill} tokens "
+            f"streamed; both streams done {t_done - t_kill:.2f} s after the "
+            f"kill (migrations {ta.migrations} + {tb.migrations}); "
+            f"{2 - bad} of 2 equal the unkilled worker's stream; "
+            f"{int(fails)} request failures; the restarted worker ready "
+            f"{restart_s:.1f} s after the kill [{ident}]")
+        if fails or ta.failure_reason or tb.failure_reason \
+                or hit.migrations < 1:
+            raise AssertionError(f"{tag}: the SIGKILL failover failed")
+        if hard and bad:
+            raise AssertionError(f"{tag}: {bad} streams differ from the "
+                                 "unkilled worker's")
+    finally:
+        if router is not None:
+            router.shutdown()
+        else:
+            for r in reps:
+                r.stop()
+        for r in reps:
+            if r.alive():
+                r.kill()
+
+
+def phase_cluster(ident):
+    """Multi-replica serving (the module docstring, phase 9) at
+    ``llama2_7b`` bf16 full depth: failover with in-process replicas,
+    prefill/decode pools with the KV handoff, subprocess workers killed
+    for real; then the same at f32, where the streams must equal the
+    direct runs. Returns the launches by kernel row.
+
+    bf16 rounds one token's work apart on different paths (a re-prefill
+    against the decode steps that first made the tokens, the suffix
+    kernel #3 against the flash prefill #2, one batch size against
+    another), and a random-weight model's logit margins are small, so a
+    migrated or handed-off bf16 stream may part from the direct run
+    within a few tokens: at bf16 the equal streams are counted and
+    logged, and every other check holds; at f32 (TF32 off) each stream
+    must equal the direct run."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+
+    # every kernel is built before any engine thread or worker starts
+    build.build_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    total = {name: 0 for name in KERNELS}
+    vanilla = ("paged_decode_attention", "flash_attention_fwd")
+    spliced = vanilla + ("paged_verify_attention",)
+
+    def counted(tag, run, needs, bf16):
+        t_pass = time.perf_counter()
+        out, got = _counted(run, needs, tc=tag if bf16 else None)
+        log(f"{tag}: launches {got}; {time.perf_counter() - t_pass:.1f} s")
+        if got.pop("flash_attention_bwd"):
+            raise AssertionError(f"{tag}: serving launched the backward")
+        for name, n in got.items():
+            total[name] += n
+        return out
+
+    def direct(model, geo, items, tag):
+        reqs, _ = _serve_items(Engine(model, **geo), items, tag)
+        out = [list(r.tokens) for r in reqs]
+        del reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def cell(tag, model, geo, hard):
+        """(a) failover and (b) pools, clean then corrupt, on ``model``."""
+        vocab = model.config.vocab_size
+        rng = np.random.default_rng(90)
+        a_items = [(rng.integers(0, vocab, (int(rng.integers(16, 513)),)),
+                    128, 0.8 if i % 4 == 3 else 0.0,
+                    900 + i if i % 4 == 3 else None) for i in range(16)]
+        rng = np.random.default_rng(91)
+        shared = rng.integers(0, vocab, (512,))
+        b_items = [(np.concatenate([shared, rng.integers(0, vocab, (32,))]),
+                    64, 0.0, None) for _ in range(8)]
+        want_a = direct(model, geo, a_items, f"{tag} direct (a)")
+        if hard:
+            want_b = want_c = direct(model, geo, b_items,
+                                     f"{tag} direct (b)")
+        else:
+            # the path a handed-off stream takes, on engines with no
+            # router: the equal count then says the handoff moved the
+            # pages exactly
+            def engine():
+                return Engine(model, **geo)
+
+            want_b = _two_phase(engine, b_items, shared, fresh_decode=False)
+            want_c = _two_phase(engine, b_items, shared, fresh_decode=True)
+        bf16 = model.dtype == torch.bfloat16
+        counted(f"{tag} failover", lambda: _failover_pass(
+            f"{tag} failover", model, geo, a_items, want_a, ident, hard),
+            vanilla, bf16)
+        # one client: each leg runs alone, as in the two-phase target, and
+        # the corrupt bytes, drawn from the plan, land in item order
+        counted(f"{tag} pools", lambda: _pools_pass(
+            f"{tag} pools", model, geo, b_items, want_b, ident, hard=hard,
+            shared=shared, threads=1), spliced, bf16)
+        counted(f"{tag} pools corrupt", lambda: _pools_pass(
+            f"{tag} pools corrupt", model, geo, b_items, want_c, ident,
+            fault_plan="kv-handoff-corrupt:every=1", hard=hard,
+            shared=shared, threads=1), spliced, bf16)
+
+    geo = dict(max_slots=4, num_pages=512, page_size=16, chunk_size=16,
+               max_chain=4, prefix_cache=True)
+    t0 = time.perf_counter()
+    model = init_llama(llama2_7b(), seed=0, device="cuda",
+                       dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"cluster: llama2_7b bf16 initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cell("cluster bf16", model, geo, hard=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"cluster: device memory before the workers "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # (c) subprocess workers, each with its own process and memory
+    _subprocess_pass("subprocess bf16", ident, root,
+                     ("--model", "llama2_7b"), 32000, hard=False)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    try:
+        model = init_llama(LlamaConfig(num_layers=2), seed=5, device="cuda",
+                           dtype=torch.float32)
+        cell("identity f32", model, dict(geo, num_pages=256), hard=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # f32 workers: the example's "small" LLaMA (4 layers, 256 wide)
+    _subprocess_pass("identity f32 subprocess", ident, root,
+                     ("--model", "small"), 128)
+    return total
+
+def phase_loadgen(ident):
+    """Opt-in: the four ported serving benches at ``gpt2_small()`` in bf16
+    on the card (``on_gpu=True``), each returned dict on one line. They
+    are measurements; only their correctness parts fail the phase: no
+    request failure in any bench, the failover bench's migrated streams
+    and every request completed, the cluster bench's completions."""
+    import torch
+
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models.gpt import gpt2_small
+    from paddle_tpu_torch.serving import loadgen
+
+    build.build_all()  # before any front-end thread starts
+    cfg = gpt2_small()
+    for name in ("bench_slo_serving", "bench_trace_serving",
+                 "bench_failover_serving", "bench_cluster_serving"):
+        fails0 = _metric("paddle_tpu_request_failures_total")
+        t0 = time.perf_counter()
+        out = getattr(loadgen, name)(cfg, True)
+        fails = _metric("paddle_tpu_request_failures_total") - fails0
+        log(f"loadgen {name} ({time.perf_counter() - t0:.1f} s, "
+            f"{int(fails)} request failures) [{ident}]: "
+            + json.dumps(out, sort_keys=True))
+        if fails:
+            raise AssertionError(f"loadgen {name}: request failures")
+        if name == "bench_failover_serving" and not (
+                out["failover_zero_failures"]
+                and out["failover_migrated_streams"] >= 1):
+            raise AssertionError("loadgen: the failover bench lost streams")
+        if name == "bench_cluster_serving" and not out[
+                "cluster_zero_failures"]:
+            raise AssertionError("loadgen: the cluster bench lost streams")
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

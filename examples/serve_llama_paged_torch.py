@@ -6,11 +6,14 @@ Sequences of different lengths share one page pool, a finished request's
 pages recycle into the next admission mid-flight, and tokens stream back
 per chain. With ``--api-port`` the engine serves the OpenAI-compatible
 streaming HTTP API (``paddle_tpu_torch.serving``) until SIGTERM, then
-drains.
+drains. With ``--pools prefill=K,decode=M`` it runs the cluster smoke
+instead: K + M in-process replicas behind one ``Router``, prompts
+prefilled on the prefill pool and their KV handed to a decode replica.
 
 Run on the card (the default device):
     python examples/serve_llama_paged_torch.py
     python examples/serve_llama_paged_torch.py --model llama2_7b --api-port 8000
+    python examples/serve_llama_paged_torch.py --pools prefill=1,decode=2
 Run on the CPU (tiny):
     python examples/serve_llama_paged_torch.py --tiny --device cpu
 """
@@ -50,6 +53,62 @@ def run_api_server(eng, args):
     asyncio.run(serve())
     if frontend.fault is not None:
         raise SystemExit(f"engine thread failed: {frontend.fault!r}")
+
+
+def run_cluster_smoke(model, cfg, args):
+    """``--pools prefill=K,decode=M``: an in-process prefill/decode fleet
+    behind one Router. Prompts prefill on the prefill pool, their KV ships
+    to a decode replica (digest-verified; recompute on any failure), and
+    shared-prefix streams converge on warm decode replicas. Prints the
+    handoff and fallback counters."""
+    import time
+
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.observability import metric_total
+    from paddle_tpu_torch.serving import (InProcReplica, Router,
+                                          ServingFrontend, parse_pools)
+
+    pools = parse_pools(args.pools)
+    n = sum(pools.values())
+
+    def factory():
+        eng = Engine(model, max_slots=4, num_pages=96, page_size=16,
+                     chunk_size=8, prefix_cache=True, device=args.device)
+        return ServingFrontend(eng)
+
+    reps = [InProcReplica(factory, name=f"pool-r{i}", index=i)
+            for i in range(n)]
+    router = Router(reps, heartbeat_s=0.05, stall_s=None,
+                    pools=pools, fault_plan=args.fault_inject)
+    router.start()
+    try:
+        deadline = time.perf_counter() + 60.0
+        while router.cluster._page_size is None \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)  # a sweep feeds the geometry into the view
+        rng = np.random.default_rng(0)
+        shared = rng.integers(0, cfg.vocab_size, (32,))
+        tickets = []
+        for i in range(6):
+            prompt = np.concatenate(
+                [shared, rng.integers(0, cfg.vocab_size, (8,))])
+            tickets.append(router.submit(prompt, 12, tenant=f"t{i % 2}"))
+        for t in tickets:
+            t.result(timeout=300.0)
+        ok = all(t.failure_reason is None for t in tickets)
+        roles = {r.name: router.cluster.role_of(r) for r in reps}
+        print(f"cluster smoke: pools={pools} roles={roles}")
+        print(f"  streams: {len(tickets)} submitted, "
+              f"{sum(1 for t in tickets if t.done)} done, ok={ok}")
+        print("  handoffs=%d fallbacks=%d shipped_kb=%.1f" % (
+            metric_total("paddle_tpu_cluster_handoffs_total"),
+            metric_total("paddle_tpu_cluster_fallbacks_total"),
+            metric_total("paddle_tpu_cluster_handoff_bytes_total")
+            / 1024.0))
+        if not ok:
+            raise SystemExit("cluster smoke: stream failures")
+    finally:
+        router.shutdown()
 
 
 def _model(args):
@@ -103,6 +162,22 @@ def main():
                     help="refcounted copy-on-write prefix caching: "
                          "admissions splice cached block-aligned prefixes "
                          "and prefill only the uncached suffix")
+    ap.add_argument("--kv-host-pages", type=int, default=0,
+                    help="host KV tier size in pages (needs --prefix-cache "
+                         "on): idle cached pages spill to a pinned host "
+                         "slab instead of being evicted, and a later "
+                         "chain hit promotes them back digest-checked. 0 "
+                         "(the default) is no tier. Output tokens are "
+                         "identical either way")
+    ap.add_argument("--integrity", choices=["off", "audit", "strict"],
+                    default="off",
+                    help="silent-data-corruption defense: 'audit' keeps "
+                         "weight digests with periodic probes and exact "
+                         "KV page checksums verified at every prefix-cache "
+                         "splice; 'strict' adds the shadow recompute of "
+                         "one greedy row every few steps. A corrupt page "
+                         "is contained and recomputed; corrupt weights "
+                         "quarantine the engine")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: stream prompts into the cache "
                          "this many tokens per mixed chunk+decode step")
@@ -142,11 +217,19 @@ def main():
                          "chunks for this many ms (off by default)")
     ap.add_argument("--drain-grace", type=float, default=30.0,
                     help="SIGTERM drain budget in seconds")
+    ap.add_argument("--pools", default=None, metavar="SPEC",
+                    help="cluster smoke: run SPEC (e.g. prefill=1,decode=2) "
+                         "in-process replicas behind one Router (the "
+                         "prefill pool, the KV handoff, cache-aware decode "
+                         "placement), print the handoff counters and exit")
     args = ap.parse_args()
 
     from paddle_tpu_torch.inference.engine import Engine
 
     cfg, model = _model(args)
+    if args.pools is not None:
+        run_cluster_smoke(model, cfg, args)
+        return
     big = cfg.hidden_size >= 4096
     eng = Engine(model, max_slots=8 if big else 4,
                  num_pages=1024 if big else 96, page_size=16,
@@ -161,6 +244,9 @@ def main():
                  prefill_chunk=args.prefill_chunk,
                  disaggregate=args.disaggregate,
                  fault_plan=args.fault_inject,
+                 kv_host_pages=args.kv_host_pages,
+                 integrity=(None if args.integrity == "off"
+                            else args.integrity),
                  multi_step=args.multi_step, device=args.device)
 
     if args.api_port is not None:

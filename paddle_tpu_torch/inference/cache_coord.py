@@ -82,8 +82,9 @@ class CacheCoordinator:
         eng = self.engine
         cfg = eng.cfg
         store = torch.int8 if eng.quantized else eng.dtype
-        shape = (self.num_pages, self.page_size,
-                 cfg.num_kv_heads * cfg.head_dim)
+        # GPT has no num_kv_heads: one K/V head a query head
+        n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+        shape = (self.num_pages, self.page_size, n_kv * cfg.head_dim)
         dev = eng.device
         self.k_pages = [torch.zeros(shape, dtype=store, device=dev)
                         for _ in range(cfg.num_layers)]

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Set, Tuple
@@ -40,7 +41,7 @@ import torch
 from ..kernels import build
 
 __all__ = ["ModelRunner", "GraphSet", "CapturedStep", "int_words",
-           "host_words"]
+           "host_words", "gc_paused", "collect_garbage"]
 
 # the integer word of each element size: a tensor viewed as these words
 # keeps its bytes, and numpy holds every one of them (it has no bf16)
@@ -70,11 +71,12 @@ class _CudaGraph:
     that stream's arrival counters (``kernels/build.py``) and cuBLAS
     workspace outside the graph. The capture runs in ``thread_local`` mode:
     the serving front end steps the engine on a thread of its own beside
-    the asyncio server. No garbage collection runs inside a capture:
-    freeing a graph there (an engine's that went out of use, or a failed
-    capture's, both held in reference cycles) is an operation the
-    capturing stream refuses, and the capture fails. A failed capture or
-    replay raises; nothing falls back to eager."""
+    the asyncio server, and in-process replicas step several engines on
+    threads of their own. No garbage collection runs inside a capture
+    (:func:`gc_paused`): freeing a graph there (an engine's that went out
+    of use, or a failed capture's, both held in reference cycles) is an
+    operation the capturing stream refuses, and the capture fails. A
+    failed capture or replay raises; nothing falls back to eager."""
 
     def __init__(self, owner: "GraphSet"):
         self.graph = torch.cuda.CUDAGraph()
@@ -89,19 +91,60 @@ class _CudaGraph:
         cur.wait_stream(self.stream)
 
     def capture(self, body):
-        enabled = gc.isenabled()
-        gc.disable()  # torch.cuda.graph collects once, before it begins
-        try:
+        # torch.cuda.graph collects once, before it begins
+        with gc_paused():
             with torch.cuda.graph(self.graph, pool=self.pool,
                                   stream=self.stream,
                                   capture_error_mode="thread_local"):
                 body()
-        finally:
-            if enabled:
-                gc.enable()
 
     def replay(self):
         self.graph.replay()
+
+
+class _GcPause:
+    """The process's garbage collector held off while any thread captures.
+    ``gc.disable()`` is process-wide: two engines capturing on two threads
+    must not let the first to finish turn collection back on under the
+    other's capture, so the holds are counted and the last one out
+    restores the collector's state. :meth:`collect` collects only while
+    no capture holds it, and holds new captures off while it runs."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._holds = 0
+        self._was_enabled = True
+
+    @contextlib.contextmanager
+    def held(self):
+        with self._cond:
+            if self._holds == 0:
+                self._was_enabled = gc.isenabled()
+                gc.disable()
+            self._holds += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._holds -= 1
+                if self._holds == 0:
+                    if self._was_enabled:
+                        gc.enable()
+                    self._cond.notify_all()
+
+    def collect(self, timeout: float = 60.0) -> bool:
+        """``gc.collect()`` once no capture runs (waiting up to
+        ``timeout`` s); False, collecting nothing, if one still did."""
+        with self._cond:
+            if not self._cond.wait_for(lambda: self._holds == 0, timeout):
+                return False
+            gc.collect()
+            return True
+
+
+_GC = _GcPause()
+gc_paused = _GC.held
+collect_garbage = _GC.collect
 
 
 def _graph_factory(device: torch.device):
@@ -116,13 +159,14 @@ class CapturedStep:
     tensors of ``bufs`` and writes its results back into them in place, so
     runs chain with no host work and no copy between them. Given a
     ``graph``, the body is warmed up and captured here and :meth:`run`
-    replays it. A replay calls no kernel wrapper, so the launch counters'
-    deltas over the capture are recorded (the capture itself launches
-    nothing and leaves them as they were) and added on every replay: they
-    go on counting the kernels that ran. Without a graph (the CPU, or
-    graphs off) :meth:`run` calls the body. ``keep`` (a context manager
-    factory) wraps the warm-up and the capture, to put back what the
-    warm-up's writes touch."""
+    replays it. A replay calls no kernel wrapper, so the launches the
+    capture records are tallied on the capturing thread
+    (``build.tally_launches``: the capture launches nothing and leaves the
+    counters as they were, whatever other threads launch meanwhile) and
+    added on every replay: they go on counting the kernels that ran.
+    Without a graph (the CPU, or graphs off) :meth:`run` calls the body.
+    ``keep`` (a context manager factory) wraps the warm-up and the
+    capture, to put back what the warm-up's writes touch."""
 
     def __init__(self, body: Callable[[], None], bufs, graph=None,
                  keep=None):
@@ -138,17 +182,14 @@ class CapturedStep:
     def _capture(self, graph):
         t0 = time.perf_counter()
         graph.warm_up(self.body)
-        # read after the warm-up, which imported every wrapper the body runs
-        counters = tuple(build.LAUNCH_COUNTERS)
-        before = [getattr(fn, attr) for fn, attr in counters]
-        try:
+        # the capture's launches are tallied on this thread alone: another
+        # engine's thread may launch, capture or replay meanwhile
+        with build.tally_launches() as tally:
             graph.capture(self.body)
-            after = [getattr(fn, attr) for fn, attr in counters]
-        finally:
-            for (fn, attr), n in zip(counters, before):
-                setattr(fn, attr, n)
-        self.deltas = tuple((fn, attr, a - b) for (fn, attr), a, b
-                            in zip(counters, after, before) if a != b)
+        # read after the warm-up, which imported every wrapper the body runs
+        self.deltas = tuple((fn, attr, tally[(fn, attr)])
+                            for fn, attr in build.LAUNCH_COUNTERS
+                            if tally.get((fn, attr)))
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -165,8 +206,7 @@ class CapturedStep:
             return
         for _ in range(n):
             self.graph.replay()
-        for fn, attr, d in self.deltas:
-            setattr(fn, attr, getattr(fn, attr) + n * d)
+        build.add_launches(self.deltas, n)
 
 
 class GraphSet:

@@ -18,9 +18,16 @@ Thread safety: the first launch of a kernel may come from any thread (the
 serving front end runs the engine on a thread of its own), so one lock
 covers the check, the build and the ``ctypes`` load in :func:`load` and
 :func:`build_all`: two threads never start two ``nvcc`` runs on one target.
+Several engines may step on threads of their own in one process (the
+in-process replicas of ``serving/router.py``): the launch counters are
+bumped under one lock (:func:`count_launch`), and a thread capturing a
+CUDA graph tallies its own launches apart (:func:`tally_launches`), so
+another thread's launches during the capture are neither erased nor
+taken for the graph's.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,7 +43,8 @@ import torch
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "load",
            "build_all", "check", "stream_ptr", "build_seconds",
            "ptxas_report", "arrival_counters", "launch_counter",
-           "LAUNCH_COUNTERS"]
+           "LAUNCH_COUNTERS", "count_launch", "tally_launches",
+           "add_launches"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -190,11 +198,58 @@ def launch_counter(fn, *attrs: str):
         LAUNCH_COUNTERS.append((fn, attr))
 
 
-# Process-global, keyed by (device, stream). Safe with the serving front
-# end: the engine runs on ONE engine thread, and launches on one stream run
-# in order; a second thread launching on the same stream at the same time
-# would race the buffer's (re)allocation below.
+# every read-modify-write of a counter holds this lock; a capturing
+# thread's launches go to its own tally instead (``_TALLY.d``)
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def count_launch(fn, *attrs: str):
+    """Count one launch of ``fn``'s kernel on each counter in ``attrs``
+    (``"launches"`` when none is given). Inside :func:`tally_launches` on
+    this thread the launch was recorded into a graph, not run: it goes to
+    the tally and the counters stay as they were."""
+    attrs = attrs or ("launches",)
+    tally = getattr(_TALLY, "d", None)
+    if tally is not None:
+        for attr in attrs:
+            tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
+        return
+    with _COUNT_LOCK:
+        for attr in attrs:
+            setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block, this thread's :func:`count_launch` calls land in
+    the yielded dict ``{(wrapper, counter): n}`` and leave the counters as
+    they were; other threads count as ever. A graph's capture runs its
+    body here: the tally is the launches each replay stands for."""
+    prev = getattr(_TALLY, "d", None)
+    tally: Dict[tuple, int] = {}
+    _TALLY.d = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.d = prev
+
+
+def add_launches(deltas, n: int = 1):
+    """Add ``n`` times each ``(wrapper, counter, delta)`` of ``deltas``
+    (a graph's replays, which call no wrapper)."""
+    if not deltas:
+        return
+    with _COUNT_LOCK:
+        for fn, attr, d in deltas:
+            setattr(fn, attr, getattr(fn, attr) + n * d)
+
+
+# Process-global, keyed by (device, stream). Launches on one stream run in
+# order, so engines stepping on threads of their own may share a stream's
+# buffer; the lock keeps two threads from (re)allocating it at once.
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+_COUNTERS_LOCK = threading.Lock()
 # buffers a larger one replaced: a CUDA graph captured on the stream keeps
 # launching its kernels on the old pointer, so the old buffer stays alive
 _OUTGROWN: List[torch.Tensor] = []
@@ -213,10 +268,12 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     key = (idx, stream_ptr(device))
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        if buf is not None:
-            _OUTGROWN.append(buf)
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
+    with _COUNTERS_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < n:
+            if buf is not None:
+                _OUTGROWN.append(buf)
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32,
+                              device=device)
+            _COUNTERS[key] = buf
+        return buf

@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from ...kernels.build import launch_counter
+from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["decode_attention", "decode_attention_ref",
            "decode_attention_slab", "make_kv_slab", "cache_prefill_write",
@@ -131,7 +131,7 @@ def _launch(q, k, v, lengths, scale, counter, splits=None):
         int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
         _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "decode_attention")
-    counter.launches += 1
+    count_launch(counter)
     return out
 
 

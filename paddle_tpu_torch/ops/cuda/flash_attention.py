@@ -52,7 +52,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ...kernels.build import launch_counter
+from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "FlashAttentionFunction",
@@ -99,11 +99,9 @@ def check_tc_alignment(*named):
 def _launched(fn, tensor_core, positions):
     """Count one launch of ``fn``'s kernel, on the tensor-core body when
     ``tensor_core``, in position mode when ``positions``."""
-    fn.launches += 1
-    if tensor_core:
-        fn.tc_launches += 1
-    if positions:
-        fn.pos_launches += 1
+    count_launch(fn, "launches",
+                 *(("tc_launches",) if tensor_core else ()),
+                 *(("pos_launches",) if positions else ()))
 
 
 def _positions(q_positions, kv_positions, sq, sk, device):

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ...kernels.build import launch_counter
+from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["aligned_segment_offsets", "grouped_matmul_ref",
            "grouped_matmul", "grouped_body", "check_wgmma_alignment"]
@@ -174,9 +174,8 @@ def _grouped(lhs, rhs, group_sizes, valid_sizes=None, body=None):
         out.data_ptr(), m, k, n, e, build.DTYPE_CODES[lhs.dtype], code,
         build.stream_ptr(lhs.device))
     build.check(rc, "grouped_matmul")
-    grouped_matmul.launches += 1
-    if code:
-        grouped_matmul.wgmma_launches += 1
+    count_launch(grouped_matmul, "launches",
+                 *(("wgmma_launches",) if code else ()))
     return out
 
 

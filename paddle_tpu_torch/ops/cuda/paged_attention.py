@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...kernels.build import launch_counter
+from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["PagedCacheState", "PagedKVCache", "quantize_rows_int8",
            "paged_state_prefill", "paged_state_step", "paged_state_verify",
@@ -216,9 +216,12 @@ def paged_state_step(state, q, k, v, scale=None):
     _write(state, phys, slotpos, k, v)
     state = state.replace(lengths=torch.clamp(
         lengths + active.to(lengths.dtype), max=state.capacity))
+    # the kernel takes a dense q: GPT's is a view of its fused QKV
+    # projection (a no-op for LLaMA's)
     out = paged_slab_decode_attention(
-        q, state.k_pages, state.v_pages, state.block_tables, state.lengths,
-        q.shape[1], scale=scale, scale_pages=state.scale_pages)
+        q.contiguous(), state.k_pages, state.v_pages, state.block_tables,
+        state.lengths, q.shape[1], scale=scale,
+        scale_pages=state.scale_pages)
     return out.to(q.dtype), state
 
 
@@ -582,7 +585,7 @@ def _paged_slab_decode(q, k_pages, v_pages, block_tables, lengths,
         float(scale), int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
         _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention")
-    paged_slab_decode_attention.launches += 1
+    count_launch(paged_slab_decode_attention)
     return out
 
 
@@ -846,9 +849,9 @@ def _paged_verify(q, k_pages, v_pages, block_tables, base_len, scale=None,
         float(scale), int(body == "tensor_core"), splits, chunk,
         build.stream_ptr(q.device))
     build.check(rc, "paged_verify_attention")
-    paged_verify_slab_attention.launches += 1
-    if body == "tensor_core":
-        paged_verify_slab_attention.tc_launches += 1
+    count_launch(
+        paged_verify_slab_attention, "launches",
+        *(("tc_launches",) if body == "tensor_core" else ()))
     return out
 
 
@@ -975,7 +978,7 @@ def _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale=None,
         float(scale), int(splits), min_chunk, _ptr(part_o), _ptr(part_lse),
         _ptr(counters), build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention_v1")
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 

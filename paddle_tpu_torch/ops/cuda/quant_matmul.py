@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ...kernels.build import launch_counter
+from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["PALLAS_MAX_ROWS", "unpack_int4", "quant_matmul_ref",
            "quant_matmul", "quant_body", "split_plan", "tc_blocks_per_sm",
@@ -243,9 +243,8 @@ def _quant_matmul(x, wq, scales, bias=None, weight_dtype="int8", body=None,
         out.data_ptr(), rows, k, n, splits, kps, build.DTYPE_CODES[x.dtype],
         int(int4), int(tc), build.stream_ptr(x.device))
     build.check(rc, "quant_matmul")
-    quant_matmul.launches += 1
-    if tc:
-        quant_matmul.tc_launches += 1
+    count_launch(quant_matmul, "launches",
+                 *(("tc_launches",) if tc else ()))
     return out.reshape(*lead, n)
 
 

@@ -31,8 +31,12 @@ A fault that escapes ``Engine.step`` (the engine recovers what it can, so
 this is one the card cannot survive, such as an illegal address) ends the
 engine thread: it is kept as :attr:`ServingFrontend.fault`, every live and
 queued ticket finishes with reason ``engine``, and ``alive`` turns False.
-The reference's cluster KV handoff (``export_kv``/``import_kv``) and the
-replica chaos surface (``poison``) wait for the router's port.
+
+``poison()`` is the chaos surface of an in-process replica (the router's
+``replica-crash`` point, ``InProcReplica.kill``): the engine thread leaves
+at its next turn without finishing, cancelling or draining anything, so
+its live tickets go silent as a killed process's streams do, and
+``alive`` is False at once.
 """
 from __future__ import annotations
 
@@ -232,6 +236,7 @@ class ServingFrontend:
         self._drained = threading.Event()
         self._draining = False
         self._force_cancel = False
+        self._poisoned = False
         self._thread: Optional[threading.Thread] = None
         # the exception that ended the engine thread, if one did
         self.fault: Optional[BaseException] = None
@@ -254,8 +259,10 @@ class ServingFrontend:
 
     @property
     def alive(self) -> bool:
-        """Liveness: the engine thread is up."""
-        return self._thread is not None and self._thread.is_alive()
+        """Liveness: the engine thread is up and not poisoned (the
+        supervisor's process-up check of an in-process replica)."""
+        return (self._thread is not None and self._thread.is_alive()
+                and not self._poisoned)
 
     def readiness(self) -> Dict:
         """Readiness snapshot, the ``/readyz`` payload. Ready = alive, not
@@ -296,6 +303,15 @@ class ServingFrontend:
     # about 128 KiB)
     KV_CHAINS_REPORT_MAX = 4096
 
+    def poison(self):
+        """Sudden replica death (the ``replica-crash`` point's in-process
+        arm): the engine thread exits at its next loop turn WITHOUT
+        finishing, cancelling or draining anything. Live tickets go
+        silent, like a killed process's streams; the router's liveness
+        probe and stall watchdog are what must notice."""
+        self._poisoned = True
+        self._wake.set()
+
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
                seed: Optional[int] = None, tenant: Optional[str] = None,
                deadline_s: Optional[float] = None,
@@ -308,7 +324,8 @@ class ServingFrontend:
         ``resume_tokens``: see ``Engine.add_request``. ``trace`` and
         ``t_origin`` are the upstream span context and original submit
         time a caller propagates; both default to "this is the origin"."""
-        if self._draining or self._stop.is_set() or self.fault is not None:
+        if self._draining or self._stop.is_set() or self._poisoned \
+                or self.fault is not None:
             raise QueueFull("server is draining; not accepting requests")
         tenant = tenant or DEFAULT_TENANT
         ticket = StreamTicket(prompt, max_new_tokens, temperature, seed,
@@ -542,6 +559,10 @@ class ServingFrontend:
         eng = self.engine
         try:
             while not self._stop.is_set():
+                if self._poisoned:
+                    # vanish mid-flight: live tickets stay unfinished on
+                    # purpose, the router's failover must react
+                    return
                 self._apply_cancels()
                 self._apply_calls()
                 self._cancel_stalled()

@@ -30,17 +30,20 @@ Injection points the port's engine fires (``inference/engine.py``,
   the cache invalidates the page and every descendant block, and the
   admission recomputes from scratch — a cache miss, never a wrong token.
 * ``bit-flip-kv``      — the same damage at a hit WITHOUT the doubt
-  signal. The port has no integrity checksums yet, so nothing detects it.
+  signal: only the integrity sentinel's page checksums catch it.
 
-The remaining points keep their names so that every reference spec parses;
-the modules that fire them (training and checkpoints, replicas, the
-integrity sentinel, the host KV tier, the cluster handoff) are not ported
-yet, so they fire nowhere:
-``ckpt-io-error``, ``train-step-exception``, ``train-nan-loss``,
-``preempt-signal``, ``slow-ckpt-write``, ``replica-crash``,
-``heartbeat-drop``, ``bit-flip-weight``, ``bit-flip-ckpt``,
-``kv-spill-corrupt``, ``slow-host-copy``, ``racey-worker-write``,
-``kv-handoff-corrupt``, ``kv-handoff-stall``.
+Points fired elsewhere: ``bit-flip-weight`` (the integrity sentinel's
+weight audit), ``kv-spill-corrupt``, ``slow-host-copy`` and
+``racey-worker-write`` (the host KV tier's worker), ``replica-crash`` (the
+router's supervisor sweep, ``rid`` = replica index), ``heartbeat-drop``
+(``Replica.heartbeat``), ``kv-handoff-corrupt`` and ``kv-handoff-stall``
+(the cluster coordinator's handoff thread).
+
+The training and checkpoint points keep their names so that every
+reference spec parses; the modules that fire them are not ported yet, so
+they fire nowhere: ``ckpt-io-error``, ``train-step-exception``,
+``train-nan-loss``, ``preempt-signal``, ``slow-ckpt-write``,
+``bit-flip-ckpt``.
 
 Spec grammar (``FLAGS_fault_inject`` / env ``PADDLE_TPU_FAULT_INJECT`` /
 ``Engine(fault_plan=...)``)::

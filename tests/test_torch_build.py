@@ -10,6 +10,7 @@ import time
 import pytest
 
 from paddle_tpu_torch.kernels import build
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 class _FakeFn:

@@ -16,6 +16,7 @@ import torch
 from paddle_tpu.ops.pallas import causal_flash as jcf
 
 from paddle_tpu_torch.ops.cuda import causal_flash as tcf
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 

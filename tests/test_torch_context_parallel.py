@@ -23,6 +23,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, H, D = 2, 32, 4, 16
 WORLD = 4

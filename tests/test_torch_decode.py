@@ -32,6 +32,7 @@ JF = importlib.import_module("paddle_tpu.incubate.nn.functional")
 from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.ops.cuda import decode_attention as TD
 from paddle_tpu_torch.ops.cuda import paged_attention as TP
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 B, S, D = 3, 24, 32

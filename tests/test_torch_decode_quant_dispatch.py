@@ -36,6 +36,7 @@ from paddle_tpu.ops.pallas.quant_matmul import (quant_matmul_ref as
 
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 # the modules, not the functions paddle_tpu.ops.pallas re-exports by the
 # same names

@@ -27,6 +27,7 @@ from paddle_tpu_torch.inference.engine import Engine
 from paddle_tpu_torch.inference.errors import (AdmissionRejected,
                                                ValidationError)
 from paddle_tpu_torch.models.llama import tiny_llama_config
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(max_slots=2, page_size=8, chunk_size=4)
 

@@ -37,6 +37,7 @@ from paddle_tpu_torch.inference.watchdog import Watchdog
 from paddle_tpu_torch.models.llama import tiny_llama_config
 from paddle_tpu_torch.observability import REGISTRY
 from paddle_tpu_torch.observability.tracing import TRACER
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(page_size=8, chunk_size=4)
 VOCAB = 128

@@ -35,6 +35,7 @@ from paddle_tpu_torch.observability import REGISTRY
 from paddle_tpu_torch.testing import faultinject as tfi
 from paddle_tpu_torch.testing.faultinject import (FaultPlan, InjectedFault,
                                                   plan_from_flags)
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOM = dict(page_size=8, chunk_size=4)

@@ -15,6 +15,7 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention_fused
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
                                                        flash_attention_ref)
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 

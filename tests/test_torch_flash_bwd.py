@@ -23,6 +23,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype,head_dim,body", [

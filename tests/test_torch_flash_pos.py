@@ -22,6 +22,7 @@ from paddle_tpu.distributed.fleet.meta_parallel.context_parallel import (
 from paddle_tpu.ops.pallas import flash_attention as jfa
 
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, D = 1, 2, 64
 ZIGZAG = zigzag_indices(64, 4).reshape(4, 16)  # rank r's 16 positions

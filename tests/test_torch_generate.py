@@ -37,6 +37,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.models.llama import tiny_llama_config
 from paddle_tpu_torch.ops.cuda import decode_attention as TD
 from paddle_tpu_torch.ops.cuda.paged_attention import PagedKVCache
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GPT_TINY = dict(vocab_size=96, hidden_size=128, num_layers=2, num_heads=2,
                 max_position=64)

@@ -34,6 +34,7 @@ from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          gpt2_medium, gpt2_small, gpt3_6p7b)
 from paddle_tpu_torch.models.llama import tiny_llama_config
 from paddle_tpu_torch.ops.cuda import causal_flash, flash_attention
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=96, hidden_size=128, num_layers=2, num_heads=2,
             max_position=64)

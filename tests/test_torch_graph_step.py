@@ -62,6 +62,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.nn import quant as tquant
 from paddle_tpu_torch.observability import REGISTRY
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(page_size=8, chunk_size=4, max_chain=2)
 VOCAB = 128
@@ -196,9 +197,10 @@ def _previous_generate(model, ids, max_new_tokens, temperature=1.0, top_k=0,
 # ---------------------------------------------------- the CUDA stand-in
 class StandInGraph:
     """What a CUDA graph does, on the CPU: the warm-up runs the body; the
-    capture runs the body's Python once (the wrappers count, the runner
-    puts the counters back); a replay runs the body with every launch
-    counter held, as a replay runs the kernels and no wrapper."""
+    capture runs the body's Python once (the wrappers count into the
+    capturing thread's tally); a replay runs the body with this thread's
+    launches tallied apart, as a replay runs the kernels and no
+    wrapper."""
 
     made = []
     fail_next_capture = False
@@ -219,11 +221,8 @@ class StandInGraph:
         self.body = body
 
     def replay(self):
-        held = [(fn, attr, getattr(fn, attr))
-                for fn, attr in build.LAUNCH_COUNTERS]
-        self.body()
-        for fn, attr, n in held:
-            setattr(fn, attr, n)
+        with build.tally_launches():
+            self.body()
         self.replays += 1
 
 
@@ -239,11 +238,11 @@ def stand_in(monkeypatch):
     real_ver = pa.paged_verify_slab_attention_ref
 
     def dec(*a, **kw):
-        pa.paged_slab_decode_attention.launches += 1
+        build.count_launch(pa.paged_slab_decode_attention)
         return real_dec(*a, **kw)
 
     def ver(*a, **kw):
-        pa.paged_verify_slab_attention.launches += 1
+        build.count_launch(pa.paged_verify_slab_attention)
         return real_ver(*a, **kw)
 
     monkeypatch.setattr(pa, "paged_slab_decode_attention_ref", dec)

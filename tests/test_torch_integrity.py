@@ -34,6 +34,7 @@ from paddle_tpu_torch.inference.integrity import (IntegrityConfig,
 from paddle_tpu_torch.models.llama import tiny_llama_config
 from paddle_tpu_torch.observability import REGISTRY, render_prometheus
 from paddle_tpu_torch.serving import ServingFrontend
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB = 128
 PROMPT = list(range(1, 21))

@@ -49,6 +49,7 @@ from paddle_tpu_torch.serving import ServingFrontend
 from paddle_tpu_torch.serving.replica import (decode_kv_payload,
                                               encode_kv_payload)
 from paddle_tpu_torch.serving.server import ApiServer
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 128

@@ -37,6 +37,7 @@ from paddle_tpu_torch.inference.engine import Engine
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models.llama import tiny_llama_config
 from paddle_tpu_torch.observability import metric_total, render_prometheus
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 PAGE = 8
 VOCAB = 128

@@ -20,6 +20,7 @@ from paddle_tpu_torch.convert import (init_llama, llama_from_numpy,
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama2_7b,
                                            tiny_llama_config)
 from paddle_tpu_torch.ops.cuda.paged_attention import PagedCacheState
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

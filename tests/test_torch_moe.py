@@ -38,6 +38,7 @@ from paddle_tpu_torch.convert import llama_from_numpy
 from paddle_tpu_torch.inference.engine import Engine
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops.cuda import grouped_matmul as tgm
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(max_slots=2, page_size=8, chunk_size=4, max_chain=2)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -15,6 +15,7 @@ from paddle_tpu.observability.tracing import Tracer as JaxTracer
 
 import paddle_tpu_torch.observability as tobs
 from paddle_tpu_torch.observability.tracing import Tracer
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _exercise(mod, seed):

@@ -19,6 +19,7 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.incubate.nn.functional import (
     fused_rotary_position_embedding as torch_rope)
 from paddle_tpu_torch.nn import functional as TF
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

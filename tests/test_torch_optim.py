@@ -24,6 +24,7 @@ from paddle_tpu.nn.clip import clip_grad_norm_ as jax_clip_grad_norm_
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = {"w": (3, 4), "b": (5,)}
 

@@ -13,6 +13,7 @@ import torch
 from paddle_tpu.ops.pallas import paged_attention as J
 
 from paddle_tpu_torch.ops.cuda import paged_attention as T
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, HKV, D, PS, MAXP, P = 4, 4, 2, 16, 4, 4, 24
 CAP = MAXP * PS

@@ -6,6 +6,7 @@ import numpy as np
 from paddle_tpu.inference.prefix_cache import chain_keys as jax_chain_keys
 
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache, chain_keys
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 class TestPrefixCacheUnit:

@@ -40,6 +40,7 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            tiny_llama_config)
 from paddle_tpu_torch.nn import quant as tquant
 from paddle_tpu_torch.ops.cuda import quant_matmul as tqm
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 ALGOS = ["weight_only_int8", "weight_only_int4"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -16,6 +16,7 @@ from paddle_tpu.inference.engine import Engine as JaxEngine
 from paddle_tpu.inference.engine import _advance_sample_key
 
 from paddle_tpu_torch.inference import sampling as S
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 42, 12345, 2 ** 33 + 5, 2 ** 63 - 1]
 

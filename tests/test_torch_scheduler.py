@@ -28,6 +28,7 @@ from paddle_tpu.ops.pallas.grouped_matmul import (
 from paddle_tpu_torch.convert import llama_from_numpy
 from paddle_tpu_torch.inference.engine import Engine
 from paddle_tpu_torch.models import llama as tllama
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(page_size=8, chunk_size=4)
 R, C = 3.0, 2.0  # the synthetic step time T(nb, k) = R + k * C

@@ -53,6 +53,7 @@ from paddle_tpu_torch.serving import (FairQueue, ServingFrontend,
                                       parse_tenant_weights)
 from paddle_tpu_torch.serving.loadgen import run_closed_loop, run_open_loop
 from paddle_tpu_torch.serving.server import ApiServer
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 128

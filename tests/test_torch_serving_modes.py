@@ -22,6 +22,7 @@ from paddle_tpu.models.llama import tiny_llama_config as jax_tiny
 from paddle_tpu_torch.convert import llama_from_numpy
 from paddle_tpu_torch.inference.engine import Engine
 from paddle_tpu_torch.models.llama import tiny_llama_config
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = dict(page_size=8, chunk_size=4)
 VOCAB = 128

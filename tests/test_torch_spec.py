@@ -15,6 +15,7 @@ from paddle_tpu.inference.spec.drafter import NgramDrafter as JaxNgram
 
 from paddle_tpu_torch.inference.spec import (AdaptiveDraftController,
                                              NgramDrafter, accept_tokens)
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _block(seed, b=6, k=4, v=40):

@@ -38,6 +38,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig
 
 from test_torch_gpt import (TINY, batch, load_jax, route_flags,  # noqa: F401
                             tiny_gpt_arrays)
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 4
 

@@ -20,6 +20,7 @@ import torch
 from paddle_tpu.ops.pallas import paged_attention as J
 
 from paddle_tpu_torch.ops.cuda import paged_attention as T
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 H, HKV, D, PS, MAXP = 4, 2, 32, 8, 4
 KHD = HKV * D

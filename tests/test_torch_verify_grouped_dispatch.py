@@ -28,6 +28,7 @@ from paddle_tpu.ops.pallas import paged_attention as J
 
 from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 H, HKV, D, PS, MAXP = 8, 2, 32, 16, 64
 CAP = PS * MAXP
