@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
               widths for the flash backward on the general and the packed
               layouts and for the forward on the packed views; GPT-2 small
               and ``llama2_7b`` widths for the decode kernels #4, #14,
-              #15), with the tolerance stated; kernel, plain and library
+              #15; TinyLlama-1.1B's GQA 32/4 at D=64 for #1 and #3, the
+              draft pass's shapes), with the tolerance stated; kernel, plain and library
               times by CUDA events.
 3. context  — context parallelism at ``llama2_7b``'s attention widths:
               the position-masked forms of #2 and #6 against their plain
@@ -51,8 +52,9 @@ Phases, in order; any failure exits non-zero:
               3 with the reference's reasons and stream the rest as the
               clean pinned run; chunked prefill runs again with
               ``disaggregate=True`` (the mixed step and a graph-replayed
-              chain in the same steps), both under the profiler (wall and
-              device busy ms a step). Then the trainer: ``gpt2_medium()``
+              chain in the same steps; at 16 of the 32 layers, graph and
+              eager), both under the profiler (wall and device busy ms a
+              step). Then the trainer: ``gpt2_medium()``
               at full depth, O2 bf16, ``loss.backward()`` and
               ``AdamW.step()`` on one fixed batch (T1 packed 12 x 1024, T2
               8 x 2048, T3 the general route; T4-T6 reach the remaining
@@ -151,6 +153,29 @@ Phases, in order; any failure exits non-zero:
               and (b) again, and (c) with the example's f32 ``small``
               workers: there every stream must equal the direct run (the
               unkilled worker's stream). #1/#2/#3 launch counts a part.
+10. draft   — draft-model speculative decoding at ``llama2_7b`` bf16 full
+              depth, on pass (1)'s pool and items, ``spec_k=4``, with (i) a
+              LLaMA at TinyLlama-1.1B's published widths (22 layers, 32
+              heads over 4 kv heads of 64; random weights from seed 1) and
+              (ii) the target as its own draft. Each serves with the
+              propose step on CUDA graphs and again eagerly (drafts and
+              streams must be equal); vanilla and n-gram passes on the
+              same items; tok/s, tokens a verify step, drafts proposed and
+              accepted, the propose's device ms a step (graph and eager),
+              the catch-up's, the drafter's own #1 and #3 launches, greedy
+              streams counted equal to vanilla; ``drafter-corruption:
+              every=3`` (no request fails). Then f32, TF32 off, 2 layers:
+              every greedy draft stream (graph, eager, the chaos pass)
+              must equal vanilla.
+11. fused   — ``incubate.nn.FusedMultiTransformer`` at GPT-3 6.7B widths
+              (4096, 32 heads, ffn 16384, 32 layers, bf16) and GPT-2 small
+              widths: B=8, a 128-token prompt (#2) and 128 teacher-forced
+              decode steps over 5-D caches (#14), the slab (#15),
+              ``PagedKVCache`` (#4) and ``PagedCacheState`` (#1), the
+              kinds' outputs within 5e-2 of the largest entry of each
+              other; ms a decode step and launches per kind. Then f32, 2
+              layers at 6.7B widths: each kind against the same layer on
+              the plain versions (1e-4 of the largest entry).
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -209,7 +234,13 @@ plain mixed step. ``--phases build,loadgen`` runs the four ported
 serving benches (``serving/loadgen.py``: slo, trace, failover, cluster)
 at ``gpt2_small()`` bf16 and logs each returned dict; only their
 correctness parts (no request failure, the failover bench's migrations)
-fail it.
+fail it. ``--phases build,draftcause`` serves ``llama2_7b`` bf16 as its
+own draft with one piece at a time on another version (the drafter's
+catch-up or propose on the plain #3 or #1, every #3 on its FMA body,
+every attention kernel plain, 2 and 8 layers) and logs the acceptance of
+each, greedy rows apart; then profiles the TinyLlama-width draft's
+propose step, graph replay and eager body (stream interval, device busy
+time, largest kernels).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -233,8 +264,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
-          "greedy", "tier", "cluster")
-OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen")
+          "greedy", "tier", "cluster", "draft", "fused")
+OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
+                   "draftcause")
 
 
 def log(*a):
@@ -1398,6 +1430,42 @@ def phase_kernels():
     r = check_decode(torch, bf16, False, lengths=lengths, timed=True,
                      **gqa, **tol)
     log(_row(f"paged_decode_attention GQA 32/8 bf16 lengths={lengths}", r))
+    # the draft pass's draft at TinyLlama-1.1B widths: 32 q heads over 4 kv
+    # heads of 64 (a GQA group of 8), max_position 2048 (128 pages of 16):
+    # #1 at the propose step's ragged lengths, #3 at the verify rows (m =
+    # spec_k + 1); bf16 and f32
+    tiny = dict(B=8, H=32, Hkv=4, D=64, ps=16, max_pages=128)
+    tl_lengths = [0, 1, 17, 300, 700, 1024, 1500, 2048]
+    r = check_decode(torch, bf16, False, lengths=tl_lengths, timed=True,
+                     **tiny, **tol)
+    log(_row(f"paged_decode_attention GQA 32/4 D=64 bf16 B=8 ps=16 "
+             f"lengths={tl_lengths} (atol 2e-2 rtol 2e-2)", r))
+    r = check_decode(torch, f32, False, lengths=tl_lengths, timed=False,
+                     atol=1e-4, rtol=1e-4, **tiny)
+    log(f"kernel paged_decode_attention GQA 32/4 D=64 f32: max_abs_err="
+        f"{r['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
+    # the drafter's catch-up on admission writes each new request's whole
+    # prompt in one verify-mode wave: m = the pow2 bucket of the wave's
+    # longest prompt, 1024 for the draft pass's 700-1024-token prompts.
+    # Bases all 0 (an admission wave of new requests) and ragged (rows
+    # behind a cached draft prefix), at the TinyLlama draft's widths and at
+    # llama2_7b's (the target drafting for itself); bf16 and f32
+    catch_up = [("spec verify", tiny, "GQA 32/4 D=64", 5,
+                 [0, 1, 17, 300, 700, 1024, 1500, 2042])]
+    for kw, heads in ((tiny, "GQA 32/4 D=64"), (ver, "H=32 D=128")):
+        catch_up += [("catch-up", kw, heads, 1024, [0] * 8),
+                     ("catch-up", kw, heads, 1024,
+                      [0, 0, 0, 16, 128, 304, 512, 1024])]
+    for tag, kw, heads, m, bases in catch_up:
+        rv = check_verify(torch, bf16, False, m=m, bases=bases, timed=True,
+                          **kw, **tol)
+        log(_verify_row(f"{heads} bf16 pages {tag} B=8 m={m} ps=16 "
+                        f"bases={bases}", rv))
+        rv = check_verify(torch, f32, False, m=m, bases=bases, timed=False,
+                          atol=1e-4, rtol=1e-4, **kw)
+        log(f"kernel paged_verify_attention {heads} f32 {tag} m={m} "
+            f"bases={bases} (body {rv['body']}): max_abs_err="
+            f"{rv['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
     decode_split_sweep(torch)
     rg = check_flash(torch, bf16, 8, 1024, 32, 128, timed=True, Hkv=8, **tol)
     log(_row("flash_attention_fwd GQA 32/8 bf16 B=8 S=1024 (k/v not "
@@ -2033,7 +2101,8 @@ def main(argv=None):
         launches.update(n)
     for phase, run in (("main", phase_main), ("serve", phase_serve),
                        ("generate", phase_generate), ("tier", phase_tier),
-                       ("cluster", phase_cluster)):
+                       ("cluster", phase_cluster), ("draft", phase_draft),
+                       ("fused", phase_fused)):
         if phase in phases:
             for name, n in run(ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -2049,6 +2118,8 @@ def main(argv=None):
         phase_sched(ident)
     if "loadgen" in phases:
         phase_loadgen(ident)
+    if "draftcause" in phases:
+        phase_draftcause(ident)
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -2631,8 +2702,16 @@ def phase_main(ident):
         verify)
     disagg = ("paged_decode_attention", "paged_verify_attention")
 
+    # the disaggregated pair at half depth (16 of 32 layers, the same
+    # seed): its graph and eager runs are held only to each other, and the
+    # eager one, host-bound, was the phase's longest pass
+    half = init_llama(dataclasses.replace(cfg, num_layers=16), seed=0,
+                      device="cuda", dtype=torch.bfloat16)
+
     def disagg_engine(graphs=True):
-        eng = _pin(engine(prefill_chunk=256, disaggregate=True))
+        eng = _pin(Engine(half, max_slots=8, num_pages=1024, page_size=16,
+                          chunk_size=16, prefill_chunk=256,
+                          disaggregate=True))
         eng.runner._graphs.enabled = graphs
         return eng
 
@@ -2650,6 +2729,9 @@ def phase_main(ident):
             "pinned boundary cost")
 
     run_pass("main disaggregated eager", disagg_eager, disagg)
+    del half
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # pass 6: n-gram speculative decoding over prompts that repeat a
     # 64-token span, so the drafter finds matches
@@ -3651,8 +3733,9 @@ def phase_generate(ident):
     log(f"generate G1: one generate pass (B=8, 128 + 512) launches "
         f"{ {k: v for k, v in per_pass.items() if v} }")
     out_bf16 = run("G1 bf16", lambda: g1("bf16", gpt, 3), slab)
-    # the same decode step run eagerly (graphs off): equal ids
-    out_eager = run("G1 bf16 eager", lambda: g1("bf16 eager", gpt, 3,
+    # the same decode step run eagerly (graphs off): equal ids; one timed
+    # repetition (each eager 512-token generate takes seconds)
+    out_eager = run("G1 bf16 eager", lambda: g1("bf16 eager", gpt, 1,
                                                 graphs=False), slab)
     if not torch.equal(out_eager, out_bf16):
         raise AssertionError("G1: the graph and eager ids differ")
@@ -6122,6 +6205,731 @@ def phase_cluster(ident):
     _subprocess_pass("identity f32 subprocess", ident, root,
                      ("--model", "small"), 128)
     return total
+
+# ------------------------------------------------------------ draft
+def tinyllama_1b(**kw):
+    """LLaMA at the published widths of
+    ``TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T`` (its
+    ``config.json``): vocab 32000, hidden 2048, 22 layers, 32 heads over 4
+    kv heads, intermediate 5632, max_position 2048, rms_eps 1e-5. Built
+    here, not in the package."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    base = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
+                num_heads=32, num_kv_heads=4, intermediate_size=5632,
+                max_position=2048, rms_eps=1e-5)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def _draft_probe(eng):
+    """Instrument ``eng``'s drafter (instance attributes over its methods):
+    each propose step's drafts (a device copy) and the #1 launches it
+    adds; each catch-up's rows, width and the #3 launches it adds. Times
+    are CUDA events, read after the pass (no sync is added): ``run``
+    brackets each propose step's ``step.run()`` alone (a graph replay, or
+    the eager body with the host's launch gaps in it), ``catch_up`` each
+    eager catch-up with its host packing and copies. Both are stream
+    intervals, not device busy time. Returns the dict it fills."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    d = eng._spec.drafter
+    note = {"drafts": [], "run": [], "catch_up": [], "p_dec": 0,
+            "c_ver": 0, "c_dec": 0}
+    run_propose, catch_up, get = d._run_propose, d._catch_up, d._graphs.get
+
+    def timed(fn, *a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a)
+        ev[1].record()
+        return out, ev
+
+    def get_w(key, make, keep=None):
+        step = get(key, make, keep)
+        if "run" not in vars(step):
+            run = step.run
+
+            def run_w(n=1):
+                note["run"].append(timed(run, n)[1])
+
+            step.run = run_w
+        return step
+
+    def propose_w(slots, nb, k):
+        n0 = pa.paged_slab_decode_attention.launches
+        out = run_propose(slots, nb, k)
+        note["p_dec"] += pa.paged_slab_decode_attention.launches - n0
+        note["drafts"].append(out.clone())
+        return out
+
+    def catch_up_w(rows):
+        n0 = (pa.paged_verify_slab_attention.launches,
+              pa.paged_slab_decode_attention.launches)
+        _, ev = timed(catch_up, rows)
+        note["c_ver"] += pa.paged_verify_slab_attention.launches - n0[0]
+        note["c_dec"] += pa.paged_slab_decode_attention.launches - n0[1]
+        note["catch_up"].append((ev, len(rows),
+                                 max(r.size for _, r in rows)))
+
+    d._run_propose, d._catch_up, d._graphs.get = propose_w, catch_up_w, get_w
+    return note
+
+
+def _greedy_tally(eng):
+    """Count the drafts proposed and accepted on greedy rows apart
+    (``eng._spec.note`` wrapped): a sampled row accepts a draft with the
+    target's probability of it, well below 1 at random weights. Returns
+    the dict it fills."""
+    sp = eng._spec
+    tally = {"proposed": 0, "accepted": 0}
+    note = sp.note
+
+    def note_w(req, proposed, accepted, landed):
+        if req.temperature == 0.0:
+            tally["proposed"] += proposed
+            tally["accepted"] += min(accepted, proposed)
+        return note(req, proposed, accepted, landed)
+
+    sp.note = note_w
+    return tally
+
+
+def _draft_summary(note):
+    """(the propose step's run ms median, catch-up ms median, the longest
+    catch-up's ms and width) of a finished pass: stream intervals."""
+    prop = [a.elapsed_time(b) for a, b in note["run"]]
+    cat = [(a.elapsed_time(b), n, w) for (a, b), n, w in note["catch_up"]]
+    longest = max(cat, key=lambda c: c[0]) if cat else (0.0, 0, 0)
+    return (statistics.median(prop) if prop else 0.0,
+            statistics.median(c[0] for c in cat) if cat else 0.0, longest)
+
+
+def _drafter_ok(eng, tag):
+    """``_no_caught_fault`` and the drafter's own steps: with its graphs on,
+    every propose step must have been captured."""
+    _no_caught_fault(eng, tag)
+    graphs = eng._spec.drafter._graphs
+    if graphs.enabled and any(st.graph is None
+                              for st in graphs.steps.values()):
+        raise AssertionError(f"{tag}: a propose step ran eagerly with "
+                             "graphs on")
+
+
+def _draft_items(vocab):
+    """Pass (1)'s items, which the main phase draws first from seed 0:
+    [(prompt, new tokens, temperature, seed)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, (n,)), m, t, s)
+            for n, m, t, s in ((16, 64, 0.0, None), (1024, 32, 0.0, None),
+                               (300, 128, 0.8, 11), (64, 96, 0.0, None),
+                               (700, 48, 0.8, 12), (128, 128, 0.0, None),
+                               (33, 40, 0.0, None), (512, 64, 0.0, None),
+                               (900, 32, 0.0, None), (200, 80, 0.0, None))]
+
+
+def phase_draft(ident):
+    """Draft-model speculative decoding (``Engine(spec="draft",
+    draft_model=)``): ``llama2_7b`` at full width and depth, bf16, random
+    weights from seed 0, on the pool and items of the main phase's pass
+    (1), ``spec_k=4``, with (i) a LLaMA at TinyLlama-1.1B's widths (seed 1:
+    acceptance near zero, what drafting costs) and (ii) the target as its
+    own draft (every greedy draft should land). Each draft serves the
+    items with the propose step on CUDA graphs and again eagerly (the
+    drafter's graphs off): drafts and streams must be equal. Vanilla and
+    n-gram passes on the same items give the tok/s to set beside; greedy
+    streams are counted against vanilla. Then ``drafter-corruption:
+    every=3``. Then f32, TF32 off, 2 layers at ``llama2_7b`` widths (drafts
+    at TinyLlama widths, 2 layers, and the target itself): greedy draft
+    streams, graph and eager, and the chaos pass must equal vanilla.
+    Launches are counted per pass; the drafter's own #1 and #3 launches
+    are logged apart."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+
+    t_phase = time.perf_counter()
+    cfg = llama2_7b()
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    tiny = init_llama(tinyllama_1b(), seed=1, device="cuda",
+                      dtype=torch.bfloat16)
+    log(f"draft: llama2_7b bf16 and a TinyLlama-width draft "
+        f"({tinyllama_1b().num_params() / 1e9:.2f}B params, "
+        f"{_model_gib(tiny):.2f} GiB) in {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    total = {name: 0 for name in KERNELS}
+    items = _draft_items(cfg.vocab_size)
+    greedy = [i for i, it in enumerate(items) if it[2] == 0.0]
+
+    def engine(m, **kw):
+        return Engine(m, max_slots=8, num_pages=1024, page_size=16,
+                      chunk_size=16, **kw)
+
+    seen, streams = {}, {}
+
+    def run_pass(tag, run, needs, tc=True):
+        """``run()`` with the launch counters zeroed just before and read
+        just after; ``tc``: a bf16 pass, whose flash and verify launches
+        must all be tensor-core ones."""
+        t_pass = time.perf_counter()
+        got = _counted(run, needs, tc=tag if tc else None)[1]
+        log(f"{tag}: launches {got}; {time.perf_counter() - t_pass:.1f} s")
+        for name, n in got.items():
+            if name in total:
+                total[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def plain_pass(tag, **kw):
+        def run():
+            reqs, wall = _serve_items(_pin(engine(model, **kw)), items, tag)
+            seen[tag] = _report(tag, reqs, wall, ident)
+            streams[tag] = [list(r.tokens) for r in reqs]
+        run_pass(tag, run, ("paged_decode_attention",) if not kw else
+                 ("paged_verify_attention",))
+
+    plain_pass("draft vanilla")
+    plain_pass("draft ngram", spec="ngram", spec_k=4)
+    same = sum(streams["draft ngram"][i] == streams["draft vanilla"][i]
+               for i in greedy)
+    log(f"draft ngram: greedy streams equal to vanilla: {same} of "
+        f"{len(greedy)} (bf16: the verify kernel and the decode kernel "
+        f"round apart) [{ident}]")
+    notes = {}
+
+    def draft_pass(tag, draft, graphs=True, plan=None):
+        def run():
+            eng = _pin(engine(model, spec="draft", draft_model=draft,
+                              spec_k=4, fault_plan=plan))
+            eng._spec.drafter._graphs.enabled = graphs
+            note = notes[tag] = _draft_probe(eng)
+            gt = _greedy_tally(eng)
+            reqs = [eng.add_request(p, m, temperature=t, seed=s)
+                    for p, m, t, s in items]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _check_done(reqs, items)
+            sp = eng._spec
+            if plan is None:
+                _drafter_ok(eng, tag)
+            elif eng._watchdog.last_fault is not None or not \
+                    sp.drafter_faults:
+                raise AssertionError(
+                    f"{tag}: {sp.drafter_faults} drafter faults, step fault "
+                    f"{eng._watchdog.last_fault!r}")
+            seen[tag] = _report(tag, reqs, wall, ident)
+            streams[tag] = [list(r.tokens) for r in reqs]
+            st = sp.stats()
+            prop_ms, cat_ms, longest = _draft_summary(note)
+            match = sum(streams[tag][i] == streams["draft vanilla"][i]
+                        for i in greedy)
+            log(f"{tag}: {seen[tag][0]:.1f} tok/s (vanilla "
+                f"{seen['draft vanilla'][0]:.1f}, ngram "
+                f"{seen['draft ngram'][0]:.1f}); {st['verify_steps']} verify "
+                f"steps, {sp.tokens_landed / max(1, st['verify_steps']):.2f} "
+                f"tokens a verify step ({st['accept_per_step']:.2f} a "
+                f"request-row); drafts {sp.drafts_accepted} accepted of "
+                f"{sp.drafts_proposed} proposed, on greedy rows "
+                f"{gt['accepted']} of {gt['proposed']}; propose step.run() "
+                f"{prop_ms:.3f} ms a step ({'graph' if graphs else 'eager'},"
+                f" {len(note['run'])} steps; stream interval), catch-up "
+                f"median {cat_ms:.3f} ms over {len(note['catch_up'])} waves "
+                f"(stream interval, host packing in it), the "
+                f"longest {longest[0]:.3f} ms ({longest[1]} rows, width "
+                f"{longest[2]}); the drafter launched #1 {note['p_dec']} "
+                f"times (propose) and #3 {note['c_ver']} times (catch-up); "
+                f"{sp.drafter_faults} drafter faults; greedy streams equal "
+                f"to vanilla: {match} of {len(greedy)} [{ident}]")
+            if not (note["p_dec"] and note["c_ver"]):
+                raise AssertionError(f"{tag}: the drafter did not launch #1 "
+                                     "and #3")
+            # the drafts stay on the card: keep them, the probe is gone
+            notes[tag] = [dr.cpu() for dr in note["drafts"]]
+        run_pass(tag, run, ("paged_decode_attention",
+                            "paged_verify_attention"))
+
+    for name, draft in (("tinyllama", tiny), ("self", model)):
+        tag = f"draft {name}"
+        draft_pass(tag, draft)
+        draft_pass(f"{tag} eager", draft, graphs=False)
+        a, b = notes[tag], notes[f"{tag} eager"]
+        if streams[tag] != streams[f"{tag} eager"] or len(a) != len(b) or \
+                any(not torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{tag}: the propose on graphs and eagerly "
+                                 "gave other drafts or streams")
+        log(f"{tag}: the propose on graphs and eagerly: {len(a)} steps of "
+            f"equal drafts, equal streams [{ident}]")
+    draft_pass("draft tinyllama chaos", tiny,
+               plan="drafter-corruption:every=3")
+    match = sum(x == y for x, y in zip(streams["draft tinyllama chaos"],
+                                       streams["draft tinyllama"]))
+    log(f"draft tinyllama chaos: no request failed; {match} of "
+        f"{len(items)} streams equal the clean run (bf16: a faulted step "
+        f"verifies zero drafts, which rounds apart) [{ident}]")
+    del model, tiny
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32, TF32 off, 2 layers: identity with vanilla
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m32 = init_llama(LlamaConfig(num_layers=2), seed=0, device="cuda",
+                         dtype=torch.float32)
+        t32 = init_llama(tinyllama_1b(num_layers=2), seed=1, device="cuda",
+                         dtype=torch.float32)
+        r = np.random.default_rng(15)
+        items32 = [(r.integers(0, cfg.vocab_size, (n,)), m, 0.0, None)
+                   for n, m in ((20, 40), (300, 32), (64, 48), (700, 24),
+                                (128, 40), (33, 32))]
+
+        def serve32(tag, **kw):
+            eng = Engine(m32, max_slots=4, num_pages=256, page_size=16,
+                         chunk_size=16, **kw)
+            if kw.get("spec") == "draft" and tag.endswith("eager"):
+                eng._spec.drafter._graphs.enabled = False
+            reqs = [eng.add_request(p, m, temperature=t, seed=s)
+                    for p, m, t, s in items32]
+            eng.run()
+            torch.cuda.synchronize()
+            _check_done(reqs, items32)
+            if kw.get("fault_plan") is None:
+                _no_caught_fault(eng, tag)
+            elif not eng._spec.drafter_faults or \
+                    eng._watchdog.last_fault is not None:
+                raise AssertionError(f"{tag}: the plan faulted no proposal")
+            out = [list(q.tokens) for q in reqs]
+            if eng._spec is not None:
+                sp = eng._spec
+                log(f"{tag}: drafts {sp.drafts_accepted} accepted of "
+                    f"{sp.drafts_proposed}, {sp.drafter_faults} drafter "
+                    "faults")
+                # the target drafting for itself at f32: every greedy
+                # draft must land (a wrong drafter shows here, where
+                # equal streams cannot see it)
+                if kw.get("draft_model") is m32 and not \
+                        sp.drafts_accepted == sp.drafts_proposed > 0:
+                    raise AssertionError(
+                        f"{tag}: {sp.drafts_accepted} of "
+                        f"{sp.drafts_proposed} drafts accepted, not all")
+            return out
+
+        def f32_pass():
+            want = serve32("draft f32 vanilla")
+            for name, draft in (("tinyllama", t32), ("self", m32)):
+                for tag in (f"draft f32 {name}", f"draft f32 {name} eager"):
+                    if serve32(tag, spec="draft", draft_model=draft,
+                               spec_k=4) != want:
+                        raise AssertionError(f"{tag}: greedy streams differ "
+                                             "from vanilla")
+            if serve32("draft f32 chaos", spec="draft", draft_model=t32,
+                       spec_k=4,
+                       fault_plan="drafter-corruption:every=3") != want:
+                raise AssertionError("draft f32 chaos: streams differ from "
+                                     "the clean run")
+            log("draft f32 (llama2_7b widths, 2 layers, TF32 off): greedy "
+                "streams with each draft, graph and eager, and under "
+                "drafter-corruption:every=3 equal vanilla")
+
+        run_pass("draft f32", f32_pass, ("paged_decode_attention",
+                                         "paged_verify_attention"), tc=False)
+        del m32, t32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"draft: phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+@contextlib.contextmanager
+def _plain_verify():
+    """Every #3 call (the module global the cache code calls) on its plain
+    version."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = pa._paged_verify
+    pa._paged_verify = \
+        lambda q, k, v, t, b, scale=None, scale_pages=None, **_: \
+        pa.paged_verify_slab_attention_ref(q, k, v, t, b, scale, scale_pages)
+    try:
+        yield
+    finally:
+        pa._paged_verify = saved
+
+
+@contextlib.contextmanager
+def _plain_slab_decode():
+    """Every #1 call on its plain version."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = pa._paged_slab_decode
+    pa._paged_slab_decode = \
+        lambda q, k, v, t, n, h=None, scale=None, scale_pages=None, **_: \
+        pa.paged_slab_decode_attention_ref(q, k, v, t, n, scale=scale,
+                                           scale_pages=scale_pages)
+    try:
+        yield
+    finally:
+        pa._paged_slab_decode = saved
+
+
+@contextlib.contextmanager
+def _verify_on_fma():
+    """Every #3 launch on its FMA body (P kept in f32), where the rule
+    would pick the tensor-core body (P rounded to bf16 before P.V)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = pa.verify_body
+    pa.verify_body = lambda *a: "fma"
+    try:
+        yield
+    finally:
+        pa.verify_body = saved
+
+
+def _kernel_split(torch, fn, top=6):
+    """(stream interval ms, device busy ms, the ``top`` kernels by device
+    ms) of one call of ``fn``: CUDA events behind a spin (``time_ms``),
+    and torch.profiler's per-kernel device time (``_device_ms``)."""
+    interval = time_ms(fn, warmup=2, reps=10)
+    per = _device_ms(torch, fn, reps=10)
+    busy = sum(per.values())
+    kern = sorted(per.items(), key=lambda kv: -kv[1])[:top]
+    return interval, busy, kern
+
+
+def phase_draftcause(ident):
+    """Opt-in (``--phases build,draftcause``): what holds the target's
+    acceptance of its own drafts below all at bf16, and where a propose
+    step's time goes. ``llama2_7b`` bf16, random weights from seed 0, as
+    its own draft (``spec_k=4``) on the draft phase's items, with one
+    piece at a time on another version: (a) as served; (b) the drafter's
+    catch-up on #3's plain version; (c) the drafter's propose on #1's
+    plain version (its steps eager); (d) every #3 launch, the target's
+    verify steps and the drafter's catch-ups, on #3's FMA body, which
+    keeps P in f32 where the tensor-core body rounds it to bf16 before
+    P.V; (e) every attention kernel of both on its plain version (graphs
+    off); (f) depth cut to 2 and to 8 layers, all else as (a). Logs drafts
+    accepted of proposed and greedy streams equal to vanilla for each.
+    Then the TinyLlama-width draft's propose step at 8 rows after a pass:
+    its graph replay and its eager body on the same buffers, each with its
+    stream interval, device busy ms and largest kernels under
+    torch.profiler. Fails only if a request does not finish or a pass
+    caught a fault."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+
+    t_phase = time.perf_counter()
+    cfg = llama2_7b()
+    items = _draft_items(cfg.vocab_size)
+    greedy = [i for i, it in enumerate(items) if it[2] == 0.0]
+
+    def serve(tag, model, draft=None, graphs=True, dgraphs=True,
+              catch_up=None, propose=None):
+        kw = dict(spec="draft", draft_model=draft, spec_k=4) if draft \
+            else {}
+        eng = _pin(Engine(model, max_slots=8, num_pages=1024, page_size=16,
+                          chunk_size=16, **kw))
+        eng.runner._graphs.enabled = graphs
+        if draft is not None:
+            gt = _greedy_tally(eng)
+            d = eng._spec.drafter
+            d._graphs.enabled = dgraphs
+            for name, ctx in (("_catch_up", catch_up),
+                              ("_run_propose", propose)):
+                if ctx is not None:
+                    def wrapped(*a, _fn=getattr(d, name), _ctx=ctx):
+                        with _ctx():
+                            return _fn(*a)
+                    setattr(d, name, wrapped)
+        reqs, wall = _serve_items(eng, items, tag)
+        out = [list(r.tokens) for r in reqs]
+        if draft is not None:
+            sp = eng._spec
+            st = sp.stats()
+            log(f"draftcause {tag}: drafts {sp.drafts_accepted} accepted "
+                f"of {sp.drafts_proposed} "
+                f"({sp.drafts_accepted / max(1, sp.drafts_proposed):.1%}); "
+                f"on greedy rows {gt['accepted']} of {gt['proposed']} "
+                f"({gt['accepted'] / max(1, gt['proposed']):.1%}); "
+                f"{sp.tokens_landed / max(1, st['verify_steps']):.2f} tokens "
+                f"a verify step; {wall:.1f} s [{ident}]")
+        return out, eng
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    vanilla = serve("vanilla", model)[0]
+
+    def matches(tag, out):
+        n = sum(out[i] == vanilla[i] for i in greedy)
+        log(f"draftcause {tag}: greedy streams equal to vanilla: {n} of "
+            f"{len(greedy)}")
+
+    nothing = contextlib.nullcontext
+    for tag, around, kw in (
+            ("(a) as served", nothing, {}),
+            ("(b) catch-up on plain #3", nothing,
+             dict(catch_up=_plain_verify)),
+            ("(c) propose on plain #1 (eager)", nothing,
+             dict(dgraphs=False, propose=_plain_slab_decode)),
+            ("(d) every #3 on the FMA body", _verify_on_fma, {}),
+            ("(e) every attention kernel plain", _plain_kernels,
+             dict(graphs=False, dgraphs=False))):
+        def run(around=around, kw=kw, tag=tag):
+            with around(), (_plain_verify if tag.startswith("(e)")
+                            else nothing)():
+                return serve(tag, model, model, **kw)[0]
+
+        out, got = _counted(run)
+        log(f"draftcause {tag}: launches "
+            f"{ {n: c for n, c in got.items() if c} }")
+        matches(tag, out)
+        settle()
+    del model
+    settle()
+    for layers in (2, 8):
+        m = init_llama(LlamaConfig(num_layers=layers), seed=0, device="cuda",
+                       dtype=torch.bfloat16)
+        vanilla = serve(f"vanilla {layers} layers", m)[0]
+        out = serve(f"(f) {layers} layers", m, m)[0]
+        matches(f"(f) {layers} layers", out)
+        del m
+        settle()
+
+    # the TinyLlama-width draft's propose step: graph replay and eager body
+    model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    tiny = init_llama(tinyllama_1b(), seed=1, device="cuda",
+                      dtype=torch.bfloat16)
+    _, eng = serve("tinyllama", model, tiny)
+    d = eng._spec.drafter
+    key, g = max(((k, st) for (k, on), st in d._graphs.steps.items() if on),
+                 key=lambda kv: kv[0][1])
+    l0 = g.bufs.lengths.clone()
+    d._graphs.enabled = False
+    e = d._graphs.get(key, lambda: d._propose_step(*key[1:]))
+    with torch.no_grad():
+        for tag, step in (("graph replay", g), ("eager body", e)):
+            step.load(tables=g.bufs.tables, last=g.bufs.last)
+
+            def one(step=step):
+                step.bufs.lengths.copy_(l0)
+                step.run()
+
+            interval, busy, kern = _kernel_split(torch, one)
+            log(f"draftcause propose step {key[1:]} (rows, k), TinyLlama "
+                f"widths, {tag}: stream interval {interval:.3f} ms, device "
+                f"busy {busy:.3f} ms ({busy / interval:.1%}); largest: "
+                + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in kern)
+                + f" [{ident}]")
+    del eng, d, g, e, model, tiny
+    settle()
+    log(f"draftcause: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ fused
+@contextlib.contextmanager
+def _plain_kernels():
+    """``_plain_decode`` and, besides #4, #14 and #15, the flash forward
+    (#2, as ``F.flash_attention`` calls it) and the slab-paged decode (#1)
+    replaced by their plain versions: a forward on the card held against
+    itself on the plain versions."""
+    from paddle_tpu_torch.nn.functional import attention as fattn
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = (fattn.flash_attention_fwd, pa.paged_slab_decode_attention)
+    fattn.flash_attention_fwd = \
+        lambda q, k, v, causal=True, scale=None: fa.flash_attention_ref(
+            q, k, v, causal=causal, scale=scale)
+    pa.paged_slab_decode_attention = \
+        lambda q, k, v, t, n, h=None, scale=None, scale_pages=None: \
+        pa.paged_slab_decode_attention_ref(q, k, v, t, n, scale=scale,
+                                           scale_pages=scale_pages)
+    try:
+        with _plain_decode():
+            yield
+    finally:
+        fattn.flash_attention_fwd, pa.paged_slab_decode_attention = saved
+
+
+FUSED_KINDS = {"5d": "decode_attention", "slab": "decode_attention_slab",
+               "paged_kv": "paged_decode_attention_v1",
+               "paged_state": "paged_decode_attention"}
+
+
+def _fused_caches(layer, kind, batch, max_seq, dtype):
+    """One cache per layer of ``layer`` (a ``FusedMultiTransformer``) of
+    ``kind``: 5-D ``[2, B, H, S, D]``, the slab ``[2, B, S, H*D]``, a
+    ``PagedKVCache`` or a ``PagedCacheState`` (16-row pages, each row its
+    own pages, lengths 0)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.decode_attention import make_kv_slab
+    from paddle_tpu_torch.ops.cuda.paged_attention import (PagedCacheState,
+                                                           PagedKVCache)
+
+    nh, hd, n = layer.num_heads, layer.head_dim, layer.num_layers
+    dev = torch.device("cuda")
+    if kind == "5d":
+        return [torch.zeros((2, batch, nh, max_seq, hd), dtype=dtype,
+                            device=dev) for _ in range(n)]
+    if kind == "slab":
+        return [make_kv_slab(batch, max_seq, nh, hd, dtype, dev)
+                for _ in range(n)]
+    pages = -(-max_seq // 16)
+    if kind == "paged_kv":
+        return [PagedKVCache(batch * pages + 1, 16, batch, nh, hd, pages,
+                             dtype=dtype, device=dev) for _ in range(n)]
+    tables = (torch.arange(batch * pages, dtype=torch.int32, device=dev)
+              .view(batch, pages) + 1)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    shape = (batch * pages + 1, 16, nh * hd)
+    return [PagedCacheState(torch.zeros(shape, dtype=dtype, device=dev),
+                            torch.zeros(shape, dtype=dtype, device=dev),
+                            None, tables, lengths, 16) for _ in range(n)]
+
+
+def _fused_run(layer, kind, x, prompt):
+    """The context phase on ``x[:, :prompt]`` then one decode step a
+    column of the rest (teacher-forced: every kind sees the same inputs),
+    on fresh caches of ``kind``. Returns (outputs [B, S, E] f32, decode ms
+    a step by the host clock, each step ending in no sync)."""
+    import torch
+
+    batch, total, _ = x.shape
+    caches = _fused_caches(layer, kind, batch, total, x.dtype)
+    with torch.no_grad():
+        out, caches = layer(x[:, :prompt], caches=caches)
+        outs = [out.float()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(prompt, total):
+            out, caches = layer(x[:, t:t + 1], caches=caches, time_step=t)
+            outs.append(out.float())
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (total - prompt)
+    return torch.cat(outs, dim=1), ms
+
+
+def _fused_width(tag, layer, batch, prompt, steps, ident, total):
+    """Every cache kind of ``layer`` (bf16) on one teacher-forced input:
+    decode ms a step and the launches a kernel per kind; each kind's
+    outputs against the 5-D cache's within 5e-2 of the largest entry (the
+    context rows are the same flash launches, the decode rows other
+    kernels rounding apart in bf16)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((batch, prompt + steps, layer.embed_dim), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    outs = {}
+    for kind, kernel in FUSED_KINDS.items():
+        def run(kind=kind):
+            outs[kind] = _fused_run(layer, kind, x, prompt)
+        t0 = time.perf_counter()
+        _, got = _counted(run, ("flash_attention_fwd", kernel),
+                          tc=f"fused {tag} {kind}")
+        got = {k: v for k, v in got.items() if v}
+        for name, n in got.items():
+            if name in total:
+                total[name] += n
+        log(f"fused {tag} {kind}: B={batch}, prompt {prompt} + {steps} "
+            f"decode steps: {outs[kind][1]:.3f} ms a decode step (host "
+            f"clock), {batch / outs[kind][1] * 1e3:.1f} tokens/s; launches "
+            f"{got}; {time.perf_counter() - t0:.1f} s [{ident}]")
+    want = outs["5d"][0]
+    top = float(want.abs().max())
+    if not math.isfinite(top):
+        raise AssertionError(f"fused {tag}: non-finite outputs")
+    for kind in list(FUSED_KINDS)[1:]:
+        err = float((outs[kind][0] - want).abs().max())
+        if not err <= 5e-2 * top:
+            raise AssertionError(f"fused {tag} {kind}: outputs off the 5-D "
+                                 f"cache's by {err:.3g} (largest {top:.3g})")
+        log(f"fused {tag} {kind}: outputs within {err:.3g} of the 5-D "
+            f"cache's (largest entry {top:.3g}, limit 5e-2 of it)")
+    del outs, x
+    torch.cuda.empty_cache()
+
+
+def phase_fused(ident):
+    """``incubate.nn.FusedMultiTransformer`` (config 3's layer) at GPT-3
+    6.7B widths (embed 4096, 32 heads, ffn 16384, 32 layers, bf16, 12.9 GB
+    of weights from seed 0) and at GPT-2 small widths (768, 12, 3072, 12
+    layers): B=8, a 128-token prompt (the context phase through #2) then
+    128 teacher-forced decode steps over each cache kind (5-D: #14, the
+    slab: #15, ``PagedKVCache``: #4, ``PagedCacheState``: #1); the four
+    kinds' outputs must agree. Then f32, TF32 off, 2 layers at 6.7B
+    widths: each kind against the same layer on the plain versions
+    (within 1e-4 of the largest entry)."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_fused_multi_transformer
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    for tag, (emb, nh, ff, layers) in (("6.7B", (4096, 32, 16384, 32)),
+                                       ("gpt2 small", (768, 12, 3072, 12))):
+        t0 = time.perf_counter()
+        layer = init_fused_multi_transformer(emb, nh, ff, layers, seed=0,
+                                             device="cuda",
+                                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"fused {tag}: FusedMultiTransformer({emb}, {nh}, {ff}, "
+            f"num_layers={layers}) bf16, {_model_gib(layer):.2f} GiB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _fused_width(tag, layer, 8, 128, 128, ident, total)
+        del layer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        layer = init_fused_multi_transformer(4096, 32, 16384, 2, seed=0,
+                                             device="cuda",
+                                             dtype=torch.float32)
+        g = torch.Generator(device="cuda").manual_seed(22)
+        x = torch.randn((4, 48, 4096), generator=g, device="cuda")
+
+        def f32_pass():
+            for kind in FUSED_KINDS:
+                got, _ = _fused_run(layer, kind, x, 32)
+                with _plain_kernels():
+                    want, _ = _fused_run(layer, kind, x, 32)
+                _close_logits(f"fused f32 (6.7B widths, 2 layers) {kind} "
+                              "against its plain run", got, want, 1e-4)
+
+        _, got = _counted(f32_pass, ("flash_attention_fwd",)
+                          + tuple(FUSED_KINDS.values()))
+        log(f"fused f32: launches {({k: v for k, v in got.items() if v})}")
+        del layer, x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fused: launches {({k: v for k, v in total.items() if v})}; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
 
 def phase_loadgen(ident):
     """Opt-in: the four ported serving benches at ``gpt2_small()`` in bf16

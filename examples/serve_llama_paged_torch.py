@@ -14,8 +14,10 @@ Run on the card (the default device):
     python examples/serve_llama_paged_torch.py
     python examples/serve_llama_paged_torch.py --model llama2_7b --api-port 8000
     python examples/serve_llama_paged_torch.py --pools prefill=1,decode=2
+    python examples/serve_llama_paged_torch.py --spec draft
 Run on the CPU (tiny):
     python examples/serve_llama_paged_torch.py --tiny --device cpu
+    python examples/serve_llama_paged_torch.py --tiny --device cpu --spec draft
 """
 import argparse
 import os as _os
@@ -111,6 +113,22 @@ def run_cluster_smoke(model, cfg, args):
         router.shutdown()
 
 
+def _draft_model(cfg, model, args):
+    """A deliberately tiny draft, the reference example's: one narrow
+    layer sharing the target's vocabulary and positions (correctness never
+    depends on its quality; greedy acceptance is token-exact against the
+    target). Its two heads are 64 wide where the reference's are 16: the
+    card's attention kernels take head dims of 32 and up (64 for #3)."""
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.models.llama import tiny_llama_config
+
+    dcfg = tiny_llama_config(
+        num_layers=1, hidden_size=128, num_heads=2, num_kv_heads=2,
+        intermediate_size=256, vocab_size=cfg.vocab_size,
+        max_position=cfg.max_position)
+    return init_llama(dcfg, seed=1, device=args.device, dtype=model.dtype)
+
+
 def _model(args):
     import torch
 
@@ -153,9 +171,13 @@ def main():
                     default="none",
                     help="weight-only-quantize the Linears before serving "
                          "(decode-sized GEMMs then run kernel #12)")
-    ap.add_argument("--spec", choices=["off", "ngram"], default="off",
-                    help="speculative decoding by prompt lookup; greedy "
-                         "output is identical to --spec off")
+    ap.add_argument("--spec", choices=["off", "ngram", "draft"],
+                    default="off",
+                    help="speculative decoding: 'ngram' drafts by prompt "
+                         "lookup (model-free), 'draft' drafts with a "
+                         "1-layer llama sharing the vocab; greedy output "
+                         "is identical to --spec off, sampled output stays "
+                         "distribution-exact via rejection sampling")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="max draft tokens per verify step")
     ap.add_argument("--prefix-cache", choices=["on", "off"], default="on",
@@ -230,13 +252,16 @@ def main():
     if args.pools is not None:
         run_cluster_smoke(model, cfg, args)
         return
+    draft_model = None
+    if args.spec == "draft":
+        draft_model = _draft_model(cfg, model, args)
     big = cfg.hidden_size >= 4096
     eng = Engine(model, max_slots=8 if big else 4,
                  num_pages=1024 if big else 96, page_size=16,
                  chunk_size=16 if big else 8,
                  quantized_cache=args.int8_cache,
                  spec=None if args.spec == "off" else args.spec,
-                 spec_k=args.spec_k,
+                 spec_k=args.spec_k, draft_model=draft_model,
                  deadline_s=(args.deadline_ms / 1e3
                              if args.deadline_ms is not None else None),
                  max_queue=args.max_queue,

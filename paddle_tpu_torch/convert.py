@@ -20,21 +20,30 @@ from a seed with an explicit ``torch.Generator`` (normal, std
 ``initializer_range``; norm scales ones, biases zeros), so a 7B model is
 made on the card with no host copy. ``gpt_from_numpy`` builds the GPT from
 the JAX package's ``param_arrays`` the way ``llama_from_numpy`` does.
+
+``fused_multi_transformer_from_numpy`` builds an
+``incubate.nn.FusedMultiTransformer`` from the JAX layer's per-layer lists
+(``{"qkv_weights": [layer 0, layer 1, ...], ...}``, each ``np.asarray``
+of the JAX parameter), in the reference's layouts, with no transposes;
+``init_fused_multi_transformer`` draws one from a seed on its device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .framework.device import resolve_device, resolve_dtype
+from .incubate.nn.layer.fused_transformer import (_LISTS,
+                                                  FusedMultiTransformer)
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.quant import quantize_for_decode
 
 __all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy",
-           "init_gpt", "gpt_from_numpy"]
+           "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
+           "init_fused_multi_transformer"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -124,3 +133,55 @@ def init_gpt(cfg: GPTConfig, seed: int = 0, device=None,
         else:
             p.normal_(0.0, cfg.initializer_range, generator=gen)
     return model
+
+
+@torch.no_grad()
+def fused_multi_transformer_from_numpy(
+        lists: Dict[str, Sequence[np.ndarray]], activation="gelu",
+        epsilon=1e-5, device=None,
+        dtype=torch.float32) -> FusedMultiTransformer:
+    """A port ``FusedMultiTransformer`` holding the JAX layer's parameters:
+    ``lists`` maps each of its per-layer list names (``ln_scales``,
+    ``qkv_weights``, ..., ``ffn2_biases``) to one array a layer. The
+    widths come from the arrays (``qkv_weights[0]`` is ``[3, num_heads,
+    head_dim, embed_dim]``, ``ffn1_weights[0]`` ``[embed_dim,
+    dim_feedforward]``)."""
+    missing = [name for name in _LISTS if name not in lists]
+    if missing:
+        raise ValueError(f"fused_multi_transformer_from_numpy: missing "
+                         f"{missing}")
+    _, nh, hd, h = np.shape(lists["qkv_weights"][0])
+    layer = FusedMultiTransformer(
+        h, nh, np.shape(lists["ffn1_weights"][0])[1], activation=activation,
+        epsilon=epsilon, num_layers=len(lists["qkv_weights"]),
+        device=device, dtype=dtype)
+    dev, dt = resolve_device(device), resolve_dtype(dtype)
+    for name in _LISTS:
+        arrays = lists[name]
+        if len(arrays) != layer.num_layers:
+            raise ValueError(f"{name}: {len(arrays)} arrays for "
+                             f"{layer.num_layers} layers")
+        for p, a in zip(getattr(layer, name), arrays):
+            p.copy_(_port_tensor(name, a, dev, dt))
+    return layer.eval()
+
+
+@torch.no_grad()
+def init_fused_multi_transformer(embed_dim, num_heads, dim_feedforward,
+                                 num_layers, seed: int = 0, std=0.02,
+                                 activation="gelu", device=None,
+                                 dtype=torch.bfloat16
+                                 ) -> FusedMultiTransformer:
+    """A ``FusedMultiTransformer`` with random weights drawn on ``device``
+    from ``seed``: every weight matrix normal(0, ``std``), LN scales one,
+    biases zero, in ``named_parameters`` order."""
+    layer = FusedMultiTransformer(embed_dim, num_heads, dim_feedforward,
+                                  activation=activation,
+                                  num_layers=num_layers, device=device,
+                                  dtype=dtype)
+    dev = next(layer.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    for name, p in layer.named_parameters():
+        if "_weights_" in name:
+            p.normal_(0.0, std, generator=gen)
+    return layer.eval()

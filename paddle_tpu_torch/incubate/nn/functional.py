@@ -1,12 +1,172 @@
-"""Fused functional ops, after ``paddle_tpu/incubate/nn/functional``."""
+"""Fused functional ops, after ``paddle_tpu/incubate/nn/functional``.
+
+``masked_multihead_attention`` runs the decode kernel #14;
+``fused_multi_head_attention`` runs the flash forward (#2) or, with a
+mask, ``F.scaled_dot_product_attention``'s masked softmax;
+``ring_flash_attention`` the context-parallel ring. The other fused ops
+reach no kernel of their own in the reference either (each is one XLA
+fusion there): here they are the same arithmetic in PyTorch. Dropout
+masks come from an explicit ``generator`` (a ``torch.Generator`` on the
+input's device; the default generator when None).
+"""
 from __future__ import annotations
 
 import torch
 
+from ...nn import functional as F
 from ...ops.cuda.decode_attention import decode_attention
 
 __all__ = ["fused_rotary_position_embedding", "masked_multihead_attention",
-           "ring_flash_attention"]
+           "ring_flash_attention", "fused_feedforward",
+           "fused_multi_head_attention", "fused_softmax_mask",
+           "fused_softmax_mask_upper_triangle", "fused_dropout_add",
+           "fused_linear_activation", "fused_gemm_epilogue",
+           "fused_bias_dropout_residual_layer_norm"]
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu",
+                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                      pre_layer_norm=False, training=True,
+                      mode="upscale_in_train", name=None, generator=None):
+    """The functional ``FusedFeedForward``: (pre-LN), linear1, the
+    activation, dropout, linear2, dropout, the residual, (post-LN)."""
+    from .layer.fused_transformer import _act
+
+    residual = x
+    d = x.shape[-1]
+    if pre_layer_norm:
+        x = F.layer_norm(x, [d], ln1_scale, ln1_bias, ln1_epsilon)
+    h = torch.matmul(x, linear1_weight)
+    if linear1_bias is not None:
+        h = h + linear1_bias
+    h = F.dropout(_act(activation)(h), p=dropout1_rate, training=training,
+                  mode=mode, generator=generator)
+    h = torch.matmul(h, linear2_weight)
+    if linear2_bias is not None:
+        h = h + linear2_bias
+    h = F.dropout(h, p=dropout2_rate, training=training, mode=mode,
+                  generator=generator)
+    out = residual + h
+    if not pre_layer_norm:
+        out = F.layer_norm(out, [d], ln2_scale, ln2_bias, ln2_epsilon)
+    return out
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.5,
+                               attn_dropout_rate=0.5, ln_epsilon=1e-5,
+                               training=True, mode="upscale_in_train",
+                               ring_id=-1, add_residual=True, name=None,
+                               generator=None):
+    """The functional ``FusedMultiHeadAttention``; ``qkv_weight`` is
+    ``[3, num_heads, head_dim, embed_dim]``. ``ring_id >= 0`` (tensor
+    parallelism) raises ``TypeError``."""
+    from .layer.fused_transformer import _qkv_pack
+
+    if ring_id >= 0:
+        raise TypeError(f"fused_multi_head_attention: ring_id={ring_id} "
+                        "(tensor parallelism) is not ported")
+    if cache_kv is not None:
+        raise NotImplementedError(
+            "fused_multi_head_attention: cache_kv (incremental decode) is "
+            "not supported here — use masked_multihead_attention or "
+            "FusedMultiTransformer's cache path; silently dropping it would "
+            "compute non-cached attention and a stale cache")
+    residual = x
+    d = x.shape[-1]
+    if pre_layer_norm:
+        x = F.layer_norm(x, [d], pre_ln_scale, pre_ln_bias, pre_ln_epsilon)
+    b, s, _ = x.shape
+    q, k, v = _qkv_pack(x, qkv_weight, qkv_bias).unbind(dim=2)
+    if attn_mask is not None:
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=attn_dropout_rate,
+            training=training, generator=generator)
+    else:
+        out, _ = F.flash_attention(q, k, v, dropout=attn_dropout_rate,
+                                   causal=False, training=training,
+                                   generator=generator)
+    out = torch.matmul(out.reshape(b, s, d), linear_weight)
+    if linear_bias is not None:
+        out = out + linear_bias
+    out = F.dropout(out, p=dropout_rate, training=training, mode=mode,
+                    generator=generator)
+    if add_residual:
+        out = residual + out
+    if not pre_layer_norm:
+        out = F.layer_norm(out, [d], ln_scale, ln_bias, ln_epsilon)
+    return out
+
+
+def fused_softmax_mask(x, mask, scale=1.0):
+    """``softmax(scale * x + mask)`` over the last dim, in f32, cast back
+    to x's dtype."""
+    m = torch.as_tensor(mask, device=x.device)
+    return torch.softmax(x.float() * scale + m, dim=-1).to(x.dtype)
+
+
+def fused_softmax_mask_upper_triangle(x):
+    """The causal softmax: the last dim's softmax with the strict upper
+    triangle (bottom-right aligned) masked out, in f32."""
+    sq, sk = x.shape[-2], x.shape[-1]
+    keep = torch.tril(torch.ones((sq, sk), dtype=torch.bool,
+                                 device=x.device), diagonal=sk - sq)
+    s = x.float().masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, dim=-1).to(x.dtype)
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      seed=None, name=None, generator=None):
+    """``dropout(x) + y``. Without a ``generator``, a ``seed`` seeds one on
+    x's device."""
+    if generator is None and seed is not None:
+        generator = torch.Generator(device=x.device).manual_seed(int(seed))
+    return F.dropout(x, p=p, training=training, mode=mode,
+                     generator=generator) + y
+
+
+def fused_linear_activation(x, weight, bias=None, trans_x=False,
+                            trans_y=False, activation="gelu"):
+    """The GEMM with its bias and activation epilogue (cuBLASLt's
+    ``fused_gemm_epilogue`` in the reference's source):
+    ``act(x @ weight + bias)``, each operand's last two dims swapped by
+    ``trans_x`` / ``trans_y``; ``activation`` in gelu (tanh form), relu,
+    ``"none"`` or None."""
+    acts = {"gelu": lambda a: F.gelu(a, approximate=True), "relu": F.relu,
+            "none": lambda a: a, None: lambda a: a}
+    if activation not in acts:
+        raise ValueError(
+            f"fused_linear_activation: unsupported activation "
+            f"{activation!r}; choose from {sorted(k for k in acts if k)}")
+    xa = x.transpose(-1, -2) if trans_x else x
+    wa = weight.transpose(-1, -2) if trans_y else weight
+    out = torch.matmul(xa, wa)
+    if bias is not None:
+        out = out + bias
+    return acts[activation](out)
+
+
+fused_gemm_epilogue = fused_linear_activation  # the reference op's name
+
+
+def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
+                                           ln_scale=None, ln_bias=None,
+                                           dropout_rate=0.5, ln_epsilon=1e-5,
+                                           training=True,
+                                           mode="upscale_in_train",
+                                           name=None, generator=None):
+    """``layer_norm(dropout(x + bias) + residual)``."""
+    h = x if bias is None else x + bias
+    h = F.dropout(h, p=dropout_rate, training=training, mode=mode,
+                  generator=generator) + residual
+    return F.layer_norm(h, [h.shape[-1]], ln_scale, ln_bias, ln_epsilon)
 
 
 def fused_rotary_position_embedding(q, k=None, v=None, position_ids=None,

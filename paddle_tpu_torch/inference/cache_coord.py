@@ -186,6 +186,44 @@ class CacheCoordinator:
                              and self.pcache.contains_page(page)):
             self.free_pages.append(page)
 
+    def grow(self, slot, need) -> bool:
+        """Give ``slot``'s table its first ``need`` pages, claiming the
+        missing ones (``alloc_page``). On a shortfall the claimed pages go
+        back and False leaves the allocator unchanged."""
+        # count actual allocations: chain headroom can exceed the pages a
+        # slot's length needs
+        have = int(np.count_nonzero(self.tables[slot]))
+        taken = []
+        for i in range(have, need):
+            page = self.alloc_page()
+            if page is None:
+                for j in range(have, have + len(taken)):
+                    self.tables[slot, j] = 0
+                for pg in reversed(taken):
+                    self.release_page(pg)
+                return False
+            taken.append(page)
+            self.tables[slot, i] = page
+        return True
+
+    def trim(self, slot, keep):
+        """Release ``slot``'s pages past its first ``keep`` (a spliced
+        shared page merely loses this slot's reference)."""
+        have = int(np.count_nonzero(self.tables[slot]))
+        for i in range(have - 1, keep - 1, -1):
+            self.release_page(int(self.tables[slot, i]))
+            self.tables[slot, i] = 0
+
+    def release_slot(self, slot):
+        """Drop every page reference of ``slot``'s table (shared pages
+        survive for their other referents, cached ones stay resident at
+        refcount 0) and zero its row and length."""
+        for p in self.tables[slot]:
+            if p:
+                self.release_page(int(p))
+        self.tables[slot, :] = 0
+        self.lengths[slot] = 0
+
     def available_pages(self) -> int:
         """Pages an allocation burst could claim: free plus idle cached (an
         upper bound, see ``PrefixCache.evictable_count``)."""

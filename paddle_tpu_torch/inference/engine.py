@@ -59,10 +59,13 @@
   one step: prefill-role slots stream their chunks through the mixed step
   while decode-role slots ride a chain of depth ``k`` (a graph replay),
   dispatched back to back and harvested behind one fetch.
-* **Speculative decoding** (``spec="ngram"``, ``spec_k=k``). The n-gram
-  drafter proposes up to k tokens per request, ONE verify forward (the
-  verify kernel) scores all k+1 positions, acceptance keeps 1..k+1 tokens
+* **Speculative decoding** (``spec="ngram"`` or ``spec="draft"`` with
+  ``draft_model=``, ``spec_k=k``). The drafter (prompt lookup, or a small
+  causal LM over its own paged pool, its k greedy steps a CUDA graph)
+  proposes up to k tokens per request, ONE verify forward (the verify
+  kernel) scores all k+1 positions, acceptance keeps 1..k+1 tokens
   (``inference/spec/``), and rejected rows roll back (``_trim_pages``).
+  A draft model's proposals stay on the device into the verify step.
 * **Per-request faults.** Validation at ``add_request``; a non-finite
   logit row, a raising ``on_token`` callback or an unexpected error while
   harvesting one request fails that request only (``errors.py``).
@@ -128,8 +131,7 @@ engine's CUDA device.
 The modes combine as in the reference: chunked with the prefix cache,
 chunked with spec, spec with the prefix cache, the tier and the sentinel
 with any of them. Left out of the reference (``ROADMAP.md`` queue A lists
-them): the draft-model drafter and tp/ep. Passing any of their
-constructor arguments raises ``TypeError``.
+it): tp/ep. Passing their constructor arguments raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -555,7 +557,7 @@ class Engine:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  spec: Optional[str] = None, spec_k: int = 4,
-                 capacity_factor: Optional[float] = None, device=None,
+                 draft_model=None, capacity_factor: Optional[float] = None, device=None,
                  metrics: bool = True, max_queue: Optional[int] = None,
                  deadline_s: Optional[float] = None,
                  watchdog: Optional[dict] = None, multi_step: int = 1,
@@ -669,7 +671,8 @@ class Engine:
         if spec not in (None, "off"):
             from .spec import SpecDecoder
 
-            self._spec = SpecDecoder(self, mode=spec, k=spec_k)
+            self._spec = SpecDecoder(self, mode=spec, k=spec_k,
+                                     draft_model=draft_model)
         self.max_queue = max_queue
         self.deadline_s = deadline_s
         self._has_deadlines = deadline_s is not None
@@ -934,39 +937,21 @@ class Engine:
 
     def _ensure_pages(self, slot, new_len) -> bool:
         need = self._pages_needed(new_len)
-        # count actual allocations: chain headroom can exceed
-        # pages_needed(length)
-        have = int(np.count_nonzero(self.tables[slot]))
         if need > self.max_pages_per_seq:
             raise PoolExhausted(
                 f"sequence needs {need} pages but the per-sequence table "
                 f"caps at {self.max_pages_per_seq}")
-        if need > have and self._fi is not None \
+        if need > int(np.count_nonzero(self.tables[slot])) \
+                and self._fi is not None \
                 and self._fi.fire("pool-exhaustion"):
             # injected only where a real allocation would happen
             return False
-        taken = []
-        for i in range(have, need):
-            page = self._cache.alloc_page()
-            if page is None:
-                # roll back: a False return leaves the allocator unchanged
-                for j in range(have, have + len(taken)):
-                    self.tables[slot, j] = 0
-                for pg in reversed(taken):
-                    self._cache.release_page(pg)
-                return False
-            taken.append(page)
-            self.tables[slot, i] = page
-        return True
+        return self._cache.grow(slot, need)
 
     def _trim_pages(self, slot, keep_len):
         """Release a slot's headroom pages beyond ``keep_len`` (a spliced
         shared page merely loses this slot's reference)."""
-        need = self._pages_needed(keep_len)
-        have = int(np.count_nonzero(self.tables[slot]))
-        for i in range(have - 1, need - 1, -1):
-            self._cache.release_page(int(self.tables[slot, i]))
-            self.tables[slot, i] = 0
+        self._cache.trim(slot, self._pages_needed(keep_len))
 
     # ------------------------------------------------------- preemption
     def _preempt(self, slot):
@@ -999,13 +984,7 @@ class Engine:
     def _free_slot(self, slot):
         if slot in self._free_slots:
             return  # idempotent: a double free would hand a slot out twice
-        # a release decrements: shared pages survive for their other
-        # referents, cached pages stay resident at refcount 0
-        for p in self.tables[slot]:
-            if p:
-                self._cache.release_page(int(p))
-        self.tables[slot, :] = 0
-        self.lengths[slot] = 0
+        self._cache.release_slot(slot)
         self._chunk_left.pop(slot, None)  # mid-prefill state dies too
         self._free_slots.append(slot)
         if self._spec is not None:
@@ -1343,6 +1322,11 @@ class Engine:
         return out
 
     def _dev(self, a, dtype=None):
+        """``a`` on the engine's device: host data copied in, a device
+        tensor (a draft model's proposals) taken as it is, with no host
+        round trip."""
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=dtype)
         return torch.as_tensor(np.asarray(a), device=self.device,
                                dtype=dtype)
 
@@ -2381,6 +2365,8 @@ class Engine:
         if not self._fi.param("drafter-corruption", "corrupt", 0.0):
             raise InjectedFault("injected drafter fault")
         drafts, dlen = propose(self, slots, reqs, want, k)
+        if isinstance(drafts, torch.Tensor):  # on the device: kept there
+            return (drafts + 1) % self.cfg.vocab_size, dlen
         return ((np.asarray(drafts) + 1) % self.cfg.vocab_size) \
             .astype(np.int32), dlen
 

@@ -9,18 +9,20 @@ the usable prefix: token-exact argmax matching for greedy requests
 (output identical to vanilla decode), rejection sampling for temperature
 > 0. Rejected rows roll back through the engine's ``_trim_pages``.
 
-``Engine(model, spec="ngram", spec_k=4)``. The draft-model drafter
-(``spec="draft"``) is not ported yet.
+``Engine(model, spec="ngram", spec_k=4)``, or ``Engine(model,
+spec="draft", spec_k=4, draft_model=small_lm)``: a small causal LM sharing
+the target's vocabulary drafts over its own paged pool
+(``DraftModelDrafter``).
 """
 from __future__ import annotations
 
 from .acceptance import accept_tokens
 from .controller import AdaptiveDraftController
-from .drafter import NgramDrafter
+from .drafter import DraftModelDrafter, NgramDrafter
 from .verifier import make_verify_fn
 
-__all__ = ["SpecDecoder", "NgramDrafter", "AdaptiveDraftController",
-           "accept_tokens", "make_verify_fn"]
+__all__ = ["SpecDecoder", "NgramDrafter", "DraftModelDrafter",
+           "AdaptiveDraftController", "accept_tokens", "make_verify_fn"]
 
 
 class _SpecMetrics:
@@ -57,14 +59,21 @@ class SpecDecoder:
     """Engine-side spec-decode state: the drafter, the per-request adaptive
     controller and the rolling totals :meth:`stats` reports."""
 
-    def __init__(self, engine, mode: str, k: int = 4):
-        if mode == "draft":
-            raise TypeError('spec="draft" (the draft-model drafter) is not '
-                            'ported yet; use spec="ngram"')
-        if mode != "ngram":
-            raise ValueError(f"spec={mode!r}: expected 'ngram' (or "
-                             "None/'off' for vanilla decode)")
-        self.drafter = NgramDrafter()
+    def __init__(self, engine, mode: str, k: int = 4, draft_model=None,
+                 max_ngram: int = 3, min_ngram: int = 1):
+        if mode == "ngram":
+            self.drafter = NgramDrafter(max_ngram=max_ngram,
+                                        min_ngram=min_ngram)
+        elif mode == "draft":
+            if draft_model is None:
+                raise ValueError(
+                    'spec="draft" needs draft_model=<small causal LM '
+                    "sharing the target's vocab>")
+            self.drafter = DraftModelDrafter(draft_model, engine)
+        else:
+            raise ValueError(
+                f"spec={mode!r}: expected 'ngram' or 'draft' (or "
+                "None/'off' for vanilla decode)")
         # the k+1-row verify block must fit the chunk_size headroom that
         # add_request keeps below max_position
         self.k = max(1, min(int(k), engine.chunk_size))

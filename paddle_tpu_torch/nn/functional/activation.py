@@ -3,11 +3,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["silu", "gelu"]
+__all__ = ["silu", "gelu", "relu"]
 
 
 def silu(x):
     return torch.nn.functional.silu(x)
+
+
+def relu(x):
+    return torch.relu(x)
 
 
 def gelu(x, approximate=False):

@@ -8,6 +8,11 @@ engine's prefill, ``torch.no_grad``) it calls the forward kernel alone.
 Unlike the JAX package's ``_pallas_ok`` gate there is no shape gate: the
 kernels mask ragged sequence edges themselves. ``FLAGS_use_flash_attention
 = False`` sends it to ``naive_attention``, as in the reference.
+
+``scaled_dot_product_attention`` without a mask is ``flash_attention``
+(kernel #2); with one it is the reference's masked softmax, which runs
+outside any kernel there too: plain PyTorch here, a boolean mask (True
+keeps) becoming ``-inf`` on the logits it drops.
 """
 from __future__ import annotations
 
@@ -19,17 +24,21 @@ from ...ops.cuda.flash_attention import (flash_attention_fused,
                                          flash_attention_fwd)
 from .common import dropout as _dropout
 
-__all__ = ["flash_attention", "naive_attention"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "naive_attention"]
 
 
-def naive_attention(q, k, v, causal=False, scale=None):
+def naive_attention(q, k, v, causal=False, scale=None, bias=None):
     """Reference attention on ``[B, S, H, D]`` (equal head counts): f32
-    logits and softmax, probabilities cast to the input dtype. Causality
-    is bottom-right aligned, as in the JAX ``naive_attention``."""
+    logits and softmax, probabilities cast to the input dtype. ``bias``
+    (broadcastable to ``[B, H, Sq, Sk]``) is added to the f32 logits.
+    Causality is bottom-right aligned, as in the JAX ``naive_attention``."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / (d ** 0.5)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     logits = torch.einsum("bhqd,bhkd->bhqk", qt, kt).float() * s
+    if bias is not None:
+        logits = logits + bias
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         mask = torch.tril(torch.ones((sq, sk), dtype=torch.bool,
@@ -62,6 +71,35 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     if return_softmax:
         return out, _softmax_probs(query, key, causal)
     return out, None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """Attention on ``[B, S, H, D]``. Without ``attn_mask``:
+    ``flash_attention`` (the kernel). With one, broadcastable to ``[B, H,
+    Sq, Sk]``: a float mask is added to the f32 logits, a boolean one keeps
+    where True and puts ``-inf`` elsewhere, and the masked softmax runs in
+    plain PyTorch, as the reference's runs in ``jnp``. ``dropout_p``
+    applies to the output when ``training``, its mask from
+    ``generator``."""
+    if attn_mask is None:
+        out, _ = flash_attention(query, key, value, dropout=dropout_p,
+                                 causal=is_causal, training=training,
+                                 generator=generator)
+        return out
+    q, k, v = amp_cast("attention", query, key, value)
+    mask = torch.as_tensor(attn_mask, device=q.device)
+    if mask.dtype == torch.bool:
+        bias = torch.zeros(mask.shape, dtype=torch.float32,
+                           device=q.device).masked_fill(~mask,
+                                                        float("-inf"))
+    else:
+        bias = mask.float()
+    out = naive_attention(q, k, v, causal=is_causal, bias=bias)
+    if dropout_p > 0.0 and training:
+        out = _dropout(out, p=dropout_p, training=True, generator=generator)
+    return out
 
 
 def _softmax_probs(q, k, causal):

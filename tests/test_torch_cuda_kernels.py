@@ -28,7 +28,10 @@ four times, and a capture while dead graphs await collection; the host
 KV tier's demote/promote round trip while decode graphs replay over the
 pool, the integrity sentinel's page checksum at every wave width (and
 equal to the CPU's), and ``bit-flip-weight``'s in-place write seen by a
-replayed graph.
+replayed graph; #1 and #3 at the draft's GQA group of 8 (32 q heads over 4
+kv heads of 64, TinyLlama-1.1B's widths); a draft-model spec engine whose
+propose step replays a graph against the same engine with it eager
+(drafts and streams bitwise) and against vanilla decode (f32).
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -92,7 +95,8 @@ def _decode_inputs(dev, dtype, quant, B, H, Hkv, D, ps, max_pages, lengths,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("H,Hkv,D,ps", [(8, 2, 64, 8), (4, 4, 128, 16),
-                                        (8, 1, 32, 16), (2, 2, 256, 4)])
+                                        (8, 1, 32, 16), (2, 2, 256, 4),
+                                        (32, 4, 64, 16)])
 def test_decode_kernel_matches_plain(cuda, dtype, quant, H, Hkv, D, ps):
     max_pages = 6
     cap = max_pages * ps
@@ -256,7 +260,8 @@ def _verify_inputs(dev, dtype, quant, B, m, H, Hkv, D, ps, max_pages,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("m", [1, 5, 17, 64, 65, 300])
-@pytest.mark.parametrize("H,Hkv,D,ps", [(32, 8, 128, 16), (8, 2, 64, 8)])
+@pytest.mark.parametrize("H,Hkv,D,ps", [(32, 8, 128, 16), (8, 2, 64, 8),
+                                        (32, 4, 64, 16)])
 def test_verify_kernel_matches_plain(cuda, dtype, quant, m, H, Hkv, D, ps):
     max_pages = 40
     cap = max_pages * ps
@@ -274,6 +279,21 @@ def test_verify_kernel_matches_plain(cuda, dtype, quant, m, H, Hkv, D, ps):
     want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base,
                                               scale_pages=sc)
     assert got.dtype == torch.float32 and got.shape == (len(bases), m, H, D)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 4, 64), (32, 32, 128)])
+def test_verify_kernel_catch_up_width(cuda, dtype, H, Hkv, D):
+    """The draft catch-up's admission wave: m = 1024 (the pow2 bucket of
+    prompts of 513-1024 tokens), rows from base 0 and behind a cached
+    prefix, at the TinyLlama draft's heads and at llama2_7b's."""
+    bases = [0, 0, 16, 304, 1024]
+    q, k, v, tables, _ = _verify_inputs(cuda, dtype, False, len(bases), 1024,
+                                        H, Hkv, D, 16, 128)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    got = pa.paged_verify_slab_attention(q, k, v, tables, base)
+    want = pa.paged_verify_slab_attention_ref(q, k, v, tables, base)
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
@@ -2084,3 +2104,75 @@ def test_bit_flip_weight_is_seen_by_a_replayed_graph(cuda):
             w.copy_(before)
     assert np.array_equal(w.view(torch.int16).cpu().numpy(),
                           before.view(torch.int16).cpu().numpy())
+
+
+def test_draft_engine_graph_propose_equals_eager_on_card(cuda):
+    """A draft-model spec engine on the card (f32, TF32 off, tiny LLaMA
+    target and draft): the propose step replayed from its CUDA graph gives
+    the drafts and streams of the same engine with it eager, bitwise; the
+    greedy streams equal vanilla decode; the drafter launches #1 in its
+    propose step and #3 in its catch-up; a reset zeroes the pages the
+    graph reads, in place."""
+    import numpy as np
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import tiny_llama_config
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        target = init_llama(tiny_llama_config(
+            hidden_size=256, num_heads=4, num_kv_heads=2, max_position=256),
+            seed=0, device=cuda, dtype=torch.float32)
+        # the draft's GQA group of 8 at head dim 64, as TinyLlama's
+        draft = init_llama(tiny_llama_config(
+            hidden_size=512, num_layers=1, num_heads=8, num_kv_heads=1,
+            max_position=256), seed=1, device=cuda, dtype=torch.float32)
+        r = np.random.default_rng(0)
+        prompts = [r.integers(0, 128, (n,)) for n in (5, 17, 70)]
+
+        def serve(**kw):
+            eng = Engine(target, max_slots=2, num_pages=64, page_size=8,
+                         chunk_size=4, **kw)
+            drafts = []
+            if eng._spec is not None:
+                d = eng._spec.drafter
+                run = d._run_propose
+
+                def spy(slots, nb, k):
+                    out = run(slots, nb, k)
+                    drafts.append(out.clone())
+                    return out
+
+                d._run_propose = spy
+            return eng, drafts
+
+        base, _ = serve()
+        want = [base.add_request(p, 12) for p in prompts]
+        base.run()
+        runs = []
+        for graphs in (True, False):
+            eng, drafts = serve(spec="draft", draft_model=draft, spec_k=3)
+            eng._spec.drafter._graphs.enabled = graphs
+            dec0 = pa.paged_slab_decode_attention.launches
+            ver0 = pa.paged_verify_slab_attention.launches
+            reqs = [eng.add_request(p, 12) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            assert [q.tokens for q in reqs] == [w.tokens for w in want]
+            assert eng._spec.drafter_faults == 0
+            assert pa.paged_slab_decode_attention.launches > dec0
+            assert pa.paged_verify_slab_attention.launches > ver0
+            runs.append((reqs, drafts, eng._spec.drafter))
+        (_, g_drafts, gd), (_, e_drafts, _) = runs
+        assert len(g_drafts) == len(e_drafts) > 0
+        assert all(torch.equal(a, b) for a, b in zip(g_drafts, e_drafts))
+        assert gd._graphs.steps and all(
+            st.graph is not None for st in gd._graphs.steps.values())
+        ptrs = [t.data_ptr() for t in gd.k_pages + gd.v_pages]
+        gd.reset()
+        assert [t.data_ptr() for t in gd.k_pages + gd.v_pages] == ptrs
+        assert all(not t.any() for t in gd.k_pages + gd.v_pages)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

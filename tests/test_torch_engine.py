@@ -176,11 +176,25 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec="draft"), dict(tp=2), dict(ep=2), dict(draft_model=object())])
+    dict(tp=2), dict(ep=2), dict(tp=2, ep=2), dict(tp=1)])
 def test_unported_knobs_raise_type_error(models, knob):
     _, tm = models
     with pytest.raises(TypeError):
         Engine(tm, num_pages=32, device="cpu", **GEOM, **knob)
+
+
+def test_draft_knobs_are_ported(models):
+    """``spec="draft"`` is ported: without a draft model it raises the
+    reference's ``ValueError``; a draft model without ``spec="draft"`` is
+    ignored, as in the reference."""
+    _, tm = models
+    with pytest.raises(ValueError, match="draft_model"):
+        Engine(tm, num_pages=32, device="cpu", spec="draft", **GEOM)
+    eng = Engine(tm, num_pages=32, device="cpu", draft_model=tm, **GEOM)
+    assert eng._spec is None
+    eng = Engine(tm, num_pages=32, device="cpu", spec="draft",
+                 draft_model=tm, **GEOM)
+    assert eng._spec.drafter.name == "draft"
 
 
 @pytest.mark.parametrize("knob", [
