@@ -176,6 +176,20 @@ Phases, in order; any failure exits non-zero:
               other; ms a decode step and launches per kind. Then f32, 2
               layers at 6.7B widths: each kind against the same layer on
               the plain versions (1e-4 of the largest entry).
+12. resnet  — config 1 through ``paddle_tpu_torch.Model.fit``: (1)
+              ``resnet50(num_classes=1000)``, f32, torch's default cuDNN
+              settings (TF32 convolutions on, TF32 matmuls off), 1024
+              random 224x224 images from a seed, batch 256, Momentum
+              0.05/0.9, cross entropy and accuracy, 2 epochs of 4 steps;
+              finite losses and an ``evaluate`` accuracy; images/s, ms a
+              step, each step's host and device ms (CUDA events) and the
+              loader's share, peak memory, FLOPs a training image and the
+              share of the peak. (2) In child processes with deterministic
+              algorithms (``resnet50``, batch 32, 128 images): a clean
+              run, a run stopped by a real SIGTERM (committed,
+              ``TrainingPreempted``) and its resume; stitched losses and
+              state bitwise equal. (3) The six training and checkpoint
+              fault points, each fired once in a child and recovered.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -264,7 +278,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
-          "greedy", "tier", "cluster", "draft", "fused")
+          "greedy", "tier", "cluster", "draft", "fused", "resnet")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause")
 
@@ -673,7 +687,8 @@ def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
 
 def _device_ms(torch, fn, reps=20):
     """Device milliseconds a call of ``fn`` spends in each kernel, by
-    kernel name, under torch.profiler (``reps`` calls after a warm-up)."""
+    kernel name, under torch.profiler (``reps`` calls after a warm-up);
+    empty when the profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1342,8 +1357,12 @@ def _verify_row(tag, r):
     if "split_ms" in r:
         ms = r["split_ms"]
         merge = sum(v for k, v in ms.items() if "merge" in k)
-        line += (f"; profiled {sum(ms.values()):.4f} ms a call, the merge "
-                 f"kernel {merge:.4f} ms ({merge / sum(ms.values()):.1%})")
+        if not ms:  # torch.profiler may record no device event for a call
+            line += "; the merge kernel's share not measured (no profile)"
+        else:
+            line += (f"; profiled {sum(ms.values()):.4f} ms a call, the "
+                     f"merge kernel {merge:.4f} ms "
+                     f"({merge / sum(ms.values()):.1%})")
     return line
 
 
@@ -2071,6 +2090,7 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + OPTIONAL_PHASES))
+    ap.add_argument("--resnet-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
@@ -2088,6 +2108,8 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    if args.resnet_child:
+        return _resnet_child(json.loads(args.resnet_child))
     ident = gpu_identity()
     log(f"card: {ident}")
     kernel_stats, launches = {}, {}
@@ -2108,6 +2130,8 @@ def main(argv=None):
                 launches[name] = launches.get(name, 0) + n
     if "greedy" in phases:
         phase_greedy(ident)
+    if "resnet" in phases:
+        phase_resnet(ident)
     if "profile" in phases:
         phase_profile(ident)
     if "drift" in phases:
@@ -6965,6 +6989,428 @@ def phase_loadgen(ident):
             raise AssertionError("loadgen: the cluster bench lost streams")
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ resnet
+TF32_PEAK_FLOPS_PER_S = 495e12  # dense TF32 tensor-core peak
+RESNET_CHILD = dict(images=128, batch=32, size=224, epochs=2, ckpt_freq=3,
+                    kill_at=5, lr=0.05)
+
+
+def _resnet_data(np, n, size, classes, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 3, size, size), dtype=np.float32)
+    Y = rng.integers(0, classes, (n,)).astype(np.int64)
+    return X, Y
+
+
+def _resnet_model(pt, seed, lr, metrics=True):
+    """``resnet50(num_classes=1000)`` on the card with weights from
+    ``seed``, prepared as ``examples/train_resnet_torch.py`` does."""
+    from paddle_tpu_torch import metric, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet
+
+    pt.seed(seed)
+    net = resnet.resnet50(num_classes=1000)
+    model = pt.Model(net)
+    model.prepare(optimizer=optimizer.Momentum(
+        learning_rate=lr, momentum=0.9, parameters=net.parameters()),
+        loss=nn.CrossEntropyLoss(),
+        metrics=metric.Accuracy() if metrics else None)
+    return model
+
+
+def _resnet_flops(torch, net, size):
+    """Training FLOPs a 224x224 image: 3x the forward's 2*MACs of every
+    convolution and the classifier (batch norms, ReLUs and pools left
+    out), counted by hooks on one eval forward."""
+    from paddle_tpu_torch import nn
+
+    macs = []
+
+    def hook(mod, inp, out):
+        if isinstance(mod, nn.Conv2D):
+            k = mod.weight.shape[1] * mod.weight.shape[2] * \
+                mod.weight.shape[3]
+            macs.append(out[0].numel() * k)
+        else:
+            macs.append(mod.weight.numel())
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (nn.Conv2D, nn.Linear))]
+    try:
+        net.eval()
+        with torch.no_grad():
+            net(torch.zeros((1, 3, size, size),
+                            device=next(net.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * 2 * sum(macs)
+
+
+def _state_digest(net):
+    """sha256 over every parameter's and buffer's name and bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in net.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _resnet_child(spec):
+    """One child of the resnet phase's checks 2 and 3: deterministic
+    algorithms on (``CUBLAS_WORKSPACE_CONFIG`` came in the environment,
+    before CUDA started), ``resnet50`` at 224x224, batch 32, 128 images,
+    2 epochs of 4 steps, a checkpoint every 3 steps. Writes its results
+    as JSON to ``spec["out"]``."""
+    import os
+    import signal
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import (CheckpointManager,
+                                              TrainingPreempted)
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.inference.errors import IntegrityError
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.observability import metric_total
+    from paddle_tpu_torch.testing.faultinject import FaultPlan
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("resnet child: no CUDA device")
+    torch.use_deterministic_algorithms(True)
+    c = RESNET_CHILD
+    X, Y = _resnet_data(np, c["images"], c["size"], 1000, 11)
+    data = TensorDataset([X, Y])
+    mode, root = spec["mode"], spec["root"]
+    out = {"mode": mode}
+
+    class Rec(Callback):
+        def __init__(self, kill_at=None):
+            self.losses, self.kill_at = [], kill_at
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            if len(self.losses) == self.kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def fit(model, ckpt_dir, rec, **kw):
+        return model.fit(data, batch_size=c["batch"], epochs=c["epochs"],
+                         verbose=0, ckpt_dir=ckpt_dir,
+                         ckpt_freq=c["ckpt_freq"], callbacks=[rec], **kw)
+
+    def model(seed=0):
+        return _resnet_model(pt, seed, c["lr"], metrics=False)
+
+    if mode in ("clean", "resume"):
+        m, rec = model(0 if mode == "clean" else 123), Rec()
+        fit(m, root, rec, resume="auto" if mode == "resume" else None)
+        out.update(losses=rec.losses, digest=_state_digest(m.network))
+    elif mode == "kill":
+        m, rec = model(0), Rec(kill_at=c["kill_at"])
+        try:
+            fit(m, root, rec)
+            raise AssertionError("resnet kill child: SIGTERM did not stop "
+                                 "fit")
+        except TrainingPreempted as e:
+            out.update(losses=rec.losses, step=e.step,
+                       committed=ckpt.is_complete(e.checkpoint_path))
+    elif mode == "faults":
+        # train-step-exception: two injected faults, retried
+        m, rec = model(0), Rec()
+        r0 = metric_total("paddle_tpu_train_step_retries_total")
+        fit(m, os.path.join(root, "retry"), rec, max_step_retries=2,
+            retry_backoff=0.001, fault_plan="train-step-exception:times=2")
+        out["retry"] = dict(
+            losses=rec.losses,
+            retries=metric_total("paddle_tpu_train_step_retries_total") - r0)
+        # train-nan-loss: rolled back, the batch skipped
+        m, rec = model(0), Rec()
+        r0 = metric_total("paddle_tpu_train_rollbacks_total")
+        hist = fit(m, os.path.join(root, "nan"), rec,
+                   fault_plan="train-nan-loss:at=5")
+        out["nan"] = dict(
+            steps=len(rec.losses),
+            rollbacks=metric_total("paddle_tpu_train_rollbacks_total") - r0,
+            finite=bool(np.isfinite(hist["loss"]).all() and all(
+                torch.isfinite(t).all() for t in
+                m.network.state_dict().values())))
+        # preempt-signal: drained and committed, then resumed
+        m, rec = model(0), Rec()
+        try:
+            fit(m, os.path.join(root, "preempt"), rec,
+                fault_plan=f"preempt-signal:at={c['kill_at']}")
+            raise AssertionError("preempt-signal did not stop fit")
+        except TrainingPreempted as e:
+            step = e.step
+        m2, rec2 = model(77), Rec()
+        fit(m2, os.path.join(root, "preempt"), rec2, resume="auto")
+        out["preempt"] = dict(step=step, losses=rec.losses + rec2.losses,
+                              digest=_state_digest(m2.network))
+        # the checkpoint points, on the model's own state
+        state = {k: v for k, v in m2.network.state_dict().items()}
+        mgr = CheckpointManager(os.path.join(root, "io"))
+        mgr.save(1, state)
+        bad = CheckpointManager(os.path.join(root, "io"),
+                                fault_plan=FaultPlan("ckpt-io-error:at=2"))
+        try:
+            bad.save(2, state)
+            raise AssertionError("ckpt-io-error did not fail the save")
+        except OSError:
+            pass
+        kept = mgr.restore()[0]
+        out["io"] = dict(steps=mgr.all_steps(), restored=kept)
+        mgr = CheckpointManager(os.path.join(root, "flip"), keep_last_n=5)
+        mgr.save(1, state)
+        flip = CheckpointManager(os.path.join(root, "flip"), keep_last_n=5,
+                                 fault_plan=FaultPlan("bit-flip-ckpt:times=1"))
+        flip.save(2, state)
+        try:
+            ckpt.verify_contents(flip.step_path(2))
+            refused = False
+        except IntegrityError:
+            refused = True
+        step, back = flip.restore()
+        out["flip"] = dict(steps=flip.all_steps(), refused=refused,
+                           restored=step, equal=all(
+                               torch.equal(back[k], v.cpu())
+                               for k, v in state.items()))
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(root, "fast")).save(1, state)
+        fast = time.perf_counter() - t0
+        slow = CheckpointManager(os.path.join(root, "slow"),
+                                 fault_plan=FaultPlan(
+                                     "slow-ckpt-write:delay_ms=500,times=1"))
+        t0 = time.perf_counter()
+        slow.save(1, state)
+        out["slow"] = dict(fast_s=fast, slow_s=time.perf_counter() - t0,
+                           fired=slow.fault_plan.fired("slow-ckpt-write"),
+                           steps=slow.all_steps())
+    else:
+        raise ValueError(f"unknown resnet child mode {mode!r}")
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _resnet_children(root):
+    """Checks 2 and 3 of the resnet phase in child processes: clean, kill
+    (a real SIGTERM) and faults run at once, then resume, under a
+    temporary directory of ``root``. Returns each child's JSON."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res, procs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="resnet_", dir=root) as tmp:
+
+        def start(mode, ckpt_dir):
+            spec = dict(mode=mode, root=os.path.join(tmp, ckpt_dir),
+                        out=os.path.join(tmp, f"{mode}.json"))
+            return subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--resnet-child", json.dumps(spec)], env=env)
+
+        def finish():
+            for mode, p in procs.items():
+                try:
+                    rc = p.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"resnet child {mode} timed out")
+                if rc != 0:
+                    raise AssertionError(f"resnet child {mode} exited {rc}")
+                with open(os.path.join(tmp, f"{mode}.json")) as f:
+                    res[mode] = json.load(f)
+
+        try:
+            procs = {m: start(m, d) for m, d in
+                     (("clean", "a"), ("kill", "b"), ("faults", "c"))}
+            finish()
+            procs = {"resume": start("resume", "b")}
+            finish()
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return res
+
+
+def phase_resnet(ident):
+    """Config 1 through ``paddle_tpu_torch.Model.fit`` on the card. (1)
+    ``resnet50(num_classes=1000)`` f32 at torch's default cuDNN settings
+    (TF32 convolutions on, TF32 matmuls off, no benchmark search): 1024
+    random 224x224 images and labels from a seed, batch 256, Momentum
+    0.05/0.9, ``CrossEntropyLoss`` and ``Accuracy``, 2 epochs of 4 steps;
+    finite losses and an ``evaluate`` accuracy; images/s, ms a step, each
+    step's host and device ms (CUDA events) and the loader's share, peak
+    memory, FLOPs a training image and the share of the peak. (2) In
+    child processes with deterministic algorithms, ``resnet50`` at
+    224x224, batch 32, 128 images: a clean run, a run stopped by a real
+    SIGTERM at step 5 (committed, ``TrainingPreempted``) and its resume;
+    the stitched losses and final state equal the clean run's bitwise.
+    (3) Each training and checkpoint fault point fires once and recovers
+    as the reference says."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import Dataset
+
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    try:
+        n, batch, size = 1024, 256, 224
+        X, Y = _resnet_data(np, n, size, 1000, 0)
+
+        class DS(Dataset):
+            def __len__(self):
+                return n
+
+            def __getitem__(self, i):
+                return X[i], Y[i]
+
+        class Clock(Callback):
+            def __init__(self):
+                self.rows = []
+
+            def on_train_batch_begin(self, step, logs=None):
+                self.t0 = time.perf_counter()
+                self.ev0 = torch.cuda.Event(enable_timing=True)
+                self.ev0.record()
+
+            def on_train_batch_end(self, step, logs=None):
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                ev1.synchronize()
+                self.rows.append(dict(begin=self.t0,
+                                      end=time.perf_counter(),
+                                      dev=self.ev0.elapsed_time(ev1),
+                                      loss=float(logs["loss"])))
+
+        model = _resnet_model(pt, 0, 0.05)
+        flops = _resnet_flops(torch, model.network, size)
+        clock = Clock()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = model.fit(DS(), epochs=2, batch_size=batch, verbose=0,
+                         callbacks=[clock])
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [r["loss"] for r in clock.rows]
+        if len(losses) != 8 or not np.isfinite(losses).all():
+            raise AssertionError(f"resnet: losses {losses}")
+        ev = model.evaluate(DS(), batch_size=batch)
+        acc = ev.get("eval_acc")
+        if not (isinstance(acc, float) and 0.0 <= acc <= 1.0
+                and math.isfinite(ev["eval_loss"])):
+            raise AssertionError(f"resnet: evaluate gave {ev}")
+        rows = clock.rows
+        steps = [b["end"] - a["end"] for a, b in zip(rows, rows[1:])]
+        loader = [b["begin"] - a["end"] for a, b in zip(rows, rows[1:])]
+        dev = [r["dev"] for r in rows[1:]]
+        step_ms = 1e3 * statistics.mean(steps)
+        ips = batch / statistics.mean(steps)
+        share = [lo / st for lo, st in zip(loader, steps)]
+        idle = [1.0 - d / (1e3 * st) for d, st in zip(dev, steps)]
+        log(f"resnet (1): resnet50 f32, 1000 classes, 224x224, batch "
+            f"{batch}, {n} images, 2 epochs x 4 steps through Model.fit; "
+            f"cuDNN TF32 convolutions on, TF32 matmuls off, benchmark off "
+            f"(torch's defaults) [{ident}]")
+        log(f"resnet (1): losses {[round(v, 4) for v in losses]}, epoch "
+            f"means {[round(v, 4) for v in hist['loss']]}; evaluate "
+            f"acc {acc:.4f} loss {ev['eval_loss']:.4f}; fit {fit_s:.1f} s "
+            f"(first step {1e3 * (rows[0]['end'] - rows[0]['begin']):.1f} "
+            f"ms host) [{ident}]")
+        log(f"resnet (1): {ips:.1f} images/s, {step_ms:.2f} ms a step "
+            f"(steps 2-8, host clock between step ends: "
+            f"{[round(1e3 * v, 2) for v in steps]}); peak memory "
+            f"{peak:.2f} GiB [{ident}]")
+        log(f"resnet (1): a step's host ms (collate + pin + H2D + train) "
+            f"vs device ms (CUDA events around train_batch): "
+            f"{[round(1e3 * v, 2) for v in steps]} vs "
+            f"{[round(v, 2) for v in dev]}; the loader's host ms "
+            f"{[round(1e3 * v, 2) for v in loader]}, its share "
+            f"{statistics.mean(share):.1%}, device idle "
+            f"{statistics.mean(idle):.1%} of a step [{ident}]")
+        tf = flops * ips / 1e12
+        log(f"resnet (1): {flops / 1e9:.2f} GFLOPs a training image (3x "
+            f"the forward's conv + fc MACs x2); {tf:.1f} TFLOP/s = "
+            f"{flops * ips / TF32_PEAK_FLOPS_PER_S:.1%} of the 495 TF/s "
+            f"TF32 peak ({flops * ips / F32_FLOPS_PER_S:.1%} of 67 TF/s "
+            f"f32) [{ident}]")
+        del model, X, Y
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.benchmark) = flags
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    res = _resnet_children(str(build_dir))
+    c = RESNET_CHILD
+    clean, kill, resume = res["clean"], res["kill"], res["resume"]
+    if kill["step"] != c["kill_at"] or not kill["committed"]:
+        raise AssertionError(f"resnet (2): SIGTERM run {kill}")
+    if kill["losses"] != clean["losses"][:c["kill_at"]]:
+        raise AssertionError("resnet (2): the killed run's losses differ")
+    stitched = kill["losses"] + resume["losses"]
+    if stitched != clean["losses"] or resume["digest"] != clean["digest"]:
+        raise AssertionError(
+            f"resnet (2): resume not bitwise: {stitched} vs "
+            f"{clean['losses']}; digests {resume['digest'][:16]} vs "
+            f"{clean['digest'][:16]}")
+    log(f"resnet (2): deterministic children, resnet50 224x224 batch "
+        f"{c['batch']}, {c['images']} images, 2 x 4 steps: clean, SIGTERM "
+        f"at step {c['kill_at']} (committed, TrainingPreempted), resumed: "
+        f"stitched losses and state sha256 {clean['digest'][:16]} bitwise "
+        f"equal the clean run's [{ident}]")
+    f = res["faults"]
+    checks = {
+        "train-step-exception": f["retry"]["losses"] == clean["losses"]
+        and f["retry"]["retries"] == 2,
+        "train-nan-loss": f["nan"]["rollbacks"] == 1
+        and f["nan"]["steps"] == 7 and f["nan"]["finite"],
+        "preempt-signal": f["preempt"]["step"] == c["kill_at"]
+        and f["preempt"]["losses"] == clean["losses"]
+        and f["preempt"]["digest"] == clean["digest"],
+        "ckpt-io-error": f["io"]["steps"] == [1]
+        and f["io"]["restored"] == 1,
+        "bit-flip-ckpt": f["flip"]["steps"] == [1, 2]
+        and f["flip"]["refused"] and f["flip"]["restored"] == 1
+        and f["flip"]["equal"],
+        "slow-ckpt-write": f["slow"]["fired"] == 1
+        and f["slow"]["steps"] == [1]
+        and f["slow"]["slow_s"] >= 0.5,
+    }
+    log(f"resnet (3): {json.dumps(f['slow'])}; rollbacks "
+        f"{int(f['nan']['rollbacks'])}, retries "
+        f"{int(f['retry']['retries'])}; "
+        + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                    for k, v in checks.items()) + f" [{ident}]")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resnet (3): {failed} did not recover: {f}")
+    log(f"resnet: children {time.perf_counter() - t0:.1f} s; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s [{ident}]")
 
 
 if __name__ == "__main__":

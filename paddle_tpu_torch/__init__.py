@@ -10,5 +10,9 @@ tensor takes the plain version, a CUDA tensor launches the kernel.
 This package never imports JAX or ``paddle_tpu``.
 """
 from .framework.device import resolve_device, resolve_dtype
+from .framework.random import get_seed, seed
+from .hapi import Model
+from .serialization import load, save
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["resolve_device", "resolve_dtype", "seed", "get_seed", "Model",
+           "save", "load"]

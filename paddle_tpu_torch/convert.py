@@ -21,6 +21,11 @@ from a seed with an explicit ``torch.Generator`` (normal, std
 made on the card with no host copy. ``gpt_from_numpy`` builds the GPT from
 the JAX package's ``param_arrays`` the way ``llama_from_numpy`` does.
 
+``resnet_from_numpy`` builds a ``vision.models.ResNet`` holding a JAX
+ResNet's parameters and batch-norm buffers (``Layer.state_dict``, each
+``np.asarray``): the names and layouts match, so nothing is renamed or
+transposed. ``init_resnet`` draws one from a seed on its device.
+
 ``fused_multi_transformer_from_numpy`` builds an
 ``incubate.nn.FusedMultiTransformer`` from the JAX layer's per-layer lists
 (``{"qkv_weights": [layer 0, layer 1, ...], ...}``, each ``np.asarray``
@@ -40,10 +45,12 @@ from .incubate.nn.layer.fused_transformer import (_LISTS,
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.quant import quantize_for_decode
+from .vision.models.resnet import BasicBlock, BottleneckBlock, ResNet
 
 __all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy",
            "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
-           "init_fused_multi_transformer"]
+           "init_fused_multi_transformer", "resnet_from_numpy",
+           "init_resnet"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -185,3 +192,31 @@ def init_fused_multi_transformer(embed_dim, num_heads, dim_feedforward,
         if "_weights_" in name:
             p.normal_(0.0, std, generator=gen)
     return layer.eval()
+
+
+def _resnet_block(depth):
+    return BasicBlock if depth in (18, 34) else BottleneckBlock
+
+
+@torch.no_grad()
+def init_resnet(depth: int = 50, seed: int = 0, device=None,
+                dtype=torch.float32, **kwargs) -> ResNet:
+    """A ``ResNet`` of ``depth`` (18 and 34 on ``BasicBlock``, deeper on
+    ``BottleneckBlock``) with its weights drawn on ``device`` from
+    ``seed``; ``kwargs`` go to ``ResNet`` (``num_classes``, ``width``,
+    ``with_pool``, ``groups``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return ResNet(_resnet_block(depth), depth, device=dev, dtype=dtype,
+                  generator=gen, **kwargs)
+
+
+@torch.no_grad()
+def resnet_from_numpy(arrays: Dict[str, np.ndarray], depth: int = 50,
+                      device=None, dtype=torch.float32, **kwargs) -> ResNet:
+    """A port ``ResNet`` of ``depth`` holding the JAX ResNet's parameters
+    and buffers (every name must match; the buffers stay f32)."""
+    model = init_resnet(depth, 0, device, dtype, **kwargs)
+    model.load_state_dict({name: torch.from_numpy(np.array(a, copy=True))
+                           for name, a in arrays.items()}, strict=True)
+    return model

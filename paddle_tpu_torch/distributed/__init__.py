@@ -1,6 +1,7 @@
 """Distributed API of the port (after ``paddle_tpu/distributed``): the
 process world, the hybrid topology and mesh, the eager collectives and
-``fleet``, as far as context-parallel attention needs them."""
+``fleet``, as far as context-parallel attention needs them; one
+process's checkpoints and the preemption machinery."""
 from .collective import (  # noqa: F401
     ReduceOp,
     all_gather,
@@ -32,6 +33,20 @@ from .topology import (  # noqa: F401
     build_mesh,
 )
 from . import fleet  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    AsyncCheckpointer,
+    AsyncSaveHandle,
+    load_state_dict,
+    save_state_dict,
+    verify_contents,
+)
+from .ckpt_manager import (  # noqa: F401
+    CheckpointManager,
+    PreemptionGuard,
+    TrainingPreempted,
+    pack_train_state,
+    unpack_train_state,
+)
 
 __all__ = [
     "ReduceOp", "all_reduce", "all_gather", "all_to_all", "barrier", "send",
@@ -40,5 +55,8 @@ __all__ = [
     "get_mesh", "get_rank", "get_world_size", "init_parallel_env",
     "is_initialized", "new_group", "set_mesh", "HYBRID_AXES",
     "CommunicateTopology", "Group", "HybridCommunicateGroup", "build_mesh",
-    "fleet",
+    "fleet", "save_state_dict", "load_state_dict", "verify_contents",
+    "AsyncSaveHandle", "AsyncCheckpointer", "CheckpointManager",
+    "PreemptionGuard", "TrainingPreempted", "pack_train_state",
+    "unpack_train_state",
 ]

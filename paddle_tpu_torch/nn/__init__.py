@@ -1,10 +1,23 @@
 """Layers of the port (after ``paddle_tpu.nn``)."""
 from . import functional, quant
+from .activation import ReLU
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm, RMSNorm
+from .conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D
+from .layer import Sequential
+from .loss import CrossEntropyLoss
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                      AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, MaxPool1D,
+                      MaxPool2D)
 
 __all__ = ["functional", "quant", "Linear", "Embedding", "Dropout",
-           "RMSNorm", "LayerNorm", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "RMSNorm", "LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "GroupNorm", "InstanceNorm2D", "Conv1D", "Conv2D",
+           "Conv3D", "Conv2DTranspose", "MaxPool1D", "MaxPool2D",
+           "AvgPool1D", "AvgPool2D", "AdaptiveAvgPool1D",
+           "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "ReLU", "Sequential",
+           "CrossEntropyLoss", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "ClipGradByValue", "clip_grad_norm_"]

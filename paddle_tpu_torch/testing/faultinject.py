@@ -1,7 +1,7 @@
-"""Deterministic, seed-driven fault injection for the serving engine, after
-``paddle_tpu/testing/faultinject.py``: the same points, the same spec
-grammar and the same firing rules, so every spec string the reference
-accepts parses here and fires at the same checks.
+"""Deterministic, seed-driven fault injection for the serving engine and
+the trainer, after ``paddle_tpu/testing/faultinject.py``: the same points,
+the same spec grammar and the same firing rules, so every spec string the
+reference accepts parses here and fires at the same checks.
 
 The engine carries NAMED injection points: host-side hook sites the
 scheduler consults between dispatches. A plan is a spec string plus a
@@ -39,11 +39,15 @@ router's supervisor sweep, ``rid`` = replica index), ``heartbeat-drop``
 (``Replica.heartbeat``), ``kv-handoff-corrupt`` and ``kv-handoff-stall``
 (the cluster coordinator's handoff thread).
 
-The training and checkpoint points keep their names so that every
-reference spec parses; the modules that fire them are not ported yet, so
-they fire nowhere: ``ckpt-io-error``, ``train-step-exception``,
-``train-nan-loss``, ``preempt-signal``, ``slow-ckpt-write``,
-``bit-flip-ckpt``.
+The training and checkpoint points: ``ckpt-io-error`` (before each file
+the checkpoint writer writes), ``slow-ckpt-write`` (before its first
+write) and ``bit-flip-ckpt`` (a staged file, after its digest) fire in
+``distributed/checkpoint.py``'s writer, driven by the plan that
+``distributed/ckpt_manager.py``'s ``CheckpointManager`` (or
+``save_state_dict(fault_plan=)``) gives it; ``train-step-exception``
+(before each attempt of a step), ``train-nan-loss`` (a step's loss) and
+``preempt-signal`` (a step's end) fire in ``hapi/model.py``'s
+``Model.fit``.
 
 Spec grammar (``FLAGS_fault_inject`` / env ``PADDLE_TPU_FAULT_INJECT`` /
 ``Engine(fault_plan=...)``)::

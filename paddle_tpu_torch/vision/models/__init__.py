@@ -1,0 +1,9 @@
+"""Model zoo of the port (after ``paddle_tpu/vision/models``): the ResNet
+family."""
+from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,
+                     resnet34, resnet50, resnet101, resnet152,
+                     wide_resnet50_2, wide_resnet101_2)
+
+__all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "wide_resnet50_2", "wide_resnet101_2"]

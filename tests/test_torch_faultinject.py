@@ -13,6 +13,7 @@ the flag plumbing (``FLAGS_fault_inject`` / ``PADDLE_TPU_FAULT_INJECT``),
 and whole-step recovery from a fault inside a pre-admission wave.
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -96,6 +97,44 @@ def test_fire_sequences_match_reference(spec, seed):
         assert t.active(point) == j.active(point)
         assert t.param(point, "delay_ms", 20.0) == \
             j.param(point, "delay_ms", 20.0)
+
+
+# where each point fires in the port (the training and checkpoint points
+# fire since the port has ``hapi`` and ``distributed/checkpoint.py``)
+FIRE_SITES = {
+    "pool-exhaustion": "inference/engine.py",
+    "step-exception": "inference/engine.py",
+    "nan-logits": "inference/engine.py",
+    "drafter-corruption": "inference/engine.py",
+    "slow-step": "inference/engine.py",
+    "prefix-cache-corruption": "inference/cache_coord.py",
+    "ckpt-io-error": "distributed/checkpoint.py",
+    "train-step-exception": "hapi/model.py",
+    "train-nan-loss": "hapi/model.py",
+    "preempt-signal": "hapi/model.py",
+    "slow-ckpt-write": "distributed/checkpoint.py",
+    "replica-crash": "serving/router.py",
+    "heartbeat-drop": "serving/replica.py",
+    "bit-flip-weight": "inference/integrity.py",
+    "bit-flip-kv": "inference/cache_coord.py",
+    "bit-flip-ckpt": "distributed/checkpoint.py",
+    "kv-spill-corrupt": "inference/kv_tier.py",
+    "slow-host-copy": "inference/kv_tier.py",
+    "racey-worker-write": "inference/kv_tier.py",
+    "kv-handoff-corrupt": "serving/cluster.py",
+    "kv-handoff-stall": "serving/cluster.py",
+}
+
+
+@pytest.mark.parametrize("point", jfi.POINTS)
+def test_every_point_has_a_fire_site(point):
+    """No registered point fires nowhere: its module checks it by name."""
+    assert set(FIRE_SITES) == set(tfi.POINTS)
+    path = os.path.join(ROOT, "paddle_tpu_torch", FIRE_SITES[point])
+    with open(path) as f:
+        src = f.read()
+    assert re.search(r"\.fire\(\s*\"" + re.escape(point) + r"\"", src), \
+        (point, path)
 
 
 def test_spec_parsing_and_semantics():
