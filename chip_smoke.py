@@ -126,8 +126,9 @@ Phases, in order; any failure exits non-zero:
               two layers: the tier under churn, the audit with
               ``bit-flip-kv`` and a handed-off prompt each give the plain
               run's streams, greedy and sampled.
-9. cluster  — multi-replica serving at ``llama2_7b`` bf16 full depth,
-              prefix cache on, every kernel built before any engine
+9. cluster  — multi-replica serving at ``llama2_7b`` widths bf16 (8 of
+              its 32 layers in-process, cut to make room for phases 13
+              and 14; the workers of (c) at full depth), prefix cache on, every kernel built before any engine
               thread or worker starts. (a) Two ``InProcReplica``s on one
               model (4 slots, 512 pages each) behind ``Router(heartbeat_s=
               0.1)``, ``hedge_ms`` and ``stall_s`` set from a warm
@@ -153,8 +154,9 @@ Phases, in order; any failure exits non-zero:
               and (b) again, and (c) with the example's f32 ``small``
               workers: there every stream must equal the direct run (the
               unkilled worker's stream). #1/#2/#3 launch counts a part.
-10. draft   — draft-model speculative decoding at ``llama2_7b`` bf16 full
-              depth, on pass (1)'s pool and items, ``spec_k=4``, with (i) a
+10. draft   — draft-model speculative decoding at ``llama2_7b`` widths
+              bf16, 8 of its 32 layers (cut to make room for phases 13
+              and 14), on pass (1)'s pool and items, ``spec_k=4``, with (i) a
               LLaMA at TinyLlama-1.1B's published widths (22 layers, 32
               heads over 4 kv heads of 64; random weights from seed 1) and
               (ii) the target as its own draft. Each serves with the
@@ -190,6 +192,30 @@ Phases, in order; any failure exits non-zero:
               ``TrainingPreempted``) and its resume; stitched losses and
               state bitwise equal. (3) The six training and checkpoint
               fault points, each fired once in a child and recovered.
+13. bert    — config 2 at one GPU through ``examples/train_bert_torch.py``'s
+              functional step (``jit.functional_call`` + autograd +
+              ``AdamW.apply_gradients_tree``) at BERT-base (12 layers,
+              768 wide, 12 heads of 64, vocab 30522), f32 with TF32 off,
+              seq 512, dropout 0, random weights from a seed: (a) five
+              steps at batch 32 (one GPU's share of the reference's 256
+              over 8 chips) on one repeated batch: losses finite and
+              falling, #2 and the flash backward launched (the FMA bodies
+              at f32); sequences/s, tokens/s, host and device ms a step,
+              peak memory, and the flash kernels' share of one profiled
+              step's device time; (b) one step's gradients with every
+              encoder layer under ``fleet.recompute`` equal the plain
+              step's (1e-5 of each tensor's largest entry), #2 launched
+              twice as often, the peak memory lower.
+14. export  — config 5: the example twin's ``TinyTransformer`` (#2 at
+              head dim 16) and ``BertForMaskedLM`` at BERT-base width
+              (batch 8, seq 512), f32, through ``jit.to_static``
+              (``torch.compile(fullgraph=True)``), ``jit.save`` (the
+              BERT with ``InputSpec([None, 512])``) -> ``jit.load`` and
+              ``create_predictor(Config(prefix)).run`` (the BERT at
+              batches 8 and 4): each within 1e-4 of eager's largest
+              entry, #2 launched inside the compiled, the loaded and the
+              predictor's programs; eager, ``to_static``, loaded and
+              Predictor ms a call.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -278,7 +304,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
-          "greedy", "tier", "cluster", "draft", "fused", "resnet")
+          "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
+          "export")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause")
 
@@ -571,7 +598,8 @@ def _gathered_sdpa(torch, q, k, v, sc, tables, lim, H, Hkv, D, cap):
     return lambda: sdpa(qt, kw, vw, attn_mask=mask)
 
 
-def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None):
+def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None,
+                causal=True):
     """#2 against its plain version; ``Hkv`` < H gives k/v fewer heads
     (the kernel's native GQA; SDPA gets them expanded)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -581,9 +609,10 @@ def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None):
     dev = torch.device("cuda")
     q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
                for h in (H, Hkv, Hkv))
-    got, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    got, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
     torch.cuda.synchronize()
-    want, want_lse = fa.flash_attention_ref(q, k, v, causal=True,
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal=causal,
                                             return_lse=True)
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
@@ -594,7 +623,7 @@ def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None):
         raise AssertionError(f"flash lse max abs err {lerr}")
     rec = {"max_abs_err": err}
     if timed:
-        pairs = S * (S + 1) // 2
+        pairs = _causal_pairs(S, S, causal)
         flops = 4 * B * H * D * pairs
         nbytes = 2 * B * S * (H + Hkv) * D * q.element_size()
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
@@ -606,13 +635,57 @@ def check_flash(torch, dtype, B, S, H, D, atol, rtol, timed, Hkv=None):
                       for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rec.update(
-            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                      causal=causal)),
             plain_ms=time_ms(lambda: fa.flash_attention_ref(
-                q, k, v, causal=True), warmup=1, reps=3),
+                q, k, v, causal=causal), warmup=1, reps=3),
             bound_ms=max(b_ops, b_bytes),
             bound_by="operations" if b_ops >= b_bytes else "bytes",
-            library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)))
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal)))
     return rec
+
+
+def log_op_dispatch(torch, calls=50):
+    """Host microseconds a call of #2's forward at the main path's largest
+    prefill wave (bf16 B=8 S=1024 H=32 D=128, causal), under no_grad:
+    ``F.flash_attention`` as the engine's prefill calls it (eager: the
+    wrapper), the registered operator (what a traced program calls) and
+    the wrapper called directly. Each way enqueues ``calls`` calls with no
+    sync between them (the device runs behind), alternating the ways over
+    three rounds; the least round of each is logged."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn((8, 1024, 32, 128), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    ways = {
+        "F.flash_attention": lambda: F.flash_attention(q, k, v,
+                                                       causal=True)[0],
+        "operator": lambda: fa.flash_attention_fwd_lse_op(
+            q, k, v, True, None, None, None)[0],
+        "wrapper": lambda: fa.flash_attention_fwd(q, k, v, causal=True)}
+    best = {}
+    with torch.no_grad():
+        for name, fn in ways.items():
+            fn()
+        for _ in range(3):
+            for name, fn in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                us = (time.perf_counter() - t0) / calls * 1e6
+                best[name] = min(best.get(name, us), us)
+        torch.cuda.synchronize()
+    extra = best["operator"] - best["wrapper"]
+    log("flash forward host cost (bf16 B=8 S=1024 H=32 D=128 causal, "
+        f"{calls} calls enqueued, least of 3 rounds): "
+        + ", ".join(f"{n} {us:.1f} us a call" for n, us in best.items())
+        + f"; the operator adds {extra:.1f} us a call, "
+        f"{32 * extra / 1e3:.3f} ms over llama2_7b's 32 layers of one "
+        "prefill wave, which eager calls do not pay")
+    return best
 
 
 def check_verify(torch, dtype, quant, B, m, H, Hkv, D, ps, max_pages, bases,
@@ -911,7 +984,9 @@ def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
     Bound: q, k, v, out, dO (and lse, dlse)
     read once and dq, dk, dv written once over HBM; 10*D flops per live
     (query, key) pair (the five products of the recompute scheme, 2.5x the
-    forward's) over the dtype's peak."""
+    forward's) over the dtype's peak. Library (without dlse): PyTorch's
+    own flash backward (``_flash_library_bwd``; at f32, which the aten
+    flash backward refuses, SDPA forward+backward minus forward)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -996,7 +1071,7 @@ def check_flash_bwd(torch, dtype, B, Sq, Sk, H, D, timed, causal=True,
             bound_by="operations" if b_ops >= b_bytes else "bytes",
             library_ms=None, library=None)
         torch.cuda.empty_cache()
-        if dtype == torch.bfloat16 and not dlse:
+        if not dlse:
             name, lib = _flash_library_bwd(torch, q, k, v, do, causal, scale)
             lib_ms = time_ms(lib)
             if name.startswith("sdpa"):
@@ -1410,6 +1485,21 @@ def phase_kernels():
                        timed=False)
     log(f"kernel flash_attention_fwd f32 S=77: max_abs_err="
         f"{rf32['max_abs_err']:.3g} (atol 1e-4 rtol 1e-4)")
+    # config 5's TinyTransformer: 4 heads of 16, non-causal, f32 (the FMA
+    # body at D = 16), at the example's [2, 16] and at a ragged S
+    for B, S in ((2, 16), (2, 1000)):
+        r16 = check_flash(torch, f32, B, S, 4, 16, atol=1e-4, rtol=1e-4,
+                          timed=False, causal=False)
+        log(f"kernel flash_attention_fwd f32 B={B} S={S} H=4 D=16 "
+            f"non-causal: max_abs_err={r16['max_abs_err']:.3g} (atol 1e-4 "
+            f"rtol 1e-4)")
+    # BERT-base (config 2, the bert phase): 12 heads of 64, S=512, batch
+    # 32, non-causal, f32 (the FMA body)
+    rb = check_flash(torch, f32, 32, 512, 12, 64, atol=1e-4, rtol=1e-4,
+                     timed=True, causal=False)
+    log(_row("flash_attention_fwd f32 B=32 S=512 H=12 D=64 non-causal "
+             "(BERT-base; atol 1e-4 rtol 1e-4; library sdpa)", rb))
+    log_op_dispatch(torch)
     # llama2_7b verify shapes: spec verify (m = spec_k + 1; the last base
     # overshoots the capacity), a chunked-prefill step (m = prefill_chunk)
     # and a suffix-prefill wave (m = the pow2 bucket of the suffixes); the
@@ -1581,6 +1671,12 @@ def check_training_kernels(torch):
                             dlse=True)
         log(_row(f"flash_attention_bwd general f32 S=300 H=4 D={D} dlse",
                  r))
+    # BERT-base's backward (the bert phase): f32, non-causal, no lse
+    # cotangent
+    r = check_flash_bwd(torch, f32, 32, 512, 512, 12, 64, timed=True,
+                        causal=False)
+    log(_row("flash_attention_bwd general f32 B=32 S=512 H=12 D=64 "
+             "non-causal (BERT-base)", r) + f" library={r['library']}")
     for row, B, S in (("causal_flash_bwd", 12, 1024),
                       ("causal_flash_bwd_tiled", 8, 2048),
                       (None, 1, 8192)):
@@ -2112,38 +2208,40 @@ def main(argv=None):
         return _resnet_child(json.loads(args.resnet_child))
     ident = gpu_identity()
     log(f"card: {ident}")
-    kernel_stats, launches = {}, {}
+    kernel_stats, launches, took = {}, {}, {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        took[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    t_run = time.perf_counter()
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     if "kernels" in phases:
-        kernel_stats = phase_kernels()
+        kernel_stats = timed("kernels", phase_kernels)
     if "context" in phases:
-        stats, n = phase_context(ident)
+        stats, n = timed("context", phase_context, ident)
         kernel_stats.update(stats)
         launches.update(n)
     for phase, run in (("main", phase_main), ("serve", phase_serve),
                        ("generate", phase_generate), ("tier", phase_tier),
                        ("cluster", phase_cluster), ("draft", phase_draft),
-                       ("fused", phase_fused)):
+                       ("fused", phase_fused), ("bert", phase_bert),
+                       ("export", phase_export)):
         if phase in phases:
-            for name, n in run(ident).items():
+            for name, n in timed(phase, run, ident).items():
                 launches[name] = launches.get(name, 0) + n
-    if "greedy" in phases:
-        phase_greedy(ident)
-    if "resnet" in phases:
-        phase_resnet(ident)
-    if "profile" in phases:
-        phase_profile(ident)
-    if "drift" in phases:
-        phase_drift(ident)
-    if "anatomy" in phases:
-        phase_anatomy(ident)
-    if "sched" in phases:
-        phase_sched(ident)
-    if "loadgen" in phases:
-        phase_loadgen(ident)
-    if "draftcause" in phases:
-        phase_draftcause(ident)
+    for phase, run in (("greedy", phase_greedy), ("resnet", phase_resnet),
+                       ("profile", phase_profile), ("drift", phase_drift),
+                       ("anatomy", phase_anatomy), ("sched", phase_sched),
+                       ("loadgen", phase_loadgen),
+                       ("draftcause", phase_draftcause)):
+        if phase in phases:
+            timed(phase, run, ident)
+    log(f"phase seconds: {json.dumps(took)}; all phases "
+        f"{time.perf_counter() - t_run:.1f} s")
     rows = []
     for name, meta in KERNELS.items():
         st = kernel_stats.get(name, {})
@@ -6109,9 +6207,13 @@ def _subprocess_pass(tag, ident, root, model_args, vocab, new=256,
                 r.kill()
 
 
+CLUSTER_LAYERS = 8
+
+
 def phase_cluster(ident):
     """Multi-replica serving (the module docstring, phase 9) at
-    ``llama2_7b`` bf16 full depth: failover with in-process replicas,
+    ``llama2_7b`` widths bf16, ``CLUSTER_LAYERS`` of its 32 layers
+    in-process (the workers of (c) at full depth): failover with in-process replicas,
     prefill/decode pools with the KV handoff, subprocess workers killed
     for real; then the same at f32, where the streams must equal the
     direct runs. Returns the launches by kernel row.
@@ -6130,7 +6232,7 @@ def phase_cluster(ident):
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.kernels import build
-    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+    from paddle_tpu_torch.models.llama import LlamaConfig
 
     # every kernel is built before any engine thread or worker starts
     build.build_all()
@@ -6200,11 +6302,13 @@ def phase_cluster(ident):
     geo = dict(max_slots=4, num_pages=512, page_size=16, chunk_size=16,
                max_chain=4, prefix_cache=True)
     t0 = time.perf_counter()
-    model = init_llama(llama2_7b(), seed=0, device="cuda",
-                       dtype=torch.bfloat16)
+    # llama2_7b's widths at 8 of its 32 layers: the depth cut that makes
+    # room for the bert and export phases in the run's time limit
+    model = init_llama(LlamaConfig(num_layers=CLUSTER_LAYERS), seed=0,
+                       device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"cluster: llama2_7b bf16 initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"cluster: llama2_7b widths, {CLUSTER_LAYERS} layers, bf16 "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
     cell("cluster bf16", model, geo, hard=False)
     del model
     gc.collect()
@@ -6357,9 +6461,13 @@ def _draft_items(vocab):
                                (900, 32, 0.0, None), (200, 80, 0.0, None))]
 
 
+DRAFT_LAYERS = 8
+
+
 def phase_draft(ident):
     """Draft-model speculative decoding (``Engine(spec="draft",
-    draft_model=)``): ``llama2_7b`` at full width and depth, bf16, random
+    draft_model=)``): ``llama2_7b`` at full width, ``DRAFT_LAYERS`` of its
+    32 layers, bf16, random
     weights from seed 0, on the pool and items of the main phase's pass
     (1), ``spec_k=4``, with (i) a LLaMA at TinyLlama-1.1B's widths (seed 1:
     acceptance near zero, what drafting costs) and (ii) the target as its
@@ -6378,14 +6486,17 @@ def phase_draft(ident):
 
     from paddle_tpu_torch.convert import init_llama
     from paddle_tpu_torch.inference.engine import Engine
-    from paddle_tpu_torch.models.llama import LlamaConfig, llama2_7b
+    from paddle_tpu_torch.models.llama import LlamaConfig
 
     t_phase = time.perf_counter()
-    cfg = llama2_7b()
+    # llama2_7b's widths at 8 of its 32 layers: the depth cut that makes
+    # room for the bert and export phases in the run's time limit
+    cfg = LlamaConfig(num_layers=DRAFT_LAYERS)
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     tiny = init_llama(tinyllama_1b(), seed=1, device="cuda",
                       dtype=torch.bfloat16)
-    log(f"draft: llama2_7b bf16 and a TinyLlama-width draft "
+    log(f"draft: llama2_7b widths, {DRAFT_LAYERS} layers, bf16 and a "
+        f"TinyLlama-width draft "
         f"({tinyllama_1b().num_params() / 1e9:.2f}B params, "
         f"{_model_gib(tiny):.2f} GiB) in {time.perf_counter() - t_phase:.1f}"
         f" s")
@@ -7411,6 +7522,339 @@ def phase_resnet(ident):
         raise AssertionError(f"resnet (3): {failed} did not recover: {f}")
     log(f"resnet: children {time.perf_counter() - t0:.1f} s; phase took "
         f"{time.perf_counter() - t_phase:.1f} s [{ident}]")
+
+# ------------------------------------------------------------ bert, export
+def _example(name):
+    """The module ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_ex_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bert_flops(cfg, batch, seq):
+    """Training FLOPs of one BERT MLM step: 6 x the tokens x the matrix
+    parameters the forward multiplies by (the encoder's GEMMs, the
+    pooler, the MLM transform and the tied decoder), plus attention's 12
+    x layers x B x S^2 x hidden (QK^T and PV, forward and backward)."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    mats = cfg.num_hidden_layers * (4 * h * h + 2 * h * f) + 2 * h * h \
+        + v * h
+    tokens = batch * seq
+    return 6 * mats * tokens + 12 * cfg.num_hidden_layers * batch \
+        * seq * seq * h
+
+
+def _rel_max(torch, got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def phase_bert(ident, steps=5):
+    """Config 2 at one GPU through the twin's step
+    (``examples/train_bert_torch.py`` ``mlm_step``: ``jit.functional_call``
+    + ``torch.autograd.grad`` + ``AdamW.apply_gradients_tree``) at
+    BERT-base (12 layers, 768 wide, 12 heads of 64, vocab 30522), f32
+    with TF32 off, seq 512, dropout 0, weights from a seed. (a) ``steps``
+    steps at batch 32 on one repeated batch: finite losses that fall, the
+    flash forward and backward launched (f32 at D 64: the FMA bodies);
+    sequences/s, tokens/s, host and device ms a step, peak memory, and
+    one step under torch.profiler: device busy ms and the flash kernels'
+    share. (b) The gradients of one step with every encoder layer under
+    ``fleet.recompute`` against the plain step's (each tensor within 1e-5
+    of its largest entry), the flash forward launched twice as often, and
+    a lower peak memory. Returns the launches by kernel row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.convert import init_bert
+    from paddle_tpu_torch.jit import functional_call, param_arrays
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+
+    ex = _example("train_bert_torch")
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, batch, seq = ex.configs(True)
+        model = init_bert(cfg, seed=0, device="cuda")
+        model.train()
+        crit = BertPretrainingCriterion(cfg.vocab_size)
+        opt = optimizer.AdamW(learning_rate=1e-4)
+        params = param_arrays(model)
+        state = opt.init_state_tree(params)
+        ids, labels = ex.mlm_batch(np.random.default_rng(0),
+                                   cfg.vocab_size, batch, seq, "cuda")
+        total = {"flash_attention_fwd": 0, "flash_attention_bwd_fused": 0}
+
+        def run():
+            nonlocal params, state
+            losses, host, dev = [], [], []
+            for i in range(steps):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                params, state, loss = ex.mlm_step(model, crit, opt, params,
+                                                  state, ids, labels, i + 1)
+                e1.record()
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+                dev.append(e0.elapsed_time(e1))
+                losses.append(float(loss))
+            return losses, host, dev
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (losses, host, dev), got = _counted(
+            run, needs=("flash_attention_fwd", "flash_attention_bwd"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"bert (a): losses {losses} are not finite "
+                                 "and falling")
+        per = cfg.num_hidden_layers  # each flash kernel's launches a step
+        if got["flash_attention_fwd"] != steps * per \
+                or got["flash_attention_bwd"] != steps * per:
+            raise AssertionError(f"bert (a): launches {got}, expected "
+                                 f"{per} of each a step")
+        total["flash_attention_fwd"] += got["flash_attention_fwd"]
+        total["flash_attention_bwd_fused"] += got["flash_attention_bwd"]
+        step_s = statistics.mean(host[1:])
+        dev_ms = statistics.mean(dev[1:])
+        flops = _bert_flops(cfg, batch, seq)
+        log(f"bert (a): BERT-base f32 (TF32 off), batch {batch} x seq {seq}, "
+            f"{steps} functional steps (functional_call + autograd.grad + "
+            f"AdamW(1e-4).apply_gradients_tree) on one repeated batch; "
+            f"losses {[round(v, 4) for v in losses]} [{ident}]")
+        log(f"bert (a): {batch / step_s:.2f} sequences/s, "
+            f"{batch * seq / step_s:.0f} tokens/s; a step {1e3 * step_s:.1f} "
+            f"ms host (steps 2-{steps}: "
+            f"{[round(1e3 * v, 1) for v in host[1:]]}), "
+            f"{dev_ms:.1f} ms device (CUDA events: "
+            f"{[round(v, 1) for v in dev[1:]]}); peak memory {peak:.2f} "
+            f"GiB; {flops / 1e12:.2f} TFLOP a step = "
+            f"{flops / step_s / 1e12:.1f} TFLOP/s, "
+            f"{flops / step_s / F32_FLOPS_PER_S:.1%} of the 67 TF/s f32 "
+            f"peak; flash launches {got['flash_attention_fwd']} forward, "
+            f"{got['flash_attention_bwd']} backward (the #5 row: "
+            f"Sq = Sk = {seq} <= 1024, no lse cotangent) [{ident}]")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ex.mlm_step(model, crit, opt, params, state, ids, labels,
+                        steps + 1)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        fl = {e.key: e.self_device_time_total / 1e3 for e in events
+              if "flash_" in e.key}
+        if not busy:
+            log("bert (a): the profiler recorded no device time; the "
+                "flash share is not measured")
+        else:
+            log(f"bert (a): one step under torch.profiler: device busy "
+                f"{busy:.1f} ms; the flash kernels {sum(fl.values()):.1f} "
+                f"ms = {sum(fl.values()) / busy:.1%} of it [{ident}]")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total
+                            )[:10]:
+                log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
+                    f"x{e.count:<5d} {e.key[:90]}")
+        del prof, events
+
+        # (b) recompute: the same step's gradients, every encoder layer
+        # under fleet.recompute
+        def grads():
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in params.items()}
+            loss = crit(functional_call(model, leaves, ids), labels)
+            return torch.autograd.grad(loss, list(leaves.values()),
+                                       allow_unused=True)
+
+        res = {}
+        out_plain, got_plain = _counted(lambda: res.update(
+            plain=_peak_pass(torch, lambda: res.update(g0=grads()))))
+        ex.use_recompute(model)
+        try:
+            out_rc, got_rc = _counted(lambda: res.update(
+                rc=_peak_pass(torch, lambda: res.update(g1=grads()))))
+        finally:
+            for layer in model.bert.encoder.layers:
+                del layer.forward  # back to the class's forward
+        worst = max(_rel_max(torch, a, b) for a, b in
+                    zip(res["g1"], res["g0"]) if b is not None)
+        exact = all(torch.equal(a, b) for a, b in zip(res["g1"], res["g0"])
+                    if b is not None)
+        if worst > 1e-5:
+            raise AssertionError(f"bert (b): recompute gradients off by "
+                                 f"{worst:.3g} of the largest entry")
+        if got_rc["flash_attention_fwd"] != 2 * \
+                got_plain["flash_attention_fwd"]:
+            raise AssertionError(f"bert (b): recompute ran the flash "
+                                 f"forward {got_rc['flash_attention_fwd']} "
+                                 f"times, the plain step "
+                                 f"{got_plain['flash_attention_fwd']}")
+        if res["rc"] >= res["plain"]:
+            raise AssertionError(f"bert (b): recompute peak {res['rc']} >= "
+                                 f"plain {res['plain']}")
+        for g in (got_plain, got_rc):
+            total["flash_attention_fwd"] += g["flash_attention_fwd"]
+            total["flash_attention_bwd_fused"] += g["flash_attention_bwd"]
+        log(f"bert (b): one step's gradients, every encoder layer under "
+            f"fleet.recompute vs plain: worst {worst:.3g} of the largest "
+            f"entry (bitwise equal: {exact}; limit 1e-5); flash forward "
+            f"launches {got_rc['flash_attention_fwd']} vs "
+            f"{got_plain['flash_attention_fwd']} (the re-run in the "
+            f"backward); peak memory {res['rc'] / 2**30:.2f} GiB vs "
+            f"{res['plain'] / 2**30:.2f} GiB [{ident}]")
+        del model, params, state, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"bert: phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _host_ms(torch, fn, reps=5):
+    """Median host milliseconds of ``fn()`` to a device sync, after one
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _export_case(tag, model, spec, inputs, ident, tmp):
+    """``model`` (eval, on the card) eagerly, through ``to_static``,
+    through ``jit.save`` -> ``jit.load`` and through
+    ``create_predictor(Config(prefix)).run`` on each of ``inputs`` (one
+    tensor each; ``to_static`` on the first): every output within 1e-4 of
+    the eager one's largest entry, #2 launched in the compiled, the loaded
+    and the predictor's calls; ms a call of each. Returns #2's
+    launches."""
+    import torch
+
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.jit import load, save, to_static
+
+    n = 0
+
+    def counted(what, fn):
+        nonlocal n
+        out, got = _counted(fn, needs=("flash_attention_fwd",))
+        n += got["flash_attention_fwd"]
+        return out, got["flash_attention_fwd"]
+
+    def close(what, got, want):
+        err = _rel_max(torch, torch.as_tensor(got).to(want.device), want)
+        if not err <= 1e-4:
+            raise AssertionError(f"export {tag}: {what} off by {err:.3g} of "
+                                 f"the largest entry (limit 1e-4)")
+        return err
+
+    with torch.no_grad():
+        eager = [model(x) for x in inputs]
+        static = to_static(model)
+        t0 = time.perf_counter()
+        static(inputs[0])
+        compile_s = time.perf_counter() - t0
+        out, k_static = counted("to_static", lambda: static(inputs[0]))
+        e_static = close("to_static", out, eager[0])
+        prefix = str(tmp / tag.replace(" ", "_"))
+        t0 = time.perf_counter()
+        save(model, prefix, input_spec=[spec])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load(prefix)
+        pred = create_predictor(Config(prefix + ".pt2"))
+        load_s = time.perf_counter() - t0
+        rows = []
+        for x, want in zip(inputs, eager):
+            out, k_loaded = counted("jit.load", lambda: loaded(x))
+            e_loaded = close(f"jit.load {tuple(x.shape)}", out, want)
+            (res,), k_pred = counted("Predictor",
+                                     lambda: pred.run([x.cpu().numpy()]))
+            e_pred = close(f"Predictor {tuple(x.shape)}", res, want)
+            rows.append(f"{tuple(x.shape)}: jit.load err {e_loaded:.3g} "
+                        f"(#2 x{k_loaded}), Predictor err {e_pred:.3g} (#2 "
+                        f"x{k_pred})")
+        x = inputs[0]
+        ms = dict(eager=_host_ms(torch, lambda: model(x)),
+                  static=_host_ms(torch, lambda: static(x)),
+                  loaded=_host_ms(torch, lambda: loaded(x)),
+                  predictor=_host_ms(torch, lambda: pred.run(
+                      [x.cpu().numpy()])))
+    log(f"export {tag}: to_static compiled in {compile_s:.1f} s, err "
+        f"{e_static:.3g} (#2 x{k_static}); jit.save {save_s:.1f} s "
+        f"(InputSpec {spec.shape} {spec.dtype}), jit.load + "
+        f"create_predictor {load_s:.1f} s; " + "; ".join(rows)
+        + f" (limit 1e-4 of the largest entry) [{ident}]")
+    log(f"export {tag}: ms a call at {tuple(x.shape)} (host clock to a "
+        f"sync, median of 5): eager {ms['eager']:.3f}, to_static "
+        f"{ms['static']:.3f}, jit.load {ms['loaded']:.3f}, Predictor.run "
+        f"{ms['predictor']:.3f} (with its host copies in and out) "
+        f"[{ident}]")
+    return n
+
+
+def phase_export(ident):
+    """Config 5: the twin example's ``TinyTransformer`` (d 64, 4 heads of
+    16: #2 at D = 16, f32) at ``[2, 16]``, then ``BertForMaskedLM`` at
+    BERT-base width, f32 with TF32 off, seq 512, through ``to_static``
+    at batch 8 and a ``jit.save`` with ``InputSpec([None, 512])`` run at
+    batches 8 and 4 by ``jit.load`` and the Predictor (``_export_case``).
+    Returns the launches by kernel row."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.convert import init_bert
+    from paddle_tpu_torch.jit import InputSpec
+
+    ex = _example("to_static_export_torch")
+    bert_ex = _example("train_bert_torch")
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 0
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            tmp = Path(d)
+            tiny = ex.init_tiny(ex.TinyTransformer(device="cuda")).eval()
+            ids = torch.from_numpy(np.random.default_rng(0).integers(
+                0, 256, (2, 16)).astype(np.int32)).cuda()
+            n += _export_case("TinyTransformer", tiny,
+                              InputSpec([2, 16], "int32"), [ids], ident,
+                              tmp)
+            cfg, _, seq = bert_ex.configs(True)
+            bert = init_bert(cfg, seed=0, device="cuda").eval()
+            rng = np.random.default_rng(1)
+            xs = [torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, seq)).astype(np.int32)).cuda()
+                for b in (8, 4)]
+            n += _export_case("BertForMaskedLM", bert,
+                              InputSpec([None, seq], "int32"), xs, ident,
+                              tmp)
+            del tiny, bert
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"export: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": n}
 
 
 if __name__ == "__main__":

@@ -26,6 +26,11 @@ ResNet's parameters and batch-norm buffers (``Layer.state_dict``, each
 ``np.asarray``): the names and layouts match, so nothing is renamed or
 transposed. ``init_resnet`` draws one from a seed on its device.
 
+``bert_from_numpy`` builds a ``BertForMaskedLM`` holding a JAX BERT's
+``param_arrays`` (names and layouts match; the tied decoder weight is the
+word embedding's one entry); ``init_bert`` draws one from a seed on its
+device.
+
 ``fused_multi_transformer_from_numpy`` builds an
 ``incubate.nn.FusedMultiTransformer`` from the JAX layer's per-layer lists
 (``{"qkv_weights": [layer 0, layer 1, ...], ...}``, each ``np.asarray``
@@ -42,6 +47,7 @@ import torch
 from .framework.device import resolve_device, resolve_dtype
 from .incubate.nn.layer.fused_transformer import (_LISTS,
                                                   FusedMultiTransformer)
+from .models.bert import BertConfig, BertForMaskedLM
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.quant import quantize_for_decode
@@ -50,7 +56,7 @@ from .vision.models.resnet import BasicBlock, BottleneckBlock, ResNet
 __all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy",
            "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
            "init_fused_multi_transformer", "resnet_from_numpy",
-           "init_resnet"]
+           "init_resnet", "bert_from_numpy", "init_bert"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -219,4 +225,39 @@ def resnet_from_numpy(arrays: Dict[str, np.ndarray], depth: int = 50,
     model = init_resnet(depth, 0, device, dtype, **kwargs)
     model.load_state_dict({name: torch.from_numpy(np.array(a, copy=True))
                            for name, a in arrays.items()}, strict=True)
+    return model
+
+
+def bert_from_numpy(cfg: BertConfig, arrays: Dict[str, np.ndarray],
+                    device=None, dtype=torch.float32,
+                    generator=None) -> BertForMaskedLM:
+    """A port ``BertForMaskedLM`` holding the given arrays
+    (``paddle_tpu.jit.param_arrays`` of a JAX ``BertForMaskedLM``, each
+    ``np.asarray``; every name must match). ``generator`` goes to the
+    dropout layers."""
+    model = BertForMaskedLM(cfg, device=device, dtype=dtype,
+                            generator=generator)
+    model.load_state_dict(state_dict_from_numpy(arrays, device, dtype),
+                          strict=True)
+    return model
+
+
+@torch.no_grad()
+def init_bert(cfg: BertConfig, seed: int = 0, device=None,
+              dtype=torch.float32, std=0.02,
+              generator=None) -> BertForMaskedLM:
+    """A ``BertForMaskedLM`` with random weights drawn on ``device`` from
+    ``seed``: every matrix and embedding table normal(0, ``std``),
+    LayerNorm scales one, biases zero, in ``named_parameters`` order.
+    ``generator`` goes to the dropout layers."""
+    model = BertForMaskedLM(cfg, device=device, dtype=dtype,
+                            generator=generator)
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if p.dim() > 1:
+            p.normal_(0.0, std, generator=gen)
+        else:
+            p.fill_(1.0 if "norm" in name and name.endswith("weight")
+                    else 0.0)
     return model

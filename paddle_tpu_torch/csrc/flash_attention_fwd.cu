@@ -60,9 +60,12 @@
 //   staged through the warp's own rows of the Q buffer. Every operand's
 //   base and (batch, seq, head) strides must be multiples of 16 bytes
 //   (the copies' alignment); the wrapper refuses others.
-// * f32 at every D, and bf16 at D 32 and 256: the FMA body. f32 keeps
-//   full-precision products (TF32 would break its 1e-4 checks); no model
-//   on the port's paths uses D 32 or 256. Grid (q tiles of 64 rows,
+// * f32 at every D, and bf16 at D 16, 32 and 256: the FMA body. f32
+//   keeps full-precision products (TF32 would break its 1e-4 checks); no
+//   model on the port's paths uses bf16 at D 16, 32 or 256 (config 5's
+//   export example runs f32 at D 16: four threads a row hold its 16
+//   accumulators as 4 each, as at any D divisible by 4, so D 16 needs no
+//   change of the thread mapping). Grid (q tiles of 64 rows,
 //   B * H); Q, K and V tiles staged in shared memory as f32; each thread
 //   computes a 4x4 block of the 64x64 score tile with f32 FMAs; four
 //   threads own one query row for the online softmax and its D-wide f32
@@ -536,7 +539,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // ------------------------------------------------ dispatch
 // the body of a (dtype, D) case: tensor cores for bf16 at D 64 and 128,
-// the FMA body for f32 and for bf16 at D 32 and 256
+// the FMA body for f32 and for bf16 at D 16, 32 and 256
 constexpr bool tc_body(int dtype, int D) {
   return dtype == kBF16 && (D == 64 || D == 128);
 }
@@ -561,6 +564,8 @@ Launcher pick_d(bool pos) {
 template <typename T>
 Launcher pick_t(int D, bool pos) {
   switch (D) {
+    case 16:
+      return pick_d<T, 16>(pos);
     case 32:
       return pick_d<T, 32>(pos);
     case 64:

@@ -58,6 +58,13 @@ define_flag("FLAGS_use_flash_attention", True,
 define_flag("FLAGS_use_packed_attention", None,
             "packed-QKV causal kernel on the GPT train path: None = auto "
             "(CUDA activations), True = force, False = off")
+define_flag("FLAGS_weight_only_quant_backend", "auto",
+            "weight_only_linear GEMM backend: 'auto' = the fused "
+            "dequant-in-kernel matmul (kernel #12) for CUDA activations of "
+            "at most 256 rows, dequantize + torch.matmul otherwise; "
+            "'cuda' (or the reference's 'pallas') forces the kernel's "
+            "wrapper (its plain version on the CPU); 'xla' forces "
+            "dequantize + torch.matmul everywhere")
 define_flag("FLAGS_fault_inject",
             os.environ.get("PADDLE_TPU_FAULT_INJECT", ""),
             "deterministic fault-injection plan for the serving engine "

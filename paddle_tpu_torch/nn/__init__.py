@@ -12,6 +12,9 @@ from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, MaxPool1D,
                       MaxPool2D)
+from .transformer import (MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "quant", "Linear", "Embedding", "Dropout",
            "RMSNorm", "LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
@@ -20,4 +23,6 @@ __all__ = ["functional", "quant", "Linear", "Embedding", "Dropout",
            "AvgPool1D", "AvgPool2D", "AdaptiveAvgPool1D",
            "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "ReLU", "Sequential",
            "CrossEntropyLoss", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "clip_grad_norm_"]
+           "ClipGradByValue", "clip_grad_norm_", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder",
+           "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]

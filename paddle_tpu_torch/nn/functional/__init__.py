@@ -1,7 +1,7 @@
 """Functional ops of the port (after ``paddle_tpu.nn.functional``)."""
 from __future__ import annotations
 
-from .activation import gelu, relu, silu
+from .activation import gelu, relu, silu, tanh
 from .attention import (flash_attention, naive_attention,
                         scaled_dot_product_attention)
 from .common import dropout, embedding, linear
@@ -13,7 +13,7 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_max_pool2d, avg_pool1d, avg_pool2d,
                       max_pool1d, max_pool2d)
 
-__all__ = ["linear", "dropout", "embedding", "silu", "gelu", "relu",
+__all__ = ["linear", "dropout", "embedding", "silu", "gelu", "relu", "tanh",
            "rms_norm", "layer_norm", "batch_norm", "group_norm",
            "local_response_norm", "cross_entropy", "flash_attention",
            "naive_attention", "scaled_dot_product_attention", "conv1d",

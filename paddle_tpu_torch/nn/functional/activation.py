@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["silu", "gelu", "relu"]
+__all__ = ["silu", "gelu", "relu", "tanh"]
 
 
 def silu(x):
@@ -18,3 +18,7 @@ def gelu(x, approximate=False):
     """GELU; ``approximate=True`` is the tanh form (``jax.nn.gelu``'s)."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    return torch.tanh(x)

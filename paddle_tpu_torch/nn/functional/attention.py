@@ -1,12 +1,18 @@
 """Attention functions, after ``paddle_tpu/nn/functional/attention.py``.
 
 ``flash_attention`` routes to the hand-written CUDA flash kernels for CUDA
-tensors and to their plain versions for CPU tensors. When autograd needs
-gradients it runs through the differentiable ``FlashAttentionFunction``
-(forward kernel with its log-sum-exp, backward kernel); otherwise (the
-engine's prefill, ``torch.no_grad``) it calls the forward kernel alone.
-Unlike the JAX package's ``_pallas_ok`` gate there is no shape gate: the
-kernels mask ragged sequence edges themselves. ``FLAGS_use_flash_attention
+tensors and to their plain versions for CPU tensors, through their
+registered operators (so ``torch.compile`` and ``torch.export`` trace it).
+The operator is the forward kernel with its log-sum-exp; when autograd
+needs gradients its backward runs the backward kernel. Without gradients
+(the engine's prefill, ``torch.no_grad``) a traced call (``torch.compile``,
+``torch.export``) keeps the operator's output, and an eager call runs the
+forward wrapper directly: the operator's dispatch costs the host ~60 µs a
+call (``chip_smoke.py`` kernels phase, H100 80GB HBM3, 700.00 W). Unlike
+the JAX package's ``_pallas_ok`` gate there is no shape gate: the kernels
+mask ragged sequence edges themselves, and the forward takes head dims 16,
+32, 64, 128 and 256 (the backward 64, 128 and 256).
+``FLAGS_use_flash_attention
 = False`` sends it to ``naive_attention``, as in the reference.
 
 ``scaled_dot_product_attention`` without a mask is ``flash_attention``
@@ -21,7 +27,8 @@ import torch
 from ...amp import amp_cast
 from ...framework.flags import get_flags
 from ...ops.cuda.flash_attention import (flash_attention_fused,
-                                         flash_attention_fwd)
+                                         flash_attention_fwd,
+                                         flash_attention_fwd_lse_op)
 from .common import dropout as _dropout
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
@@ -64,7 +71,10 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                       or v.requires_grad):
         out = flash_attention_fused(q, k, v, causal=causal)
-    else:
+    elif torch.compiler.is_compiling():  # traced: the operator's node
+        out = flash_attention_fwd_lse_op(q, k, v, bool(causal), None, None,
+                                         None)[0]
+    else:  # eager: the wrapper, without the operator's dispatch
         out = flash_attention_fwd(q, k, v, causal=causal)
     if dropout > 0.0 and training:
         out = _dropout(out, p=dropout, training=True, generator=generator)

@@ -6,18 +6,21 @@ output channel (symmetric): small-batch decode reads every weight byte once
 a step, so int8 halves and int4 quarters the dominant device-memory
 traffic.
 
-Routing (``quant_backend``), the reference's ``auto`` rule: a CUDA tensor
-with at most ``PALLAS_MAX_ROWS`` (256) rows takes the fused kernel #12
+Routing (``quant_backend``) follows ``FLAGS_weight_only_quant_backend``.
+Under ``"auto"`` (the default, the reference's rule) a CUDA tensor with at
+most ``PALLAS_MAX_ROWS`` (256) rows takes the fused kernel #12
 (``ops/cuda/quant_matmul.py``, dequant inside the kernel); more rows
 (prefill) and the CPU take :func:`quant_matmul_xla`, which dequantizes and
-hands the product to ``torch.matmul``. ``FLAGS_weight_only_quant_backend``
-is not ported yet: ``framework/flags.py`` does not define it.
+hands the product to ``torch.matmul``. ``"cuda"`` (or the reference's
+``"pallas"``) forces the kernel's wrapper, which takes its plain version
+for a CPU tensor; ``"xla"`` forces :func:`quant_matmul_xla`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..framework.flags import get_flags
 from ..ops.cuda.quant_matmul import PALLAS_MAX_ROWS, quant_matmul
 from .common import Linear
 
@@ -26,8 +29,18 @@ __all__ = ["weight_quantize", "weight_only_linear", "WeightOnlyLinear",
 
 
 def quant_backend(rows=None, device=None) -> str:
-    """``"cuda"`` (kernel #12) for a CUDA device at ``rows`` <= 256 (or
-    rows unknown), else ``"xla"`` (dequantize, then ``torch.matmul``)."""
+    """``"cuda"`` (kernel #12) or ``"xla"`` (dequantize, then
+    ``torch.matmul``), by ``FLAGS_weight_only_quant_backend``; under
+    ``"auto"``: ``"cuda"`` for a CUDA device at ``rows`` <= 256 (or rows
+    unknown), else ``"xla"``."""
+    val = get_flags("FLAGS_weight_only_quant_backend")[
+        "FLAGS_weight_only_quant_backend"]
+    if val not in ("auto", "cuda", "pallas", "xla"):
+        raise ValueError(
+            f"FLAGS_weight_only_quant_backend: {val!r} not in "
+            "('auto', 'cuda', 'pallas', 'xla')")
+    if val != "auto":
+        return "xla" if val == "xla" else "cuda"
     dev = torch.device("cpu" if device is None else device)
     if dev.type != "cuda":
         return "xla"

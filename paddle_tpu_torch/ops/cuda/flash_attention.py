@@ -1,5 +1,5 @@
 """Flash attention forward and backward: the CUDA kernels' wrappers, their
-plain versions, and the autograd Function over both.
+plain versions, and the registered operators over both.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py`` ``flash_attention_fused``
 and ``flash_attention_with_lse``. The forward kernel (TPU kernel #2,
@@ -14,8 +14,8 @@ Each kernel has two bodies, chosen by dtype and head dim (``flash_body``):
 bf16 at D 64 and 128 runs on the tensor cores (FlashAttention-2's design
 on ``mma.sync``: tiles staged in bf16 shared memory by ``cp.async``, the
 softmax on the accumulators in registers, P and dS rounded to bf16 straight
-into the next product's operands); f32 at every D, and bf16 at D 32 and 256
-(no model on the port's paths uses them), run on f32 FMAs, so f32 keeps
+into the next product's operands); f32 at every D, and bf16 at D 16, 32 and
+256 (no model on the port's paths uses them), run on f32 FMAs, so f32 keeps
 full-precision products. The tensor-core body copies 16 bytes at a time:
 each operand's base and (batch, seq, head) strides must be multiples of 16
 bytes, and ``check_tc_alignment`` refuses others, naming the operand.
@@ -43,25 +43,34 @@ and ``.pos_launches`` those in position mode (both included in
 ``.launches``). Each library picks its body at compile time and builds no
 FMA body for bf16 at D 64 or 128, so ``flash_body`` tells which body a
 launch ran.
+
+The forward (with its lse) and the backward are also registered
+operators (``torch.ops.paddle_tpu_torch.flash_attention_fwd_lse``,
+``flash_attention_bwd``), so that
+``torch.compile`` and ``torch.export`` trace through them; the lse form
+carries its backward (``register_autograd``). ``flash_attention_fused``,
+``flash_attention_with_lse`` and ``F.flash_attention`` call the operators
+(an eager ``F.flash_attention`` without gradients calls
+:func:`flash_attention_fwd` directly, sparing the operator's dispatch).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["flash_attention_fwd", "flash_attention_ref", "flash_attention_bwd",
-           "flash_attention_bwd_ref", "FlashAttentionFunction",
+           "flash_attention_bwd_ref", "flash_attention_fwd_lse_op", "flash_attention_bwd_op",
            "flash_attention_fused", "flash_attention_with_lse", "flash_body",
            "check_tc_alignment"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NO_KEY_LSE = -1.0e30  # lse of a row that sees no key (the reference's NEG_INF)
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
 _TC_HEAD_DIMS = (64, 128)
 
@@ -71,7 +80,7 @@ def flash_body(dtype, head_dim) -> str:
     card, by the rule of both ``.cu`` files' launch code:
     ``"tensor_core"`` for bf16 at D 64 and 128, ``"fma"`` for f32 at every
     D (its checks hold it to 1e-4, which TF32 products would break) and for
-    bf16 at D 32 and 256."""
+    bf16 at D 16, 32 and 256."""
     if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
         return "tensor_core"
     return "fma"
@@ -106,9 +115,10 @@ def _launched(fn, tensor_core, positions):
 
 def _positions(q_positions, kv_positions, sq, sk, device):
     """Both position arrays as int32 ``[Sq]`` / ``[Sk]`` on ``device``, or
-    ``(None, None)``: the one conversion, made where the autograd Function
-    takes them. One without the other raises (the reference raises for
-    ``q_positions`` alone and ignores ``kv_positions`` alone)."""
+    ``(None, None)``: the one conversion, made where
+    ``flash_attention_with_lse`` takes them. One without the other raises
+    (the reference raises for ``q_positions`` alone and ignores
+    ``kv_positions`` alone)."""
     if q_positions is None or kv_positions is None:
         _check_positions(q_positions, kv_positions, sq, sk, device)
         return None, None
@@ -393,46 +403,91 @@ launch_counter(flash_attention_bwd, "launches", "tc_launches",
                "pos_launches")
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``(out, lse) = f(q, k, v)``: the forward kernel with its
-    log-sum-exp, and the backward kernel for the gradients, with the lse
-    cotangent (when the caller uses lse) folded into delta, as the
-    reference's ``_flash_bhsd_lse`` does. The optional positions select
-    position mode in both and get no gradient."""
+# ------------------------------------------------ registered operators
+# The kernels load through ctypes, which neither torch.compile nor
+# torch.export can trace. Registered as operators, they appear in a
+# compiled or exported graph as one opaque node each; the node runs the
+# wrappers above, so a CUDA tensor launches the kernel (and counts the
+# launch) and a CPU tensor takes the plain version, in eager calls, in
+# ``jit.to_static`` programs and in ``jit.load``-ed ``.pt2`` programs
+# alike. Outputs are made contiguous: the fake implementations promise
+# contiguous tensors, and compiled code checks strides against them.
+_DEVICES = ("cpu", "cuda")
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, q_positions=None,
-                kv_positions=None):
-        if k.shape[2] != q.shape[2]:
-            raise ValueError("the flash backward takes as many k/v heads as "
-                             "q heads; repeat them first")
-        qp, kp = _positions(q_positions, kv_positions, q.shape[1],
-                            k.shape[1], q.device)
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                       return_lse=True, q_positions=qp,
-                                       kv_positions=kp)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.positions = causal, scale, (qp, kp)
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(out)
-        dout = dout.to(q.dtype)  # an f32 cotangent from an f32 loss tail
-        qp, kp = ctx.positions
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, dlse,
-                                         causal=ctx.causal, scale=ctx.scale,
-                                         q_positions=qp, kv_positions=kp)
-        return dq, dk, dv, None, None, None, None
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd_lse",
+                         mutates_args=(), device_types=_DEVICES)
+def flash_attention_fwd_lse_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        scale: Optional[float], q_positions: Optional[torch.Tensor],
+        kv_positions: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#2 with its lse, as a differentiable operator: its backward is
+    :func:`flash_attention_bwd_op`. Inference takes ``[0]``: the lse is
+    ``[B, H, Sq]`` f32, small beside the output."""
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True, q_positions=q_positions,
+                                   kv_positions=kv_positions)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_lse_op.register_fake
+def _(q, k, v, causal, scale, q_positions, kv_positions):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd",
+                         mutates_args=(), device_types=_DEVICES)
+def flash_attention_bwd_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+        dlse: Optional[torch.Tensor], causal: bool, scale: Optional[float],
+        q_positions: Optional[torch.Tensor],
+        kv_positions: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward (#5/#6) as an operator."""
+    grads = flash_attention_bwd(q, k, v, out, do, lse, dlse, causal=causal,
+                                scale=scale, q_positions=q_positions,
+                                kv_positions=kv_positions)
+    return tuple(g.contiguous() for g in grads)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, out, do, lse, dlse, causal, scale, q_positions,
+      kv_positions):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_lse_setup(ctx, inputs, output):
+    q, k, v, causal, scale, qp, kp = inputs
+    ctx.save_for_backward(q, k, v, *output, qp, kp)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.set_materialize_grads(False)  # an unused lse's cotangent: None
+
+
+def _fwd_lse_backward(ctx, dout, dlse):
+    """The lse cotangent (when the caller uses lse) is folded into delta,
+    as the reference's ``_flash_bhsd_lse`` does; the positions get no
+    gradient."""
+    q, k, v, out, lse, qp, kp = ctx.saved_tensors
+    if dout is None:
+        dout = torch.zeros_like(out)
+    dout = dout.to(q.dtype)  # an f32 cotangent from an f32 loss tail
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, dout, lse, dlse,
+                                        ctx.causal, ctx.scale, qp, kp)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_attention_fwd_lse_op.register_autograd(_fwd_lse_backward,
+                                             setup_context=_fwd_lse_setup)
 
 
 def flash_attention_fused(q, k, v, causal=True, scale=None):
     """Differentiable flash attention on ``[B, S, H, D]`` (the reference's
     ``flash_attention_fused``)."""
-    return FlashAttentionFunction.apply(q, k, v, causal, scale)[0]
+    return flash_attention_with_lse(q, k, v, causal, scale)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=True, scale=None,
@@ -441,6 +496,13 @@ def flash_attention_with_lse(q, k, v, causal=True, scale=None,
     the lse cotangent flows back through the same backward kernel. With
     ``q_positions`` [Sq] and ``kv_positions`` [Sk] (global token indices,
     ring attention's chunks) the mask is ``q_pos >= kv_pos`` and ``causal``
-    is ignored; a row that sees no key gives out 0 and lse -1e30."""
-    return FlashAttentionFunction.apply(q, k, v, causal, scale, q_positions,
-                                        kv_positions)
+    is ignored; a row that sees no key gives out 0 and lse -1e30. The
+    backward takes as many k/v heads as q heads."""
+    if k.shape[2] != q.shape[2]:
+        raise ValueError("the flash backward takes as many k/v heads as "
+                         "q heads; repeat them first")
+    qp, kp = _positions(q_positions, kv_positions, q.shape[1], k.shape[1],
+                        q.device)
+    return flash_attention_fwd_lse_op(
+        q, k, v, bool(causal), None if scale is None else float(scale),
+        qp, kp)

@@ -12,6 +12,13 @@ master copy and the state in place, where the reference makes new arrays.
 Learning rates and bias corrections are host floats (the step count lives
 on the host), so a step never waits for the device.
 
+The functional API (``init_state_tree`` / ``apply_gradients_tree``) runs
+the same rules over nested dicts, lists and tuples of tensors, as the
+reference's pytrees: it is pure, returning new parameters and new state
+and writing neither input (the rules run on copies). A gradient of None
+(a parameter the loss does not reach) counts as zeros, as the
+reference's ``jax.grad`` gives them.
+
 ``parameters`` takes tensors or ``(name, tensor)`` pairs (such as
 ``model.named_parameters()``). Names key ``state_dict`` and are what
 ``AdamW``'s ``apply_decay_param_fun`` sees; a bare tensor is named
@@ -137,6 +144,49 @@ class Optimizer:
         self.step()
         self.clear_grad()
 
+    # -------------------------------------------------------- functional API
+    @torch.no_grad()
+    def init_state_tree(self, params_tree):
+        """The state tree of a params tree (nested dicts / lists / tuples
+        of tensors): one dict a parameter, with its f32 master copy under
+        ``"master"`` when ``multi_precision`` and it is bf16 or fp16."""
+        def per_param(p):
+            st = self.init_state(torch.zeros_like(p, dtype=torch.float32))
+            if self._multi_precision and p.dtype in _LOW:
+                st["master"] = p.detach().float()
+            return st
+
+        return _rebuild(params_tree, [per_param(p)
+                                      for p in _leaves(params_tree)])
+
+    @torch.no_grad()
+    def apply_gradients_tree(self, params_tree, grads_tree, state_tree, lr,
+                             step, decay_mask_tree=None):
+        """One step over trees: returns ``(new_params, new_state)`` and
+        writes none of its inputs. ``lr`` and ``step`` are numbers (or
+        one-element tensors); ``decay_mask_tree``, of the params' structure,
+        says which parameters take weight decay (all when None)."""
+        lr = float(lr)
+        step = float(step)
+        new_p, new_s = [], []
+        params = _leaves(params_tree)
+        grads = _leaves(grads_tree, like=params_tree)
+        states = _leaves(state_tree, like=params_tree)
+        masks = ([True] * len(params) if decay_mask_tree is None
+                 else _leaves(decay_mask_tree, like=params_tree))
+        for p, g, st, decay in zip(params, grads, states, masks):
+            st = {k: v.clone() for k, v in st.items()}
+            master = st.pop("master", None)
+            pf = master if master is not None else p.detach().float().clone()
+            g = torch.zeros_like(pf) if g is None else g.detach().float()
+            self._update_rule(pf, g, st, lr, step,
+                              self._weight_decay if decay else 0.0)
+            if master is not None:
+                st["master"] = pf
+            new_p.append(pf.to(p.dtype))
+            new_s.append(st)
+        return _rebuild(params_tree, new_p), _rebuild(params_tree, new_s)
+
     # -------------------------------------------------------------- state IO
     def _state_names(self):
         return [(n or f"param_{i}", p)
@@ -167,6 +217,36 @@ class Optimizer:
                 self._master_weights[id(p)] = torch.as_tensor(
                     state[f"{name}.master"], dtype=torch.float32,
                     device=p.device).clone()
+
+
+def _leaves(tree, like=None):
+    """The leaves of ``tree`` in order, walking dicts (by key), lists and
+    tuples. With ``like``, ``tree`` is walked only as deep as ``like``'s
+    structure, so each leaf of ``like`` gives one (possibly structured)
+    value of ``tree``."""
+    shape = tree if like is None else like
+    if isinstance(shape, dict):
+        return [x for k in shape for x in _leaves(
+            tree[k], None if like is None else like[k])]
+    if isinstance(shape, (list, tuple)):
+        return [x for i in range(len(shape)) for x in _leaves(
+            tree[i], None if like is None else like[i])]
+    return [tree]
+
+
+def _rebuild(like, values):
+    """``like``'s structure with its leaves replaced by ``values`` in
+    order."""
+    it = iter(values)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(like)
 
 
 class SGD(Optimizer):

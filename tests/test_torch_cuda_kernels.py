@@ -31,7 +31,11 @@ equal to the CPU's), and ``bit-flip-weight``'s in-place write seen by a
 replayed graph; #1 and #3 at the draft's GQA group of 8 (32 q heads over 4
 kv heads of 64, TinyLlama-1.1B's widths); a draft-model spec engine whose
 propose step replays a graph against the same engine with it eager
-(drafts and streams bitwise) and against vanilla decode (f32).
+(drafts and streams bitwise) and against vanilla decode (f32); #2 at head
+dim 16 (config 5's 4 heads of 16) on its FMA body; the registered flash
+operators under ``torch.compile(fullgraph=True)`` (forward and backward)
+and in a ``torch.export``-ed program saved, loaded and run at two batch
+sizes, equal to eager and launching the kernels.
 
 Run them on the card with (``--noconftest``: the suite's conftest imports
 JAX, which the port's machine need not have; this file uses none of it)::
@@ -1184,7 +1188,7 @@ def test_flash_body_rule_matches_the_libraries(cuda):
     FMA body for bf16 at D 64 or 128 exists, so the wrappers'
     ``tc_launches`` (counted by ``flash_body``) is what ran."""
     names = {torch.float32: "f32", torch.bfloat16: "bf16"}
-    for lib, dims in (("flash_attention_fwd", (32, 64, 128, 256)),
+    for lib, dims in (("flash_attention_fwd", (16, 32, 64, 128, 256)),
                       ("flash_attention_bwd", (64, 128, 256))):
         want = {(fa.flash_body(dt, d), names[dt], d) for dt in names
                 for d in dims}
@@ -2176,3 +2180,73 @@ def test_draft_engine_graph_propose_equals_eager_on_card(cuda):
         assert all(not t.any() for t in gd.k_pages + gd.v_pages)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,causal", [(16, False), (1000, False),
+                                      (77, True)])
+def test_flash_fwd_head_dim_16(cuda, dtype, S, causal):
+    """#2 at head dim 16 (config 5's TinyTransformer: 4 heads of 16) on
+    its FMA body against the plain version, with its lse."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn((2, S, 4, 16), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    n = fa.flash_attention_fwd.launches
+    got, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n + 1
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal=causal,
+                                            return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_flash_ops_compile_and_export(cuda, tmp_path):
+    """The registered flash operators under ``torch.compile(fullgraph=
+    True)`` (forward with its backward, D 64) and in a ``torch.export``-ed
+    program saved and loaded again (forward, D 16 and a dynamic batch):
+    equal to the same calls eager, and the kernels launch inside the
+    compiled and the loaded programs."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def attn(q, k, v):
+        return fa.flash_attention_fused(q, k, v, causal=False) * 2.0
+
+    q, k, v = (torch.randn((2, 200, 4, 64), generator=g, device=cuda)
+               .requires_grad_() for _ in range(3))
+    want = attn(q, k, v)
+    want_g = torch.autograd.grad(want.square().sum(), (q, k, v))
+    compiled = torch.compile(attn, fullgraph=True)
+    compiled(q, k, v)  # compiles
+    c0 = _counts()
+    got = compiled(q, k, v)
+    got_g = torch.autograd.grad(got.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    c1 = _counts()
+    assert (c1[0] - c0[0], c1[2] - c0[2]) == (1, 1)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+    class Attn(torch.nn.Module):
+        def forward(self, q, k, v):
+            return fa.flash_attention_fwd_lse_op(q, k, v, False, None, None,
+                                                 None)[0] + 1.0
+
+    x = [torch.randn((3, 40, 4, 16), generator=g, device=cuda)
+         for _ in range(3)]
+    batch = torch.export.Dim("batch")
+    ep = torch.export.export(Attn(), tuple(x), dynamic_shapes=(
+        {0: batch}, {0: batch}, {0: batch}), strict=False)
+    torch.export.save(ep, str(tmp_path / "attn.pt2"))
+    loaded = torch.export.load(str(tmp_path / "attn.pt2")).module()
+    for b in (3, 5):
+        x = [torch.randn((b, 40, 4, 16), generator=g, device=cuda)
+             for _ in range(3)]
+        c0 = _counts()
+        got = loaded(*x)
+        torch.cuda.synchronize()
+        assert _counts()[0] == c0[0] + 1
+        torch.testing.assert_close(got, Attn()(*x), atol=1e-5, rtol=1e-5)

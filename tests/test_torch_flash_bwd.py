@@ -1,6 +1,7 @@
 """The port's flash backward (plain twin ``flash_attention_bwd_ref`` and the
-autograd ``FlashAttentionFunction``, which CPU tensors run through the
-twins) against ``jax.grad`` of paddle_tpu's ``flash_attention_fused`` /
+differentiable forward operator ``flash_attention_fwd_lse``, whose
+registered backward CPU tensors run through the twins) against
+``jax.grad`` of paddle_tpu's ``flash_attention_fused`` /
 ``flash_attention_with_lse``, whose Pallas kernels run in interpret mode:
 
 * square S <= 1024, causal and not: the fused whole-sequence backward (#5);
