@@ -73,8 +73,8 @@ Phases, in order; any failure exits non-zero:
               the pool), a 0 ms deadline (must fail ``deadline``);
               ``/healthz``, ``/readyz`` and a Prometheus scrape whose TTFT
               count must match; #1, #2 and #3 must launch, on their
-              tensor-core bodies. Then three closed loops at concurrency 8
-              (tok/s, TTFT from the tickets) and a fourth under the
+              tensor-core bodies. Then two closed loops at concurrency 8
+              (tok/s, TTFT from the tickets) and a third under the
               profiler (wall and device busy ms of the same engine steps)
               against a direct run of the same items, ``multi_step=4``
               against 1 on a pure-decode
@@ -118,7 +118,7 @@ Phases, in order; any failure exits non-zero:
               quarantines the engine and ``/readyz`` over the ApiServer
               says so (the bit is put back); (d) strict: the shadow every
               4 steps on clean greedy streams, its margins against
-              ``shadow_tol``; (e) the handoff: a 1024-token prompt's pages
+              ``shadow_tol``; (e) the handoff: a 512-token prompt's pages
               exported from one ApiServer (``POST /v1/kv``) and imported
               into another, the payload's size, each stage's ms and the
               importer's TTFT against a fresh engine's; then the weight
@@ -207,8 +207,9 @@ Phases, in order; any failure exits non-zero:
               step's (1e-5 of each tensor's largest entry), #2 launched
               twice as often, the peak memory lower.
 14. export  — config 5: the example twin's ``TinyTransformer`` (#2 at
-              head dim 16) and ``BertForMaskedLM`` at BERT-base width
-              (batch 8, seq 512), f32, through ``jit.to_static``
+              head dim 16) and ``BertForMaskedLM`` at BERT-base width,
+              6 of its 12 layers (batch 8, seq 512), f32, through
+              ``jit.to_static``
               (``torch.compile(fullgraph=True)``), ``jit.save`` (the
               BERT with ``InputSpec([None, 512])``) -> ``jit.load`` and
               ``create_predictor(Config(prefix)).run`` (the BERT at
@@ -216,6 +217,28 @@ Phases, in order; any failure exits non-zero:
               entry, #2 launched inside the compiled, the loaded and the
               predictor's programs; eager, ``to_static``, loaded and
               Predictor ms a call.
+15. moe_train — MoE training at one GPU through
+              ``incubate.distributed.models.moe`` at Mixtral-8x7B's expert
+              widths: two blocks of ``LayerNorm(4096)`` -> ``MoELayer(8 x
+              ExpertFFN(4096, 14336, "silu"), GShardGate top-2 with random
+              routing)`` -> residual (1.88 B parameters), bf16 through
+              ``amp.decorate(level="O2")``, AdamW with f32 masters and
+              ``ClipGradForMOEByGlobalNorm(1.0)`` (the experts
+              ``is_expert``), batch 4 x 1024 tokens, weights from a seed.
+              First ``ragged_dot`` (#13 for the forward and dX, one matmul
+              per expert for dW) against ``grouped_matmul_ref`` under
+              autograd at these widths in bf16 (2e-2 of the largest
+              entry) and at a quarter of them in f32 (1e-4), #13's forward
+              and dX timed beside ``torch._grouped_mm`` and the bound.
+              Then step 1 of the ragged and the dense path from the same
+              weights and routing draw: the loss within 1e-2 and every
+              gradient within 2e-2 in relative norm, #13 launched in the
+              ragged forward and backward, random routing's dropped
+              second choices present and put past the groups at weight
+              0; then 4 ragged, 3 dense and 3 dropless steps from the same
+              weights (losses finite and falling, aux finite; ms a step by
+              CUDA events from step 2, tokens/s, peak memory) and #13's
+              share of a profiled ragged step's device time.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -289,6 +312,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -305,7 +329,7 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
-          "export")
+          "export", "moe_train")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause")
 
@@ -2229,7 +2253,8 @@ def main(argv=None):
                        ("generate", phase_generate), ("tier", phase_tier),
                        ("cluster", phase_cluster), ("draft", phase_draft),
                        ("fused", phase_fused), ("bert", phase_bert),
-                       ("export", phase_export)):
+                       ("export", phase_export),
+                       ("moe_train", phase_moe_train)):
         if phase in phases:
             for name, n in timed(phase, run, ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -3398,15 +3423,15 @@ def phase_serve(ident):
     t0 = time.perf_counter()
     n_cl, budget, prange, seed = 16, 32, (16, 1024), 9
     loops = []
-    # the same items four times, each on a fresh engine (the prefix cache
+    # the same items three times, each on a fresh engine (the prefix cache
     # starts empty): the host is shared, so the repeats give the spread;
-    # the fourth runs under the profiler, and its engine steps give both
+    # the third runs under the profiler, and its engine steps give both
     # the wall (the step_seconds histogram) and the device busy time
-    for rep in range(4):
+    for rep in range(3):
         fe = ServingFrontend(engine(multi_step=4)).start()
         s0 = _hist("paddle_tpu_engine_steps_per_roundtrip")
         h0 = _hist("paddle_serving_step_seconds")
-        with (profile(activities=[ProfilerActivity.CUDA]) if rep == 3
+        with (profile(activities=[ProfilerActivity.CUDA]) if rep == 2
               else contextlib.nullcontext()) as prof:
             stats = run_closed_loop(
                 fe, concurrency=8, n_requests=n_cl, vocab=vocab,
@@ -3422,7 +3447,7 @@ def phase_serve(ident):
         if stats["completed"] != n_cl:
             raise AssertionError(f"closed loop: {stats}")
         steps = s1[0] - s0[0]
-        tag = (f"closed loop {rep + 1} of 4"
+        tag = (f"closed loop {rep + 1} of 3"
                + (" (under the profiler)" if prof is not None else ""))
         log(f"serve: {tag} through the front end, concurrency 8, {n_cl} "
             f"requests of {budget} tokens, prompts {prange[0]}-{prange[1]}: "
@@ -3450,7 +3475,7 @@ def phase_serve(ident):
         (_mk_prompt(r, vocab, *prange), budget, 0.0, seed + i)
         for i in range(n_cl)])
     d_toks = sum(len(t) for t in direct)
-    log(f"serve: closed loops 1-3 {min(loops):.1f}-{max(loops):.1f} tok/s "
+    log(f"serve: closed loops 1-2 {min(loops):.1f}-{max(loops):.1f} tok/s "
         f"(max/min {max(loops) / min(loops):.2f}); a direct Engine.run of "
         f"the same items queued at once: {d_toks / wall:.1f} tok/s; "
         f"{time.perf_counter() - t0:.1f} s [{ident}]")
@@ -5538,7 +5563,7 @@ def phase_tier(ident):
 
     # ---- (e) the handoff: two engines, each behind its own ApiServer
     def handoff():
-        P = np.random.default_rng(71).integers(0, vocab, (1024,))
+        P = np.random.default_rng(71).integers(0, vocab, (512,))
         ptoks = [int(t) for t in P]
 
         def make():
@@ -7066,6 +7091,399 @@ def phase_fused(ident):
     return total
 
 
+def check_ragged_dot(torch, dtype, H, FF, E, rows, timed, seed=41):
+    """The grouped matmul's ``autograd.Function`` (``ragged_dot``: #13 for
+    the forward and dX, one matmul per expert for dW) against
+    ``grouped_matmul_ref`` under autograd, on lhs ``[rows, H]``, rhs ``[E,
+    H, FF]`` and a cotangent from a seed, the group sizes those of a random
+    routing with 1 row in 16 dropped (past the groups, as random routing's
+    -1 pairs). y, dX and dW each within ``tol`` of the plain one's largest
+    entry: bf16 2e-2, f32 1e-4 (sums in another order; bf16 rounds the
+    output, and dX, once more). ``timed`` (bf16): #13's forward and dX
+    (on the transposed weights) beside ``torch._grouped_mm`` on the same
+    groups, the plain version and the bound; the transpose and dW's
+    per-expert matmuls apart. Returns the record."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs = torch.randn((rows, H), generator=g, device="cuda").to(dtype)
+    rhs = (torch.randn((E, H, FF), generator=g, device="cuda")
+           / H ** 0.5).to(dtype)
+    cot = torch.randn((rows, FF), generator=g, device="cuda").to(dtype)
+    expert = torch.randint(0, E, (rows,), generator=g, device="cuda")
+    dropped = torch.rand((rows,), generator=g, device="cuda") < 1 / 16
+    expert = torch.where(dropped, E, expert)
+    gs = torch.bincount(expert, minlength=E + 1)[:E].to(torch.int32)
+    grads = {}
+    for tag, fn in (("kernel", gm.ragged_dot),
+                    ("plain", gm.grouped_matmul_ref)):
+        a = lhs.clone().requires_grad_(True)
+        b = rhs.clone().requires_grad_(True)
+        y = fn(a, b, gs)
+        y.backward(cot)
+        grads[tag] = (y.detach(), a.grad, b.grad)
+        del a, b, y
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    rec = {"body": gm.grouped_body(dtype, rows, H, FF, E),
+           "dx_body": gm.grouped_body(dtype, rows, FF, H, E),
+           "live_rows": int(gs.sum())}
+    for name, got, want in zip(("y", "dx", "dw"), grads["kernel"],
+                               grads["plain"]):
+        err = _rel_max(torch, got, want)
+        rec[f"err_{name}"] = err
+        if not err <= tol:
+            raise AssertionError(f"ragged_dot {dtype} H={H} F={FF}: {name} "
+                                 f"off by {err:.3g} of the plain's largest "
+                                 f"entry (limit {tol})")
+    y = grads["kernel"][0]
+    if bool(y[rec["live_rows"]:].any()):
+        raise AssertionError("ragged_dot: rows past the groups are not "
+                             "exactly zero")
+    del grads, y
+    if timed:
+        wt = rhs.transpose(1, 2).contiguous()
+        el = lhs.element_size()
+        live = rec["live_rows"]
+        for tag, a, b in (("fwd", lhs, rhs), ("dx", cot, wt)):
+            k, n = b.shape[1], b.shape[2]
+            nbytes = (live * k + E * k * n + rows * n) * el + E * 4
+            b_ops = 2 * live * k * n / BF16_FLOPS_PER_S * 1e3
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            lib_name, lib = _grouped_library(torch, a, b, gs)
+            rec.update({
+                f"{tag}_ms": time_ms(lambda a=a, b=b: gm.grouped_matmul(
+                    a, b, gs)),
+                f"{tag}_bound_ms": max(b_ops, b_bytes),
+                f"{tag}_bound_by": ("operations" if b_ops > b_bytes
+                                    else "bytes"),
+                f"{tag}_library_ms": time_ms(lib), "library": lib_name,
+                f"{tag}_plain_ms": time_ms(
+                    lambda a=a, b=b: gm.grouped_matmul_ref(a, b, gs),
+                    warmup=1, reps=3)})
+            del lib
+        rec["transpose_ms"] = time_ms(
+            lambda: rhs.transpose(1, 2).contiguous())
+        rec["dw_ms"] = time_ms(lambda: gm._segment_weight_grad(
+            lhs, cot, gs, E))
+        del wt
+    del lhs, rhs, cot
+    torch.cuda.empty_cache()
+    return rec
+
+
+MOE_TRAIN = dict(blocks=2, batch=4, seq=1024, lr=5e-4, ragged_steps=4,
+                 steps=3)
+
+
+def phase_moe_train(ident):
+    """MoE training at one GPU through ``incubate.distributed.models.moe``
+    at Mixtral-8x7B's expert widths (see the module docstring). Returns
+    the launches by kernel row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    t_phase = time.perf_counter()
+    cfg = mixtral_8x7b()
+    H, FF, E = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    c = MOE_TRAIN
+    tokens = c["batch"] * c["seq"]
+    # (1) ragged_dot against its plain version at these widths (bf16) and
+    # at a quarter of them (f32)
+    for dtype, h, ff, timed in ((torch.bfloat16, H, FF, True),
+                                (torch.float32, H // 4, FF // 4, False)):
+        r = check_ragged_dot(torch, dtype, h, ff, E, 2 * tokens, timed)
+        log(f"moe_train: ragged_dot {str(dtype)[6:]} [{2 * tokens}, {h}] x "
+            f"[{E}, {h}, {ff}], {r['live_rows']} live rows, forward on the "
+            f"{r['body']} body, dX on the {r['dx_body']} body: y, dX, dW "
+            f"within {r['err_y']:.3g}, {r['err_dx']:.3g}, {r['err_dw']:.3g}"
+            f" of the plain's largest entry [{ident}]")
+        if timed:
+            log(f"moe_train: #13 at the training shapes: forward "
+                f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}, "
+                f"{r['fwd_bound_by']}; {r['library']} "
+                f"{r['fwd_library_ms']:.4f}; plain {r['fwd_plain_ms']:.3f})"
+                f", dX {r['dx_ms']:.4f} ms (bound {r['dx_bound_ms']:.4f}, "
+                f"{r['dx_bound_by']}; {r['library']} "
+                f"{r['dx_library_ms']:.4f}; plain {r['dx_plain_ms']:.3f}); "
+                f"the weights' transpose {r['transpose_ms']:.4f} ms, dW's "
+                f"per-expert matmuls {r['dw_ms']:.4f} ms [{ident}]")
+
+    # (2) the model: blocks of LayerNorm -> MoELayer -> residual
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm = nn.LayerNorm(H, device="cuda")
+            self.moe = moe.MoELayer(
+                H, [moe.ExpertFFN(H, FF, "silu", device="cuda")
+                    for _ in range(E)],
+                gate=moe.GShardGate(H, E, device="cuda"))
+
+        def forward(self, x):
+            return x + self.moe(self.norm(x))
+
+    t0 = time.perf_counter()
+    prandom.seed(18)
+    ref32 = nn.LayerList([Block() for _ in range(c["blocks"])]).train()
+    blocks = copy.deepcopy(ref32)
+    for name, p in blocks.named_parameters():
+        p.is_expert = ".experts." in name
+    amp.decorate(blocks, level="O2")
+    init = {n: p.detach().clone() for n, p in blocks.named_parameters()}
+    n_params = sum(p.numel() for p in init.values())
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((c["batch"], c["seq"], H), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    target = torch.randn(x.shape, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe_train: {c['blocks']} blocks of LayerNorm({H}) -> MoELayer("
+        f"{E} x ExpertFFN({H}, {FF}, silu), GShardGate top-2, random "
+        f"routing) -> residual; {n_params / 1e9:.3f} B parameters, bf16 "
+        f"(amp O2; an f32 copy for step 1), built in "
+        f"{time.perf_counter() - t0:.1f} s; batch {c['batch']} x "
+        f"{c['seq']} tokens [{ident}]")
+    routed = []
+
+    def capture(mod, inp, out):
+        routed.append((out[0].detach(), out[1]))
+
+    hooks = [b.moe.gate.register_forward_hook(capture) for b in blocks]
+
+    def use(model, path):
+        for i, b in enumerate(model):
+            b.moe.use_ragged = path != "dense"
+            b.moe.dropless = path == "dropless"
+            b.moe.gate.generator = torch.Generator(
+                device="cuda").manual_seed(100 + i)
+        for p in model.parameters():
+            p.grad = None
+        routed.clear()
+
+    def restart(path):
+        use(blocks, path)
+        with torch.no_grad():
+            for n, p in blocks.named_parameters():
+                p.copy_(init[n])
+
+    def loss_fn(model=blocks):
+        y = x.to(next(model.parameters()).dtype)
+        for b in model:
+            y = b(y)
+        aux = torch.stack([b.moe.gate.get_loss().float() for b in model])
+        return torch.mean((y.float() - target) ** 2) + 0.01 * aux.sum(), aux
+
+    def train(path, steps):
+        restart(path)
+        opt = optimizer.AdamW(
+            learning_rate=c["lr"], parameters=list(blocks.named_parameters()),
+            weight_decay=0.01,
+            grad_clip=moe.ClipGradForMOEByGlobalNorm(1.0))
+        losses, auxes, dev, host = [], [], [], []
+        for i in range(steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            loss, aux = loss_fn()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            e1.record()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+            dev.append(e0.elapsed_time(e1))
+            losses.append(float(loss.detach()))
+            auxes.append(aux.tolist())
+        if not (np.isfinite(losses).all() and np.isfinite(auxes).all()
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"moe_train {path}: losses {losses}, aux "
+                                 f"{auxes}: not finite and falling")
+        del opt
+        torch.cuda.empty_cache()
+        return losses, auxes, dev, host
+
+    res = {}
+
+    def step1(model, path, routing=None):
+        """Loss, aux, gradients, routing and #13's (launches, wgmma
+        launches) in the forward and the backward of one step from the
+        initial weights and routing draw. ``routing``: each block's expert
+        indices to route by in place of its gate's (the gate's values,
+        aux loss and gradients stay its own)."""
+        use(model, path)
+        forced = [] if routing is None else [
+            b.moe.gate.register_forward_hook(
+                lambda mod, inp, out, idx=idx: (out[0], idx))
+            for b, idx in zip(model, routing)]
+        l0 = gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches
+        loss, aux = loss_fn(model)
+        torch.cuda.synchronize()
+        l1 = gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches
+        loss.backward()
+        torch.cuda.synchronize()
+        l2 = gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches
+        for h in forced:
+            h.remove()
+        return dict(loss=float(loss.detach()), aux=aux.tolist(),
+                    grads={n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()},
+                    routed=list(routed), fwd=(l1[0] - l0[0], l1[1] - l0[1]),
+                    bwd=(l2[0] - l1[0], l2[1] - l1[1]))
+
+    def distance(a, b):
+        """(loss off, relative, each gradient's relative norm off) of step
+        ``a`` from step ``b``."""
+        norms = {}
+        for n, gb in b["grads"].items():
+            ga, gb = a["grads"][n].float(), gb.float()
+            norms[n] = (torch.linalg.vector_norm(ga - gb)
+                        / torch.linalg.vector_norm(gb).clamp(min=1e-30)
+                        ).item()
+        return abs(a["loss"] - b["loss"]) / abs(b["loss"]), norms
+
+    def summary(norms):
+        worst = max(norms, key=norms.get)
+        return (f"worst {norms[worst]:.3g} ({worst}), median "
+                f"{statistics.median(norms.values()):.3g}")
+
+    def compare(rg, dn, rg32, dn32):
+        """Step 1 of the ragged path against the dense one, bf16 and f32,
+        from the same weights and routing."""
+        # the grouped matmul runs twice a block in the ragged forward and
+        # twice in its backward (dX), each on the body grouped_body names
+        # (wgmma at these shapes); the dense path never runs it
+        want = (2 * c["blocks"], c["blocks"] * sum(
+            gm.grouped_body(torch.bfloat16, 2 * tokens, k, n, E) == "wgmma"
+            for k, n in ((H, FF), (FF, H))))
+        if rg["fwd"] != want or rg["bwd"] != want:
+            raise AssertionError(
+                f"moe_train: ragged step 1 launched the grouped matmul "
+                f"(launches, wgmma) {rg['fwd']} in the forward and "
+                f"{rg['bwd']} in the backward, expected {want} in each")
+        if dn["fwd"] != (0, 0) or dn["bwd"] != (0, 0):
+            raise AssertionError(f"moe_train: the dense path launched #13 "
+                                 f"{dn['fwd']} / {dn['bwd']}")
+        # random routing's dropped second choices: present, and excluded
+        # by the ragged routing (weight 0, past the groups)
+        drops, flips = [], 0
+        cap = blocks[0].moe._capacity(tokens)
+        for (val, idx), (_, idx_d) in zip(rg["routed"], dn["routed"]):
+            drops.append(int((idx == -1).sum()))
+            flips += int((idx != idx_d).any(-1).sum())
+            _, e_s, w_s, gs = moe.ragged_routing(idx, val, E, cap)
+            kept = int((idx >= 0).sum())
+            if int(gs.sum()) != kept or bool((e_s[kept:] != -1).any()) \
+                    or bool(w_s[kept:].any()):
+                raise AssertionError("moe_train: the ragged routing did not "
+                                     "put the -1 pairs past the groups at "
+                                     "weight 0")
+        if min(drops) <= 0:
+            raise AssertionError(f"moe_train: random routing dropped "
+                                 f"{drops} second choices")
+        l16, n16 = distance(rg, dn)
+        l32, n32 = distance(rg32, dn32)
+        _, r_off = distance(rg, rg32)
+        _, d_off = distance(dn, dn32)
+        log(f"moe_train: step 1 from the same weights and routing (the "
+            f"dense runs and the f32 runs route by the bf16 ragged run's "
+            f"indices; the dense run's own gates differed in {flips} token "
+            f"rows, near ties after block 1's bf16 roundings); random "
+            f"routing dropped {drops} second choices (a block, of "
+            f"{tokens}); #13 (launches, wgmma) forward {rg['fwd']}, "
+            f"backward {rg['bwd']}; aux {rg['aux']} [{ident}]")
+        log(f"moe_train: step 1 f32, ragged vs dense: loss "
+            f"{rg32['loss']:.7f} vs {dn32['loss']:.7f} (relative {l32:.3g},"
+            f" limit 1e-5); gradients' relative norm {summary(n32)} (limit "
+            f"1e-4) [{ident}]")
+        log(f"moe_train: step 1 bf16, ragged vs dense: loss "
+            f"{rg['loss']:.6f} vs {dn['loss']:.6f} (relative {l16:.3g}, "
+            f"limit 1e-3); gradients' relative norm {summary(n16)} (limit "
+            f"6e-2); each from the f32 step: ragged {summary(r_off)}, dense "
+            f"{summary(d_off)} [{ident}]")
+        if not (l32 <= 1e-5 and max(n32.values()) <= 1e-4):
+            raise AssertionError("moe_train: ragged and dense f32 step 1 "
+                                 "differ")
+        if not (l16 <= 1e-3 and max(n16.values()) <= 6e-2):
+            raise AssertionError("moe_train: ragged and dense bf16 step 1 "
+                                 "differ beyond the bf16 limits")
+
+    def run():
+        nonlocal ref32
+        rg = step1(blocks, "ragged")
+        routing = [idx for _, idx in rg["routed"]]
+        dn = step1(blocks, "dense", routing)
+        rg32 = step1(ref32, "ragged", routing)
+        dn32 = step1(ref32, "dense", routing)
+        compare(rg, dn, rg32, dn32)
+        del rg, dn, rg32, dn32
+        ref32 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res["train"] = {p: train(p, c["ragged_steps"] if p == "ragged"
+                                 else c["steps"])
+                        for p in ("ragged", "dense", "dropless")}
+        res["peak"] = torch.cuda.max_memory_allocated() / 2**30
+
+    _, got = _counted(run, needs=("grouped_matmul",))
+    for h in hooks:
+        h.remove()
+    for path, (losses, auxes, dev, host) in res["train"].items():
+        ms = statistics.mean(dev[1:])
+        log(f"moe_train {path}: {len(losses)} AdamW steps (lr {c['lr']}, "
+            f"ClipGradForMOEByGlobalNorm(1.0), experts is_expert): losses "
+            f"{[round(v, 5) for v in losses]}, aux {auxes[-1]}; "
+            f"{ms:.1f} ms a step on the device (CUDA events, steps 2-"
+            f"{len(dev)}: {[round(v, 1) for v in dev[1:]]}), host "
+            f"{1e3 * statistics.mean(host[1:]):.1f} ms; "
+            f"{tokens / ms * 1e3:.0f} tokens/s [{ident}]")
+    log(f"moe_train: peak memory {res['peak']:.2f} GiB over the three "
+        f"paths' training; grouped matmul launches {got['grouped_matmul']} "
+        f"[{ident}]")
+    # #13's share of one ragged step's device time
+    restart("ragged")
+    opt = optimizer.AdamW(learning_rate=c["lr"],
+                          parameters=list(blocks.named_parameters()))
+
+    def one_step():
+        loss, _ = loss_fn()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+
+    one_step()  # the optimizer's state is made outside the window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    gmm = sum(e.self_device_time_total for e in events
+              if "grouped_" in e.key) / 1e3
+    if not busy:
+        log("moe_train: the profiler recorded no device time; #13's share "
+            "is not measured")
+    else:
+        log(f"moe_train: one ragged step under torch.profiler: device busy "
+            f"{busy:.1f} ms, #13 {gmm:.1f} ms = {gmm / busy:.1%} [{ident}]")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total
+                        )[:8]:
+            log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"x{e.count:<5d} {e.key[:90]}")
+    del opt, prof, events, blocks, init, x, target
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe_train: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"grouped_matmul": got["grouped_matmul"]}
+
+
 def phase_loadgen(ident):
     """Opt-in: the four ported serving benches at ``gpt2_small()`` in bf16
     on the card (``on_gpu=True``), each returned dict on one line. They
@@ -7812,7 +8230,8 @@ def _export_case(tag, model, spec, inputs, ident, tmp):
 def phase_export(ident):
     """Config 5: the twin example's ``TinyTransformer`` (d 64, 4 heads of
     16: #2 at D = 16, f32) at ``[2, 16]``, then ``BertForMaskedLM`` at
-    BERT-base width, f32 with TF32 off, seq 512, through ``to_static``
+    BERT-base width, 6 of its 12 layers, f32 with TF32 off, seq 512,
+    through ``to_static``
     at batch 8 and a ``jit.save`` with ``InputSpec([None, 512])`` run at
     batches 8 and 4 by ``jit.load`` and the Predictor (``_export_case``).
     Returns the launches by kernel row."""
@@ -7840,6 +8259,9 @@ def phase_export(ident):
                               InputSpec([2, 16], "int32"), [ids], ident,
                               tmp)
             cfg, _, seq = bert_ex.configs(True)
+            # 6 of BERT-base's 12 layers: the compile's time grows with
+            # the layers, and the run's time limit holds every phase
+            cfg = dataclasses.replace(cfg, num_hidden_layers=6)
             bert = init_bert(cfg, seed=0, device="cuda").eval()
             rng = np.random.default_rng(1)
             xs = [torch.from_numpy(rng.integers(

@@ -23,7 +23,8 @@ from ..framework.device import resolve_device
 
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "destroy_process_group", "new_group",
-           "get_group", "set_mesh", "get_mesh", "get_device"]
+           "get_group", "set_mesh", "get_mesh", "current_mesh",
+           "get_device"]
 
 
 class ParallelEnv:
@@ -177,6 +178,12 @@ def get_group(gid=None):
 def set_mesh(mesh):
     global _global_mesh
     _global_mesh = mesh
+
+
+def current_mesh():
+    """:func:`get_mesh` while a world runs, else the mesh :func:`set_mesh`
+    left (None when none): never starts a world."""
+    return get_mesh() if is_initialized() else _global_mesh
 
 
 def get_mesh():

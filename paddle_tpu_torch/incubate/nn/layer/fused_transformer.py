@@ -24,10 +24,12 @@ Caches are written IN PLACE; ``forward`` still returns them, as the
 reference's functional update does. Parameters are registered under the
 reference's names (``qkv_weights_0``, ...) and keep its layouts, so
 weights cross over with no transposes
-(``convert.fused_multi_transformer_from_numpy``). Weight matrices are
-allocated uninitialised, as the port's ``Linear`` is; LN scales start at
-one and biases at zero (``convert.init_fused_multi_transformer`` draws the
-matrices from a seed). Dropout masks come from ``generator``.
+(``convert.fused_multi_transformer_from_numpy``). Parameters are drawn
+as the reference's ``create_parameter`` draws them: weight matrices
+XavierNormal (the reference's fan rule for their shape), LN scales one,
+biases zero, unless the matching ``*_attr`` carries an initializer
+(``convert.init_fused_multi_transformer`` redraws the matrices from a
+seed). Dropout masks come from ``generator``.
 
 Tensor parallelism (``nranks > 1`` or ``ring_id >= 0``) is not ported and
 raises ``TypeError``.
@@ -40,6 +42,8 @@ import torch
 from torch import nn
 
 from ....nn import functional as F
+from ....nn import initializer as I
+from ....nn.layer import make_parameter
 from ....ops.cuda.decode_attention import (cache_decode_step,
                                            cache_prefill_write)
 from ....ops.cuda.paged_attention import (PagedCacheState, PagedKVCache,
@@ -61,12 +65,12 @@ def _no_tensor_parallel(cls, nranks, ring_id):
                         f"ring_id={ring_id}) is not ported")
 
 
-def _param(shape, device, dtype, fill=None):
-    if fill is None:
-        t = torch.empty(shape, device=device, dtype=dtype)
-    else:
-        t = torch.full(shape, float(fill), device=device, dtype=dtype)
-    return nn.Parameter(t)
+def _param(shape, device, dtype, attr=None, fill=None):
+    """``attr``'s initializer, else ``fill`` everywhere (biases 0, LN
+    scales 1), else XavierNormal."""
+    return make_parameter(shape, attr, dtype, default_initializer=None
+                          if fill is None else I.Constant(float(fill)),
+                          device=device)
 
 
 def _qkv_pack(x, qkv_weight, qkv_bias):
@@ -108,14 +112,17 @@ class FusedMultiHeadAttention(nn.Module):
         self.generator = generator
         kw = dict(device=device, dtype=dtype)
         h = embed_dim
-        self.qkv_weight = _param((3, num_heads, self.head_dim, h), **kw)
-        self.qkv_bias = _param((3, num_heads, self.head_dim), fill=0, **kw)
-        self.linear_weight = _param((h, h), **kw)
-        self.linear_bias = _param((h,), fill=0, **kw)
-        self.pre_ln_scale = _param((h,), fill=1, **kw)
-        self.pre_ln_bias = _param((h,), fill=0, **kw)
-        self.ln_scale = _param((h,), fill=1, **kw)
-        self.ln_bias = _param((h,), fill=0, **kw)
+        self.qkv_weight = _param((3, num_heads, self.head_dim, h),
+                                 attr=qkv_weight_attr, **kw)
+        self.qkv_bias = _param((3, num_heads, self.head_dim),
+                               attr=qkv_bias_attr, fill=0, **kw)
+        self.linear_weight = _param((h, h), attr=linear_weight_attr, **kw)
+        self.linear_bias = _param((h,), attr=linear_bias_attr, fill=0, **kw)
+        self.pre_ln_scale = _param((h,), attr=pre_ln_scale_attr, fill=1,
+                                   **kw)
+        self.pre_ln_bias = _param((h,), attr=pre_ln_bias_attr, fill=0, **kw)
+        self.ln_scale = _param((h,), attr=ln_scale_attr, fill=1, **kw)
+        self.ln_bias = _param((h,), attr=ln_bias_attr, fill=0, **kw)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -161,14 +168,20 @@ class FusedFeedForward(nn.Module):
         self.epsilon = epsilon
         self.generator = generator
         kw = dict(device=device, dtype=dtype)
-        self.linear1_weight = _param((d_model, dim_feedforward), **kw)
-        self.linear1_bias = _param((dim_feedforward,), fill=0, **kw)
-        self.linear2_weight = _param((dim_feedforward, d_model), **kw)
-        self.linear2_bias = _param((d_model,), fill=0, **kw)
-        self.ln1_scale = _param((d_model,), fill=1, **kw)
-        self.ln1_bias = _param((d_model,), fill=0, **kw)
-        self.ln2_scale = _param((d_model,), fill=1, **kw)
-        self.ln2_bias = _param((d_model,), fill=0, **kw)
+        self.linear1_weight = _param((d_model, dim_feedforward),
+                                     attr=linear1_weight_attr, **kw)
+        self.linear1_bias = _param((dim_feedforward,),
+                                   attr=linear1_bias_attr, fill=0, **kw)
+        self.linear2_weight = _param((dim_feedforward, d_model),
+                                     attr=linear2_weight_attr, **kw)
+        self.linear2_bias = _param((d_model,), attr=linear2_bias_attr,
+                                   fill=0, **kw)
+        self.ln1_scale = _param((d_model,), attr=ln1_scale_attr, fill=1,
+                                **kw)
+        self.ln1_bias = _param((d_model,), attr=ln1_bias_attr, fill=0, **kw)
+        self.ln2_scale = _param((d_model,), attr=ln2_scale_attr, fill=1,
+                                **kw)
+        self.ln2_bias = _param((d_model,), attr=ln2_bias_attr, fill=0, **kw)
 
     def forward(self, src):
         return fused_feedforward(
@@ -245,12 +258,26 @@ class FusedMultiTransformer(nn.Module):
                   "ffn1_biases": ((ff,), 0),
                   "ffn2_weights": ((ff, h), None),
                   "ffn2_biases": ((h,), 0)}
+        attrs = {"ln_scales": ln_scale_attrs, "ln_biases": ln_bias_attrs,
+                 "qkv_weights": qkv_weight_attrs,
+                 "qkv_biases": qkv_bias_attrs,
+                 "linear_weights": linear_weight_attrs,
+                 "linear_biases": linear_bias_attrs,
+                 "ffn_ln_scales": ffn_ln_scale_attrs,
+                 "ffn_ln_biases": ffn_ln_bias_attrs,
+                 "ffn1_weights": ffn1_weight_attrs,
+                 "ffn1_biases": ffn1_bias_attrs,
+                 "ffn2_weights": ffn2_weight_attrs,
+                 "ffn2_biases": ffn2_bias_attrs}
         for lst in _LISTS:
             setattr(self, lst, [])
         for i in range(num_layers):
             for lst in _LISTS:
                 shape, fill = shapes[lst]
-                p = _param(shape, fill=fill, **kw)
+                attr = attrs[lst]
+                if isinstance(attr, (list, tuple)):
+                    attr = attr[i]
+                p = _param(shape, attr=attr, fill=fill, **kw)
                 self.register_parameter(f"{lst}_{i}", p)
                 getattr(self, lst).append(p)
 

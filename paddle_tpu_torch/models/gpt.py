@@ -258,9 +258,9 @@ class GPTModel(nn.Module):
 
 class GPTForCausalLM(GenerationMixin, nn.Module):
     """LM head tied to ``wte``: logits = trunk(x) @ wte.weight^T. Built on
-    ``device`` (CUDA unless ``device="cpu"``) in ``dtype``; the weights are
-    uninitialised until ``convert.init_gpt`` or ``load_state_dict`` fills
-    them. ``generator`` (on ``device``) draws the dropout masks.
+    ``device`` (CUDA unless ``device="cpu"``) in ``dtype``, each layer's
+    weights drawn with the reference's defaults (``convert.init_gpt`` or
+    ``load_state_dict`` replaces them). ``generator`` (on ``device``) draws the dropout masks.
     Generation over the KV caches comes from ``GenerationMixin``."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,

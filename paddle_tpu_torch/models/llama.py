@@ -42,6 +42,7 @@ from .. import nn as pnn
 from ..framework.device import resolve_device, resolve_dtype
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
+from ..nn.layer import make_parameter
 from ..ops.cuda.decode_attention import (cache_decode_step,
                                          cache_prefill_write, make_kv_slab)
 from ..ops.cuda.grouped_matmul import grouped_matmul
@@ -250,9 +251,13 @@ class LlamaMoEMLP(nn.Module):
         self.capacity_factor = float(config.capacity_factor)
         kw = dict(device=device, dtype=dtype)
         self.router = pnn.Linear(h, e, bias_attr=False, **kw)
-        self.experts_gate = nn.Parameter(torch.empty((e, h, f), **kw))
-        self.experts_up = nn.Parameter(torch.empty((e, h, f), **kw))
-        self.experts_down = nn.Parameter(torch.empty((e, f, h), **kw))
+        init = pnn.initializer.Normal(std=config.initializer_range)
+        self.experts_gate = make_parameter((e, h, f), **kw,
+                                           default_initializer=init)
+        self.experts_up = make_parameter((e, h, f), **kw,
+                                         default_initializer=init)
+        self.experts_down = make_parameter((e, f, h), **kw,
+                                           default_initializer=init)
 
     def forward(self, x):
         return _moe_forward(self, x)
@@ -394,8 +399,9 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Untied LM head (llama convention). Built on ``device`` (CUDA unless
-    ``device="cpu"``) in ``dtype``; the weights are uninitialised until
-    ``convert.init_llama`` or ``load_state_dict`` fills them. Generation
+    ``device="cpu"``) in ``dtype``, each layer's weights drawn with the
+    reference's defaults (``convert.init_llama`` or ``load_state_dict``
+    replaces them). Generation
     over the KV caches comes from ``GenerationMixin``."""
 
     def __init__(self, config: LlamaConfig, device=None,
@@ -432,11 +438,16 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
     def loss(self, input_ids, labels):
         """Mean causal-LM loss over every position (an ``ignore_index``
         label counts as 0), the reference's off-mesh
-        ``ParallelCrossEntropy``. Dense models only: the MoE layer's
-        grouped matmul kernel has no backward."""
+        ``ParallelCrossEntropy``. Dense models only: the reference's LLaMA
+        MoE block runs its expert dispatch off the autograd tape (train
+        dense, serve MoE); MoE training is ``incubate.distributed.models.
+        moe.MoELayer``."""
         if self.config.num_experts:
-            raise TypeError("LlamaForCausalLM.loss: MoE training is not "
-                            "ported (the grouped matmul has no backward)")
+            raise TypeError("LlamaForCausalLM.loss: the LLaMA MoE block is "
+                            "serving-only, as the reference's (its expert "
+                            "dispatch is not on the autograd tape: train "
+                            "dense, serve MoE); train MoE through "
+                            "incubate.distributed.models.moe.MoELayer")
         logits = self.forward(input_ids)
         per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                   labels.reshape(-1), reduction="none")

@@ -1,11 +1,11 @@
 """Layers of the port (after ``paddle_tpu.nn``)."""
-from . import functional, quant
+from . import functional, initializer, quant
 from .activation import ReLU
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .common import Dropout, Embedding, Linear
 from .conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D
-from .layer import Sequential
+from .layer import Layer, LayerList, ParameterList, Sequential
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm)
@@ -16,7 +16,8 @@ from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "quant", "Linear", "Embedding", "Dropout",
+__all__ = ["functional", "initializer", "quant", "Layer", "LayerList",
+           "ParameterList", "Linear", "Embedding", "Dropout",
            "RMSNorm", "LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D", "GroupNorm", "InstanceNorm2D", "Conv1D", "Conv2D",
            "Conv3D", "Conv2DTranspose", "MaxPool1D", "MaxPool2D",

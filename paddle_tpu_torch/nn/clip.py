@@ -14,6 +14,13 @@ __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "clip_grad_norm_"]
 
 
+def _sq_sum(grads):
+    """Σ‖g‖² over ``grads``, each norm taken in f32."""
+    return torch.stack([
+        torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+        for g in grads]).sum()
+
+
 def _scale_for(norm, clip_norm):
     return torch.clamp(clip_norm / torch.clamp(norm, min=1e-6), max=1.0)
 
@@ -31,20 +38,23 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    @staticmethod
-    def global_norm(grads):
-        """f32 2-norm over all ``grads`` (a 0-dim device tensor)."""
-        sq = [torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
-              for g in grads]
-        return torch.sqrt(torch.stack(sq).sum())
-
-    def __call__(self, params_grads):
+    def _global_sq_norm(self, params_grads):
+        """Σ‖g‖² in f32 over the gradients (a 0-dim device tensor), None
+        when there is none. Variants override it (the MoE clip weighs
+        expert gradients apart)."""
         grads = [g for _, g in params_grads if g is not None]
         if not grads:
+            return None
+        return _sq_sum(grads)
+
+    def __call__(self, params_grads):
+        sq = self._global_sq_norm(params_grads)
+        if sq is None:
             return params_grads
-        scale = _scale_for(self.global_norm(grads), self.clip_norm)
-        for g in grads:
-            g.mul_(scale)
+        scale = _scale_for(torch.sqrt(sq), self.clip_norm)
+        for _, g in params_grads:
+            if g is not None:
+                g.mul_(scale)
         return params_grads
 
 

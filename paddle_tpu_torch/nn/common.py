@@ -4,9 +4,12 @@ paddle weight layout ``[in_features, out_features]`` (y = x W + b), so a
 ``[num_embeddings, embedding_dim]`` table; ``Dropout`` draws its mask
 from an explicit ``torch.Generator``.
 
-Weights are allocated uninitialised on the given device; the model's
-initialiser (``convert.init_llama`` / ``init_gpt``) or a loaded state
-dict fills them. A ``Linear`` bias starts at zeros, as the reference's.
+Weights are drawn on the given device with the reference's defaults:
+``Linear`` XavierNormal and a zero bias, ``Embedding`` Normal(0, 1); a
+``weight_attr`` / ``bias_attr`` (a ``ParamAttr`` or an initializer) with
+an initializer overrides them. Draws come from the next generator of
+``framework.random`` (a ``Linear``'s from ``generator`` when one is
+given).
 """
 from __future__ import annotations
 
@@ -14,26 +17,31 @@ import torch
 from torch import nn
 
 from . import functional as F
+from . import initializer as I
+from .layer import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x W + b, weight ``[in_features, out_features]``, bias
     ``[out_features]``. ``bias_attr=False`` drops the bias (the LLaMA
     convention), as in the reference."""
 
-    def __init__(self, in_features, out_features, bias_attr=None,
-                 device=None, dtype=torch.float32):
-        super().__init__()
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None,
+                 dtype=torch.float32, generator=None):
+        super().__init__(dtype=dtype)
         self.in_features, self.out_features = in_features, out_features
-        self.weight = nn.Parameter(torch.empty(
-            (in_features, out_features), device=device, dtype=dtype))
+        kw = dict(device=device, generator=generator)
+        self.weight = self.create_parameter(
+            (in_features, out_features), attr=weight_attr,
+            default_initializer=I.XavierNormal(), **kw)
         if bias_attr is False:
             self.bias = None
         else:
-            self.bias = nn.Parameter(torch.zeros(
-                (out_features,), device=device, dtype=dtype))
+            self.bias = self.create_parameter(
+                (out_features,), attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -44,14 +52,15 @@ class Linear(nn.Module):
                f"bias={self.bias is not None}"
 
 
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, device=None,
-                 dtype=torch.float32):
-        super().__init__()
+class Embedding(Layer):
+    def __init__(self, num_embeddings, embedding_dim, *, weight_attr=None,
+                 name=None, device=None, dtype=torch.float32):
+        super().__init__(dtype=dtype)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(torch.empty(
-            (num_embeddings, embedding_dim), device=device, dtype=dtype))
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0), device=device)
 
     def forward(self, x):
         return F.embedding(x, self.weight)

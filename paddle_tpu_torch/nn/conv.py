@@ -8,13 +8,12 @@ fan_in ``in/groups * prod(kernel)``) from ``generator`` (the next one of
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
-from ..framework import random as _random
 from . import functional as F
+from . import initializer as I
+from .layer import make_parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv2DTranspose"]
 
@@ -23,11 +22,10 @@ def _ntuple(v, n):
     return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
 
 
-def _kaiming(shape, fan_in, device, dtype, generator):
-    gen = generator or _random.next_generator(device)
-    w = torch.empty(shape, device=device, dtype=torch.float32)
-    w.normal_(0.0, math.sqrt(2.0) / math.sqrt(fan_in), generator=gen)
-    return nn.Parameter(w.to(dtype))
+def _kaiming(shape, device, dtype, generator):
+    return make_parameter(shape, dtype=dtype, device=device,
+                          default_initializer=I.KaimingNormal(),
+                          generator=generator)
 
 
 class _ConvNd(nn.Module):
@@ -45,8 +43,7 @@ class _ConvNd(nn.Module):
         self.data_format = data_format
         self._fn = fn
         shape = (out_channels, in_channels // groups) + self.kernel_size
-        self.weight = _kaiming(shape, math.prod(shape[1:]), device, dtype,
-                               generator)
+        self.weight = _kaiming(shape, device, dtype, generator)
         self.bias = None if bias_attr is False else nn.Parameter(
             torch.zeros((out_channels,), device=device, dtype=dtype))
 
@@ -106,8 +103,7 @@ class Conv2DTranspose(nn.Module):
         self.output_padding = output_padding
         shape = (in_channels, out_channels // groups) + _ntuple(kernel_size,
                                                                 2)
-        self.weight = _kaiming(shape, math.prod(shape[1:]), device, dtype,
-                               generator)
+        self.weight = _kaiming(shape, device, dtype, generator)
         self.bias = None if bias_attr is False else nn.Parameter(
             torch.zeros((out_channels,), device=device, dtype=dtype))
 

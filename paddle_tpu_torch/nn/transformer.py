@@ -5,9 +5,9 @@
 
 Parameter names and layouts are the reference's (``self_attn.q_proj.
 weight`` ``[in, out]``, ``linear1``, ``norm1``, ``layers.0...``), so a JAX
-state dict loads with no renaming or transposes. Weights are allocated
-uninitialised on ``device``, as the port's ``Linear`` is; a loaded state
-dict or the model's initialiser fills them.
+state dict loads with no renaming or transposes. Weights are drawn on
+``device`` with the reference's defaults, as the port's ``Linear`` draws
+them; a loaded state dict or the model's initialiser replaces them.
 
 Attention without a mask runs ``F.scaled_dot_product_attention`` →
 ``F.flash_attention``: kernel #2 on the card (non-causal; with autograd,

@@ -24,6 +24,16 @@ The kernel has two bodies, chosen from host-known shapes
 ``.launches``); every other call (decode, f32) on the WMMA body. TMA needs
 16-byte aligned bases, so the ``wgmma`` body refuses a misaligned ``lhs``
 or ``rhs`` with a ``ValueError`` naming it; it never reroutes the call.
+
+:func:`ragged_dot` is the product with a gradient (an
+``autograd.Function``; neither the TPU kernel nor this one has its own
+backward). The forward is the kernel; dX = ``ragged_dot(dY, Wᵀ)`` is the
+kernel again, on the experts' weights transposed to ``[E, N, K]`` (a
+contiguous copy); dW_e = X_eᵀ dY_e is one ``torch.matmul`` per expert over
+its segment, the product the JAX package leaves to XLA's ``ragged_dot``
+transpose. That loop reads the group sizes on the host: one sync in each
+backward call, none in the forward. ``.launches`` and
+``.wgmma_launches`` count the forward's and dX's launches.
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ import torch
 from ...kernels.build import count_launch, launch_counter
 
 __all__ = ["aligned_segment_offsets", "grouped_matmul_ref",
-           "grouped_matmul", "grouped_body", "check_wgmma_alignment"]
+           "grouped_matmul", "grouped_body", "check_wgmma_alignment",
+           "ragged_dot"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the JAX package pads each group to one f32 sublane tile of rows; the CUDA
@@ -180,3 +191,44 @@ def _grouped(lhs, rhs, group_sizes, valid_sizes=None, body=None):
 
 
 launch_counter(grouped_matmul, "launches", "wgmma_launches")
+
+
+def _segment_weight_grad(lhs, dy, group_sizes, num_experts):
+    """``[E, K, N]``: expert e's ``lhs[seg_e]ᵀ dy[seg_e]``, zeros for an
+    empty group. Reads the group sizes on the host."""
+    k, n = lhs.shape[1], dy.shape[1]
+    dw = torch.zeros((num_experts, k, n), dtype=lhs.dtype,
+                     device=lhs.device)
+    start, m = 0, lhs.shape[0]
+    for e, size in enumerate(group_sizes.tolist()):
+        stop = min(start + max(size, 0), m)
+        if stop > start:
+            torch.matmul(lhs[start:stop].t(), dy[start:stop], out=dw[e])
+        start = stop
+    return dw
+
+
+class _RaggedDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return grouped_matmul(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul(dy, rhs.transpose(1, 2).contiguous(),
+                                group_sizes)
+        if ctx.needs_input_grad[1]:
+            dw = _segment_weight_grad(lhs, dy, group_sizes, rhs.shape[0])
+        return dx, dw, None
+
+
+def ragged_dot(lhs, rhs, group_sizes):
+    """``grouped_matmul(lhs, rhs, group_sizes)`` with gradients to ``lhs``
+    and ``rhs`` (see the module doc): rows past ``sum(group_sizes)`` come
+    back zero and get a zero gradient."""
+    return _RaggedDot.apply(lhs, rhs, group_sizes)

@@ -13,8 +13,6 @@ reference.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn as tnn
 
@@ -119,13 +117,8 @@ class ResNet(tnn.Module):
         if with_pool:
             self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:
-            fan_in, fan_out = 512 * block.expansion, num_classes
-            self.fc = nn.Linear(fan_in, fan_out, device=dev, dtype=dtype)
-            with torch.no_grad():
-                w = torch.empty_like(self.fc.weight, dtype=torch.float32)
-                w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
-                          generator=gen)
-                self.fc.weight.copy_(w)
+            self.fc = nn.Linear(512 * block.expansion, num_classes,
+                                **self._kw)
         del self._kw
 
     def _make_layer(self, block, planes, blocks, stride=1):

@@ -9,7 +9,9 @@ and strided inputs, the wrappers' refusals, and the engine's modes that
 ride the verify kernel; the weight-only quant matmul (#12) and the grouped
 expert matmul (#13) at the main path's shapes and at odd ones (K no tile
 multiple, N = 1, one row, one expert, every group empty), and the
-quantized and MoE engines; the flash backward (general layout, sq != sk,
+quantized and MoE engines; #13's ``autograd.Function`` (``ragged_dot``:
+forward and dX on the kernel, f32 and bf16, wgmma and WMMA bodies) and a
+``MoELayer``'s ragged path against its dense path, forward and gradients; the flash backward (general layout, sq != sk,
 ragged lengths, D 64-256, an lse cotangent, strided packed views into one
 dQKV, determinism), the autograd Functions, the packed route and a tiny
 GPT's gradients against plain attention; the contiguous decode kernels
@@ -555,6 +557,90 @@ def test_grouped_matmul_kernel_refuses(cuda):
         gm.grouped_matmul(lhs, rhs, gs.cpu())
     with pytest.raises(ValueError):
         gm.grouped_matmul(lhs.t(), rhs, gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (2048, 512, 1024, [600, 200, 0, 1000]),
+    (300, 100, 72, [64, 0, 129, 100]),
+    (40, 16, 32, [7, 13, 3, 17]),
+])
+def test_ragged_dot_autograd_matches_plain(cuda, dtype, M, K, N, sizes):
+    """``ragged_dot`` (#13 for the forward and dX, one matmul per expert
+    for dW) against ``grouped_matmul_ref`` under autograd: y, dX and dW
+    each within TOL of the plain one's largest entry; two launches, each
+    on the body ``grouped_body`` names (both wgmma for bf16 at 2048 rows
+    of 4 experts, WMMA otherwise); rows past the groups get a zero output
+    and a zero gradient."""
+    E = len(sizes)
+    lhs, rhs = _grouped_inputs(cuda, dtype, M, K, N, E)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cot = torch.randn((M, N), generator=g, device=cuda).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    res = {}
+    for tag, fn in (("kernel", gm.ragged_dot),
+                    ("plain", gm.grouped_matmul_ref)):
+        a = lhs.clone().requires_grad_(True)
+        b = rhs.clone().requires_grad_(True)
+        n0 = gm.grouped_matmul.launches, gm.grouped_matmul.wgmma_launches
+        y = fn(a, b, gs)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        res[tag] = (y.detach(), a.grad, b.grad,
+                    gm.grouped_matmul.launches - n0[0],
+                    gm.grouped_matmul.wgmma_launches - n0[1])
+    wgmma = sum(gm.grouped_body(dtype, M, k, n, E) == "wgmma"
+                for k, n in ((K, N), (N, K)))
+    assert res["kernel"][3:] == (2, wgmma) and res["plain"][3:] == (0, 0)
+    assert wgmma == (2 if dtype == torch.bfloat16 and M == 2048 else 0)
+    for name, got, want in zip(("y", "dx", "dw"), res["kernel"][:3],
+                               res["plain"][:3]):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * want.float().abs().max().item(), name
+    live = sum(sizes)
+    assert not bool(res["kernel"][0][live:].any())
+    assert not bool(res["kernel"][1][live:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_ragged_matches_dense_on_card(cuda, dtype):
+    """A ``MoELayer`` of 8 ``ExpertFFN(256, 512, "silu")`` experts behind a
+    top-2 ``GShardGate`` with random routing (its generator reseeded for
+    each run): the ragged path's output and the gradients of the input and
+    of every parameter equal the dense path's on the same weights and
+    routing draw, each within TOL of its largest entry; #13 launched twice
+    in the ragged forward and twice in its backward, never on the dense
+    path."""
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    prandom.seed(3)
+    gate = moe.GShardGate(256, 8, device=cuda)
+    layer = moe.MoELayer(256, [moe.ExpertFFN(256, 512, "silu", device=cuda)
+                               for _ in range(8)], gate=gate,
+                         capacity_factor=1.0).to(dtype).train()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x0 = torch.randn((2, 128, 256), generator=g, device=cuda).to(dtype)
+    out = {}
+    for path in ("ragged", "dense"):
+        layer.use_ragged = path == "ragged"
+        gate.generator = torch.Generator(device=cuda).manual_seed(5)
+        for p in layer.parameters():
+            p.grad = None
+        x = x0.clone().requires_grad_(True)
+        n0 = gm.grouped_matmul.launches
+        y = layer(x)
+        n1 = gm.grouped_matmul.launches
+        (y.float().square().mean() + 0.01 * gate.get_loss()).backward()
+        torch.cuda.synchronize()
+        out[path] = ([y.detach(), x.grad] + [p.grad for p in
+                                              layer.parameters()],
+                     (n1 - n0, gm.grouped_matmul.launches - n1))
+    assert out["ragged"][1] == (2, 2) and out["dense"][1] == (0, 0)
+    for got, want in zip(out["ragged"][0], out["dense"][0]):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * want.float().abs().max().item()
 
 
 def _greedy_matches_cacheless(model, reqs, tag):
