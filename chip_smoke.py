@@ -239,6 +239,25 @@ Phases, in order; any failure exits non-zero:
               weights (losses finite and falling, aux finite; ms a step by
               CUDA events from step 2, tokens/s, peak memory) and #13's
               share of a profiled ragged step's device time.
+16. tp      — tensor- and expert-parallel serving and config 3 at
+              nranks=2, as two rank processes sharing the one card over
+              gloo (CUDA tensors; every number labelled so: it is not a TP
+              speed): the kernels of the path at shard shapes against
+              their plain versions (#1, #3 at 16 heads, #2 on a 512-token
+              wave, #13 over 4 local experts, #4, #14, #15 at 16 heads),
+              then ``Engine(tp=2)`` at ``llama2_7b()`` widths (f32, 8 of
+              32 layers, chunked prefill + prefix cache + n-gram spec:
+              streams equal tp=None's, the ranks' command outputs hash
+              alike; bf16, 32 layers: tok/s, TTFT, peak memory a rank,
+              the all-reduce's share, rows equal to tp=None),
+              ``Engine(ep=2)`` at Mixtral-8x7B's widths (f32 2 layers:
+              streams and router stats equal ep=None's; bf16 8 layers:
+              tok/s, #13's launches), ``FusedMultiTransformer`` at
+              nranks=2 (GPT-3 6.7B widths, B=8, 5-D / slab /
+              ``PagedKVCache``: f32 against nranks=1, bf16 ms a step) and
+              ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small,
+              mp=2 (greedy tokens equal mp=1's). tp=2 x ep=2 would need
+              four processes on the card: the CPU tests hold it.
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -303,7 +322,8 @@ catch-up or propose on the plain #3 or #1, every #3 on its FMA body,
 every attention kernel plain, 2 and 8 layers) and logs the acceptance of
 each, greedy rows apart; then profiles the TinyLlama-width draft's
 propose step, graph replay and eager body (stream interval, device busy
-time, largest kernels).
+time, largest kernels). ``--phases ncclprobe`` has two NCCL ranks on the
+one card try one all-reduce (bounded to 120 s) and logs what NCCL says.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or paddle_tpu.
@@ -317,6 +337,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -329,9 +350,9 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
-          "export", "moe_train")
+          "export", "moe_train", "tp")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
-                   "draftcause")
+                   "draftcause", "ncclprobe")
 
 
 def log(*a):
@@ -2205,6 +2226,574 @@ GENERATE_ROWS = ("paged_decode_attention_v1", "decode_attention",
 CONTEXT_ROWS = ("flash_attention_fwd_pos", "flash_attention_bwd_pos")
 
 
+# ------------------------------------------------------------ phase tp
+TP_DEADLINE_S = 900   # the rank world's wall clock, as a hang guard
+TP_F32_LAYERS = 8     # llama2_7b f32 identity, of 32
+TP_BF16_LAYERS = 32   # llama2_7b bf16 timing
+TP_MOE_F32_LAYERS = 2   # Mixtral widths, f32 identity
+TP_MOE_BF16_LAYERS = 8  # Mixtral widths, bf16 timing
+TP_FUSED_F32_LAYERS = 2
+TP_FUSED_BF16_LAYERS = 8
+TP_LABEL = "two ranks sharing one H100 over gloo"
+
+
+def _tp_items(lens, new, sampled=(), seed=91, vocab=32000):
+    """[(prompt, new tokens, temperature, seed)]: one prompt a length in
+    ``lens``, the requests at indices ``sampled`` at temperature 0.8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, (n,)), new,
+             0.8 if i in sampled else 0.0, 100 + i)
+            for i, n in enumerate(lens)]
+
+
+def _tp_hash(eng):
+    """A running sha256 of every command output this rank keeps (each
+    fetched: the identity passes only), and the count of commands."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    n = [0]
+    keep = eng.runner._keep
+
+    def rec(seq, out):
+        outs = out if isinstance(out, (tuple, list)) else (
+            () if out is None else (out,))
+        for t in outs:
+            if isinstance(t, torch.Tensor):
+                h.update(t.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+        n[0] += 1
+        keep(seq, out)
+
+    eng.runner._keep = rec
+    return lambda: (h.hexdigest(), n[0])
+
+
+def _tp_timed_reduce():
+    """Time the tensor-parallel all-reduce of ``models/llama.py`` on this
+    rank: the device is synchronised first (so the wait for the GEMMs
+    before it is not counted), then the host wall of the gloo call, which
+    returns once the sum is back on the card. Returns (the totals, a
+    function that restores the original)."""
+    import torch
+
+    from paddle_tpu_torch.models import llama
+
+    orig = llama._tp_reduce
+    tot = {"s": 0.0, "n": 0}
+
+    def timed(t, group):
+        if group is None:
+            return t
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, group)
+        tot["s"] += time.perf_counter() - t0
+        tot["n"] += 1
+        return out
+
+    llama._tp_reduce = timed
+    return tot, lambda: setattr(llama, "_tp_reduce", orig)
+
+
+def _tp_free():
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _tp_serve(rank, make, items, counts, needs=(), tag="", timed=False,
+                hashed=False):
+    """One sharded engine run: every rank builds ``make()``; rank 0
+    serves ``items`` (launch counters zeroed just before and read just
+    after, on every rank) and closes; the others run their follower loop.
+    Returns this rank's record."""
+    import torch
+
+    eng = make()
+    rec = {}
+    digest = _tp_hash(eng) if hashed else None
+    tot, restore = _tp_timed_reduce() if timed else (None, None)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        if eng.is_leader:
+            def run():
+                return _serve_items(eng, items, tag)
+            (reqs, wall), got = _counted(run, needs)
+            eng.close()
+            rec.update(tokens=[list(r.tokens) for r in reqs], wall=wall,
+                       ttft=[(r._t_first - r._t_arrival) * 1e3
+                             for r in reqs],
+                       moe=eng.moe_stats() if eng._moe_stats_n else None)
+        else:
+            _, got = _counted(eng.run)
+    finally:
+        if restore is not None:
+            restore()
+    torch.cuda.synchronize()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = {k: v for k, v in got.items() if v}
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    if digest is not None:
+        rec["digest"] = digest()
+    if tot is not None:
+        rec["collective_s"], rec["collectives"] = tot["s"], tot["n"]
+    if eng._moe_stats_n:
+        rec["local_experts"] = int(
+            eng.model.model.layers[0].mlp.experts_gate.shape[0])
+    del eng
+    _tp_free()
+    return rec
+
+
+def _tp_baseline(rank, make, items, tag):
+    """Rank 0: the same items on the tp/ep=None engine (graphs on), its
+    streams; then freed. The other rank waits."""
+    import torch.distributed as dist
+
+    out = None
+    if rank == 0:
+        eng = _pin(make())
+        reqs, wall = _serve_items(eng, items, tag)
+        out = dict(tokens=[list(r.tokens) for r in reqs], wall=wall,
+                   moe=eng.moe_stats() if eng._moe_stats_n else None)
+        del eng, reqs
+        _tp_free()
+    dist.barrier()
+    return out
+
+
+def _tp_dense(rank, counts):
+    """(a) tp=2 at llama2_7b's widths (see ``phase_tp``)."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    res = {}
+    lens = [16, 64, 128, 200, 256, 300, 400, 512]
+    kw = dict(max_slots=8, num_pages=512, page_size=16, chunk_size=16,
+              device="cuda")
+    modes = dict(prefill_chunk=256, prefix_cache=True, spec="ngram",
+                 spec_k=4)
+    cfg = llama2_7b()
+    cfg.num_layers = TP_F32_LAYERS
+    items = _tp_items(lens, 24, sampled=(2, 5))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def model():
+            return init_llama(cfg, seed=0, device="cuda",
+                              dtype=torch.float32)
+        res["f32_base"] = _tp_baseline(
+            rank, lambda: Engine(model(), **kw, **modes), items,
+            "tp f32 tp=None")
+        res["f32"] = _tp_serve(
+            rank, lambda: _pin(Engine(model(), tp=2, **kw, **modes)), items,
+            counts, needs=("paged_verify_attention",), tag="tp f32 tp=2",
+            hashed=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cfg = llama2_7b()
+    cfg.num_layers = TP_BF16_LAYERS
+    items = _tp_items(lens, 32)
+    # chains of 16 tokens: the first token lands at the first step's fetch
+    kw16 = dict(kw, max_chain=1)
+
+    def model16():
+        return init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    res["bf16_base"] = _tp_baseline(rank, lambda: Engine(model16(), **kw16),
+                                    items, "tp bf16 tp=None")
+    res["bf16"] = _tp_serve(
+        rank, lambda: _pin(Engine(model16(), tp=2, **kw16)), items, counts,
+        needs=("flash_attention_fwd", "paged_decode_attention"),
+        tag="tp bf16 tp=2", timed=True)
+    return res
+
+
+def _tp_moe(rank, counts):
+    """(b) ep=2 at Mixtral-8x7B's expert widths (see ``phase_tp``)."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+
+    res = {}
+    kw = dict(max_slots=8, num_pages=256, page_size=16, chunk_size=16,
+              device="cuda")
+    lens = [16, 40, 64, 100, 128, 160, 200, 256]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = mixtral_8x7b(num_layers=TP_MOE_F32_LAYERS, max_position=4096)
+        items = _tp_items(lens, 16, sampled=(1,))
+
+        def model():
+            return init_llama(cfg, seed=0, device="cuda",
+                              dtype=torch.float32)
+        res["f32_base"] = _tp_baseline(rank, lambda: Engine(model(), **kw),
+                                       items, "ep f32 ep=None")
+        res["f32"] = _tp_serve(
+            rank, lambda: _pin(Engine(model(), ep=2, **kw)), items, counts,
+            needs=("grouped_matmul",), tag="ep f32 ep=2", hashed=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cfg = mixtral_8x7b(num_layers=TP_MOE_BF16_LAYERS, max_position=4096)
+    items = _tp_items(lens, 32)
+    res["bf16"] = _tp_serve(
+        rank, lambda: _pin(Engine(init_llama(cfg, seed=0, device="cuda",
+                                             dtype=torch.bfloat16),
+                                  ep=2, **kw)),
+        items, counts, needs=("grouped_matmul",), tag="ep bf16 ep=2",
+        timed=False)
+    return res
+
+
+def _tp_fused(rank, counts):
+    """(d) ``FusedMultiTransformer`` at nranks=2, GPT-3 6.7B widths, B=8:
+    f32 on each cache kind against nranks=1 on rank 0 (same weights), then
+    bf16 ms a decode step."""
+    import torch
+
+    from paddle_tpu_torch.convert import init_fused_multi_transformer
+
+    res = {}
+    kinds = {k: FUSED_KINDS[k] for k in ("5d", "slab", "paged_kv")}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn((8, 48, 4096), generator=g, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        layer = init_fused_multi_transformer(
+            4096, 32, 16384, TP_FUSED_F32_LAYERS, seed=0, device="cuda",
+            dtype=torch.float32, nranks=2)
+        outs = {}
+
+        def f32_pass():
+            for kind in kinds:
+                outs[kind], _ = _fused_run(layer, kind, x, 32)
+        _, got = _counted(f32_pass, ("flash_attention_fwd",)
+                          + tuple(kinds.values()))
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        res["f32_launches"] = {k: v for k, v in got.items() if v}
+        del layer
+        _tp_free()
+        if rank == 0:
+            one = init_fused_multi_transformer(
+                4096, 32, 16384, TP_FUSED_F32_LAYERS, seed=0,
+                device="cuda", dtype=torch.float32)
+            errs = {}
+            for kind in kinds:
+                want, _ = _fused_run(one, kind, x, 32)
+                top = float(want.abs().max())
+                errs[kind] = (float((outs[kind] - want).abs().max()), top)
+            res["f32_errs"] = errs
+            del one
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del outs, x
+    _tp_free()
+    layer = init_fused_multi_transformer(
+        4096, 32, 16384, TP_FUSED_BF16_LAYERS, seed=0, device="cuda",
+        dtype=torch.bfloat16, nranks=2)
+    xb = torch.randn((8, 160, 4096), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    ms = {}
+
+    def bf16_pass():
+        for kind in kinds:
+            _, ms[kind] = _fused_run(layer, kind, xb, 128)
+    _, got = _counted(bf16_pass, tuple(kinds.values()))
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    res["bf16_ms"] = ms
+    res["bf16_launches"] = {k: v for k, v in got.items() if v}
+    del layer, xb
+    _tp_free()
+    return res
+
+
+def _tp_gpt(rank):
+    """(d) ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small,
+    mp=2: ``fleet.init``, ``distributed_model``, greedy ``generate``
+    (f32), held against mp=1 and across the ranks."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "generate_gpt_tp_torch", root / "examples"
+        / "generate_gpt_tp_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    args = ex.parse_args(["--mp", "2", "--check", "--device", "cuda",
+                          "--backend", "gloo"])
+    return ex.generate_in_world(args, 2)
+
+
+def _tp_rank(rank, world, init_file, out_dir):
+    """One rank of the tp phase's world: gloo over CUDA tensors on the
+    one card."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    from paddle_tpu_torch.distributed import (destroy_process_group,
+                                              init_parallel_env)
+
+    init_parallel_env(device="cuda", backend="gloo",
+                      init_method=f"file://{init_file}", rank=rank,
+                      world_size=world,
+                      timeout=datetime.timedelta(seconds=600))
+    counts, res = {}, {}
+    t0 = time.perf_counter()
+    res["a"] = _tp_dense(rank, counts)
+    res["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = _tp_moe(rank, counts)
+    res["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["d"] = _tp_fused(rank, counts)
+    res["gpt"] = _tp_gpt(rank)
+    res["d_s"] = time.perf_counter() - t0
+    res["counts"] = counts
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    destroy_process_group()
+
+
+def _tp_shard_kernels(torch, ident):
+    """The kernels of the tp phase's path at its shard shapes, each against
+    its plain version (the tolerances of the kernels phase), timed: #1 and
+    #3 at llama2_7b's 16 heads a rank, #2 there on a 512-token prefill
+    wave, #13 over Mixtral's 4 local experts (decode capacity 3), #4, #14
+    and #15 at the fused layer's 16 heads a rank. Logged as their own
+    "tp shard" lines, not as kernel rows."""
+    bf16 = torch.bfloat16
+    tol = dict(atol=2e-2, rtol=2e-2)
+    lengths = [0, 1, 17, 300, 1000, 2049, 3333, 4096]
+    r = check_decode(torch, bf16, False, 8, 16, 16, 128, 16, 256, lengths,
+                     timed=True, **tol)
+    log(_row(f"tp shard paged_decode_attention bf16 B=8 H=16 Hkv=16 D=128 "
+             f"lengths={lengths} [{ident}]", r))
+    r = check_flash(torch, bf16, 8, 512, 16, 128, timed=True, **tol)
+    log(_row(f"tp shard flash_attention_fwd bf16 B=8 S=512 H=16 D=128 "
+             f"causal [{ident}]", r))
+    for tag, m, bases in (("spec verify", 5, [0, 1, 17, 300, 1000, 2049,
+                                              3333, 4094]),
+                          ("chunked prefill", 256, [0, 0, 256, 512, 1000,
+                                                    2048, 3000, 3840])):
+        r = check_verify(torch, bf16, False, 8, m, 16, 16, 128, 16, 256,
+                         bases, timed=True, **tol)
+        log(_verify_row(f"tp shard H=16 bf16 {tag} B=8 m={m} D=128 "
+                        f"[{ident}]", r))
+    for K, N in ((4096, 14336), (14336, 4096)):
+        r = check_grouped(torch, bf16, K, N, 3, [3, 1, 0, 2], timed=True)
+        log(_row(f"tp shard grouped_matmul bf16 K={K} N={N} C=3 E=4 "
+                 f"(ep=2's local experts) valid=[3, 1, 0, 2] [{ident}]", r)
+            + f" body={r['body']}")
+    big_lens = [129, 300, 511, 640, 777, 900, 1024, 1152]
+    for slab in (True, False):
+        r = check_contig_decode(torch, bf16, slab, 8, 16, 16, 128, 1152,
+                                big_lens, timed=True)
+        name = "decode_attention_slab" if slab else "decode_attention"
+        log(_row(f"tp shard {name} bf16 B=8 H=16 D=128 S=1152 "
+                 f"lengths={big_lens} [{ident}]", r))
+    r = check_v1_decode(torch, bf16, False, 8, 16, 16, 128, 16, 72,
+                        big_lens, timed=True)
+    log(_row(f"tp shard paged_decode_attention_v1 bf16 B=8 H=16 D=128 "
+             f"ps=16 lengths={big_lens} [{ident}]", r))
+
+
+def phase_tp(ident):
+    """Tensor- and expert-parallel serving and config 3 at nranks=2, as two
+    rank processes sharing the one card over gloo (CUDA tensors: NCCL
+    refuses two ranks on one device). Every number here is labelled
+    "two ranks sharing one H100 over gloo": it is not a TP speed.
+
+    First the shard-shape kernels (``_tp_shard_kernels``). Then one
+    two-rank world (``torch.multiprocessing``, a ``file://`` rendezvous):
+
+    (a) ``Engine(tp=2)`` at ``llama2_7b()`` widths (32 heads, 16 a rank;
+        FF 11008, 5504 a rank): f32, TF32 off, 8 of 32 layers, 8 requests
+        (prompts 16-512, two sampled) with chunked prefill 256, the prefix
+        cache and n-gram k=4: rank 0's streams must equal the tp=None
+        engine's on the same card and weights, and both ranks' command
+        outputs must hash alike; then bf16 at 32 layers, 8 requests of 32
+        tokens in chains of 16: tok/s, TTFT, each rank's peak memory, the
+        all-reduce's share of the pass, and how many rows agree with
+        tp=None.
+    (b) ``Engine(ep=2)`` at Mixtral-8x7B's widths: f32, 2 of 32 layers,
+        streams and router stats equal to ep=None; bf16, 8 layers: tok/s
+        and #13's launches over the 4 local experts.
+    (c) tp=2 x ep=2 needs four processes on the one card: it runs in the
+        CPU tests only (``tests/test_torch_ep_serving.py``).
+    (d) Config 3: ``FusedMultiTransformer`` at nranks=2, GPT-3 6.7B widths,
+        B=8, on the 5-D (#14), slab (#15) and ``PagedKVCache`` (#4) caches:
+        f32 (2 layers) against nranks=1 on the same weights, within 1e-4
+        of the largest entry; bf16 (8 layers) ms a decode step. Then
+        ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small, mp=2:
+        greedy tokens equal to mp=1.
+
+    The launches of every pass, both ranks', are returned."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    _tp_shard_kernels(torch, ident)
+    # the rank processes share the card with this one: give back what
+    # earlier phases left cached
+    _tp_free()
+    log(f"tp: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB of the card while the ranks run")
+    t_world = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="tp_phase_")
+    ctx = mp.start_processes(_tp_rank, args=(2, os.path.join(out, "init"),
+                                             out),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() - t_world > TP_DEADLINE_S:
+                raise AssertionError(f"tp: the rank world outlived "
+                                     f"{TP_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(out, ignore_errors=True)
+    lead = ranks[0]
+    # (a)
+    a0, a1 = lead["a"], ranks[1]["a"]
+    if a0["f32"]["tokens"] != a0["f32_base"]["tokens"]:
+        raise AssertionError("tp f32: tp=2 streams differ from tp=None's")
+    if a0["f32"]["digest"] != a1["f32"]["digest"]:
+        raise AssertionError("tp f32: the ranks' command outputs differ")
+    log(f"tp (a) f32 llama2_7b widths, {TP_F32_LAYERS} of 32 layers, "
+        f"chunked 256 + prefix cache + ngram k=4, 8 requests (2 sampled): "
+        f"tp=2 streams equal tp=None's; both ranks' {a0['f32']['digest'][1]}"
+        f" command outputs hash alike; launches rank 0 "
+        f"{a0['f32']['launches']} rank 1 {a1['f32']['launches']} [{ident}]")
+    b16, base16 = a0["bf16"], a0["bf16_base"]
+    toks = sum(len(t) for t in b16["tokens"])
+    agree = sum(t == u for t, u in zip(b16["tokens"], base16["tokens"]))
+    log(f"tp (a) bf16 llama2_7b, {TP_BF16_LAYERS} layers, tp=2 ({TP_LABEL}):"
+        f" 8 requests, {toks} tokens in {b16['wall']:.3f} s = "
+        f"{toks / b16['wall']:.1f} tok/s (tp=None on the card: "
+        f"{toks / base16['wall']:.1f} tok/s); TTFT ms median "
+        f"{statistics.median(b16['ttft']):.1f} max {max(b16['ttft']):.1f};"
+        f" peak GiB rank 0 {b16['peak_gib']:.2f} rank 1 "
+        f"{ranks[1]['a']['bf16']['peak_gib']:.2f}; all-reduce "
+        f"{b16['collectives']} calls {b16['collective_s']:.3f} s = "
+        f"{b16['collective_s'] / b16['wall']:.1%} of the pass (rank 1 "
+        f"{ranks[1]['a']['bf16']['collective_s']:.3f} s); rows equal to "
+        f"tp=None {agree} of 8; launches {b16['launches']} [{ident}]")
+    # (b)
+    m0, m1 = lead["b"], ranks[1]["b"]
+    if m0["f32"]["tokens"] != m0["f32_base"]["tokens"]:
+        raise AssertionError("ep f32: ep=2 streams differ from ep=None's")
+    if m0["f32"]["moe"]["expert_load"] != m0["f32_base"]["moe"][
+            "expert_load"]:
+        raise AssertionError("ep f32: router stats differ from ep=None's")
+    if m0["f32"]["digest"] != m1["f32"]["digest"]:
+        raise AssertionError("ep f32: the ranks' command outputs differ")
+    mb = m0["bf16"]
+    mtoks = sum(len(t) for t in mb["tokens"])
+    if mb["local_experts"] != 4:
+        raise AssertionError(f"ep bf16: {mb['local_experts']} local experts")
+    log(f"tp (b) ep=2 Mixtral-8x7B widths: f32 {TP_MOE_F32_LAYERS} layers "
+        f"streams and router stats equal ep=None's, ranks hash alike; bf16 "
+        f"{TP_MOE_BF16_LAYERS} layers ({TP_LABEL}): {mtoks} tokens in "
+        f"{mb['wall']:.3f} s = {mtoks / mb['wall']:.1f} tok/s; #13 launches "
+        f"over {mb['local_experts']} local experts rank 0 "
+        f"{mb['launches'].get('grouped_matmul', 0)} rank 1 "
+        f"{m1['bf16']['launches'].get('grouped_matmul', 0)}; peak GiB "
+        f"{mb['peak_gib']:.2f} / {m1['bf16']['peak_gib']:.2f} [{ident}]")
+    # (d)
+    d = lead["d"]
+    for kind, (err, top) in d["f32_errs"].items():
+        if not (math.isfinite(top) and err <= 1e-4 * top):
+            raise AssertionError(f"tp fused f32 {kind}: nranks=2 off "
+                                 f"nranks=1 by {err:.3g} (largest {top:.3g})")
+    log(f"tp (d) FusedMultiTransformer nranks=2 GPT-3 6.7B widths B=8: f32 "
+        f"{TP_FUSED_F32_LAYERS} layers against nranks=1, max abs err / "
+        f"largest entry "
+        + ", ".join(f"{k} {e:.3g}/{t:.3g}" for k, (e, t)
+                    in d["f32_errs"].items())
+        + f" (limit 1e-4 of it); bf16 {TP_FUSED_BF16_LAYERS} layers ms a "
+        f"decode step ({TP_LABEL}, host clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in d["bf16_ms"].items())
+        + f"; launches {d['bf16_launches']} [{ident}]")
+    gpt = lead["gpt"]
+    if not (gpt["ranks_equal"] and gpt["equals_mp1"] and gpt["fused_ok"]):
+        raise AssertionError(f"tp (d) generate_gpt_tp: {gpt}")
+    log(f"tp (d) generate_gpt_tp_torch path GPT-2 small mp=2: greedy tokens "
+        f"equal mp=1's and across the ranks; {json.dumps(gpt)} [{ident}]")
+    counts = {}
+    for r in ranks:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"tp: world parts (a) {lead['a_s']:.1f} s (b) {lead['b_s']:.1f} s "
+        f"(d) {lead['d_s']:.1f} s; launches both ranks "
+        f"{({k: v for k, v in counts.items() if v})}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def phase_ncclprobe(ident):
+    """Opt-in: two NCCL ranks on the one card (the tp phase's layout) do
+    one all-reduce in a subprocess world, bounded to 120 s; logs what NCCL
+    says (it refuses two ranks on one device, which is why the tp phase
+    runs gloo)."""
+    import tempfile
+
+    code = (
+        "import os, sys, torch, torch.distributed as dist\n"
+        "import torch.multiprocessing as mp\n"
+        "def run(rank, path):\n"
+        "    torch.cuda.set_device(0)\n"
+        "    dist.init_process_group('nccl', init_method='file://' + path,\n"
+        "                            rank=rank, world_size=2)\n"
+        "    t = torch.ones(4, device='cuda')\n"
+        "    dist.all_reduce(t)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('rank', rank, 'all_reduce', t.tolist(), flush=True)\n"
+        "    dist.destroy_process_group()\n"
+        "if __name__ == '__main__':\n"
+        "    mp.start_processes(run, args=(sys.argv[1],), nprocs=2,\n"
+        "                       start_method='spawn')\n")
+    tmp = tempfile.mkdtemp(prefix="ncclprobe_")
+    script = os.path.join(tmp, "probe.py")
+    with open(script, "w") as f:
+        f.write(code)
+    try:
+        out = subprocess.run([sys.executable, script,
+                              os.path.join(tmp, "init")],
+                             capture_output=True, text=True, timeout=120)
+        text = out.stdout + out.stderr
+        said = [ln.strip() for ln in text.splitlines()
+                if "uplicate" in ln or "all_reduce" in ln
+                or "Error" in ln or "error" in ln]
+        log(f"ncclprobe: exit {out.returncode}; "
+            + " | ".join(said)[:1500] + f" [{ident}]")
+    except subprocess.TimeoutExpired:
+        log(f"ncclprobe: the two NCCL ranks on one card hung past 120 s "
+            f"(killed) [{ident}]")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2254,7 +2843,7 @@ def main(argv=None):
                        ("cluster", phase_cluster), ("draft", phase_draft),
                        ("fused", phase_fused), ("bert", phase_bert),
                        ("export", phase_export),
-                       ("moe_train", phase_moe_train)):
+                       ("moe_train", phase_moe_train), ("tp", phase_tp)):
         if phase in phases:
             for name, n in timed(phase, run, ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -2262,7 +2851,8 @@ def main(argv=None):
                        ("profile", phase_profile), ("drift", phase_drift),
                        ("anatomy", phase_anatomy), ("sched", phase_sched),
                        ("loadgen", phase_loadgen),
-                       ("draftcause", phase_draftcause)):
+                       ("draftcause", phase_draftcause),
+                       ("ncclprobe", phase_ncclprobe)):
         if phase in phases:
             timed(phase, run, ident)
     log(f"phase seconds: {json.dumps(took)}; all phases "
@@ -6946,7 +7536,8 @@ def _fused_caches(layer, kind, batch, max_seq, dtype):
     from paddle_tpu_torch.ops.cuda.paged_attention import (PagedCacheState,
                                                            PagedKVCache)
 
-    nh, hd, n = layer.num_heads, layer.head_dim, layer.num_layers
+    # a tensor-parallel layer's caches hold its rank's heads
+    nh, hd, n = layer.local_heads, layer.head_dim, layer.num_layers
     dev = torch.device("cuda")
     if kind == "5d":
         return [torch.zeros((2, batch, nh, max_seq, hd), dtype=dtype,

@@ -18,6 +18,16 @@ Run on the card (the default device):
 Run on the CPU (tiny):
     python examples/serve_llama_paged_torch.py --tiny --device cpu
     python examples/serve_llama_paged_torch.py --tiny --device cpu --spec draft
+
+Tensor and expert parallelism: ``--tp N`` / ``--ep M`` spawn N * M rank
+processes (``torch.multiprocessing``), one engine shard each over a
+``torch.distributed`` world on localhost; rank 0 serves (the demo or the
+API), the others run the engine's follower loop. ``--ep`` serves the MoE
+twin of the model (8 experts, top-2). NCCL wants one card a rank; two
+ranks sharing one card take ``--backend gloo``:
+    python examples/serve_llama_paged_torch.py --tiny --device cpu --tp 2
+    python examples/serve_llama_paged_torch.py --tiny --device cpu --tp 2 --ep 2
+    python examples/serve_llama_paged_torch.py --tp 2 --backend gloo
 """
 import argparse
 import os as _os
@@ -143,6 +153,10 @@ def _model(args):
         cfg, dtype = tiny_llama_config(
             hidden_size=256, num_layers=4, num_heads=8, num_kv_heads=4,
             intermediate_size=512, max_position=512), torch.float32
+    if (args.ep or 1) > 1:
+        # the MoE twin: 8 experts, top-2, each a quarter of the dense FF
+        cfg.num_experts, cfg.moe_top_k = 8, 2
+        cfg.moe_intermediate_size = cfg.intermediate_size // 4
     model = init_llama(cfg, seed=0, device=args.device, dtype=dtype)
     if args.weight_quant != "none":
         from paddle_tpu_torch.nn.quant import quantize_for_decode
@@ -239,13 +253,66 @@ def main():
                          "chunks for this many ms (off by default)")
     ap.add_argument("--drain-grace", type=float, default=30.0,
                     help="SIGTERM drain budget in seconds")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel degree: one rank process a "
+                         "shard of the heads, the FF columns and the KV "
+                         "pool's heads; output tokens equal --tp 1's "
+                         "(f32; bf16 sums the split GEMMs in another "
+                         "order)")
+    ap.add_argument("--ep", type=int, default=None,
+                    help="expert-parallel degree (serves the MoE twin): "
+                         "each rank holds num_experts/ep experts; routing "
+                         "is replicated, so the drop set is --ep 1's. "
+                         "Composes with --tp (tp x ep ranks, ep "
+                         "innermost)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the ranks' torch.distributed backend (default "
+                         "NCCL on the card, gloo on the CPU); ranks that "
+                         "share one card need gloo")
     ap.add_argument("--pools", default=None, metavar="SPEC",
                     help="cluster smoke: run SPEC (e.g. prefill=1,decode=2) "
                          "in-process replicas behind one Router (the "
                          "prefill pool, the KV handoff, cache-aware decode "
                          "placement), print the handoff counters and exit")
     args = ap.parse_args()
+    world = (args.tp or 1) * (args.ep or 1)
+    if world > 1:
+        _spawn_ranks(args, world)
+        return
+    _serve(args)
 
+
+def _spawn_ranks(args, world):
+    """One process a rank on localhost (a free port picked here); each runs
+    :func:`_serve` with its own rank."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_rank_main, args=(args, world,
+                                         f"tcp://127.0.0.1:{port}"),
+                       nprocs=world, start_method="spawn")
+
+
+def _rank_main(rank, args, world, init_method):
+    from paddle_tpu_torch.distributed import (barrier, destroy_process_group,
+                                              init_parallel_env)
+
+    init_parallel_env(device=args.device, backend=args.backend,
+                      init_method=init_method, rank=rank, world_size=world)
+    try:
+        _serve(args)
+        # rank 0 hosts the rendezvous store: no rank leaves before all
+        # are done with it
+        barrier()
+    finally:
+        destroy_process_group()
+
+
+def _serve(args):
     from paddle_tpu_torch.inference.engine import Engine
 
     cfg, model = _model(args)
@@ -272,8 +339,18 @@ def main():
                  kv_host_pages=args.kv_host_pages,
                  integrity=(None if args.integrity == "off"
                             else args.integrity),
-                 multi_step=args.multi_step, device=args.device)
+                 multi_step=args.multi_step, device=args.device,
+                 tp=args.tp, ep=args.ep)
+    if not eng.is_leader:
+        eng.run()  # rank 0's commands, until it closes the engine
+        return
+    try:
+        _demo(eng, cfg, args)
+    finally:
+        eng.close()
 
+
+def _demo(eng, cfg, args):
     if args.api_port is not None:
         run_api_server(eng, args)
         return

@@ -36,6 +36,17 @@ device.
 (``{"qkv_weights": [layer 0, layer 1, ...], ...}``, each ``np.asarray``
 of the JAX parameter), in the reference's layouts, with no transposes;
 ``init_fused_multi_transformer`` draws one from a seed on its device.
+
+The shard step: ``shard_state_dict`` takes a full converted state dict
+and returns one rank's shard of it, by the serving runner's plan
+(``tp=``, ``ep=`` and the rank's ``tp_rank``, ``ep_rank``:
+``inference.runner.serving_spec``) or by the ``dist_spec``s of a model's
+parameters (the tensor-parallel and fused layers' ``mp`` splits, with
+``mp_rank`` of ``mp``). ``fused_multi_transformer_from_numpy(...,
+nranks=)`` takes the full per-layer lists and builds this rank's layer
+from their shards. Shards are contiguous blocks, rank r taking block r, so
+concatenating the ranks' shards along the split dim gives the full tensor
+back.
 """
 from __future__ import annotations
 
@@ -53,7 +64,8 @@ from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.quant import quantize_for_decode
 from .vision.models.resnet import BasicBlock, BottleneckBlock, ResNet
 
-__all__ = ["state_dict_from_numpy", "init_llama", "llama_from_numpy",
+__all__ = ["state_dict_from_numpy", "shard_state_dict", "init_llama",
+           "llama_from_numpy",
            "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
            "init_fused_multi_transformer", "resnet_from_numpy",
            "init_resnet", "bert_from_numpy", "init_bert"]
@@ -76,6 +88,30 @@ def state_dict_from_numpy(arrays: Dict[str, np.ndarray], device=None,
     dt = resolve_dtype(dtype)
     return {name: _port_tensor(name, a, dev, dt)
             for name, a in arrays.items()}
+
+
+def shard_state_dict(state: Dict[str, object], tp: int = 1, ep: int = 1,
+                     tp_rank: int = 0, ep_rank: int = 0, model=None,
+                     mp: int = 1, mp_rank: int = 0) -> Dict[str, object]:
+    """One rank's shard of ``state`` (``{name: tensor or ndarray}``, full
+    shapes). With ``model``, each entry splits by the ``dist_spec`` of
+    ``model``'s parameter of that name over ``mp`` ranks (rank
+    ``mp_rank``); otherwise by the serving runner's plan at ``(tp, ep)``
+    for rank ``(tp_rank, ep_rank)``. Entries the plan keeps whole come back
+    as they are."""
+    from .distributed.fleet.meta_parallel.tensor_parallel import \
+        shard_tensor
+    from .inference.runner import serving_spec
+
+    if model is not None:
+        specs = {n: getattr(p, "dist_spec", None)
+                 for n, p in model.named_parameters()}
+        coords = {"mp": (int(mp_rank), int(mp))}
+        return {n: shard_tensor(t, specs.get(n), coords)
+                for n, t in state.items()}
+    coords = {"tp": (int(tp_rank), int(tp)), "ep": (int(ep_rank), int(ep))}
+    return {n: shard_tensor(t, serving_spec(n, t.shape, tp, ep), coords)
+            for n, t in state.items()}
 
 
 def llama_from_numpy(cfg: LlamaConfig, arrays: Dict[str, np.ndarray],
@@ -151,14 +187,15 @@ def init_gpt(cfg: GPTConfig, seed: int = 0, device=None,
 @torch.no_grad()
 def fused_multi_transformer_from_numpy(
         lists: Dict[str, Sequence[np.ndarray]], activation="gelu",
-        epsilon=1e-5, device=None,
-        dtype=torch.float32) -> FusedMultiTransformer:
+        epsilon=1e-5, device=None, dtype=torch.float32,
+        nranks: int = 1) -> FusedMultiTransformer:
     """A port ``FusedMultiTransformer`` holding the JAX layer's parameters:
     ``lists`` maps each of its per-layer list names (``ln_scales``,
     ``qkv_weights``, ..., ``ffn2_biases``) to one array a layer. The
     widths come from the arrays (``qkv_weights[0]`` is ``[3, num_heads,
     head_dim, embed_dim]``, ``ffn1_weights[0]`` ``[embed_dim,
-    dim_feedforward]``)."""
+    dim_feedforward]``). ``nranks > 1``: the layer of this rank of the
+    model-parallel group, holding its shard of the full arrays."""
     missing = [name for name in _LISTS if name not in lists]
     if missing:
         raise ValueError(f"fused_multi_transformer_from_numpy: missing "
@@ -167,15 +204,22 @@ def fused_multi_transformer_from_numpy(
     layer = FusedMultiTransformer(
         h, nh, np.shape(lists["ffn1_weights"][0])[1], activation=activation,
         epsilon=epsilon, num_layers=len(lists["qkv_weights"]),
-        device=device, dtype=dtype)
+        nranks=nranks, device=device, dtype=dtype)
     dev, dt = resolve_device(device), resolve_dtype(dtype)
+    coords = ({} if layer.group is None
+              else {"mp": (layer.group.rank, layer.group.nranks)})
+    from .distributed.fleet.meta_parallel.tensor_parallel import \
+        shard_tensor
+
     for name in _LISTS:
         arrays = lists[name]
         if len(arrays) != layer.num_layers:
             raise ValueError(f"{name}: {len(arrays)} arrays for "
                              f"{layer.num_layers} layers")
         for p, a in zip(getattr(layer, name), arrays):
-            p.copy_(_port_tensor(name, a, dev, dt))
+            full = _port_tensor(name, a, dev, dt)
+            p.copy_(shard_tensor(full, getattr(p, "dist_spec", None),
+                                 coords))
     return layer.eval()
 
 
@@ -183,20 +227,33 @@ def fused_multi_transformer_from_numpy(
 def init_fused_multi_transformer(embed_dim, num_heads, dim_feedforward,
                                  num_layers, seed: int = 0, std=0.02,
                                  activation="gelu", device=None,
-                                 dtype=torch.bfloat16
+                                 dtype=torch.bfloat16, nranks: int = 1
                                  ) -> FusedMultiTransformer:
     """A ``FusedMultiTransformer`` with random weights drawn on ``device``
     from ``seed``: every weight matrix normal(0, ``std``), LN scales one,
-    biases zero, in ``named_parameters`` order."""
+    biases zero, in ``named_parameters`` order. ``nranks > 1``: this
+    rank's layer, each split matrix drawn whole (the same draws as
+    ``nranks=1``) and its shard kept."""
+    from .distributed.fleet.meta_parallel.tensor_parallel import \
+        shard_tensor
+
     layer = FusedMultiTransformer(embed_dim, num_heads, dim_feedforward,
                                   activation=activation,
-                                  num_layers=num_layers, device=device,
-                                  dtype=dtype)
+                                  num_layers=num_layers, nranks=nranks,
+                                  device=device, dtype=dtype)
     dev = next(layer.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    g = layer.group
+    coords = {} if g is None else {"mp": (g.rank, g.nranks)}
     for name, p in layer.named_parameters():
-        if "_weights_" in name:
-            p.normal_(0.0, std, generator=gen)
+        if "_weights_" not in name:
+            continue
+        spec = getattr(p, "dist_spec", None)
+        shape = [n * (g.nranks if spec and d < len(spec) and spec[d]
+                      else 1) for d, n in enumerate(p.shape)]
+        full = torch.empty(shape, device=dev, dtype=p.dtype)
+        full.normal_(0.0, std, generator=gen)
+        p.copy_(shard_tensor(full, spec, coords))
     return layer.eval()
 
 

@@ -1,15 +1,22 @@
 """Distributed API of the port (after ``paddle_tpu/distributed``): the
 process world, the hybrid topology and mesh, the eager collectives and
-``fleet``, as far as context-parallel attention needs them; one
-process's checkpoints and the preemption machinery."""
+``fleet`` (context-parallel attention, the tensor-parallel layers and
+``distributed_model``); one process's checkpoints and the preemption
+machinery."""
 from .collective import (  # noqa: F401
     ReduceOp,
     all_gather,
+    all_gather_object,
     all_reduce,
     all_to_all,
     barrier,
+    broadcast,
+    fcollectives,
     p2p_exchange,
     recv,
+    reduce,
+    reduce_scatter,
+    scatter,
     send,
 )
 from .parallel import (  # noqa: F401
@@ -24,6 +31,7 @@ from .parallel import (  # noqa: F401
     is_initialized,
     new_group,
     set_mesh,
+    subgroup,
 )
 from .topology import (  # noqa: F401
     HYBRID_AXES,
@@ -32,6 +40,7 @@ from .topology import (  # noqa: F401
     HybridCommunicateGroup,
     build_mesh,
 )
+from . import communication  # noqa: F401
 from . import fleet  # noqa: F401
 from .checkpoint import (  # noqa: F401
     AsyncCheckpointer,
@@ -49,8 +58,10 @@ from .ckpt_manager import (  # noqa: F401
 )
 
 __all__ = [
-    "ReduceOp", "all_reduce", "all_gather", "all_to_all", "barrier", "send",
-    "recv", "p2p_exchange", "ParallelEnv", "destroy_process_group",
+    "ReduceOp", "all_reduce", "all_gather", "all_gather_object",
+    "all_to_all", "barrier", "broadcast", "reduce", "reduce_scatter",
+    "scatter", "fcollectives", "send", "recv", "p2p_exchange",
+    "communication", "subgroup", "ParallelEnv", "destroy_process_group",
     "get_device", "get_group",
     "get_mesh", "get_rank", "get_world_size", "init_parallel_env",
     "is_initialized", "new_group", "set_mesh", "HYBRID_AXES",

@@ -91,13 +91,28 @@ def is_first_worker() -> bool:
 
 
 def distributed_model(model):
-    """Not ported: multi-GPU training (tensor, pipeline and sharded data
-    parallelism) is still to come."""
-    raise TypeError("fleet.distributed_model is not ported: multi-GPU "
-                    "training is still to come")
+    """Wrap ``model`` for the strategy's degrees, as the reference: at
+    ``mp > 1`` a ``TensorParallel`` (each rank keeps its shard of every
+    ``dist_spec``-annotated parameter, the replicated ones broadcast from
+    the ``mp`` group's first rank); otherwise the model itself. A model
+    whose parameters carry no ``dist_spec`` (GPT's) stays replicated.
+    Pipelines (``PipelineLayer``) are not ported and raise ``TypeError``."""
+    if not fleet_state.initialized:
+        raise RuntimeError("call fleet.init() first")
+    if any(c.__name__ == "PipelineLayer" for c in type(model).__mro__):
+        raise TypeError("fleet.distributed_model of a PipelineLayer: "
+                        "pipeline parallelism is not ported")
+    if fleet_state.topology.get_dim("mp") > 1:
+        from .meta_parallel.tensor_parallel import TensorParallel
+
+        return TensorParallel(model, fleet_state.hcg, fleet_state.strategy)
+    return model
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """Not ported; see :func:`distributed_model`."""
-    raise TypeError("fleet.distributed_optimizer is not ported: multi-GPU "
-                    "training is still to come")
+    """Not ported: the hybrid-parallel optimizer (the distributed clip and
+    the sharded optimizer state) comes with data parallelism and
+    sharding."""
+    raise TypeError("fleet.distributed_optimizer is not ported: the "
+                    "hybrid-parallel optimizer comes with data parallelism "
+                    "and sharding")

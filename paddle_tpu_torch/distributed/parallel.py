@@ -1,7 +1,10 @@
 """The process world (after ``paddle_tpu/distributed/parallel.py``).
 
 One process per rank over ``torch.distributed``, each driving one card:
-NCCL on the card, gloo only when the caller asks for ``device="cpu"``. The
+NCCL on the card, gloo when the caller asks for ``device="cpu"``. A caller
+may name the backend (``backend="gloo"`` on the card: two ranks sharing one
+card, which NCCL refuses); nothing here picks one by itself when another
+fails. The
 reference's launch environment is read as it is (``PADDLE_TRAINER_ID``,
 ``PADDLE_TRAINERS_NUM``, ``PADDLE_TRAINER_ENDPOINTS``,
 ``PADDLE_CURRENT_ENDPOINT``, ``PADDLE_MASTER``); a caller may pass the rank,
@@ -23,7 +26,7 @@ from ..framework.device import resolve_device
 
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "destroy_process_group", "new_group",
-           "get_group", "set_mesh", "get_mesh", "current_mesh",
+           "subgroup", "get_group", "set_mesh", "get_mesh", "current_mesh",
            "get_device"]
 
 
@@ -59,51 +62,63 @@ class ParallelEnv:
 
 _env = ParallelEnv()
 _default_group = None
+_subgroups: dict = {}
 _global_mesh = None
 _device: Optional[torch.device] = None
 
 
-def _backend_device(backend: str) -> str:
-    return "cpu" if backend == "gloo" else "cuda"
-
-
 def init_parallel_env(strategy=None, *, device=None, init_method=None,
                       rank: Optional[int] = None,
-                      world_size: Optional[int] = None):
+                      world_size: Optional[int] = None,
+                      backend: Optional[str] = None, timeout=None):
     """Initialise the process world and return its group. Idempotent.
 
-    ``device``: None or ``"cuda"`` (NCCL, this rank's card) or ``"cpu"``
-    (gloo). ``rank`` / ``world_size`` default to the launch environment;
-    ``init_method`` to ``tcp://`` + ``PADDLE_MASTER`` when the world has
-    more than one rank."""
+    ``device``: None or ``"cuda"`` (this rank's card) or ``"cpu"``.
+    ``backend``: None takes NCCL on the card and gloo on the CPU; ``"gloo"``
+    on the card runs gloo's collectives over CUDA tensors. ``rank`` /
+    ``world_size`` default to the launch environment; ``init_method`` to
+    ``tcp://`` + ``PADDLE_MASTER`` when the world has more than one rank.
+    ``timeout`` (a ``datetime.timedelta``) bounds every collective's wait,
+    as ``init_process_group``'s."""
     global _default_group, _device
     if is_initialized():
         return _default_group
     if _env.initialized:  # the world was torn down under this module
         destroy_process_group()
     dev = resolve_device(device)
+    if backend is not None and backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend={backend!r}: nccl or gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("backend='nccl' serves CUDA devices only")
     if dist.is_initialized():
-        backend = dist.get_backend()
-        if _backend_device(backend) != dev.type:
-            raise ValueError(f"the running {backend} world does not serve "
+        running = dist.get_backend()
+        if backend is not None and running != backend:
+            raise ValueError(f"the running {running} world is not the "
+                             f"{backend} world asked for")
+        # a running gloo world serves either device (its collectives take
+        # CUDA tensors too); an NCCL one only the card
+        if running == "nccl" and dev.type != "cuda":
+            raise ValueError(f"the running {running} world does not serve "
                              f"device {dev}")
         rank, world_size = dist.get_rank(), dist.get_world_size()
     else:
         rank = _env.rank if rank is None else int(rank)
         world_size = _env.world_size if world_size is None else int(
             world_size)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if backend is None:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
         if init_method is None and world_size > 1:
             if not _env.master:
                 raise ValueError("a world of more than one rank needs "
                                  "init_method or PADDLE_MASTER")
             init_method = f"tcp://{_env.master}"
+        kw = {} if timeout is None else {"timeout": timeout}
         if init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                    world_size=1)
+                                    world_size=1, **kw)
         else:
             dist.init_process_group(backend, init_method=init_method,
-                                    rank=rank, world_size=world_size)
+                                    rank=rank, world_size=world_size, **kw)
     if dev.type == "cuda":
         idx = _env.device_id if _env.device_id is not None else (
             rank % torch.cuda.device_count())
@@ -152,6 +167,7 @@ def destroy_process_group():
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    _subgroups.clear()
     _env.__init__()
     _default_group = _global_mesh = _device = None
     fleet_state.__init__()
@@ -169,6 +185,31 @@ def new_group(ranks: Optional[List[int]] = None, backend=None, timeout=None):
     pg = dist.new_group(ranks, backend=backend, **kw)
     rank = ranks.index(_env.rank) if _env.rank in ranks else -1
     return Group(ranks, axis_name=None, rank=rank, process_group=pg)
+
+
+def subgroup(ranks: List[int]):
+    """The group over global ``ranks`` that only its members make (every
+    member calls this with the same ranks, in the same order as its other
+    ``subgroup`` calls; a rank outside ``ranks`` gets None and takes no
+    part). The process keeps it: a later call with the same ranks returns
+    the same group. The whole world is the world's group."""
+    from .topology import Group
+
+    if not is_initialized():
+        init_parallel_env()
+    ranks = [int(r) for r in ranks]
+    if _env.rank not in ranks:
+        return None
+    if ranks == list(range(_env.world_size)):
+        return Group(ranks, axis_name=None, rank=_env.rank,
+                     process_group=dist.group.WORLD)
+    g = _subgroups.get(tuple(ranks))
+    if g is None:
+        pg = dist.new_group(ranks, use_local_synchronization=True)
+        g = _subgroups[tuple(ranks)] = Group(
+            ranks, axis_name=None, rank=ranks.index(_env.rank),
+            process_group=pg)
+    return g
 
 
 def get_group(gid=None):

@@ -8,6 +8,14 @@ reach no kernel of their own in the reference either (each is one XLA
 fusion there): here they are the same arithmetic in PyTorch. Dropout
 masks come from an explicit ``generator`` (a ``torch.Generator`` on the
 input's device; the default generator when None).
+
+``ring_id >= 0`` is tensor parallelism over the model-parallel group
+(``fleet``'s, else the world): the weights passed are this rank's shards
+(``qkv_weight`` its ``num_heads/mp`` heads, ``linear_weight`` their rows;
+``linear1_weight`` its ``dim_feedforward/mp`` columns, ``linear2_weight``
+their rows), and the sum of the ranks' partial products is all-reduced
+after the output projection and after linear2, before the bias and the
+residual.
 """
 from __future__ import annotations
 
@@ -24,15 +32,37 @@ __all__ = ["fused_rotary_position_embedding", "masked_multihead_attention",
            "fused_bias_dropout_residual_layer_norm"]
 
 
+def ring_group(ring_id: int):
+    """The group of a fused op's ``ring_id``: None (no tensor parallelism)
+    below 0, else the model-parallel group."""
+    if ring_id < 0:
+        return None
+    from ...distributed.fleet.meta_parallel.mp_layers import mp_group_of
+
+    return mp_group_of(None)
+
+
+def mp_reduce(t, group):
+    """The all-reduce of a row-parallel GEMM's partial products over
+    ``group`` (identity for None or one rank)."""
+    if group is None or group.nranks <= 1:
+        return t
+    from ...distributed.fleet.meta_parallel.mp_layers import reduce_from_mp
+
+    return reduce_from_mp(t, group)
+
+
 def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
                       linear2_bias=None, ln1_scale=None, ln1_bias=None,
                       ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
                       dropout2_rate=0.5, activation="relu",
                       ln1_epsilon=1e-5, ln2_epsilon=1e-5,
                       pre_layer_norm=False, training=True,
-                      mode="upscale_in_train", name=None, generator=None):
+                      mode="upscale_in_train", ring_id=-1, name=None,
+                      generator=None):
     """The functional ``FusedFeedForward``: (pre-LN), linear1, the
-    activation, dropout, linear2, dropout, the residual, (post-LN)."""
+    activation, dropout, linear2 (all-reduced at ``ring_id >= 0``),
+    dropout, the residual, (post-LN)."""
     from .layer.fused_transformer import _act
 
     residual = x
@@ -44,7 +74,7 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
         h = h + linear1_bias
     h = F.dropout(_act(activation)(h), p=dropout1_rate, training=training,
                   mode=mode, generator=generator)
-    h = torch.matmul(h, linear2_weight)
+    h = mp_reduce(torch.matmul(h, linear2_weight), ring_group(ring_id))
     if linear2_bias is not None:
         h = h + linear2_bias
     h = F.dropout(h, p=dropout2_rate, training=training, mode=mode,
@@ -66,13 +96,10 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
                                ring_id=-1, add_residual=True, name=None,
                                generator=None):
     """The functional ``FusedMultiHeadAttention``; ``qkv_weight`` is
-    ``[3, num_heads, head_dim, embed_dim]``. ``ring_id >= 0`` (tensor
-    parallelism) raises ``TypeError``."""
+    ``[3, num_heads, head_dim, embed_dim]`` (this rank's heads at
+    ``ring_id >= 0``)."""
     from .layer.fused_transformer import _qkv_pack
 
-    if ring_id >= 0:
-        raise TypeError(f"fused_multi_head_attention: ring_id={ring_id} "
-                        "(tensor parallelism) is not ported")
     if cache_kv is not None:
         raise NotImplementedError(
             "fused_multi_head_attention: cache_kv (incremental decode) is "
@@ -93,7 +120,8 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
         out, _ = F.flash_attention(q, k, v, dropout=attn_dropout_rate,
                                    causal=False, training=training,
                                    generator=generator)
-    out = torch.matmul(out.reshape(b, s, d), linear_weight)
+    out = mp_reduce(torch.matmul(out.reshape(b, s, linear_weight.shape[0]),
+                                 linear_weight), ring_group(ring_id))
     if linear_bias is not None:
         out = out + linear_bias
     out = F.dropout(out, p=dropout_rate, training=training, mode=mode,

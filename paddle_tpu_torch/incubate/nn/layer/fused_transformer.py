@@ -31,8 +31,18 @@ biases zero, unless the matching ``*_attr`` carries an initializer
 (``convert.init_fused_multi_transformer`` redraws the matrices from a
 seed). Dropout masks come from ``generator``.
 
-Tensor parallelism (``nranks > 1`` or ``ring_id >= 0``) is not ported and
-raises ``TypeError``.
+Tensor parallelism (``nranks > 1`` or ``ring_id >= 0``, over the
+model-parallel group: ``fleet``'s, else the world, of ``nranks`` ranks)
+follows the reference's sharding specs, one process a rank: each rank
+holds its ``num_heads/nranks`` heads of the packed QKV weight and bias
+(``dist_spec (None, "mp", ...)``) and their rows of the output projection
+(``("mp", None)``), its ``dim_feedforward/nranks`` columns of FFN1 and
+their rows of FFN2; the LNs and the two output biases are whole. An
+all-reduce over the group sums the ranks' partial products after the
+output projection and after FFN2, before the bias and the residual.
+Caches hold the rank's heads (``[2, B, num_heads/nranks, S, D]``, or the
+slab / paged equivalents). Weights cross over as shards
+(``convert.shard_state_dict``).
 """
 from __future__ import annotations
 
@@ -48,7 +58,8 @@ from ....ops.cuda.decode_attention import (cache_decode_step,
                                            cache_prefill_write)
 from ....ops.cuda.paged_attention import (PagedCacheState, PagedKVCache,
                                           paged_forward)
-from ..functional import fused_feedforward, fused_multi_head_attention
+from ..functional import (fused_feedforward, fused_multi_head_attention,
+                          mp_reduce)
 
 __all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
            "FusedMultiTransformer", "FusedTransformerEncoderLayer"]
@@ -59,10 +70,33 @@ def _act(name):
             "relu": F.relu}[name]
 
 
-def _no_tensor_parallel(cls, nranks, ring_id):
-    if nranks > 1 or ring_id >= 0:
-        raise TypeError(f"{cls}: tensor parallelism (nranks={nranks}, "
-                        f"ring_id={ring_id}) is not ported")
+def _tp_group(cls, nranks, ring_id):
+    """The model-parallel group of a fused layer (None without tensor
+    parallelism); its size must be ``nranks`` when that is given."""
+    if nranks <= 1 and ring_id < 0:
+        return None
+    from ....distributed.fleet.meta_parallel.mp_layers import mp_group_of
+
+    group = mp_group_of(None)
+    n = 1 if group is None else group.nranks
+    if nranks > 1 and n != nranks:
+        raise ValueError(f"{cls}: nranks={nranks} but the model-parallel "
+                         f"group has {n} ranks")
+    return group if n > 1 else None
+
+
+def _local(size, group, what):
+    n = 1 if group is None else group.nranks
+    if size % n:
+        raise ValueError(f"{what}={size} is not divisible by nranks={n}")
+    return size // n
+
+
+def _mark(p, spec):
+    p.is_distributed = True
+    p.is_sharded = True
+    p.dist_spec = spec
+    return p
 
 
 def _param(shape, device, dtype, attr=None, fill=None):
@@ -99,12 +133,13 @@ class FusedMultiHeadAttention(nn.Module):
                  nranks=1, ring_id=-1, name=None, device=None,
                  dtype=torch.float32, generator=None):
         super().__init__()
-        _no_tensor_parallel("FusedMultiHeadAttention", nranks, ring_id)
+        self.group = _tp_group("FusedMultiHeadAttention", nranks, ring_id)
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be a multiple of num_heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        nh = _local(num_heads, self.group, "num_heads")
         self.normalize_before = normalize_before
         self.dropout_rate = dropout_rate
         self.attn_dropout_rate = attn_dropout_rate
@@ -112,11 +147,16 @@ class FusedMultiHeadAttention(nn.Module):
         self.generator = generator
         kw = dict(device=device, dtype=dtype)
         h = embed_dim
-        self.qkv_weight = _param((3, num_heads, self.head_dim, h),
+        self.qkv_weight = _param((3, nh, self.head_dim, h),
                                  attr=qkv_weight_attr, **kw)
-        self.qkv_bias = _param((3, num_heads, self.head_dim),
+        self.qkv_bias = _param((3, nh, self.head_dim),
                                attr=qkv_bias_attr, fill=0, **kw)
-        self.linear_weight = _param((h, h), attr=linear_weight_attr, **kw)
+        self.linear_weight = _param((nh * self.head_dim, h),
+                                    attr=linear_weight_attr, **kw)
+        if self.group is not None:
+            _mark(self.qkv_weight, (None, "mp", None, None))
+            _mark(self.qkv_bias, (None, "mp", None))
+            _mark(self.linear_weight, ("mp", None))
         self.linear_bias = _param((h,), attr=linear_bias_attr, fill=0, **kw)
         self.pre_ln_scale = _param((h,), attr=pre_ln_scale_attr, fill=1,
                                    **kw)
@@ -142,6 +182,7 @@ class FusedMultiHeadAttention(nn.Module):
             dropout_rate=self.dropout_rate,
             attn_dropout_rate=self.attn_dropout_rate,
             ln_epsilon=self.epsilon, training=self.training,
+            ring_id=-1 if self.group is None else 0,
             generator=self.generator)
 
 
@@ -158,7 +199,8 @@ class FusedFeedForward(nn.Module):
                  nranks=1, ring_id=-1, name=None, device=None,
                  dtype=torch.float32, generator=None):
         super().__init__()
-        _no_tensor_parallel("FusedFeedForward", nranks, ring_id)
+        self.group = _tp_group("FusedFeedForward", nranks, ring_id)
+        ff = _local(dim_feedforward, self.group, "dim_feedforward")
         self.d_model = d_model
         self.normalize_before = normalize_before
         self.dropout_rate = dropout_rate
@@ -168,12 +210,16 @@ class FusedFeedForward(nn.Module):
         self.epsilon = epsilon
         self.generator = generator
         kw = dict(device=device, dtype=dtype)
-        self.linear1_weight = _param((d_model, dim_feedforward),
+        self.linear1_weight = _param((d_model, ff),
                                      attr=linear1_weight_attr, **kw)
-        self.linear1_bias = _param((dim_feedforward,),
-                                   attr=linear1_bias_attr, fill=0, **kw)
-        self.linear2_weight = _param((dim_feedforward, d_model),
+        self.linear1_bias = _param((ff,), attr=linear1_bias_attr, fill=0,
+                                   **kw)
+        self.linear2_weight = _param((ff, d_model),
                                      attr=linear2_weight_attr, **kw)
+        if self.group is not None:
+            _mark(self.linear1_weight, (None, "mp"))
+            _mark(self.linear1_bias, ("mp",))
+            _mark(self.linear2_weight, ("mp", None))
         self.linear2_bias = _param((d_model,), attr=linear2_bias_attr,
                                    fill=0, **kw)
         self.ln1_scale = _param((d_model,), attr=ln1_scale_attr, fill=1,
@@ -193,6 +239,7 @@ class FusedFeedForward(nn.Module):
             dropout2_rate=self.dropout_rate, activation=self.activation,
             ln1_epsilon=self.epsilon, ln2_epsilon=self.epsilon,
             pre_layer_norm=self.normalize_before, training=self.training,
+            ring_id=-1 if self.group is None else 0,
             generator=self.generator)
 
 
@@ -202,6 +249,11 @@ _LISTS = ("ln_scales", "ln_biases", "qkv_weights", "qkv_biases",
           "linear_weights", "linear_biases", "ffn_ln_scales",
           "ffn_ln_biases", "ffn1_weights", "ffn1_biases", "ffn2_weights",
           "ffn2_biases")
+# the reference's dist_specs of the lists a tensor-parallel layer splits
+_MP_SPECS = {"qkv_weights": (None, "mp", None, None),
+             "qkv_biases": (None, "mp", None),
+             "linear_weights": ("mp", None), "ffn1_weights": (None, "mp"),
+             "ffn1_biases": ("mp",), "ffn2_weights": ("mp", None)}
 
 
 class FusedMultiTransformer(nn.Module):
@@ -225,7 +277,7 @@ class FusedMultiTransformer(nn.Module):
                  num_layers=-1, nranks=1, trans_qkvw=True, ring_id=-1,
                  name=None, device=None, dtype=torch.float32):
         super().__init__()
-        _no_tensor_parallel("FusedMultiTransformer", nranks, ring_id)
+        self.group = _tp_group("FusedMultiTransformer", nranks, ring_id)
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be a multiple of num_heads")
         if not normalize_before:
@@ -246,12 +298,16 @@ class FusedMultiTransformer(nn.Module):
                           if isinstance(qkv_weight_attrs, (list, tuple))
                           else 1)
         self.num_layers = num_layers
-        h, nh, hd, ff = embed_dim, num_heads, self.head_dim, dim_feedforward
+        # this rank's heads and FFN columns (all of them without tensor
+        # parallelism)
+        nh = self.local_heads = _local(num_heads, self.group, "num_heads")
+        ff = _local(dim_feedforward, self.group, "dim_feedforward")
+        h, hd = embed_dim, self.head_dim
         kw = dict(device=device, dtype=dtype)
         shapes = {"ln_scales": ((h,), 1), "ln_biases": ((h,), 0),
                   "qkv_weights": ((3, nh, hd, h), None),
                   "qkv_biases": ((3, nh, hd), 0),
-                  "linear_weights": ((h, h), None),
+                  "linear_weights": ((nh * hd, h), None),
                   "linear_biases": ((h,), 0),
                   "ffn_ln_scales": ((h,), 1), "ffn_ln_biases": ((h,), 0),
                   "ffn1_weights": ((h, ff), None),
@@ -278,6 +334,8 @@ class FusedMultiTransformer(nn.Module):
                 if isinstance(attr, (list, tuple)):
                     attr = attr[i]
                 p = _param(shape, attr=attr, fill=fill, **kw)
+                if self.group is not None and lst in _MP_SPECS:
+                    _mark(p, _MP_SPECS[lst])
                 self.register_parameter(f"{lst}_{i}", p)
                 getattr(self, lst).append(p)
 
@@ -307,14 +365,16 @@ class FusedMultiTransformer(nn.Module):
             out = ctx_attention()
         else:
             out, new_cache = cache_decode_step(cache, q, k, v, time_step)
-        out = torch.matmul(out.reshape(b, s, self.embed_dim),
-                           self.linear_weights[i]) + self.linear_biases[i]
+        w = self.linear_weights[i]
+        out = mp_reduce(torch.matmul(out.reshape(b, s, w.shape[0]), w),
+                        self.group) + self.linear_biases[i]
         return out, new_cache
 
     def _ffn(self, i, x):
         h = _act(self.activation)(torch.matmul(x, self.ffn1_weights[i])
                                   + self.ffn1_biases[i])
-        return torch.matmul(h, self.ffn2_weights[i]) + self.ffn2_biases[i]
+        return mp_reduce(torch.matmul(h, self.ffn2_weights[i]),
+                         self.group) + self.ffn2_biases[i]
 
     def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
                 rotary_embs=None, rotary_emb_dims=0, seq_lens=None,

@@ -5,7 +5,13 @@ The device page buffers (``k_pages`` / ``v_pages`` per layer, plus bf16
 ``scale_pages`` when the cache is int8) are allocated ONCE on the engine's
 device and written in place by every forward. The allocator state (block
 tables, lengths, per-page refcounts, free lists) lives on the host in
-numpy. Physical page 0 is the trash page: never allocated, the target of
+numpy. At tp > 1 each rank's pool holds the lanes of its ``Hkv/tp`` KV
+heads of every page (``ModelRunner.page_shape``); the tables and
+refcounts live on rank 0, and the page operations (copy-on-write, the
+corruption fault points) go to every rank's shard as commands. A pool
+reset after a step fault empties rank 0's allocator and has every rank
+forget the outputs of earlier commands (``ModelRunner.reset``): the
+buffers are written in place and never donated, so each shard stays. Physical page 0 is the trash page: never allocated, the target of
 every idle or padding write.
 
 With ``prefix_cache=True`` a :class:`PrefixCache` indexes full pages whose
@@ -82,9 +88,13 @@ class CacheCoordinator:
         eng = self.engine
         cfg = eng.cfg
         store = torch.int8 if eng.quantized else eng.dtype
-        # GPT has no num_kv_heads: one K/V head a query head
+        # GPT has no num_kv_heads: one K/V head a query head. At tp > 1
+        # each rank's pool holds its Hkv/tp heads' lanes of every page
         n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
         shape = (self.num_pages, self.page_size, n_kv * cfg.head_dim)
+        runner = getattr(eng, "runner", None)  # a draft pool has none
+        if runner is not None:
+            shape = runner.page_shape(shape)
         dev = eng.device
         self.k_pages = [torch.zeros(shape, dtype=store, device=dev)
                         for _ in range(cfg.num_layers)]
@@ -251,6 +261,9 @@ class CacheCoordinator:
         (``kv_tier.capture_handoff_spill``) for another engine's
         ``adopt_kv_pages``. Engine thread; waits for the device-to-host
         copy. None when nothing is cached."""
+        if self.engine.runner.sharded:
+            raise TypeError("export_handoff: the KV handoff at tp/ep > 1 "
+                            "is not ported")
         if self.pcache is None:
             return None
         from .kv_tier import capture_handoff_spill
@@ -406,15 +419,8 @@ class CacheCoordinator:
         table."""
         if not self.cow_pending:
             return
-        dev = self.engine.device
-        src = torch.as_tensor([s for s, _ in self.cow_pending],
-                              dtype=torch.int64, device=dev)
-        dst = torch.as_tensor([d for _, d in self.cow_pending],
-                              dtype=torch.int64, device=dev)
-        for pages in (self.k_pages, self.v_pages, self.scale_pages):
-            for p in pages:
-                if p is not None:
-                    p[dst] = p[src]
+        self.engine.runner.copy_pages([s for s, _ in self.cow_pending],
+                                      [d for _, d in self.cow_pending])
         self.cow_pending = []
 
     def corrupt_page(self, page: int):
@@ -423,5 +429,4 @@ class CacheCoordinator:
         place (the captured graphs hold these buffers). A page is only read
         below ``lengths``, rows its next owner rewrites first, and a spliced
         one is checked first when the integrity sentinel is on."""
-        self.k_pages[0][int(page)].fill_(
-            57 if self.engine.quantized else 1e3)
+        self.engine.runner.corrupt_page(page)

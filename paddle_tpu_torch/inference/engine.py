@@ -130,8 +130,22 @@ engine's CUDA device.
 
 The modes combine as in the reference: chunked with the prefix cache,
 chunked with spec, spec with the prefix cache, the tier and the sentinel
-with any of them. Left out of the reference (``ROADMAP.md`` queue A lists
-it): tp/ep. Passing their constructor arguments raises ``TypeError``.
+with any of them.
+
+* **Tensor and expert parallelism** (``tp=``, ``ep=``; ``group=`` a
+  ``distributed.Group`` of exactly ``tp * ep`` ranks, default the world).
+  One process a rank: every rank builds ``Engine(model, tp=2, ...)`` with
+  the same full model, and the engine keeps that rank's shard of it, in
+  place (``runner.py`` gives the plan). Rank 0 runs the engine core and
+  takes the requests (``add_request``, ``step``, ``cancel``, ``run``, the
+  front end); every device operation it performs goes to the other ranks
+  as a command. A follower's ``run()`` (or ``serve_forever()``) runs those
+  commands until rank 0 calls :meth:`Engine.close`. ``tp=1`` is the
+  single-device engine, as in the reference. At tp/ep > 1,
+  ``quantized_cache=True`` raises the reference's ``NotImplementedError``,
+  and what this port does not shard yet raises ``TypeError``: the host KV
+  tier (``kv_host_pages``), ``integrity``, the KV handoff, ``spec="draft"``
+  and weight-only quantized layers (``ROADMAP.md`` queue A).
 """
 from __future__ import annotations
 
@@ -157,7 +171,7 @@ from .errors import (AdmissionRejected, CallbackError, CancelledError,
                      DeadlineExceeded, NumericsError, PoolExhausted,
                      QueueFull, RequestError, RetriesExhausted, StepFault,
                      ValidationError, failure_reason)
-from .runner import ModelRunner
+from .runner import ModelRunner, ShardedEngineError
 from .sampling import advance_sample_key, key_from_seed, select_token
 from .watchdog import Watchdog
 
@@ -540,6 +554,22 @@ class _EngineMetrics:
                              rid=req.rid, tenant=req.tenant)
 
 
+def _refuse_unsharded(model, tp, ep, **opts):
+    """``TypeError`` for what a tp/ep > 1 engine does not shard yet."""
+    missing = []
+    if opts["kv_host_pages"]:
+        missing.append("the host KV tier (kv_host_pages)")
+    if opts["integrity"] is not None:
+        missing.append("integrity")
+    if opts["spec"] == "draft":
+        missing.append('spec="draft"')
+    if any(type(m).__name__ == "WeightOnlyLinear" for m in model.modules()):
+        missing.append("weight-only quantized layers")
+    if missing:
+        raise TypeError(f"Engine(tp={tp}, ep={ep}): {', '.join(missing)} "
+                        "at tp/ep > 1 is not ported")
+
+
 class Engine:
     """Continuous-batching engine; see module docstring."""
 
@@ -562,8 +592,13 @@ class Engine:
                  deadline_s: Optional[float] = None,
                  watchdog: Optional[dict] = None, multi_step: int = 1,
                  fault_plan=None, disaggregate: bool = False,
-                 kv_host_pages: int = 0, integrity=None):
+                 kv_host_pages: int = 0, integrity=None,
+                 tp: Optional[int] = None, ep: Optional[int] = None,
+                 group=None):
         cfg = model.config
+        if int(tp or 1) > 1 or int(ep or 1) > 1:
+            _refuse_unsharded(model, tp, ep, kv_host_pages=kv_host_pages,
+                              integrity=integrity, spec=spec)
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -638,7 +673,12 @@ class Engine:
         self._m = _EngineMetrics() if metrics else None
         if self._m is not None:
             self._m.pages_total.set(self.num_pages - 1)  # page 0 is trash
-        self.runner = ModelRunner(self)
+        # at tp/ep > 1 the runner validates the layout (the reference's
+        # errors), makes the groups and keeps this rank's shard of the model
+        self.runner = ModelRunner(self, tp, ep, group)
+        self.runner.place_params()
+        # the slot quantum the watchdog's batch shrink stays on
+        self._batch_quantum = self.runner.tp if self.runner.sharded else 1
         # what the programs consume, in the reference's order: parameters,
         # then buffers (a quantized model's int8/int4 weights and scales)
         self._params = [p for _, p in model.named_parameters()]
@@ -755,6 +795,9 @@ class Engine:
         admission re-prefills prompt plus them; a seeded sampled stream
         replays one key split per emitted token (not on a spec engine,
         which burns keys per verify step)."""
+        if not self.is_leader:
+            raise RuntimeError("requests are added on rank 0 of a sharded "
+                               "engine")
         raw = np.asarray(prompt)
         if raw.dtype.kind not in "iu":
             self._reject(ValidationError(
@@ -1025,6 +1068,9 @@ class Engine:
         sentinel, each adopted page is checksummed from its restored bytes
         (the shipped ``dev_sums`` are the exporter's, and the reference's
         f32 sums are not this sentinel's)."""
+        if self.runner.sharded:
+            raise TypeError("adopt_kv_pages: the KV handoff at tp/ep > 1 "
+                            "is not ported")
         from .integrity import count_integrity_check
         from .kv_tier import page_bytes
 
@@ -1112,6 +1158,7 @@ class Engine:
         self._chunk_left.clear()
         if self._spec is not None:
             self._spec.drafter.reset()
+        self.runner.reset()
 
     def _reserve_step_pages(self, k, target_len):
         """Allocate this step's pages for every active slot — shrinking the
@@ -1324,11 +1371,15 @@ class Engine:
     def _dev(self, a, dtype=None):
         """``a`` on the engine's device: host data copied in, a device
         tensor (a draft model's proposals) taken as it is, with no host
-        round trip."""
+        round trip. On rank 0 of a sharded engine the runner notes the
+        host data a device tensor came from: a command carries those bytes,
+        not a fetch of the tensor."""
         if isinstance(a, torch.Tensor):
             return a.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(a), device=self.device,
-                               dtype=dtype)
+        t = torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
+        if self.runner.sharded:
+            self.runner.note_host(t, a)
+        return t
 
     # ------------------------------------------------------------ scheduling
     @staticmethod
@@ -1752,10 +1803,9 @@ class Engine:
                     src.append(i)
                     dst.append(row_of[slot])
             if src:
-                src_t = self._dev(src, torch.int64)
-                dst_t = self._dev(dst, torch.int64)
-                last_in[dst_t] = pre_tok[src_t]
-                keys_in[dst_t] = pre_keys[src_t]
+                last_in, keys_in = self.runner.handoff(
+                    last_in, keys_in, self._dev(dst, torch.int64),
+                    self._dev(src, torch.int64), pre_tok, pre_keys)
         decode = self.runner.get_decode(nb, k, bool(np.any(temps_c > 0.0)))
         tables_d, temps_d = self._dev(tables_c), self._dev(temps_c)
         lengths_in = self._dev(lengths_c)
@@ -1763,7 +1813,8 @@ class Engine:
         for _ in range(budget):
             toks, lengths_in, keys_in, bad = decode(
                 tables_d, lengths_in, last_in, temps_d, keys_in)
-            last_in = toks[:, -1]  # the handoff stays on the device
+            # the handoff stays on the device
+            last_in = self.runner.last_token(toks)
             chains.append((toks, lengths_in, keys_in, bad))
             if self._m is not None:
                 self._m.chain_depth_at(k).inc()
@@ -1827,6 +1878,9 @@ class Engine:
         Runs under ``torch.no_grad()`` and on the engine's CUDA device:
         both are per thread in PyTorch, and the serving front end calls
         ``step`` from its own thread."""
+        if not self.is_leader:
+            raise RuntimeError("a follower rank does not schedule: rank 0 "
+                               "steps the engine; call run() here")
         t0 = time.perf_counter()
         if self._watchdog.quarantined:
             # fail-stop on proven corruption: no further token is minted;
@@ -1914,8 +1968,13 @@ class Engine:
         its bucket captures again at its next use.
 
         A fault that left the CUDA context unusable is no fault of one
-        step: it re-raises, and the run fails."""
+        step: it re-raises, and the run fails (a sharded engine's followers
+        are stopped first). So does a sharded engine whose ranks fell apart
+        (``ShardedEngineError``)."""
+        if isinstance(exc, ShardedEngineError):
+            raise exc
         if not self._context_usable():
+            self.runner.stop(error=repr(exc))
             raise exc
         self._watchdog.note_step_fault(exc)
         if _TRACER.enabled:
@@ -2373,9 +2432,35 @@ class Engine:
     def run(self, requests=None) -> List[Request]:
         """Serve ``requests`` (or whatever is queued) to completion. A
         quarantined engine returns early with work still live (``step`` is
-        a no-op there)."""
+        a no-op there). On a follower rank of a sharded engine: run rank
+        0's commands until it calls :meth:`close` (returns ``[]``)."""
+        if not self.is_leader:
+            self.runner.follow()
+            return []
         done = list(requests) if requests else list(self._queue)
         while self.step():
             if self._watchdog.quarantined:
                 break
         return done
+
+    # ------------------------------------------------------ sharded engines
+    @property
+    def is_leader(self) -> bool:
+        """Whether this process runs the engine core: always at tp=ep=1,
+        rank 0 of the engine's group at tp/ep > 1."""
+        return self.runner.is_leader
+
+    def serve_forever(self):
+        """A follower rank's loop (see :meth:`run`); rank 0 steps the
+        engine itself, or through the front end."""
+        if self.is_leader:
+            raise RuntimeError("serve_forever runs a follower rank's loop; "
+                               "rank 0 steps the engine (run, step, or "
+                               "serving.ServingFrontend)")
+        self.runner.follow()
+
+    def close(self):
+        """Rank 0 of a sharded engine: end the followers' loops (their
+        ``run()`` returns). Idempotent; a no-op at tp=ep=1 and on a
+        follower."""
+        self.runner.stop()

@@ -1,5 +1,5 @@
 """Model-runner of the serving engine, after
-``paddle_tpu/inference/runner.py`` on its single-device path (tp=None).
+``paddle_tpu/inference/runner.py``.
 
 The reference jits every engine program (``jax.jit(...,
 donate_argnums)``) and caches one compiled program per shape bucket. Here
@@ -14,7 +14,46 @@ prefix cache's suffix prefill) and chunked prefill's mixed step run
 eagerly. Each new program key counts one
 ``paddle_serving_compiled_programs_total{kind}`` as the reference counts
 its compiles (decode per ``(nb, k, sampling)``), so both engines report
-the same program lattice. There is no mesh.
+the same program lattice.
+
+**Tensor and expert parallelism** (``Engine(tp=, ep=)``). The reference
+traces each program under a ``(tp, ep)`` mesh in one process. The port
+runs one process per rank over ``torch.distributed`` and keeps the
+reference's sharding plan and its validation messages:
+
+==============================  ==================  ====================
+tensor                          global shape        this rank keeps
+==============================  ==================  ====================
+q/k/v/gate/up projection w      [H, out]            columns ``(None, tp)``
+o/down projection w             [in, H]             rows ``(tp, None)``
+column-parallel bias            [out]               ``(tp,)``
+expert stacks                   [E, ...]            ``(ep, None, None)``
+embeddings, norms, router,      (any)               all (replicated)
+lm_head
+KV pages (per layer, k and v)   [P, ps, Hkv*D]      lanes ``(None, None,
+                                                    tp)``
+==============================  ==================  ====================
+
+The ranks lay out ``(tp, ep)`` row-major, ep innermost, as the
+reference's mesh. Each rank's attention runs its ``H/tp`` heads and the
+Megatron all-reduce follows o_proj and down_proj (``models/llama.py``,
+``_tp_reduce`` over the tp group); an MoE layer runs its ``E/ep``
+experts between an ``all_to_all`` and an ``all_gather`` over the ep group.
+Rank 0 owns the engine core (admission, tables, prefix cache, chunking,
+the chain depth, deadlines, the watchdog, recovery). Every device
+operation it performs on the programs or the pool is a :class:`_Program`
+call, which first sends a command to the other ranks (:class:`_Channel`:
+a broadcast header naming the kind and its key, then the packed host
+operands) and then runs here; a follower's loop (:meth:`ModelRunner.follow`)
+runs each command on its shard. A device tensor that an earlier command
+made travels as a reference to that command's output, so chained decode
+keeps its tokens on the device on every rank. No follower decides
+anything itself: its operands are rank 0's decisions. Every rank samples
+from bitwise-equal logits (the all-reduce gives every rank the same sum,
+and ``lm_head`` is replicated), so every rank's streams are rank 0's.
+Over NCCL the decode chain and the verify step stay CUDA graphs (NCCL
+collectives capture); over gloo (two ranks sharing one card) they run
+eagerly, and the runner logs so.
 
 The host KV tier, the KV handoff and the integrity sentinel reach the
 pool and the weights through three helpers: :meth:`ModelRunner.capture_pages`
@@ -30,6 +69,9 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
+import logging
+import pickle
 import threading
 import time
 from collections import OrderedDict
@@ -40,8 +82,9 @@ import torch
 
 from ..kernels import build
 
-__all__ = ["ModelRunner", "GraphSet", "CapturedStep", "int_words",
-           "host_words", "gc_paused", "collect_garbage"]
+__all__ = ["ModelRunner", "GraphSet", "CapturedStep", "ShardedEngineError",
+           "serving_spec",
+           "int_words", "host_words", "gc_paused", "collect_garbage"]
 
 # the integer word of each element size: a tensor viewed as these words
 # keeps its bytes, and numpy holds every one of them (it has no bf16)
@@ -264,19 +307,556 @@ class GraphSet:
         return step
 
 
-class ModelRunner:
-    """Builds and caches the engine's callables per shape bucket; owns the
-    engine's captured steps (``_graphs``)."""
+# projection layers by the attribute that owns them (duck-typed: any
+# model family with the llama-style separate projections shards)
+_COL_LAYERS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_ROW_LAYERS = ("o_proj", "down_proj")
+# stacked expert weights ([E, ...], experts leading) shard over ep; the
+# router stays replicated, so routing is the same on every rank
+_EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
 
-    def __init__(self, engine):
+# the commands rank 0 sends its followers, by header code
+_KINDS = ("stop", "prefill", "decode", "mixed", "verify", "handoff",
+          "last_token", "copy_pages", "corrupt_page", "reset")
+_HEADER = 8   # code, key length, up to 5 key ints, payload bytes
+_KEPT = 16    # commands whose outputs a later command may name
+
+_log = logging.getLogger(__name__)
+_engines = itertools.count()
+
+
+def serving_spec(name: str, shape, tp: int, ep: int) -> tuple:
+    """The serving plan of one parameter, as the reference's sharding spec
+    (its ``ModelRunner._spec_for``): one axis name (or None) a dim; ()
+    keeps it whole. Raises the reference's errors for what the plan cannot
+    split."""
+    parts = name.split(".")
+    layer = parts[-2] if len(parts) >= 2 else ""
+    leaf = parts[-1]
+    if leaf in _EXPERT_LEAVES:
+        if ep == 1:
+            return ()
+        if shape[0] % ep:
+            raise ValueError(
+                f"{name}: expert dim {shape[0]} not divisible by "
+                f"ep={ep}")
+        return ("ep", None, None)
+    if tp == 1:
+        return ()  # ep only: dense weights replicate
+    if "qkv_proj" in name:
+        raise NotImplementedError(
+            "tp > 1 over a packed-QKV projection (GPT's [H, 3H] "
+            "weight interleaves q/k/v per head in a layout a "
+            "contiguous column shard would split wrongly) — serve a "
+            "model family with separate q/k/v projections (LLaMA) "
+            "or tp=1")
+    if layer in _COL_LAYERS:
+        if leaf == "weight":
+            if shape[-1] % tp:
+                raise ValueError(
+                    f"{name}: output dim {shape[-1]} not divisible "
+                    f"by tp={tp}")
+            return (None, "tp")
+        return ("tp",)  # a column-parallel bias shards with its cols
+    if layer in _ROW_LAYERS:
+        if leaf != "weight":
+            raise NotImplementedError(
+                f"{name}: a row-parallel projection with a bias "
+                "would double-count it through the psum — bias-free "
+                "row layers only (the llama convention)")
+        if shape[0] % tp:
+            raise ValueError(
+                f"{name}: input dim {shape[0]} not divisible by "
+                f"tp={tp}")
+        return ("tp", None)
+    return ()
+
+
+class ShardedEngineError(RuntimeError):
+    """A sharded engine's ranks can no longer agree: a command failed after
+    it went out (the ranks may be apart inside a collective), or a follower
+    raised. Not recoverable by a step: the run fails."""
+
+
+class _Ref:
+    """An operand naming output ``i`` of command ``seq``: a device tensor
+    every rank holds its own copy of."""
+    __slots__ = ("seq", "i")
+
+    def __init__(self, seq: int, i: int):
+        self.seq, self.i = seq, i
+
+    def __reduce__(self):
+        return (_Ref, (self.seq, self.i))
+
+
+class _Channel:
+    """Rank 0's commands to its followers over the engine's group: a
+    broadcast ``int64[8]`` header (the kind, its key: bucket, ``(nb, k,
+    sampling)``, ... and the payload's size), then the payload, the
+    command's packed host operands (a pickle of numpy arrays and
+    :class:`_Ref`s) as one ``uint8`` broadcast. Both sides number the
+    commands in order, so a ``_Ref`` names the same command everywhere."""
+
+    def __init__(self, group, device):
+        self.group = group
+        self.src = group.ranks[0]
+        self.dev = device
+        self.seq = 0
+
+    def _bcast(self, t):
+        from ..distributed.collective import broadcast
+
+        broadcast(t, self.src, group=self.group)
+        return t
+
+    def send(self, kind: str, key: Tuple[int, ...], operands) -> int:
+        payload = pickle.dumps(list(operands), protocol=5) \
+            if operands else b""
+        hdr = torch.zeros(_HEADER, dtype=torch.int64)
+        hdr[0] = _KINDS.index(kind)
+        hdr[1] = len(key)
+        hdr[2:2 + len(key)] = torch.tensor([int(x) for x in key])
+        hdr[_HEADER - 1] = len(payload)
+        self._bcast(hdr.to(self.dev))
+        if payload:
+            buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+            self._bcast(buf.to(self.dev))
+        self.seq += 1
+        return self.seq
+
+    def recv(self):
+        hdr = self._bcast(torch.zeros(_HEADER, dtype=torch.int64,
+                                      device=self.dev)).cpu()
+        kind = _KINDS[int(hdr[0])]
+        key = tuple(int(x) for x in hdr[2:2 + int(hdr[1])])
+        n = int(hdr[_HEADER - 1])
+        ops = []
+        if n:
+            buf = self._bcast(torch.empty(n, dtype=torch.uint8,
+                                          device=self.dev))
+            ops = pickle.loads(buf.cpu().numpy().tobytes())
+        self.seq += 1
+        return self.seq, kind, key, ops
+
+
+class _Program:
+    """One engine program (or pool operation) of kind ``kind`` and key
+    ``key``. Called with host arrays (each copied to the engine's device)
+    and device tensors. On rank 0 of a sharded engine the call first sends
+    the command to the followers, then runs ``fn`` here; elsewhere it runs
+    ``fn``."""
+
+    def __init__(self, runner: "ModelRunner", kind: str, key, fn: Callable):
+        self.runner, self.kind, self.key, self.fn = runner, kind, key, fn
+
+    def __call__(self, *operands):
+        r = self.runner
+        if r.channel is not None and r.is_leader:
+            return r._lead(self, operands)
+        return self.fn(*r._materialize(operands))
+
+
+class ModelRunner:
+    """Builds and caches the engine's programs per shape bucket; owns the
+    engine's captured steps (``_graphs``) and, at ``tp`` or ``ep`` > 1,
+    the rank's shard of the model and pool and the command channel
+    (see the module doc)."""
+
+    def __init__(self, engine, tp: Optional[int] = None,
+                 ep: Optional[int] = None, group=None):
         self.engine = engine
+        self.tp = int(tp) if tp else 1
+        self.ep = int(ep) if ep else 1
         self.decode_fns: Dict[Tuple, Callable] = {}
         self.prefill_fns: Dict[Tuple, Callable] = {}
         self.mixed_fns: Dict[Tuple, Callable] = {}
         self.verify_fns: Dict[bool, Callable] = {}
         self._verify_shapes: Set[Tuple[int, bool]] = set()
         self._graphs = GraphSet(engine.device)
+        self.group = self.tp_group = self.ep_group = None
+        self.rank = self.tp_rank = self.ep_rank = 0
+        self.param_specs: Optional[Dict[str, tuple]] = None
+        self.channel: Optional[_Channel] = None
+        self._stopped = False
+        # rank 0: id(output) -> (command, index); followers: command ->
+        # outputs. The last _KEPT commands' outputs are held
+        self._out_ids: Dict[int, Tuple[int, int]] = {}
+        self._kept: "OrderedDict[int, tuple]" = OrderedDict()
+        # rank 0: id(device tensor) -> (tensor, the host data it came from)
+        self._host: "OrderedDict[int, tuple]" = OrderedDict()
+        self._ops = {name: _Program(self, name, (), getattr(self, "_" + name))
+                     for name in ("handoff", "last_token", "copy_pages",
+                                  "corrupt_page", "reset")}
+        if self.tp > 1 or self.ep > 1:
+            self._validate_and_build_groups(group)
 
+    # ------------------------------------------------------------ groups
+    def _validate_and_build_groups(self, group):
+        """The reference's checks, in its order and with its messages, then
+        the rank layout: ``(tp, ep)`` row-major over the engine's group,
+        ep innermost, as the reference's mesh; the tp group holds the
+        ranks of one ep index, the ep group those of one tp index."""
+        import torch.distributed as dist
+
+        from ..distributed.parallel import subgroup
+        from ..distributed.topology import Group
+
+        eng = self.engine
+        cfg = eng.cfg
+        tp, ep = self.tp, self.ep
+        if tp > 1 and eng.quantized:
+            raise NotImplementedError(
+                "tp > 1 with quantized_cache: the int8 scale pages pack "
+                "k/v scales against the GLOBAL kv-head count in their "
+                "128-lane layout, which a lane-sharded pool would split "
+                "mid-field — serve bf16/f32 pages or tp=1")
+        if group is None and dist.is_initialized():
+            group = Group(list(range(dist.get_world_size())),
+                          rank=dist.get_rank(),
+                          process_group=dist.group.WORLD)
+        have = group.nranks if group is not None else 1
+        if have < tp * ep:
+            raise ValueError(
+                f"tp={tp} x ep={ep} needs {tp * ep} ranks (one process a "
+                f"shard), found {have} in the engine's group (start the "
+                "world first: distributed.init_parallel_env)")
+        if tp > 1:
+            n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+            if cfg.num_heads % tp or n_kv % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_heads={cfg.num_heads} and "
+                    f"num_kv_heads={n_kv} (the KV pool shards by head)")
+            inter = getattr(cfg, "intermediate_size", 0)
+            if inter and inter % tp:
+                raise ValueError(
+                    f"tp={tp} must divide intermediate_size={inter}")
+        if ep > 1:
+            n_exp = getattr(cfg, "num_experts", 0)
+            if not n_exp:
+                raise ValueError(
+                    f"ep={ep} on a dense model: expert parallelism "
+                    "shards the stacked expert weights, which this "
+                    "config does not have (num_experts=0) — serve an "
+                    "MoE config or ep=1")
+            if n_exp % ep:
+                raise ValueError(
+                    f"ep={ep} must divide num_experts={n_exp} (each "
+                    "shard owns a contiguous block of experts)")
+        if have > tp * ep:
+            raise ValueError(
+                f"tp={tp} x ep={ep} runs on exactly {tp * ep} ranks; the "
+                f"engine's group has {have} (pass group= of that size)")
+        self.param_specs = {name: serving_spec(name, p.shape, tp, ep)
+                            for name, p in eng.model.named_parameters()}
+        self.group = group
+        self.rank = group.rank
+        self.tp_rank, self.ep_rank = divmod(self.rank, ep)
+        ranks = group.ranks
+        # every member makes every subgroup, in one order
+        tp_groups = [[ranks[i * ep + j] for i in range(tp)]
+                     for j in range(ep)]
+        ep_groups = [[ranks[i * ep + j] for j in range(ep)]
+                     for i in range(tp)]
+        made = {tuple(rs): subgroup(rs) for rs in tp_groups + ep_groups
+                if len(rs) > 1}
+        if tp > 1:
+            self.tp_group = made[tuple(tp_groups[self.ep_rank])]
+        if ep > 1:
+            self.ep_group = made[tuple(ep_groups[self.tp_rank])]
+        backend = dist.get_backend(group.process_group)
+        dev = eng.device if backend == "nccl" else torch.device("cpu")
+        self.channel = _Channel(group, dev)
+        self._engine_id = next(_engines)
+        if backend != "nccl" and eng.device.type == "cuda":
+            # gloo's collectives cannot be captured into a CUDA graph
+            self._graphs.enabled = False
+            _log.warning(
+                "tp=%d ep=%d over gloo: the decode chain and the verify "
+                "step run eagerly (CUDA graphs capture NCCL collectives "
+                "only)", tp, ep)
+
+    @property
+    def sharded(self) -> bool:
+        return self.channel is not None
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def coords(self) -> Dict[str, Tuple[int, int]]:
+        """This rank's ``(index, size)`` along ``tp`` and ``ep``."""
+        return {"tp": (self.tp_rank, self.tp), "ep": (self.ep_rank, self.ep)}
+
+    @property
+    def page_spec(self) -> tuple:
+        """The pool's split: KV-head lanes over tp (an ep-only engine keeps
+        the whole pool on every rank, each running full attention)."""
+        return (None, None, "tp") if self.tp > 1 else ()
+
+    def page_shape(self, shape) -> Tuple[int, ...]:
+        """This rank's shard of a ``[pages, page_size, Hkv * D]`` pool
+        buffer."""
+        from ..distributed.fleet.meta_parallel.tensor_parallel import \
+            shard_slices
+
+        idx = shard_slices(shape, self.page_spec, self.coords)
+        return tuple(len(range(*s.indices(n))) for s, n in zip(idx, shape))
+
+    # -------------------------------------------------------- placement
+    @torch.no_grad()
+    def place_params(self):
+        """Keep this rank's shard of every parameter, in place (the full
+        tensors go, so the pools that follow have their room), and arm the
+        local view. A model already sharded for this layout is taken as
+        it is; one sharded otherwise raises."""
+        if not self.sharded:
+            return
+        from ..distributed.fleet.meta_parallel.tensor_parallel import \
+            shard_tensor
+
+        model = self.engine.model
+        layout = (self.tp, self.ep, self.tp_rank, self.ep_rank)
+        done = getattr(model, "_serving_shard", None)
+        if done is not None and done != layout:
+            raise ValueError(f"the model is already sharded as (tp, ep, "
+                             f"tp_rank, ep_rank)={done}, not {layout}")
+        if done is None:
+            for name, p in model.named_parameters():
+                spec = self.param_specs[name]
+                if spec:
+                    p.data = shard_tensor(p.data, spec, self.coords)
+            model._serving_shard = layout
+        self.local_view()
+        if self.engine.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def local_view(self):
+        """Arm this rank's model for its shard: attention modules take the
+        local head counts (global / tp) and, with the MLPs, the tp group
+        (``_tp_group``: the Megatron all-reduce after o_proj and
+        down_proj); MoE layers take the ep group (``_ep_group``: the
+        all_to_all dispatch and the all_gather combine). Idempotent."""
+        for lyr in self.engine.model.modules():
+            if hasattr(lyr, "router") and hasattr(lyr, "experts_gate"):
+                lyr._ep_group = self.ep_group
+            elif self.tp > 1 and hasattr(lyr, "o_proj") \
+                    and hasattr(lyr, "num_heads"):
+                if not getattr(lyr, "_tp_local", False):
+                    lyr.num_heads //= self.tp
+                    lyr.num_kv_heads //= self.tp
+                    lyr._tp_local = True
+                lyr._tp_group = self.tp_group
+            elif self.tp > 1 and hasattr(lyr, "down_proj") \
+                    and hasattr(lyr, "gate_proj"):
+                lyr._tp_group = self.tp_group
+
+    # ---------------------------------------------------------- commands
+    def _materialize(self, operands):
+        """Operands as the programs take them: host data on the engine's
+        device, a :class:`_Ref` as this rank's tensor, tensors as they
+        are."""
+        eng = self.engine
+        out = []
+        for o in operands:
+            if isinstance(o, _Ref):
+                o = self._kept[o.seq][o.i]
+            elif o is not None and not isinstance(o, torch.Tensor):
+                o = eng._dev(np.asarray(o))
+            out.append(o)
+        return out
+
+    def note_host(self, t: torch.Tensor, a):
+        """Rank 0: ``t`` was made from host data ``a`` (``Engine._dev``);
+        the last few are kept."""
+        if self.is_leader:
+            self._host[id(t)] = (t, np.asarray(a).astype(
+                np.dtype(str(t.dtype).replace("torch.", "")), copy=False))
+            while len(self._host) > 4 * _KEPT:
+                self._host.popitem(last=False)
+
+    def _encode(self, o):
+        """An operand as a command carries it: a tensor an earlier command
+        made as a reference to it, a tensor made from host data as that
+        data, any other tensor as its fetched values."""
+        if o is None or isinstance(o, np.ndarray):
+            return o
+        if isinstance(o, torch.Tensor):
+            ref = self._out_ids.get(id(o))
+            if ref is not None:
+                return _Ref(*ref)
+            held = self._host.get(id(o))
+            if held is not None and held[0] is o:
+                return held[1]
+            return o.detach().cpu().numpy()
+        return np.asarray(o)
+
+    def _keep(self, seq: int, outputs):
+        outs = tuple(outputs) if isinstance(outputs, (tuple, list)) \
+            else (() if outputs is None else (outputs,))
+        self._kept[seq] = outs
+        if self.is_leader:
+            for i, t in enumerate(outs):
+                if isinstance(t, torch.Tensor):
+                    self._out_ids[id(t)] = (seq, i)
+        while len(self._kept) > _KEPT:
+            _, old = self._kept.popitem(last=False)
+            if self.is_leader:
+                for t in old:
+                    self._out_ids.pop(id(t), None)
+
+    def _lead(self, prog: _Program, operands):
+        """Rank 0's call of a program: the command goes out first, then the
+        program runs here. A failure after the command went out leaves the
+        ranks apart: it raises :class:`ShardedEngineError`."""
+        if self._stopped:
+            raise ShardedEngineError("the engine was closed: its followers "
+                                     "have left their loops")
+        enc = [self._encode(o) for o in operands]
+        try:
+            seq = self.channel.send(prog.kind, prog.key, enc)
+            out = prog.fn(*self._materialize(operands))
+        except Exception as e:
+            raise ShardedEngineError(
+                f"{prog.kind}{prog.key} failed on rank 0 after its command "
+                f"went out: {e!r}{self._follower_errors()}") from e
+        self._keep(seq, out)
+        return out
+
+    def _error_key(self, rank: int) -> str:
+        """The store key of global ``rank``'s error in this engine (every
+        rank of a group makes its sharded engines in one order, so the
+        engines' counts agree)."""
+        return f"paddle_tpu_torch/serving/{self._engine_id}/error/{rank}"
+
+    def _store(self):
+        import torch.distributed.distributed_c10d as c10d
+
+        return c10d._get_default_store()
+
+    def _follower_errors(self) -> str:
+        """What a follower that raised left in the world's store."""
+        try:
+            store = self._store()
+            msgs = [f"rank {r}: {store.get(self._error_key(r)).decode()}"
+                    for r in self.group.ranks[1:]
+                    if store.check([self._error_key(r)])]
+        except Exception:  # noqa: BLE001 - the store may be gone too
+            return ""
+        return ("; followers: " + " | ".join(msgs)) if msgs else ""
+
+    def _resolve(self, kind: str, key: Tuple[int, ...]) -> _Program:
+        if kind == "prefill":
+            nb, seq, sampling, suffix = key
+            return self.get_prefill((nb, seq), bool(sampling), bool(suffix))
+        if kind == "decode":
+            nb, k, sampling = key
+            return self.get_decode(nb, k, bool(sampling))
+        if kind == "mixed":
+            nb, sampling = key
+            return self.get_mixed(nb, bool(sampling))
+        if kind == "verify":
+            return self.get_verify(bool(key[0]))
+        return self._ops[kind]
+
+    def follow(self):
+        """A follower's loop: run every command rank 0 sends, on this
+        rank's shard, until rank 0 stops. A command that raises here is
+        written to the world's store for rank 0 to report, and raises
+        :class:`ShardedEngineError`."""
+        eng = self.engine
+        while True:
+            seq, kind, key, ops = self.channel.recv()
+            if kind == "stop":
+                self._kept.clear()
+                if ops and ops[0] is not None:
+                    raise ShardedEngineError(
+                        f"rank 0 stopped on a fault: {ops[0]}")
+                return
+            try:
+                prog = self._resolve(kind, key)
+                out = prog.fn(*self._materialize(ops))
+            except Exception as e:
+                me = self.group.ranks[self.rank]  # the global rank
+                try:
+                    self._store().set(self._error_key(me),
+                                      f"{kind}{key}: {e!r}")
+                except Exception:  # noqa: BLE001 - the report is best-effort
+                    pass
+                raise ShardedEngineError(
+                    f"rank {me} failed running {kind}{key}: {e!r}") from e
+            self._keep(seq, out)
+            # rank 0 reads the router stats; the followers' copies go
+            eng._moe_pending.clear()
+
+    def stop(self, error: Optional[str] = None):
+        """Rank 0: end the followers' loops (``error``: they raise with
+        it). A no-op elsewhere."""
+        if self.channel is not None and self.is_leader \
+                and not self._stopped:
+            self._stopped = True
+            self.channel.send("stop", (), [error] if error else [])
+            self._kept.clear()
+            self._out_ids.clear()
+            self._host.clear()
+
+    # ------------------------------------------------------ pool commands
+    def handoff(self, last, keys, dst, src, src_tok, src_keys):
+        """The chain's first tokens and keys: the host rows ``last`` /
+        ``keys`` with rows ``dst`` taken from rows ``src`` of an admission
+        prefill's device outputs (no host round trip)."""
+        return self._ops["handoff"](last, keys, dst, src, src_tok, src_keys)
+
+    @staticmethod
+    def _handoff(last, keys, dst, src, src_tok, src_keys):
+        last[dst] = src_tok[src]
+        keys[dst] = src_keys[src]
+        return last, keys
+
+    def last_token(self, toks):
+        """Column -1 of a chain's tokens: the next chain's input."""
+        return self._ops["last_token"](toks)
+
+    @staticmethod
+    def _last_token(toks):
+        return toks[:, -1]
+
+    def copy_pages(self, src, dst):
+        """Copy-on-write: pages ``src`` into pages ``dst`` of every pool
+        buffer, in place."""
+        return self._ops["copy_pages"](np.asarray(src, np.int64),
+                                       np.asarray(dst, np.int64))
+
+    def _copy_pages(self, src, dst):
+        c = self.engine._cache
+        for pages in (c.k_pages, c.v_pages, c.scale_pages):
+            for p in pages:
+                if p is not None:
+                    p[dst] = p[src]
+
+    def corrupt_page(self, page: int):
+        """The cache-corruption fault points' damage to one page (see
+        ``CacheCoordinator.corrupt_page``), on every rank's shard."""
+        return self._ops["corrupt_page"](np.asarray([int(page)], np.int64))
+
+    def _corrupt_page(self, page):
+        eng = self.engine
+        eng._cache.k_pages[0].index_fill_(0, page,
+                                          57 if eng.quantized else 1e3)
+
+    def reset(self):
+        """After a step fault: every rank forgets the outputs a later
+        command could have named."""
+        self._ops["reset"]()
+        self._kept.clear()
+        self._out_ids.clear()
+        self._host.clear()
+
+    def _reset(self):
+        self._kept.clear()
+
+    # ---------------------------------------------------------- programs
     def _count(self, kind: str):
         m = self.engine._m
         if m is not None:
@@ -287,8 +867,9 @@ class ModelRunner:
         fn = self.decode_fns.get(key)
         if fn is None:
             self._count("decode")
-            fn = self.decode_fns[key] = self._decode_chain(
-                nb, k * self.engine.chunk_size, sampling)
+            fn = self.decode_fns[key] = _Program(
+                self, "decode", (nb, k, int(sampling)),
+                self._decode_chain(nb, k * self.engine.chunk_size, sampling))
         return fn
 
     def _decode_chain(self, nb: int, steps: int, sampling: bool):
@@ -330,8 +911,10 @@ class ModelRunner:
         fn = self.prefill_fns.get(key)
         if fn is None:
             self._count("prefill")
-            fn = self.prefill_fns[key] = self.engine._make_prefill_raw(
-                sampling, suffix)
+            fn = self.prefill_fns[key] = _Program(
+                self, "prefill", (bucket[0], bucket[1], int(sampling),
+                                  int(suffix)),
+                self.engine._make_prefill_raw(sampling, suffix))
         return fn
 
     def get_mixed(self, nb: int, sampling: bool) -> Callable:
@@ -342,8 +925,9 @@ class ModelRunner:
             self._count("mixed")
             from .engine import make_mixed_step_fn
 
-            fn = self.mixed_fns[key] = make_mixed_step_fn(self.engine,
-                                                          sampling)
+            fn = self.mixed_fns[key] = _Program(
+                self, "mixed", (nb, int(sampling)),
+                make_mixed_step_fn(self.engine, sampling))
         return fn
 
     def note_verify_shape(self, nb: int, sampling: bool):
@@ -352,6 +936,22 @@ class ModelRunner:
         if (nb, sampling) not in self._verify_shapes:
             self._verify_shapes.add((nb, sampling))
             self._count("verify")
+
+    def get_verify(self, sampling: bool) -> Callable:
+        """The spec-decode verify step (one callable per sampling flag; it
+        captures one graph per batch bucket its arguments bring)."""
+        fn = self.verify_fns.get(sampling)
+        if fn is None:
+            from .spec.verifier import make_verify_fn
+
+            fn = self.verify_fns[sampling] = self.wrap_verify(
+                make_verify_fn(self.engine, sampling), sampling)
+        return fn
+
+    def wrap_verify(self, raw: Callable, sampling: bool) -> Callable:
+        """The verify step as a program: at tp/ep > 1, rank 0's call goes
+        out as a command first."""
+        return _Program(self, "verify", (int(sampling),), raw)
 
     # ------------------------------------------------- page and weight bytes
     @staticmethod
@@ -404,14 +1004,3 @@ class ModelRunner:
         flat = self.engine._params[i].detach().reshape(-1)
         return host_words(flat[int(start):None if stop is None
                                else int(stop)])
-
-    def get_verify(self, sampling: bool) -> Callable:
-        """The spec-decode verify step (one callable per sampling flag; it
-        captures one graph per batch bucket its arguments bring)."""
-        fn = self.verify_fns.get(sampling)
-        if fn is None:
-            from .spec.verifier import make_verify_fn
-
-            fn = self.verify_fns[sampling] = make_verify_fn(self.engine,
-                                                            sampling)
-        return fn

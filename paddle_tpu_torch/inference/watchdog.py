@@ -159,6 +159,12 @@ class Watchdog:
         eng._spec_enabled = self.level < NO_SPEC
         cap = (eng.max_slots if self.level < SMALL_BATCH
                else max(1, eng.max_slots // 2))
+        # a sharded engine's slot cap stays on its batch quantum (the tp
+        # degree), as the reference's: the halved cap rounds up to it,
+        # clamped at max_slots; a single-device engine's quantum is 1
+        q = max(1, int(getattr(eng, "_batch_quantum", 1)))
+        if q > 1:
+            cap = min(eng.max_slots, -(-cap // q) * q)
         eng._slot_cap = cap
         if eng._m is not None:
             eng._m.degraded.set(self.level)

@@ -26,8 +26,18 @@ GQA stays native on every decode path: no repeat of K/V.
 With ``num_experts > 0`` every block's MLP is ``LlamaMoEMLP``: GShard-style
 top-k routing with a static per-expert capacity (overflow pairs drop and
 the combine renormalises) and the experts' SwiGLU through the grouped
-matmul kernel #13, on one device (the reference's expert-parallel
-``all_to_all`` / ``all_gather`` path is not ported).
+matmul kernel #13.
+
+Tensor and expert parallelism (one process a rank; the serving runner
+``inference/runner.py`` keeps each rank's shard and arms the modules):
+an attention module holding ``H/tp`` heads, or an MLP holding ``F/tp``
+columns, sums its row-parallel output projection over ``_tp_group``
+(:func:`_tp_reduce`, the reference's Megatron ``psum``); an MoE layer
+holding ``E/ep`` experts runs the reference's expert-parallel dispatch over
+``_ep_group``: routing replicated, an ``all_to_all`` of the
+capacity-padded ``[E, C, H]`` dispatch, #13 over the local experts, an
+``all_gather`` of their outputs. Unarmed (None) both are the one-device
+path, unchanged.
 """
 from __future__ import annotations
 
@@ -125,6 +135,17 @@ def tiny_moe_llama_config(**kw):
     return LlamaConfig(**base)
 
 
+def _tp_reduce(t, group):
+    """The Megatron ``g`` collective of a row-parallel projection: the sum
+    of the ranks' partial products over the tensor-parallel group, in
+    place. Identity when ``group`` is None (one device, unchanged)."""
+    if group is None:
+        return t
+    from ..distributed.collective import all_reduce
+
+    return all_reduce(t, group=group)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -185,7 +206,10 @@ class LlamaAttention(nn.Module):
         else:
             # the decode kernels read kv head h // group natively
             out, new_cache = cache_decode_step(cache, q, k, v, time_step)
-        out = self.o_proj(out.reshape(b, s, nh * hd))
+        # nh is this rank's head count at tp > 1: o_proj holds the rows of
+        # these heads and the all-reduce sums the ranks' partial outputs
+        out = _tp_reduce(self.o_proj(out.reshape(b, s, nh * hd)),
+                         getattr(self, "_tp_group", None))
         if cache is not None:
             return out, new_cache
         return out
@@ -203,7 +227,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = pnn.Linear(m, h, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _tp_reduce(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+            getattr(self, "_tp_group", None))
 
 
 # Router-stats side channel: the engine arms the tap around each forward of
@@ -277,16 +303,27 @@ def _top_k(p, k):
 
 
 def _moe_forward(m: LlamaMoEMLP, x):
-    """The reference's ``_moe_forward`` at ep=1: routing (f32 softmax,
-    top-k, arrival ranks in gshard column-major pair order, capacity
-    keep/drop), dispatch into a capacity-padded ``[E*C, H]`` buffer by a
-    scatter-add with a dump row for dropped pairs, the experts' SwiGLU as
-    three grouped matmuls over C-row segments (kept counts as valid sizes,
-    so capacity padding is skipped and comes back zero), and the combine
-    renormalised over kept choices, summed in f32 in choice order. No step
-    waits for the device."""
+    """The reference's ``_moe_forward``: routing (f32 softmax, top-k,
+    arrival ranks in gshard column-major pair order, capacity keep/drop),
+    dispatch into a capacity-padded ``[E*C, H]`` buffer by a scatter-add
+    with a dump row for dropped pairs, the experts' SwiGLU as three grouped
+    matmuls over C-row segments (kept counts as valid sizes, so capacity
+    padding is skipped and comes back zero), and the combine renormalised
+    over kept choices, summed in f32 in choice order. No step waits for the
+    device.
+
+    With ``_ep_group`` (ep ranks, each holding ``E/ep`` experts) the
+    routing stays replicated, so the drop set is ep=1's bit for bit. Each
+    rank scatters only its ``ceil(T/ep)`` token slice's pairs; an
+    ``all_to_all`` moves each expert block to its owner, where the sum over
+    source ranks adds exact zeros (every slot has one writer); #13 runs the
+    local experts, and an ``all_gather`` brings every expert's rows back
+    for the replicated combine."""
     b, s, hd = x.shape
     e, k = m.num_experts, m.top_k
+    grp = getattr(m, "_ep_group", None)
+    el = m.experts_gate.shape[0]   # local experts: E, or E/ep sharded
+    ep = e // el
     t = b * s
     xt = x.reshape(t, hd)
     dev = x.device
@@ -308,18 +345,39 @@ def _moe_forward(m: LlamaMoEMLP, x):
 
     # ---- dispatch: capacity-padded [E, C, H], slots by rank ----------
     gslot = gate_idx * cap + torch.clamp(rank, 0, cap - 1)
-    slot = torch.where(keep, gslot, torch.full_like(gslot, e * cap))
+    pair_ok = keep
+    if grp is not None:
+        # this rank's token slice only; the all_to_all below moves every
+        # pair to its expert's owner
+        sidx = grp.rank
+        tl = -(-t // ep)
+        tok = torch.arange(t, device=dev)
+        pair_ok = keep & ((tok >= sidx * tl) & (tok < (sidx + 1) * tl))[
+            :, None]
+    slot = torch.where(pair_ok, gslot, torch.full_like(gslot, e * cap))
     xp = xt[:, None, :].expand(t, k, hd).reshape(t * k, hd)
     disp = torch.zeros((e * cap + 1, hd), dtype=xt.dtype, device=dev)
     disp.index_add_(0, slot.reshape(-1), xp)
     rows = disp[:e * cap]
+    kc_l = kc
+    if grp is not None:
+        from ..distributed.collective import all_to_all_single
+
+        recv = all_to_all_single(rows.reshape(ep, el * cap, hd), grp)
+        rows = recv.sum(0)                                    # [El*C, H]
+        kc_l = kc[sidx * el:(sidx + 1) * el]
 
     # ---- grouped expert SwiGLU over contiguous C-row segments ---------
-    gs = torch.full((e,), cap, dtype=torch.int32, device=dev)
+    gs = torch.full((el,), cap, dtype=torch.int32, device=dev)
     dt = rows.dtype
-    h1 = grouped_matmul(rows, m.experts_gate.to(dt), gs, kc)
-    h2 = grouped_matmul(rows, m.experts_up.to(dt), gs, kc)
-    y_all = grouped_matmul(F.silu(h1) * h2, m.experts_down.to(dt), gs, kc)
+    h1 = grouped_matmul(rows, m.experts_gate.to(dt), gs, kc_l)
+    h2 = grouped_matmul(rows, m.experts_up.to(dt), gs, kc_l)
+    y_all = grouped_matmul(F.silu(h1) * h2, m.experts_down.to(dt), gs,
+                           kc_l)
+    if grp is not None:
+        from ..distributed.collective import all_gather
+
+        y_all = torch.cat(all_gather([], y_all.contiguous(), grp), dim=0)
 
     # ---- combine: renormalised over kept choices, f32, choice order ---
     wk = torch.where(keep, gate_val, torch.zeros_like(gate_val))

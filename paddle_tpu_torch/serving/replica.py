@@ -260,6 +260,16 @@ class Replica:
         return 0
 
 
+def _unsharded(frontend):
+    """``frontend``, unless its engine is sharded (tp/ep > 1): a router or
+    a cluster coordinator over sharded engines is not ported."""
+    runner = getattr(getattr(frontend, "engine", None), "runner", None)
+    if runner is not None and runner.sharded:
+        raise TypeError("a Router / ClusterCoordinator replica over a "
+                        "tp/ep > 1 engine is not ported")
+    return frontend
+
+
 class InProcReplica(Replica):
     """An Engine + ServingFrontend replica in this process. ``factory()``
     returns a :class:`~paddle_tpu_torch.serving.frontend.ServingFrontend`
@@ -278,7 +288,7 @@ class InProcReplica(Replica):
 
     def start(self):
         if self._fe is None:
-            self._fe = self._factory()
+            self._fe = _unsharded(self._factory())
             self._fe.start()
         return self
 
@@ -317,7 +327,7 @@ class InProcReplica(Replica):
             # collect them before the factory allocates the next pool
             del dead
             collect_garbage()
-        self._fe = self._factory()
+        self._fe = _unsharded(self._factory())
         self._fe.start()
         self.restarts += 1
         return self

@@ -11,6 +11,8 @@ modes that ride the verify kernel are in ``test_torch_serving_modes.py``;
 pre-admission, the measured boundary cost, ``disaggregate=`` and
 ``fault_plan=`` in ``test_torch_scheduler.py`` and
 ``test_torch_faultinject.py``)."""
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,11 +178,46 @@ def test_sampled_resume_continues_the_stream(models):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tp=2), dict(ep=2), dict(tp=2, ep=2), dict(tp=1)])
+    dict(tp=2, prefix_cache=True, kv_host_pages=8), dict(ep=2,
+                                                         integrity="audit"),
+    dict(tp=2, ep=2, spec="draft"), dict(tp=2, quant="weight_only_int8")])
 def test_unported_knobs_raise_type_error(models, knob):
+    """What a tp/ep > 1 engine does not shard yet raises ``TypeError``
+    naming it, before any rank is needed: the host KV tier, the integrity
+    sentinel, draft-model spec decoding, weight-only quantized layers."""
     _, tm = models
-    with pytest.raises(TypeError):
-        Engine(tm, num_pages=32, device="cpu", **GEOM, **knob)
+    knob = dict(knob)
+    names = {"kv_host_pages": "kv_host_pages", "integrity": "integrity",
+             "spec": "draft", "quant": "weight-only"}
+    key = next(v for k, v in names.items() if k in knob)
+    model = tm
+    if "quant" in knob:
+        from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+        model = copy.deepcopy(tm)
+        quantize_for_decode(model, algo=knob.pop("quant"))
+    if knob.get("spec") == "draft":
+        knob["draft_model"] = tm
+    with pytest.raises(TypeError, match=key):
+        Engine(model, num_pages=32, device="cpu", **GEOM, **knob)
+
+
+def test_tp1_is_the_single_device_engine(models):
+    """``tp=1`` (and ``ep=1``) builds the single-device engine, as the
+    reference's; tp > 1 with no process world raises the reference's
+    ``ValueError``, and a quantized cache at tp > 1 its
+    ``NotImplementedError``, before any rank is needed."""
+    _, tm = models
+    eng = Engine(tm, num_pages=32, device="cpu", tp=1, ep=1, **GEOM)
+    assert not eng.runner.sharded and eng.is_leader
+    assert eng._batch_quantum == 1
+    assert eng.runner.param_specs is None
+    eng.close()  # a no-op without followers
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        Engine(tm, num_pages=32, device="cpu", tp=2, **GEOM)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        Engine(tm, num_pages=32, device="cpu", tp=2, quantized_cache=True,
+               **GEOM)
 
 
 def test_draft_knobs_are_ported(models):

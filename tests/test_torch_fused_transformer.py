@@ -281,12 +281,15 @@ def test_fmt_cached_decode_matches_uncached(fmt, kind):
 
 
 def test_fmt_refusals():
-    with pytest.raises(TypeError):
+    # nranks must be the model-parallel group's size (one process, no
+    # world: a group of one); ring_id alone on one rank is the plain layer
+    with pytest.raises(ValueError, match="nranks=2"):
         FusedMultiTransformer(EMB, NH, FF, num_layers=1, nranks=2,
                               device="cpu")
-    with pytest.raises(TypeError):
-        FusedMultiTransformer(EMB, NH, FF, num_layers=1, ring_id=0,
-                              device="cpu")
+    one = FusedMultiTransformer(EMB, NH, FF, num_layers=1, ring_id=0,
+                                device="cpu")
+    assert one.group is None and one.qkv_weights[0].shape == (3, NH, HD,
+                                                              EMB)
     with pytest.raises(ValueError):
         FusedMultiTransformer(EMB, NH, FF, num_layers=1,
                               normalize_before=False, device="cpu")
@@ -362,10 +365,15 @@ def test_fused_encoder_layer_matches_jax(pre_ln):
 
 
 def test_fused_layers_refuse_tensor_parallel():
-    with pytest.raises(TypeError):
+    """Tensor parallelism is ported (see the ``nranks=2`` tests below); an
+    ``nranks`` that the model-parallel group does not have is refused, and
+    ``ring_id`` on a group of one rank is the plain layer."""
+    with pytest.raises(ValueError, match="nranks=2"):
         FusedMultiHeadAttention(EMB, NH, nranks=2, device="cpu")
-    with pytest.raises(TypeError):
-        FusedFeedForward(EMB, FF, ring_id=1, device="cpu")
+    with pytest.raises(ValueError, match="nranks=2"):
+        FusedFeedForward(EMB, FF, nranks=2, device="cpu")
+    ffn = FusedFeedForward(EMB, FF, ring_id=1, device="cpu")
+    assert ffn.group is None and ffn.linear1_weight.shape == (EMB, FF)
 
 
 def test_dropout_draws_from_the_generator():
@@ -436,10 +444,16 @@ def test_fused_multi_head_attention_op(pre_ln, masked):
     got = call(IF, torch.from_numpy,
                torch.from_numpy(keep) if masked else None)
     np.testing.assert_allclose(got.numpy(), _jnp(want), **TOL)
-    with pytest.raises(TypeError):
-        IF.fused_multi_head_attention(torch.from_numpy(x),
-                                      torch.from_numpy(qkv_w),
-                                      torch.from_numpy(lin_w), ring_id=0)
+    # ring_id on a group of one rank (no world) is the plain op
+    plain = IF.fused_multi_head_attention(
+        torch.from_numpy(x), torch.from_numpy(qkv_w),
+        torch.from_numpy(lin_w), dropout_rate=0.0, attn_dropout_rate=0.0,
+        training=False)
+    ring = IF.fused_multi_head_attention(
+        torch.from_numpy(x), torch.from_numpy(qkv_w),
+        torch.from_numpy(lin_w), dropout_rate=0.0, attn_dropout_rate=0.0,
+        training=False, ring_id=0)
+    assert torch.equal(plain, ring)
 
 
 def test_fused_softmax_masks():
@@ -518,3 +532,91 @@ def test_scaled_dot_product_attention(mask, causal):
         *(torch.from_numpy(t) for t in (q, k, v)), attn_mask=tm,
         is_causal=causal, training=False)
     np.testing.assert_allclose(got.numpy(), _jnp(want), **TOL)
+
+
+# ---------------------------------------------- tensor parallelism, nranks=2
+# Two gloo ranks (``_torch_fused_world.worker``) each build the layers at
+# nranks=2 from the full weights below and keep their shard; their outputs
+# are held against the reference's FULL layer on the same inputs (the
+# reference shards by sharding specs, so its layer computes the full
+# math). Tolerances: 2e-5, and 1e-4 after decode steps fed their own
+# outputs (the split GEMMs sum in another order).
+@pytest.fixture(scope="module")
+def tp_world(tmp_path_factory):
+    import _torch_fused_world as FW
+    import _torch_world as W
+
+    paddle.seed(0)
+    jm = _randomize(JaxFMT(EMB, NH, FF, num_layers=LAYERS), 21)
+    mha = _randomize(JaxMHA(EMB, NH, normalize_before=True), 22)
+    ffn = _randomize(JaxFFN(EMB, FF, activation="gelu",
+                            normalize_before=True), 23)
+    arrays = {}
+    for name in _LISTS:
+        for i, p in enumerate(getattr(jm, name)):
+            arrays[f"fmt.{name}.{i}"] = _jnp(p)
+    for tag, layer in (("mha", mha), ("ffn", ffn)):
+        for k, v in param_arrays(layer).items():
+            arrays[f"{tag}.{k}"] = np.asarray(v)
+    tmp = tmp_path_factory.mktemp("fused_tp")
+    np.savez(tmp / "arrays.npz", **arrays)
+    ranks = W.run_world(FW.worker, 2, tmp, str(tmp / "arrays.npz"))
+    return dict(jm=jm, mha=mha, ffn=ffn, ranks=ranks)
+
+
+def _tp_want(tp_world, case):
+    import _torch_fused_world as FW
+
+    jm = tp_world["jm"]
+    if case == "fmt_none":
+        return [_jnp(_jax_run(jm, FW.x_of(2, (2, 8, EMB))))]
+    if case.startswith("fmt_"):
+        kind = case[4:]
+        x, tok = FW.x_of(4, (B, S0, EMB)), FW.x_of(5, (B, 1, EMB))
+        return [_jnp(w) for w in _generate(jm, _jax_caches(kind), x, tok, 3,
+                                           _run_jax)]
+    xm = Tensor._wrap(jnp.asarray(FW.x_of(11, (2, 5, EMB))))
+    layer = tp_world["mha" if case.startswith("mha") else "ffn"]
+    return [_jnp(layer(xm))]
+
+
+TP_CASES = ["fmt_none"] + [f"fmt_{k}" for k in KINDS] + [
+    "mha", "ffn", "mha_op", "ffn_op"]
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tensor_parallel_matches_reference_full_layer(tp_world, case):
+    """nranks=2 (``ring_id=0`` for the ops): every rank's output equals the
+    reference's full layer (the 5-D, slab, PagedKVCache and
+    PagedCacheState caches holding each rank's two heads); the two ranks'
+    outputs are equal bit for bit (one all-reduce result)."""
+    r0, r1 = (r[case] for r in tp_world["ranks"])
+    want = _tp_want(tp_world, case)
+    tol = 1e-4 if case.startswith("fmt_") and case != "fmt_none" else 2e-5
+    for i, (g, w) in enumerate(zip(r0, want)):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol,
+                                   err_msg=f"{case} output {i}")
+    for a, b in zip(r0, r1):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_tensor_parallel_shards_concatenate_to_full(tp_world):
+    """The shard step (``convert.fused_multi_transformer_from_numpy(...,
+    nranks=2)``): each split parameter's two shards, concatenated along its
+    split dim, are the reference's parameter; the whole ones are equal."""
+    from paddle_tpu_torch.incubate.nn.layer.fused_transformer import \
+        _MP_SPECS
+
+    jm = tp_world["jm"]
+    s0, s1 = (r["fmt_shards"] for r in tp_world["ranks"])
+    for name in _LISTS:
+        for i, p in enumerate(getattr(jm, name)):
+            key = f"{name}_{i}"
+            spec = _MP_SPECS.get(name)
+            if spec is None:
+                np.testing.assert_array_equal(s0[key], _jnp(p))
+                np.testing.assert_array_equal(s1[key], _jnp(p))
+                continue
+            dim = spec.index("mp")
+            np.testing.assert_array_equal(
+                np.concatenate([s0[key], s1[key]], axis=dim), _jnp(p))

@@ -333,6 +333,8 @@ def test_engine_capacity_factor_validation(models, restore_capacity):
     with pytest.raises(ValueError, match="capacity_factor"):
         Engine(tm, device="cpu", capacity_factor=0.0, **GEOM)
     assert Engine(dense, device="cpu", **GEOM).moe_stats() == {}
+    # tp/ep > 1 are ported (one process a rank): with no process world
+    # they raise the reference's ValueError for too few devices
     for knob in ("tp", "ep"):
-        with pytest.raises(TypeError):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             Engine(tm, device="cpu", **{knob: 2}, **GEOM)
