@@ -208,7 +208,7 @@ Phases, in order; any failure exits non-zero:
               twice as often, the peak memory lower.
 14. export  — config 5: the example twin's ``TinyTransformer`` (#2 at
               head dim 16) and ``BertForMaskedLM`` at BERT-base width,
-              6 of its 12 layers (batch 8, seq 512), f32, through
+              4 of its 12 layers (batch 8, seq 512), f32, through
               ``jit.to_static``
               (``torch.compile(fullgraph=True)``), ``jit.save`` (the
               BERT with ``InputSpec([None, 512])``) -> ``jit.load`` and
@@ -258,6 +258,23 @@ Phases, in order; any failure exits non-zero:
               ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small,
               mp=2 (greedy tokens equal mp=1's). tp=2 x ep=2 would need
               four processes on the card: the CPU tests hold it.
+17. dp      — data-parallel and sharded training, as two rank processes
+              sharing the one card over gloo, TF32 off: #2 and #5 at a
+              rank's config 2 shape (B=16 S=512 H=12 D=64 f32) against
+              their plain versions; BERT-base at dp=2 (global batch 32,
+              four steps through ``fleet.distributed_model`` and
+              ``fleet.distributed_optimizer(AdamW, ClipGradByGlobalNorm)``)
+              against one process on the same rows, the ranks'
+              parameters hashed alike after every step (sequences/s, ms a
+              step, the all-reduce's share, buckets, peak memory a rank);
+              ZeRO ``os`` / ``os_g`` / ``p_g_os`` at 2 of 12 layers
+              against dp (memory at rest and peak a rank); ``resnet50``
+              with ``SyncBatchNorm`` through ``Model.fit`` against one
+              process's batch norms (step 1's update and step 2's
+              buffers against one process of its arithmetic, a planted
+              rank-local backward shown beyond the limit); the ``os``
+              state saved by both ranks and loaded on rank 0 alone,
+              bitwise (``phase_dp``).
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -350,7 +367,7 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
-          "export", "moe_train", "tp")
+          "export", "moe_train", "tp", "dp")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause", "ncclprobe")
 
@@ -1452,7 +1469,7 @@ def _row(tag, r):
     if "ms" in r:
         lib = r["library_ms"]
         extra = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
-                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                 f"bound_ms={r['bound_ms']:.4g} ({r['bound_by']}) "
                  f"library_ms="
                  + ("none" if lib is None else f"{lib:.4f}"))
     for old in ("fma_ms", "nosplit_ms"):  # the body this one replaced
@@ -2753,6 +2770,756 @@ def phase_tp(ident):
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+# ------------------------------------------------------------ phase dp
+DP_DEADLINE_S = 600   # the rank world's wall clock, as a hang guard
+DP_STEPS = 4          # (a): BERT-base at dp=2
+DP_ZERO_LAYERS = 2    # (b): BERT-base widths, 2 of 12 layers
+DP_ZERO_STEPS = 2
+DP_SBN_IMAGES = 128   # (c): 2 steps of 32 images a rank, 224 x 224
+DP_LOSS_RTOL = 1e-5   # f32 sums in another order
+DP_PARAM_ATOL = 1e-5  # (b): ZeRO against dp, the same gradients
+DP_PARAM_REL = 1e-3   # (a): see _dp_compare
+DP_BN_TOL = 1e-4      # (c) step 1: of each running buffer's largest entry
+# (c) against one process of SyncBatchNorm's arithmetic: step 1's update
+# (relative norm) and step 2's buffers (of the largest entry). On the
+# H100 SyncBatchNorm at dp=2 reads 0.0194 and 3.43e-4, the planted
+# rank-local backward 0.311 and 8.19e-3 (PERF.md); each limit sits near
+# the geometric mean of the two
+DP_SBN_UPDATE_REL = 0.08
+DP_SBN_STEP2_TOL = 2e-3
+DP_LABEL = "two ranks sharing one H100 over gloo"
+
+
+def _dp_cfg(layers=None):
+    """(BertConfig, global batch, seq): BERT-base, 32 x 512 (the bert
+    phase's one-GPU batch)."""
+    ex = _example("train_bert_dp_torch")
+    cfg, _, seq = ex.configs(True)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    return cfg, 32, seq
+
+
+def _dp_batches(n):
+    import numpy as np
+
+    ex = _example("train_bert_dp_torch")
+    cfg, batch, seq = _dp_cfg()
+    rng = np.random.default_rng(0)
+    return [ex.global_batch(rng, cfg.vocab_size, batch, seq)
+            for _ in range(n)]
+
+
+def _dp_digest(model):
+    """sha256 of every parameter's bytes (on the host)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for _, p in sorted(model.state_dict().items()):
+        h.update(p.detach().cpu().contiguous().view(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_bert_run(rows, steps, wrap, layers=None, on_step=None):
+    """BERT (from seed 0) on the card, trained ``steps`` eager steps on
+    ``rows`` of the shared global batches: ``wrap(model, AdamW(1e-4,
+    grad_clip=ClipGradByGlobalNorm(1.0)))`` gives (the model to call, the
+    optimizer to step). Returns (model, optimizer, losses, host s, device
+    ms a step)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.convert import init_bert
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+    cfg, _, _ = _dp_cfg(layers)
+    model = init_bert(cfg, seed=0, device="cuda")
+    model.train()
+    call, opt = wrap(model, optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.named_parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    losses, host, devms = [], [], []
+    for i, (ids, labels) in enumerate(_dp_batches(steps)):
+        ids = torch.from_numpy(ids[rows]).cuda()
+        labels = torch.from_numpy(labels[rows]).cuda()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        loss = crit(call(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        e1.record()
+        torch.cuda.synchronize()
+        devms.append(e0.elapsed_time(e1))
+        host.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        if on_step is not None:
+            on_step(i, model, opt)
+    return model, opt, losses, host, devms
+
+
+def _dp_timed_reduce():
+    """Time the dp gradient all-reduce of ``fleet.utils``
+    (``allreduce_buckets``, which ``HybridParallelOptimizer`` calls): the
+    device is synchronised first, then the host wall of the bucketed gloo
+    calls. Returns (the totals, a function that restores the original)."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        hybrid_parallel_util as hpu
+
+    orig = hpu.allreduce_buckets
+    tot = {"s": 0.0, "calls": 0}
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = orig(*a, **k)
+        tot["s"] += time.perf_counter() - t0
+        tot["calls"] += n
+        return n
+
+    hpu.allreduce_buckets = timed
+    return tot, lambda: setattr(hpu, "allreduce_buckets", orig)
+
+
+def _dp_free():
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _dp_bert(rank, out_dir):
+    """(a) Config 2 at dp=2 through fleet: each step's loss on this
+    rank's 16 rows, host and device time, the all-reduce's time and
+    buckets, a digest of the parameters after every step, peak memory."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+
+    ex = _example("train_bert_dp_torch")
+    _, batch, _ = _dp_cfg()
+    rows = ex.rank_rows(batch, rank, 2)
+    digests, buckets, reduce_s = [], [], []
+
+    def wrap(model, opt):
+        return fleet.distributed_model(model), \
+            fleet.distributed_optimizer(opt)
+
+    def on_step(i, model, opt):
+        reduce_s.append(tot["s"] - sum(reduce_s))
+        digests.append(_dp_digest(model))
+        buckets.append(opt.last_buckets)
+
+    tot, restore = _dp_timed_reduce()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model, opt, losses, host, devms = _dp_bert_run(
+            rows, DP_STEPS, wrap, on_step=on_step)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()},
+                   os.path.join(out_dir, "a_params.pt"))
+    del model, opt
+    _dp_free()
+    return dict(losses=losses, host=host, dev=devms, digests=digests,
+                buckets=buckets, reduce_s=reduce_s,
+                reduce_calls=tot["calls"], peak_gib=peak, rows=list(rows))
+
+
+def _dp_zero(rank, out_dir):
+    """(b) BERT-base widths at DP_ZERO_LAYERS layers, DP_ZERO_STEPS steps:
+    dp (fleet), then ``group_sharded_parallel`` at os, os_g, p_g_os over
+    the two ranks; each one's parameters against dp's, memory at rest and
+    at peak over the same baseline, and (d) the os state saved by both
+    ranks and loaded back on rank 0 alone."""
+    import torch
+
+    from paddle_tpu_torch.distributed import (fleet, get_group,
+                                              load_state_dict,
+                                              save_state_dict)
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    ex = _example("train_bert_dp_torch")
+    _, batch, _ = _dp_cfg()
+    rows = ex.rank_rows(batch, rank, 2)
+    out, base_params = {}, None
+    for mode in ("dp", "os", "os_g", "p_g_os"):
+        _dp_free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def wrap(model, opt, mode=mode):
+            if mode == "dp":
+                return fleet.distributed_model(model), \
+                    fleet.distributed_optimizer(opt)
+            m, o, _ = group_sharded_parallel(model, opt, mode)
+            return m, o
+
+        model, opt, losses, host, _ = _dp_bert_run(
+            rows, DP_ZERO_STEPS, wrap, layers=DP_ZERO_LAYERS)
+        rest = (torch.cuda.memory_allocated() - base) / 2**30
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        rec = dict(losses=losses, host=host, rest_gib=rest, peak_gib=peak)
+        if mode == "p_g_os":
+            opt.gather_params()
+        params = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+        if mode == "dp":
+            base_params = params
+        else:
+            errs = {k: float((params[k] - v).abs().max())
+                    for k, v in base_params.items()}
+            rec["err"] = max(errs.values())
+            rec["errs"] = errs
+            rec["sharded"] = len(opt.sharded)
+        if mode == "os":  # (d)
+            path = os.path.join(out_dir, "zero_os_ckpt")
+            sd = {f"model.{k}": v for k, v in params.items()}
+            sd.update({f"opt.{k}": v for k, v in
+                       opt.sharded_state_dict().items()})
+            t0 = time.perf_counter()
+            save_state_dict(sd, path, group=get_group())
+            rec["save_s"] = time.perf_counter() - t0
+            gathered = opt.gathered_state_dict()
+            if rank == 0:
+                t0 = time.perf_counter()
+                got = load_state_dict(path)
+                rec["load_s"] = time.perf_counter() - t0
+                bad = [k for k, v in gathered.items()
+                       if isinstance(v, torch.Tensor)
+                       and not torch.equal(got[f"opt.{k}"], v.cpu())]
+                bad += [k for k, v in params.items()
+                        if not torch.equal(got[f"model.{k}"], v.cpu())]
+                rec["ckpt"] = dict(bad=bad, tensors=len(got),
+                                   bytes=sum(os.path.getsize(
+                                       os.path.join(path, f))
+                                       for f in os.listdir(path)))
+            del gathered
+        out[mode] = rec
+        del model, opt, params
+    del base_params
+    _dp_free()
+    return out
+
+
+def _dp_resnet_data(n, size):
+    import numpy as np
+
+    from paddle_tpu_torch.io import Dataset
+
+    X, Y = _resnet_data(np, n, size, 1000, 1)
+
+    class DS(Dataset):
+        def __init__(self, order):
+            self.order = order
+
+        def __len__(self):
+            return len(self.order)
+
+        def __getitem__(self, i):
+            j = self.order[i]
+            return X[j], Y[j]
+
+    return DS
+
+
+def _dp_bn_err(got, want):
+    """For each step, (the worst buffer's max abs difference over its
+    largest entry, that buffer's name)."""
+    out = []
+    for g, w in zip(got, want):
+        out.append(max((float((g[k] - v).abs().max())
+                        / max(float(v.abs().max()), 1e-30), k)
+                       for k, v in w.items()))
+    return out
+
+
+def _dp_update_err(got, want):
+    """The norm of the difference of two first-step updates (each
+    parameter after step 1 less before) over the norm of ``want``."""
+    diff2 = sum(float((got[k] - v).double().square().sum())
+                for k, v in want.items())
+    norm2 = sum(float(v.double().square().sum()) for v in want.values())
+    return (diff2 / norm2) ** 0.5
+
+
+def _dp_bn_stats(net):
+    return {k: v.detach().cpu().clone() for k, v in net.named_buffers()
+            if k.endswith("_mean") or k.endswith("_variance")}
+
+
+def _dp_resnet(net_wrap, opt_wrap, loader_fn):
+    """resnet50 from seed 0 (f32) on the card, Momentum(1e-3, 0.9),
+    through ``Model.fit`` for one epoch of ``loader_fn()``'s batches;
+    returns (the batch norms' running buffers after each step, each
+    parameter's update in step 1)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision.models import resnet
+
+    pt.seed(0)
+    net = resnet.resnet50(num_classes=1000, device="cuda")
+    call = net_wrap(net)
+    model = pt.Model(call)
+    model.prepare(optimizer=opt_wrap(optimizer.Momentum(
+        learning_rate=1e-3, momentum=0.9, parameters=net.parameters())),
+        loss=nn.CrossEntropyLoss())
+    stats = []
+    w0 = {k: v.detach().cpu().clone() for k, v in net.named_parameters()}
+    update = {}
+
+    class Stats(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            stats.append(_dp_bn_stats(net))
+            if not update:
+                update.update({k: v.detach().cpu() - w0[k]
+                               for k, v in net.named_parameters()})
+
+    model.fit(loader_fn(), epochs=1, verbose=0, callbacks=[Stats()])
+    del model, call, net
+    _dp_free()
+    return stats, update
+
+
+def _dp_sbn(rank, out_dir):
+    """(c) resnet50 with ``convert_sync_batchnorm`` at dp=2 through
+    fleet and ``Model.fit``: 32 images a rank a step, 2 steps. Then the
+    same run with a planted fault, the all-reduce of the statistics
+    left out of the backward (each rank's gradient through them its own
+    alone), to show that (c)'s limits catch a rank-local backward."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.collective import fcollectives
+    from paddle_tpu_torch.io import DataLoader, DistributedBatchSampler
+    from paddle_tpu_torch.nn import SyncBatchNorm
+
+    n = DP_SBN_IMAGES
+    DS = _dp_resnet_data(n, 224)
+    ds = DS(list(range(n)))
+
+    def run():
+        return _dp_resnet(
+            lambda net: fleet.distributed_model(
+                SyncBatchNorm.convert_sync_batchnorm(net)),
+            fleet.distributed_optimizer,
+            lambda: DataLoader(ds, batch_sampler=DistributedBatchSampler(
+                ds, n // 4, num_replicas=2, rank=rank)))
+
+    t0 = time.perf_counter()
+    stats, update = run()
+    secs = time.perf_counter() - t0
+    orig = fcollectives.__dict__["all_reduce"]
+    whole = orig.__func__
+
+    def local_backward(x, group=None):
+        x0 = x.detach()
+        return x + (whole(x0, group) - x0)
+
+    fcollectives.all_reduce = staticmethod(local_backward)
+    try:
+        fault_stats, fault_update = run()
+    finally:
+        fcollectives.all_reduce = orig
+    h = hashlib.sha256()
+    for st in stats:
+        for k in sorted(st):
+            h.update(st[k].numpy().tobytes())
+    if rank == 0:
+        torch.save(dict(stats=stats, update=update, fault_stats=fault_stats,
+                        fault_update=fault_update),
+                   os.path.join(out_dir, "c_runs.pt"))
+    return dict(digest=h.hexdigest(), s=secs, buffers=len(stats[-1]),
+                steps=len(stats))
+
+
+def _dp_rank(rank, world, init_file, out_dir):
+    """One rank of the dp phase's world: gloo over CUDA tensors on the
+    one card, TF32 off."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.distributed import (destroy_process_group, fleet,
+                                              init_parallel_env)
+
+    init_parallel_env(device="cuda", backend="gloo",
+                      init_method=f"file://{init_file}", rank=rank,
+                      world_size=world,
+                      timeout=datetime.timedelta(seconds=600))
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(),
+               device="cuda")
+    needs = ("flash_attention_fwd", "flash_attention_bwd")
+    res, counts = {}, {}
+
+    def part(key, fn):
+        t0 = time.perf_counter()
+        out, got = _counted(lambda: fn(rank, out_dir), needs=needs)
+        res[key], res[key + "_s"] = out, time.perf_counter() - t0
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+
+    part("a", _dp_bert)
+    res["a_counts"] = dict(counts)
+    part("b", _dp_zero)
+    needs = ()
+    part("c", _dp_sbn)
+    res["counts"] = counts
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    destroy_process_group()
+
+
+def _dp_world(out):
+    """Run the two ranks; returns their records."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(2, os.path.join(out, "init"),
+                                             out),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() - t0 > DP_DEADLINE_S:
+                raise AssertionError(f"dp: the rank world outlived "
+                                     f"{DP_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def _dp_shard_kernels(torch, ident):
+    """#2 and #5 at a dp rank's shape of config 2 (BERT-base, 16 rows of
+    512, 12 heads of 64, f32, non-causal: the FMA bodies) against their
+    plain versions, timed, with SDPA's and the aten backward's times.
+    Logged as their own "dp shard" lines."""
+    f32 = torch.float32
+    rf = check_flash(torch, f32, 16, 512, 12, 64, atol=1e-4, rtol=1e-4,
+                     timed=True, causal=False)
+    log(_row(f"dp shard flash_attention_fwd f32 B=16 S=512 H=12 D=64 "
+             f"non-causal (atol 1e-4 rtol 1e-4; library sdpa) [{ident}]",
+             rf))
+    rb = check_flash_bwd(torch, f32, 16, 512, 512, 12, 64, timed=True,
+                         causal=False)
+    log(_row(f"dp shard flash_attention_bwd_fused f32 B=16 S=512 H=12 D=64 "
+             f"non-causal (each gradient within 1e-4 of its largest entry; "
+             f"library {rb['library']}) [{ident}]", rb))
+    return rf, rb
+
+
+def _dp_reference():
+    """The one-process runs the world is held against: (a) BERT-base on
+    the whole global batch, its losses and final parameters; (c) resnet50
+    on each step's 64 images, with plain batch norms and with batch norms
+    that take SyncBatchNorm's arithmetic (E[x^2] - E[x]^2 from the sums)
+    with no world, its running buffers and its first update."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.nn import SyncBatchNorm
+
+    _, batch, _ = _dp_cfg()
+    init = {}
+
+    def wrap(m, o):
+        init.update({k: v.detach().cpu().clone() for k, v in
+                     m.state_dict().items()})
+        return m, o
+
+    model, _, losses, host, _ = _dp_bert_run(
+        list(range(batch)), DP_STEPS, wrap)
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    _dp_free()
+    # each reference batch is the union of the ranks' batches of a step
+    n = DP_SBN_IMAGES
+    q = n // 4
+    order = list(np.concatenate([np.arange(q), np.arange(2 * q, 3 * q),
+                                 np.arange(q, 2 * q),
+                                 np.arange(3 * q, 4 * q)]))
+    ds = _dp_resnet_data(n, 224)(order)
+    stats, update = _dp_resnet(lambda net: net, lambda o: o,
+                               lambda: DataLoader(ds, batch_size=2 * q))
+
+    class OnePass(SyncBatchNorm):
+        def forward(self, x):
+            return self._summed_norm(x, None) if self.training else \
+                super().forward(x)
+
+    one_stats, one_update = _dp_resnet(
+        OnePass.convert_sync_batchnorm, lambda o: o,
+        lambda: DataLoader(ds, batch_size=2 * q))
+    return dict(losses=losses, host=host, params=params, init=init,
+                stats=stats, update=update, one_stats=one_stats,
+                one_update=one_update)
+
+
+def _dp_compare(ranks, ref, out):
+    """Logs (c)'s readings, then fails unless the world matches the
+    one-process runs and its ranks match each other; returns the figures
+    to log."""
+    import numpy as np
+    import torch
+
+    # (c): after step 1 the buffers hold the first batch's statistics
+    # alone (the same weights on both sides), so they are held against
+    # plain batch norms. Step 1's update and step 2's buffers (the second
+    # batch under weights that one update moved) follow SyncBatchNorm's
+    # backward; ResNet-50's gradient at init carries rounding far, so
+    # they are held against the one-process run of the same arithmetic
+    # (OnePass), within DP_SBN_UPDATE_REL and DP_SBN_STEP2_TOL; the plain
+    # run's update against OnePass's shows how far rounding alone moves
+    # it. The planted fault (the statistics' all-reduce left out of the
+    # backward) must land beyond both limits, or they catch nothing.
+    c = torch.load(os.path.join(out, "c_runs.pt"))
+    bn = _dp_bn_err(c["stats"], ref["stats"])
+    sync = dict(update=_dp_update_err(c["update"], ref["one_update"]),
+                step2=_dp_bn_err(c["stats"], ref["one_stats"])[-1])
+    fault = dict(update=_dp_update_err(c["fault_update"],
+                                       ref["one_update"]),
+                 step2=_dp_bn_err(c["fault_stats"], ref["one_stats"])[-1])
+    plain = _dp_bn_err(ref["one_stats"], ref["stats"])
+    plain_update = _dp_update_err(ref["update"], ref["one_update"])
+    log(f"dp (c) readings: against plain batch norms, step 1 buffers "
+        f"{bn[0][0]:.3g} ({bn[0][1]}), step 2 {bn[-1][0]:.3g} "
+        f"({bn[-1][1]}; one process of SyncBatchNorm's arithmetic: "
+        f"{plain[0][0]:.3g} / {plain[-1][0]:.3g}); against that one-process "
+        f"run: SyncBatchNorm step 1 update {sync['update']:.3g}, step 2 "
+        f"buffers {sync['step2'][0]:.3g} ({sync['step2'][1]}); the planted "
+        f"rank-local backward: update {fault['update']:.3g}, step 2 buffers "
+        f"{fault['step2'][0]:.3g} ({fault['step2'][1]}); plain batch norms' "
+        f"update {plain_update:.3g}; limits {DP_SBN_UPDATE_REL} / "
+        f"{DP_SBN_STEP2_TOL}")
+    a0, a1 = ranks[0]["a"], ranks[1]["a"]
+    if a0["digests"] != a1["digests"]:
+        raise AssertionError("dp (a): the ranks' parameters differ after "
+                             "a step")
+    mean = [(x + y) / 2 for x, y in zip(a0["losses"], a1["losses"])]
+    lerr = max(abs(m - r) / abs(r) for m, r in zip(mean, ref["losses"]))
+    if not lerr <= DP_LOSS_RTOL:
+        raise AssertionError(f"dp (a): losses {mean} against one process's "
+                             f"{ref['losses']} (rel {lerr:.3g})")
+    # (a)'s parameters: the two runs' GEMMs sum in other orders (16 rows
+    # against 32), and Adam divides each gradient by its own scale, so an
+    # element whose gradient is at rounding level may step +-lr either
+    # way (as test_torch_bert.py's key biases): each element within 2 lr
+    # a step, and the difference's norm within DP_PARAM_REL of the norm of
+    # what the steps moved the parameters
+    got = torch.load(os.path.join(out, "a_params.pt"))
+    worst, over, diff2, moved2 = ("", 0.0), 0, 0.0, 0.0
+    for k, v in ref["params"].items():
+        d = (got[k] - v).abs()
+        e = float(d.max())
+        if e > worst[1]:
+            worst = (k, e)
+        over += int((d > DP_PARAM_ATOL).sum())
+        diff2 += float(d.double().square().sum())
+        moved2 += float((v - ref["init"][k]).double().square().sum())
+    rel = (diff2 / moved2) ** 0.5
+    if worst[1] > 2e-4 * DP_STEPS or not rel <= DP_PARAM_REL:
+        raise AssertionError(f"dp (a): parameters off one process's by "
+                             f"{worst[1]:.3g} ({worst[0]}), relative norm "
+                             f"{rel:.3g}")
+    b = ranks[0]["b"]
+    for mode in ("os", "os_g", "p_g_os"):
+        if not b[mode]["err"] <= DP_PARAM_ATOL:
+            raise AssertionError(f"dp (b) {mode}: parameters off dp's by "
+                                 f"{b[mode]['err']:.3g}")
+        if b[mode]["sharded"] <= 0:
+            raise AssertionError(f"dp (b) {mode}: nothing was sharded")
+    ck = b["os"].get("ckpt")
+    if ck is None or ck["bad"]:
+        raise AssertionError(f"dp (d): the two-process checkpoint loaded "
+                             f"unequal on rank 0: {ck}")
+    if ranks[0]["c"]["digest"] != ranks[1]["c"]["digest"]:
+        raise AssertionError("dp (c): the ranks' running statistics differ")
+    if not (np.isfinite(bn[0][0]) and bn[0][0] <= DP_BN_TOL):
+        raise AssertionError(f"dp (c) step 1: running statistics off the "
+                             f"one process's by {bn[0]}")
+    for key, val, bad, lim in (
+            ("step 1's update", sync["update"], fault["update"],
+             DP_SBN_UPDATE_REL),
+            ("step 2's buffers", sync["step2"][0], fault["step2"][0],
+             DP_SBN_STEP2_TOL)):
+        if not (np.isfinite(val) and val <= lim):
+            raise AssertionError(f"dp (c): SyncBatchNorm's {key} off one "
+                                 f"process's by {val:.3g} (limit {lim})")
+        if not bad > lim:
+            raise AssertionError(f"dp (c): the planted rank-local backward "
+                                 f"moved {key} only {bad:.3g}, within the "
+                                 f"limit {lim}: the check catches nothing")
+    return dict(mean=mean, lerr=lerr, worst=worst, over=over, rel=rel,
+                bn=bn, sync=sync, fault=fault, plain_update=plain_update)
+
+
+def phase_dp(ident):
+    """Data-parallel and sharded training (config 2 at dp=2), as two rank
+    processes sharing the one card over gloo (CUDA tensors: NCCL refuses
+    two ranks on one device). Every time here is labelled "two ranks
+    sharing one H100 over gloo": it is not a dp speed. TF32 off
+    throughout.
+
+    First #2 and #5 at a rank's shape (``_dp_shard_kernels``), then the
+    one-process references (``_dp_reference``), then one two-rank world
+    (``torch.multiprocessing``, a ``file://`` rendezvous), each rank
+    ``fleet.init`` (dp=2):
+
+    (a) Config 2: BERT-base f32, seq 512, global batch 32 (16 a rank,
+        ``DistributedBatchSampler``), four eager steps through
+        ``fleet.distributed_model`` (the model, rank 0's parameters
+        broadcast) and ``fleet.distributed_optimizer(AdamW(1e-4,
+        grad_clip=ClipGradByGlobalNorm(1.0)))``: the mean of the ranks'
+        losses equals one process's on the 32 rows within
+        ``DP_LOSS_RTOL``, the parameters after the last step within
+        ``DP_PARAM_ATOL`` (key biases 2 lr a step), and the ranks'
+        parameters hash alike after every step. Sequences/s, host and
+        device ms a step, the all-reduce's share, buckets a step, peak
+        memory a rank.
+    (b) ZeRO at BERT-base widths, ``DP_ZERO_LAYERS`` layers, two steps:
+        dp, then ``group_sharded_parallel`` at ``os``, ``os_g``,
+        ``p_g_os`` over both ranks; each level's parameters within
+        ``DP_PARAM_ATOL`` of dp's; memory at rest and at peak a rank.
+    (c) ``resnet50`` with ``SyncBatchNorm.convert_sync_batchnorm`` at dp=2
+        through ``Model.fit``, 32 images a rank, two steps: the running
+        statistics after step 1 equal one process's plain batch norms on
+        the step's 64 images within ``DP_BN_TOL`` of each buffer's largest
+        entry; step 1's update and step 2's statistics equal one process
+        of SyncBatchNorm's arithmetic on the same images within
+        ``DP_SBN_UPDATE_REL`` and ``DP_SBN_STEP2_TOL``, which a planted
+        rank-local backward exceeds (see ``_dp_compare``); both ranks'
+        hash alike.
+    (d) (b)'s ``os`` model and optimizer saved by both ranks
+        (``save_state_dict(..., group=)``: each rank's slices and marker)
+        and loaded by rank 0 alone: bitwise the gathered state.
+
+    Returns the launches by kernel row, both ranks' summed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = tempfile.mkdtemp(prefix="dp_phase_")
+    try:
+        _dp_shard_kernels(torch, ident)
+        t0 = time.perf_counter()
+        ref = _dp_reference()
+        ref_s = time.perf_counter() - t0
+        _dp_free()
+        log(f"dp: this process holds "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
+            f"card while the ranks run")
+        t0 = time.perf_counter()
+        ranks = _dp_world(out)
+        world_s = time.perf_counter() - t0
+        fig = _dp_compare(ranks, ref, out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(out, ignore_errors=True)
+    a0, a1 = ranks[0]["a"], ranks[1]["a"]
+    _, batch, seq = _dp_cfg()
+    step_s = statistics.mean(a0["host"][1:])
+    ref_step = statistics.mean(ref["host"][1:])
+    log(f"dp (a) BERT-base f32 seq {seq} global batch {batch} at dp=2 "
+        f"({DP_LABEL}), {DP_STEPS} steps through distributed_model + "
+        f"distributed_optimizer(AdamW, ClipGradByGlobalNorm(1.0)): mean "
+        f"losses {[round(v, 6) for v in fig['mean']]} against one "
+        f"process's {[round(v, 6) for v in ref['losses']]} (worst rel "
+        f"{fig['lerr']:.3g}, limit {DP_LOSS_RTOL}); final parameters: "
+        f"worst {fig['worst'][1]:.3g} ({fig['worst'][0]}), {fig['over']} "
+        f"elements beyond {DP_PARAM_ATOL}, the difference's norm "
+        f"{fig['rel']:.3g} of the steps' movement (limit {DP_PARAM_REL}); "
+        f"the ranks' "
+        f"parameters hash alike after all {DP_STEPS} steps [{ident}]")
+    def share(a):  # steps 2 on: the first also loads and tunes
+        return sum(a["reduce_s"][1:]) / sum(a["host"][1:])
+
+    log(f"dp (a): {batch / step_s:.2f} sequences/s ({batch * seq / step_s:.0f}"
+        f" tokens/s; one process on the card {batch / ref_step:.2f}); a "
+        f"step {1e3 * step_s:.1f} ms host (steps 2-{DP_STEPS}: "
+        f"{[round(1e3 * v, 1) for v in a0['host'][1:]]}), device "
+        f"{statistics.mean(a0['dev'][1:]):.1f} ms (CUDA events, the "
+        f"stream's waits included); the all-reduce ms a step "
+        f"{[round(1e3 * v, 1) for v in a0['reduce_s'][1:]]} = "
+        f"{share(a0):.1%} of steps 2-{DP_STEPS} (rank 1 {share(a1):.1%}), "
+        f"{a0['reduce_calls']} calls, buckets a step {a0['buckets']}; step "
+        f"1 {1e3 * a0['host'][0]:.0f} ms; peak GiB rank 0 "
+        f"{a0['peak_gib']:.2f} rank 1 {a1['peak_gib']:.2f}; flash launches "
+        f"rank 0 {ranks[0]['a_counts'].get('flash_attention_fwd')} forward "
+        f"{ranks[0]['a_counts'].get('flash_attention_bwd')} backward "
+        f"[{ident}]")
+    b = ranks[0]["b"]
+    log(f"dp (b) ZeRO at BERT-base widths, {DP_ZERO_LAYERS} of 12 layers, "
+        f"{DP_ZERO_STEPS} steps, sharding=2 ({DP_LABEL}): parameters off "
+        f"dp's by os {b['os']['err']:.3g}, os_g {b['os_g']['err']:.3g}, "
+        f"p_g_os {b['p_g_os']['err']:.3g} (limit {DP_PARAM_ATOL}); GiB a "
+        f"rank at rest / peak: "
+        + ", ".join(f"{m} {b[m]['rest_gib']:.3f} / {b[m]['peak_gib']:.2f}"
+                    for m in ("dp", "os", "os_g", "p_g_os"))
+        + f"; ms a step (host) "
+        + ", ".join(f"{m} {1e3 * statistics.mean(b[m]['host'][1:]):.1f}"
+                    for m in ("dp", "os", "os_g", "p_g_os"))
+        + f" [{ident}]")
+    ck = b["os"]["ckpt"]
+    sync, fault = fig["sync"], fig["fault"]
+    log(f"dp (c) resnet50 SyncBatchNorm at dp=2 through Model.fit, 32 "
+        f"images a rank, 2 steps: {ranks[0]['c']['buffers']} running "
+        f"buffers after step 1 against one process's plain batch norms over "
+        f"the 64 images {fig['bn'][0][0]:.3g} of the largest entry (limit "
+        f"{DP_BN_TOL}); against one process of SyncBatchNorm's arithmetic, "
+        f"step 1's update {sync['update']:.3g} and step 2's buffers "
+        f"{sync['step2'][0]:.3g} (limits {DP_SBN_UPDATE_REL} and "
+        f"{DP_SBN_STEP2_TOL}; a planted rank-local backward: "
+        f"{fault['update']:.3g} and {fault['step2'][0]:.3g}; plain batch "
+        f"norms' update {fig['plain_update']:.3g}), both ranks' alike; (d) "
+        f"the os "
+        f"state saved by both ranks ({ck['tensors']} tensors, "
+        f"{ck['bytes'] / 2**20:.1f} MiB, "
+        f"save {b['os']['save_s']:.2f} s) loaded on rank 0 alone in "
+        f"{b['os']['load_s']:.2f} s: bitwise the gathered state [{ident}]")
+    counts = {}
+    for r in ranks:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"dp: references {ref_s:.1f} s; world {world_s:.1f} s (parts "
+        f"(a) {ranks[0]['a_s']:.1f} (b) {ranks[0]['b_s']:.1f} (c) "
+        f"{ranks[0]['c_s']:.1f}); launches both ranks "
+        f"{({k: v for k, v in counts.items() if v})}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": counts.get("flash_attention_fwd", 0),
+            "flash_attention_bwd_fused": counts.get("flash_attention_bwd",
+                                                    0)}
+
+
 def phase_ncclprobe(ident):
     """Opt-in: two NCCL ranks on the one card (the tp phase's layout) do
     one all-reduce in a subprocess world, bounded to 120 s; logs what NCCL
@@ -2843,7 +3610,8 @@ def main(argv=None):
                        ("cluster", phase_cluster), ("draft", phase_draft),
                        ("fused", phase_fused), ("bert", phase_bert),
                        ("export", phase_export),
-                       ("moe_train", phase_moe_train), ("tp", phase_tp)):
+                       ("moe_train", phase_moe_train), ("tp", phase_tp),
+                       ("dp", phase_dp)):
         if phase in phases:
             for name, n in timed(phase, run, ident).items():
                 launches[name] = launches.get(name, 0) + n
@@ -8243,7 +9011,7 @@ def _resnet_child(spec):
         except TrainingPreempted as e:
             out.update(losses=rec.losses, step=e.step,
                        committed=ckpt.is_complete(e.checkpoint_path))
-    elif mode == "faults":
+    elif mode == "faults":  # the training points
         # train-step-exception: two injected faults, retried
         m, rec = model(0), Rec()
         r0 = metric_total("paddle_tpu_train_step_retries_total")
@@ -8263,6 +9031,7 @@ def _resnet_child(spec):
             finite=bool(np.isfinite(hist["loss"]).all() and all(
                 torch.isfinite(t).all() for t in
                 m.network.state_dict().values())))
+    elif mode == "preempt":  # preempt-signal, then the checkpoint points
         # preempt-signal: drained and committed, then resumed
         m, rec = model(0), Rec()
         try:
@@ -8323,8 +9092,10 @@ def _resnet_child(spec):
 
 def _resnet_children(root):
     """Checks 2 and 3 of the resnet phase in child processes: clean, kill
-    (a real SIGTERM) and faults run at once, then resume, under a
-    temporary directory of ``root``. Returns each child's JSON."""
+    (a real SIGTERM) and the fault points (training ones in ``faults``,
+    preempt-signal and the checkpoint ones in ``preempt``) run at once,
+    then resume, under a temporary directory of ``root``. Returns each
+    child's JSON, ``faults`` holding both fault children's."""
     import os
     import tempfile
 
@@ -8352,10 +9123,12 @@ def _resnet_children(root):
 
         try:
             procs = {m: start(m, d) for m, d in
-                     (("clean", "a"), ("kill", "b"), ("faults", "c"))}
+                     (("clean", "a"), ("kill", "b"), ("faults", "c"),
+                      ("preempt", "d"))}
             finish()
             procs = {"resume": start("resume", "b")}
             finish()
+            res["faults"].update(res.pop("preempt"))
         finally:
             for p in procs.values():
                 if p.poll() is None:
@@ -8819,9 +9592,10 @@ def _export_case(tag, model, spec, inputs, ident, tmp):
 
 
 def phase_export(ident):
-    """Config 5: the twin example's ``TinyTransformer`` (d 64, 4 heads of
+    """Config 5: #2 at the twin example's ``TinyTransformer`` shape against
+    its plain version, timed; the ``TinyTransformer`` (d 64, 4 heads of
     16: #2 at D = 16, f32) at ``[2, 16]``, then ``BertForMaskedLM`` at
-    BERT-base width, 6 of its 12 layers, f32 with TF32 off, seq 512,
+    BERT-base width, 4 of its 12 layers, f32 with TF32 off, seq 512,
     through ``to_static``
     at batch 8 and a ``jit.save`` with ``InputSpec([None, 512])`` run at
     batches 8 and 4 by ``jit.load`` and the Predictor (``_export_case``).
@@ -8841,6 +9615,13 @@ def phase_export(ident):
     torch.backends.cuda.matmul.allow_tf32 = False
     n = 0
     try:
+        # #2 at the TinyTransformer's own shape (4 heads of 16, f32,
+        # non-causal: the FMA body at D = 16), timed
+        r16 = check_flash(torch, torch.float32, 2, 16, 4, 16, atol=1e-4,
+                          rtol=1e-4, timed=True, causal=False)
+        log(_row(f"export flash_attention_fwd f32 B=2 S=16 H=4 D=16 "
+                 f"non-causal (config 5's TinyTransformer; atol 1e-4 rtol "
+                 f"1e-4; library sdpa) [{ident}]", r16))
         with tempfile.TemporaryDirectory() as d:
             tmp = Path(d)
             tiny = ex.init_tiny(ex.TinyTransformer(device="cuda")).eval()
@@ -8850,9 +9631,9 @@ def phase_export(ident):
                               InputSpec([2, 16], "int32"), [ids], ident,
                               tmp)
             cfg, _, seq = bert_ex.configs(True)
-            # 6 of BERT-base's 12 layers: the compile's time grows with
+            # 4 of BERT-base's 12 layers: the compile's time grows with
             # the layers, and the run's time limit holds every phase
-            cfg = dataclasses.replace(cfg, num_hidden_layers=6)
+            cfg = dataclasses.replace(cfg, num_hidden_layers=4)
             bert = init_bert(cfg, seed=0, device="cuda").eval()
             rng = np.random.default_rng(1)
             xs = [torch.from_numpy(rng.integers(

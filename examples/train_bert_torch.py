@@ -1,6 +1,6 @@
 """Config 2 on the PyTorch/CUDA port at one GPU: BERT MLM training, the
-one-GPU twin of ``train_bert_dp.py`` (whose data parallelism is not
-ported yet).
+one-GPU twin of ``train_bert_dp.py`` (its data-parallel twin is
+``train_bert_dp_torch.py``).
 
 The step is functional, as the reference's: ``jit.functional_call`` of
 ``BertForMaskedLM`` on an explicit parameter dict, ``torch.autograd.grad``

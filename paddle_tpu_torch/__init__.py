@@ -15,4 +15,13 @@ from .hapi import Model
 from .serialization import load, save
 
 __all__ = ["resolve_device", "resolve_dtype", "seed", "get_seed", "Model",
-           "save", "load"]
+           "save", "load", "DataParallel"]
+
+
+def __getattr__(name):
+    if name == "DataParallel":  # paddle.DataParallel
+        from .distributed.parallel import DataParallel
+
+        globals()["DataParallel"] = DataParallel
+        return DataParallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

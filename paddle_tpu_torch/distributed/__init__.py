@@ -1,8 +1,10 @@
 """Distributed API of the port (after ``paddle_tpu/distributed``): the
-process world, the hybrid topology and mesh, the eager collectives and
-``fleet`` (context-parallel attention, the tensor-parallel layers and
-``distributed_model``); one process's checkpoints and the preemption
-machinery."""
+process world and ``DataParallel``, the hybrid topology and mesh, the
+eager collectives, ``fleet`` (context-parallel attention, the
+tensor-parallel layers, ``distributed_model`` / ``distributed_optimizer``
+and the hybrid-parallel optimizers), ``sharding`` (ZeRO stages 1-3),
+checkpoints saved by one process or by every rank of a group, and the
+preemption machinery."""
 from .collective import (  # noqa: F401
     ReduceOp,
     all_gather,
@@ -20,6 +22,7 @@ from .collective import (  # noqa: F401
     send,
 )
 from .parallel import (  # noqa: F401
+    DataParallel,
     ParallelEnv,
     destroy_process_group,
     get_device,
@@ -42,6 +45,7 @@ from .topology import (  # noqa: F401
 )
 from . import communication  # noqa: F401
 from . import fleet  # noqa: F401
+from . import sharding  # noqa: F401
 from .checkpoint import (  # noqa: F401
     AsyncCheckpointer,
     AsyncSaveHandle,
@@ -61,7 +65,8 @@ __all__ = [
     "ReduceOp", "all_reduce", "all_gather", "all_gather_object",
     "all_to_all", "barrier", "broadcast", "reduce", "reduce_scatter",
     "scatter", "fcollectives", "send", "recv", "p2p_exchange",
-    "communication", "subgroup", "ParallelEnv", "destroy_process_group",
+    "communication", "subgroup", "DataParallel", "sharding",
+    "ParallelEnv", "destroy_process_group",
     "get_device", "get_group",
     "get_mesh", "get_rank", "get_world_size", "init_parallel_env",
     "is_initialized", "new_group", "set_mesh", "HYBRID_AXES",

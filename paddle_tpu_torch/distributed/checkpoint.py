@@ -1,5 +1,6 @@
 """Checkpoints with an atomic commit, after
-``paddle_tpu/distributed/checkpoint.py``, for one process.
+``paddle_tpu/distributed/checkpoint.py``, saved by one process or by
+every rank of a group.
 
 The on-disk format is the reference's, so a checkpoint written by either
 package loads in the other: one ``.npy`` file a tensor
@@ -8,8 +9,22 @@ records each tensor's global shape, dtype and chunks (offset, shape,
 file, blake2b-128 digest of the file's bytes), the small Python values
 under ``objects``, and a self-digest. The reader merges every
 ``metadata.p*.json`` and assembles each tensor from its chunks, so a
-reference checkpoint of several chunks loads here too. The port writes
-one process's checkpoint: a sharded save across processes is not ported.
+reference checkpoint of several chunks loads here too.
+
+Across processes (``save_state_dict(..., group=g)``, every member
+calling it), as the reference: member ``i`` of ``n`` writes its chunks
+as ``<name>.<hash>.p<i>.c0.npy`` and its own marker
+``metadata.p<i>.json`` (``process_index`` i, ``process_count`` n) into
+one staging directory named after the final path
+(``.tmp-shared-<name>``). A value that is a :class:`Shard` is this
+rank's block of a larger tensor (its offset and the global shape); a
+plain tensor is the same on every member and only member 0 writes it.
+The member that sees all ``n`` markers and claims the commit (an
+exclusive create, so exactly one does) renames the directory into
+place. A synchronous save then waits for the whole group and raises on
+every member unless the checkpoint committed, so a member that failed
+before its marker leaves a staging directory the reader refuses as
+incomplete.
 
 bf16: numpy has no bfloat16 without ``ml_dtypes``. The port writes a bf16
 tensor's chunk as its uint16 bits (``dtype`` ``"bfloat16"`` in the
@@ -43,20 +58,21 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..serialization import BF16, _from_host, _host_array
 
-__all__ = ["save_state_dict", "load_state_dict", "verify_contents",
+__all__ = ["save_state_dict", "load_state_dict", "verify_contents", "Shard",
            "AsyncSaveHandle", "AsyncCheckpointer", "step_dir", "parse_step",
            "is_complete", "list_steps", "latest_step", "write_manifest",
            "read_manifest", "gc_staging", "retain_last", "STAGE_PREFIX",
            "MANIFEST_NAME"]
 
 STAGE_PREFIX = ".tmp-"
+_CLAIM = "COMMIT.claim"
 TRASH_PREFIX = ".trash-"
 MANIFEST_NAME = "MANIFEST.json"
 _STEP_PREFIX = "step-"
@@ -68,6 +84,14 @@ def _sanitize(name: str) -> str:
     safe = name.replace("/", "_").replace("\\", "_")
     tag = hashlib.sha1(name.encode()).hexdigest()[:8]
     return f"{safe}.{tag}"
+
+
+class Shard(NamedTuple):
+    """One rank's block of a tensor of ``global_shape``, at ``offset``
+    (one int a dim)."""
+    data: Any
+    offset: Tuple[int, ...]
+    global_shape: Tuple[int, ...]
 
 
 def _jsonable(v):
@@ -222,24 +246,60 @@ def _swap_into_place(stage: str, final: str):
     _fsync_dir(os.path.dirname(os.path.abspath(final)) or ".")
 
 
+def _marker_count(path: str) -> int:
+    return len(glob.glob(os.path.join(path, "metadata.p*.json")))
+
+
+def _claim_commit(stage: str) -> bool:
+    """True for exactly one caller: the one whose exclusive create of the
+    claim file succeeds."""
+    try:
+        fd = os.open(os.path.join(stage, _CLAIM),
+                     os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return False
+    os.close(fd)
+    return True
+
+
 def save_state_dict(state_dict: Dict[str, Any], path: str,
                     async_save: bool = False, fault_plan=None,
-                    on_commit: Optional[Callable[[str], None]] = None):
-    """Write ``{name: tensor | ndarray | small value}`` as a checkpoint
-    directory at ``path`` by the atomic commit. The tensors are copied to
-    the host now, so later updates of the live ones do not leak in; with
-    ``async_save`` the files are written on a thread. ``on_commit(path)``
-    runs in the writer right after the rename. Returns an
-    :class:`AsyncSaveHandle` (already done unless ``async_save``)."""
+                    on_commit: Optional[Callable[[str], None]] = None,
+                    group=None):
+    """Write ``{name: tensor | ndarray | Shard | small value}`` as a
+    checkpoint directory at ``path`` by the atomic commit. The tensors
+    are copied to the host now, so later updates of the live ones do not
+    leak in; with ``async_save`` the files are written on a thread.
+    ``on_commit(path)`` runs in the writer that commits, right after the
+    rename. ``group`` (a ``Group`` of more than one rank): every member
+    calls this and writes its part (see the module doc); a synchronous
+    save returns on every member once the checkpoint committed. Returns
+    an :class:`AsyncSaveHandle` (already done unless ``async_save``)."""
     plan = _resolve_plan(fault_plan)
+    pidx, pcount = (0, 1) if group is None else (group.rank, group.nranks)
     final = os.path.abspath(path)
-    stage = os.path.join(os.path.dirname(final) or ".",
-                         f"{STAGE_PREFIX}{uuid.uuid4().hex}")
+    parent = os.path.dirname(final) or "."
+    if pcount > 1:
+        stage = os.path.join(parent, f"{STAGE_PREFIX}shared-"
+                                     f"{os.path.basename(final)}")
+        from .collective import barrier
+
+        if pidx == 0:  # a crashed save's leftovers must not count
+            shutil.rmtree(stage, ignore_errors=True)
+        barrier(group)
+    else:
+        stage = os.path.join(parent, f"{STAGE_PREFIX}{uuid.uuid4().hex}")
     write_plan: List[Dict[str, Any]] = []
     meta: Dict[str, Any] = {"tensors": {}, "objects": {},
                             "format": "paddle_tpu.dist_ckpt.v1",
-                            "process_index": 0, "process_count": 1}
+                            "process_index": pidx, "process_count": pcount}
     for name, v in state_dict.items():
+        offset = gshape = None
+        if isinstance(v, Shard):
+            offset, gshape = list(v.offset), list(v.global_shape)
+            v = v.data
+        elif pidx and isinstance(v, (torch.Tensor, np.ndarray)):
+            continue  # a replicated tensor: member 0 writes it
         if isinstance(v, torch.Tensor):
             data, dtype = _host_array(v)
         elif isinstance(v, np.ndarray):
@@ -247,11 +307,11 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
         else:
             meta["objects"][name] = _jsonable(v)
             continue
-        fname = f"{_sanitize(name)}.p0.c0.npy"
-        entry = {"offset": [0] * data.ndim, "shape": list(data.shape),
-                 "file": fname}
+        fname = f"{_sanitize(name)}.p{pidx}.c0.npy"
+        entry = {"offset": offset or [0] * data.ndim,
+                 "shape": list(data.shape), "file": fname}
         write_plan.append({"file": fname, "data": data, "entry": entry})
-        meta["tensors"][name] = {"global_shape": list(data.shape),
+        meta["tensors"][name] = {"global_shape": gshape or list(data.shape),
                                  "dtype": dtype, "chunks": [entry]}
 
     def _maybe_fault():
@@ -273,7 +333,13 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
             _flip_staged_bit(plan, stage, [it["file"] for it in write_plan])
         _maybe_fault()
         meta["self_digest"] = _meta_digest(meta)
-        _write_json_atomic(meta, os.path.join(stage, "metadata.p0.json"))
+        _write_json_atomic(meta, os.path.join(stage,
+                                              f"metadata.p{pidx}.json"))
+        if pcount > 1 and (_marker_count(stage) < pcount
+                           or not _claim_commit(stage)):
+            return  # another member commits
+        if pcount > 1:
+            os.remove(os.path.join(stage, _CLAIM))
         _fsync_dir(stage)
         _swap_into_place(stage, final)
         if on_commit is not None:
@@ -286,7 +352,19 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
         handle._thread = t
         t.start()
         return handle
-    _write()
+    if pcount <= 1:
+        _write()
+        return AsyncSaveHandle(None, path=final)
+    from .collective import barrier
+
+    try:
+        _write()
+    finally:
+        barrier(group)  # every member's marker is down, or never will be
+    if not is_complete(final):
+        raise RuntimeError(
+            f"checkpoint {final} did not commit: "
+            f"{_marker_count(stage)}/{pcount} process markers in {stage}")
     return AsyncSaveHandle(None, path=final)
 
 

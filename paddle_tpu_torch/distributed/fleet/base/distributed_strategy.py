@@ -1,9 +1,12 @@
 """DistributedStrategy (after
 ``paddle_tpu/distributed/fleet/base/distributed_strategy.py``): the hybrid
 degrees ``fleet.init`` lays the ranks out by, ``sep_degree`` included,
-under the reference's knob names. The reference's other knobs (amp,
-recompute, sharding, pipeline, ...) configure multi-GPU training, which is
-not ported.
+and the reference's other knobs under its names and defaults (amp,
+recompute, sharding, pipeline, gradient merge, dgc, lamb, the fused
+all-reduce). ``fleet.distributed_optimizer`` reads
+``fuse_grad_size_in_MB`` (the size of its all-reduce buckets); the
+others are held under the reference's names, as the reference holds
+them (its ``distributed_optimizer`` reads none of them either).
 """
 from __future__ import annotations
 
@@ -23,6 +26,31 @@ class HybridConfigs:
 class DistributedStrategy:
     def __init__(self):
         self._hybrid = HybridConfigs()
+        self.amp = False
+        self.amp_configs: Dict = {
+            "init_loss_scaling": 32768.0, "use_pure_fp16": False,
+            "use_pure_bf16": False, "custom_white_list": [],
+            "custom_black_list": [],
+        }
+        self.recompute = False
+        self.recompute_configs: Dict = {"checkpoints": [],
+                                        "granularity": "full"}
+        self.sharding = False
+        self.sharding_configs: Dict = {"stage": 1, "degree": 1,
+                                       "offload": False}
+        self.pipeline = False
+        self.pipeline_configs: Dict = {"accumulate_steps": 1,
+                                       "micro_batch_size": 1,
+                                       "schedule_mode": "1F1B"}
+        self.gradient_merge = False
+        self.gradient_merge_configs: Dict = {"k_steps": 1, "avg": True}
+        self.lamb = False
+        self.dgc = False
+        self.find_unused_parameters = False
+        self.tensor_parallel = False
+        self.tensor_parallel_configs: Dict = {"tensor_parallel_degree": 1}
+        self.fuse_all_reduce_ops = True
+        self.fuse_grad_size_in_MB = 32
 
     @property
     def hybrid_configs(self) -> Dict:
@@ -43,4 +71,6 @@ class DistributedStrategy:
             setattr(self._hybrid, key, int(v))
 
     def __repr__(self):
-        return f"DistributedStrategy(hybrid={self.hybrid_configs})"
+        return (f"DistributedStrategy(hybrid={self.hybrid_configs}, "
+                f"amp={self.amp}, recompute={self.recompute}, "
+                f"sharding={self.sharding}, pipeline={self.pipeline})")

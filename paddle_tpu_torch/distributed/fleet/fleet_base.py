@@ -94,25 +94,45 @@ def distributed_model(model):
     """Wrap ``model`` for the strategy's degrees, as the reference: at
     ``mp > 1`` a ``TensorParallel`` (each rank keeps its shard of every
     ``dist_spec``-annotated parameter, the replicated ones broadcast from
-    the ``mp`` group's first rank); otherwise the model itself. A model
-    whose parameters carry no ``dist_spec`` (GPT's) stays replicated.
-    Pipelines (``PipelineLayer``) are not ported and raise ``TypeError``."""
+    the ``mp`` group's first rank); else the model itself, its parameters
+    broadcast from the ``dp`` group's first rank at ``dp > 1`` so the
+    replicas start equal (``distributed_optimizer``'s step averages the
+    gradients over ``dp``; at ``sharding > 1`` alone the sharded optimizer
+    broadcasts and reduces). A model whose parameters carry no
+    ``dist_spec`` (GPT's) stays replicated. Pipelines (``PipelineLayer``)
+    are not ported and raise ``TypeError``."""
     if not fleet_state.initialized:
         raise RuntimeError("call fleet.init() first")
     if any(c.__name__ == "PipelineLayer" for c in type(model).__mro__):
         raise TypeError("fleet.distributed_model of a PipelineLayer: "
                         "pipeline parallelism is not ported")
-    if fleet_state.topology.get_dim("mp") > 1:
+    topo = fleet_state.topology
+    if topo.get_dim("mp") > 1:
         from .meta_parallel.tensor_parallel import TensorParallel
 
         return TensorParallel(model, fleet_state.hcg, fleet_state.strategy)
+    if topo.get_dim("dp") > 1:
+        from .utils.hybrid_parallel_util import broadcast_dp_parameters
+
+        broadcast_dp_parameters(model, fleet_state.hcg)
     return model
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """Not ported: the hybrid-parallel optimizer (the distributed clip and
-    the sharded optimizer state) comes with data parallelism and
-    sharding."""
-    raise TypeError("fleet.distributed_optimizer is not ported: the "
-                    "hybrid-parallel optimizer comes with data parallelism "
-                    "and sharding")
+    """Wrap ``optimizer`` (a port optimizer over the model's parameters)
+    as the reference: a ``DygraphShardingOptimizer`` (each rank keeps and
+    updates its slice of the state) when ``sharding_degree > 1``, then
+    always a ``HybridParallelOptimizer`` (the distributed clip, the
+    replicated-gradient sync over ``mp`` and the gradient average over
+    ``dp``)."""
+    if not fleet_state.initialized:
+        raise RuntimeError("call fleet.init() first")
+    from ..sharding.sharding_optimizer import DygraphShardingOptimizer
+    from .meta_optimizers import HybridParallelOptimizer
+
+    st = strategy or fleet_state.strategy
+    if fleet_state.topology.get_dim("sharding") > 1:
+        optimizer = DygraphShardingOptimizer(
+            optimizer, hcg=fleet_state.hcg,
+            bucket_mb=st.fuse_grad_size_in_MB)
+    return HybridParallelOptimizer(optimizer, fleet_state.hcg, st)

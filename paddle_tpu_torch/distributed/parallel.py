@@ -13,9 +13,19 @@ needs no rendezvous: it runs on an in-process store. A world that
 ``torch.distributed`` already holds is adopted as it is;
 :func:`destroy_process_group` ends the world and this module's state with
 it.
+
+:class:`DataParallel` keeps the reference's explicit contract: after the
+backward, ``apply_collective_grads()`` averages the gradients over the dp
+group, and ``no_sync()`` suspends that. The gradients travel in buckets
+(:func:`allreduce_buckets`): each bucket is the gradients of consecutive
+parameters flattened into one buffer of about ``comm_buffer_size`` MB and
+all-reduced in one call, where the reference reduces one parameter a
+call. Each element is still the sum of the same values, so the result is
+the per-parameter one.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Optional
 
@@ -27,7 +37,7 @@ from ..framework.device import resolve_device
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "destroy_process_group", "new_group",
            "subgroup", "get_group", "set_mesh", "get_mesh", "current_mesh",
-           "get_device"]
+           "get_device", "DataParallel", "allreduce_buckets", "buckets"]
 
 
 class ParallelEnv:
@@ -238,3 +248,135 @@ def get_mesh():
 
         _global_mesh = build_mesh(dp=_env.world_size)
     return _global_mesh
+
+
+# ------------------------------------------------------------ DataParallel
+def buckets(tensors, bucket_mb: float = 25):
+    """``tensors`` in order, cut into runs of one dtype and device whose
+    bytes stay within ``bucket_mb`` MB (a tensor larger than that is a
+    bucket of its own)."""
+    limit = max(1, int(bucket_mb * 2 ** 20))
+    out, cur, size = [], [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if cur and (size + nbytes > limit or t.dtype != cur[0].dtype
+                    or t.device != cur[0].device):
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += nbytes
+    if cur:
+        out.append(cur)
+    return out
+
+
+@torch.no_grad()
+def allreduce_buckets(tensors, group=None, op="avg",
+                      bucket_mb: float = 25) -> int:
+    """All-reduce ``tensors`` in place over ``group`` (None: the world),
+    one call a bucket (:func:`buckets`); ``op`` ``"avg"`` divides the sum
+    by the group's size, ``"sum"`` keeps it. Every member passes tensors
+    of the same shapes in the same order. Returns the number of calls."""
+    from .collective import ReduceOp, all_reduce
+
+    n = (group.nranks if group is not None else get_world_size())
+    tensors = [t for t in tensors if t is not None]
+    if n <= 1 or not tensors:
+        return 0
+    calls = 0
+    for bucket in buckets(tensors, bucket_mb):
+        if len(bucket) == 1 and bucket[0].is_contiguous():
+            flat = bucket[0].view(-1)
+        else:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+        all_reduce(flat, op=ReduceOp.SUM, group=group)
+        if op == "avg":
+            flat.div_(n)
+        if flat.data_ptr() != bucket[0].data_ptr():
+            off = 0
+            for t in bucket:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+        calls += 1
+    return calls
+
+
+class DataParallel(torch.nn.Module):
+    """Data-parallel wrapper (after ``paddle_tpu/distributed/parallel.py``
+    ``DataParallel``): ``model(x)`` runs the wrapped layers; after the
+    backward, :meth:`apply_collective_grads` averages the gradients over
+    ``group`` (None: the world) in buckets of ``comm_buffer_size`` MB, and
+    inside :meth:`no_sync` it does nothing, so gradients accumulate
+    unsynchronised until the first call outside it. Nothing is reduced
+    automatically. At wrap, the group's first rank broadcasts every
+    parameter and buffer, so the replicas start equal. The ``Layer``
+    surface (``state_dict``, ``named_parameters``, ...) is the wrapped
+    model's, under its own names."""
+
+    def __init__(self, layers, strategy=None, comm_buffer_size=25,
+                 last_comm_buffer_size=1, find_unused_parameters=False,
+                 group=None):
+        super().__init__()
+        if not is_initialized():
+            init_parallel_env()
+        self._layers = layers
+        self._group = group
+        self._sync = True
+        self.comm_buffer_size = comm_buffer_size
+        self.last_buckets = 0
+        self._broadcast_state()
+
+    @torch.no_grad()
+    def _broadcast_state(self):
+        from .collective import broadcast
+
+        g = self._group
+        if (g.nranks if g is not None else get_world_size()) <= 1:
+            return
+        src = g.ranks[0] if g is not None else 0
+        for t in list(self._layers.parameters()) + list(
+                self._layers.buffers()):
+            broadcast(t.data, src, group=g)
+
+    def forward(self, *args, **kwargs):
+        return self._layers(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        prev, self._sync = self._sync, False
+        try:
+            yield
+        finally:
+            self._sync = prev
+
+    def apply_collective_grads(self):
+        """Average the gradients over the group (those that are None stay
+        None: every member must agree on which parameters have one)."""
+        if not self._sync:
+            return
+        grads = [p.grad for p in self._layers.parameters()
+                 if p.grad is not None]
+        self.last_buckets = allreduce_buckets(
+            grads, self._group, "avg", self.comm_buffer_size)
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            if name.startswith("__") or name == "_layers":
+                raise
+            return getattr(self._modules["_layers"], name)
+
+    def parameters(self, recurse=True):
+        return self._layers.parameters(recurse)
+
+    def named_parameters(self, *a, **k):
+        return self._layers.named_parameters(*a, **k)
+
+    def state_dict(self, *a, **k):
+        return self._layers.state_dict(*a, **k)
+
+    def load_state_dict(self, *a, **k):
+        return self._layers.load_state_dict(*a, **k)
+
+    set_state_dict = load_state_dict

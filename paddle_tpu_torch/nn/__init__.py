@@ -8,7 +8,8 @@ from .conv import Conv1D, Conv2D, Conv2DTranspose, Conv3D
 from .layer import Layer, LayerList, ParameterList, Sequential
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm)
+                   GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm,
+                   SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, MaxPool1D,
                       MaxPool2D)
@@ -19,7 +20,8 @@ from .transformer import (MultiHeadAttention, Transformer,
 __all__ = ["functional", "initializer", "quant", "Layer", "LayerList",
            "ParameterList", "Linear", "Embedding", "Dropout",
            "RMSNorm", "LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "GroupNorm", "InstanceNorm2D", "Conv1D", "Conv2D",
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm2D",
+           "Conv1D", "Conv2D",
            "Conv3D", "Conv2DTranspose", "MaxPool1D", "MaxPool2D",
            "AvgPool1D", "AvgPool2D", "AdaptiveAvgPool1D",
            "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "ReLU", "Sequential",

@@ -101,25 +101,35 @@ class Optimizer:
     # ------------------------------------------------------------ eager step
     @torch.no_grad()
     def step(self):
+        named = self._named_parameter_list()
+        grads = self._step_with([p.grad for _, p in named])
+        for (_, p), g in zip(named, grads):
+            p.grad = g
+
+    @torch.no_grad()
+    def _step_with(self, grads):
+        """One step of every parameter of ``_named_parameter_list()`` from
+        ``grads`` (one a parameter, in that order; None skips it), clipped
+        first; returns the clipped gradients."""
         lr = self.get_lr()
         self._step_count += 1
         named = self._named_parameter_list()
         if self._grad_clip is not None:
-            pg = [(p, p.grad) for _, p in named]
-            for (_, p), (_, g) in zip(named, self._grad_clip(pg)):
-                p.grad = g
-        for name, p in named:
-            if p.grad is None:
+            pg = [(p, g) for (_, p), g in zip(named, grads)]
+            grads = [g for _, g in self._grad_clip(pg)]
+        for (name, p), g in zip(named, grads):
+            if g is None:
                 continue
             state = self._state_for(p)
             master = self._master_weights.get(id(p))
             pf = master if master is not None else (
                 p if p.dtype == torch.float32 else p.float())
             wd = self._weight_decay if self._decay_applies(name, p) else 0.0
-            self._update_rule(pf, p.grad.float(), state, lr,
-                              self._step_count, wd)
+            self._update_rule(pf, g.float(), state, lr, self._step_count,
+                              wd)
             if pf is not p:
                 p.copy_(pf)
+        return grads
 
     def _decay_applies(self, name, p) -> bool:
         return True

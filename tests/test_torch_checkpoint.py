@@ -2,7 +2,10 @@
 (``distributed/checkpoint.py``, ``distributed/ckpt_manager.py``,
 ``hapi/model.py``, ``framework/random.py``, ``serialization.py``),
 after the reference's ``tests/test_train_resilience.py``, plus the
-on-disk format held against paddle_tpu's in both directions.
+on-disk format held against paddle_tpu's in both directions. At the end,
+a checkpoint saved by two gloo processes: a ZeRO-1 model and optimizer,
+each rank's slices and marker, loaded whole in one process and back into
+two, and a save that one member fails refused as incomplete.
 
 Exactness: checkpoints carry f32 values bit for bit either way; a
 preempted and resumed ``fit`` ends with the clean run's losses and
@@ -549,3 +552,124 @@ def test_new_modules_import_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "clean"
+
+
+# ------------------------------------------- saved by two processes
+def _zero1_run(rank, sub):
+    """A ZeRO-1 (``os``) MLP on this rank after two AdamW steps on its
+    half of the batch."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.nn import functional as F
+
+    torch.manual_seed(0)  # the same start on both ranks
+    model = nn.Sequential(nn.Linear(6, 8, device="cpu"), nn.ReLU(),
+                          nn.Linear(8, 3, device="cpu"))
+    opt = popt.AdamW(learning_rate=0.01, parameters=model.named_parameters())
+    wrapped, opt, _ = group_sharded_parallel(model, opt, "os", group=sub)
+    r = np.random.default_rng(3)
+    for _ in range(2):
+        x = torch.from_numpy(r.standard_normal((4, 6)).astype(np.float32))
+        y = torch.from_numpy(r.integers(0, 3, (4,)))
+        F.cross_entropy(wrapped(x[2 * rank:2 * rank + 2]),
+                        y[2 * rank:2 * rank + 2]).backward()
+        opt.step()
+        opt.clear_grad()
+    return model, opt
+
+
+def _ckpt_worker(rank, world, init_file, out_dir):
+    import _torch_world as W
+
+    from paddle_tpu_torch.distributed import get_group
+
+    W.init_world(rank, world, init_file)
+    group = get_group()
+    model, opt = _zero1_run(rank, group)
+    sd = {f"model.{k}": v for k, v in model.state_dict().items()}
+    sd.update({f"opt.{k}": v for k, v in opt.sharded_state_dict().items()})
+    path = os.path.join(out_dir, "step-2")
+    save_state_dict(sd, path, group=group)
+    own = {k: v.clone() for k, v in opt.state_dict().items()
+           if isinstance(v, torch.Tensor)}
+    # loaded back in two processes: a fresh run takes the whole state and
+    # keeps its own slices
+    loaded = load_state_dict(path)
+    model2, opt2 = _zero1_run(rank, group)
+    model2.load_state_dict({k[6:]: v for k, v in loaded.items()
+                            if k.startswith("model.")})
+    opt2.set_state_dict({k[4:]: v for k, v in loaded.items()
+                         if k.startswith("opt.")})
+    back = opt2.state_dict()
+    res = dict(
+        gathered={k: v.numpy().copy() for k, v in
+                  opt.gathered_state_dict().items()
+                  if isinstance(v, torch.Tensor)},
+        step=opt.state_dict()["step"],
+        params={k: v.detach().numpy().copy()
+                for k, v in model.state_dict().items()},
+        reloaded=all(torch.equal(own[k], back[k]) for k in own),
+        slice_shapes={k: tuple(v.shape) for k, v in own.items()})
+    # a save that one member fails before its marker is refused on both
+    bad = os.path.join(out_dir, "step-3")
+    plan = FaultPlan("ckpt-io-error:at=1") if rank == 1 else None
+    try:
+        save_state_dict(sd, bad, group=group, fault_plan=plan)
+        res["bad"] = "committed"
+    except (OSError, RuntimeError) as e:
+        res["bad"] = type(e).__name__
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def zero1_ckpt(tmp_path_factory):
+    import _torch_world as W
+
+    tmp = tmp_path_factory.mktemp("ckpt_world")
+    return tmp, W.run_world(_ckpt_worker, 2, tmp)
+
+
+def test_two_process_zero1_save_loads_whole_in_one_process(zero1_ckpt):
+    """Each rank wrote its slices of the optimizer state and its own
+    marker (rank 0 the replicated parameters); one process loads the
+    gathered state and the parameters bitwise."""
+    tmp, ranks = zero1_ckpt
+    path = os.path.join(tmp, "step-2")
+    metas = [json.load(open(os.path.join(path, f"metadata.p{i}.json")))
+             for i in range(2)]
+    assert [(m["process_index"], m["process_count"]) for m in metas] == [
+        (0, 2), (1, 2)]
+    assert not any(k.startswith("model.") for k in metas[1]["tensors"])
+    assert ckpt.is_complete(path) and ckpt.verify_contents(path) > 2
+    assert not os.path.exists(os.path.join(path, "COMMIT.claim"))
+    got = load_state_dict(path)
+    assert got["opt.step"] == ranks[0]["step"] == 2
+    for k, want in ranks[0]["gathered"].items():
+        assert np.array_equal(got[f"opt.{k}"].numpy(), want), k
+        assert np.array_equal(ranks[1]["gathered"][k], want), k
+    for k, want in ranks[0]["params"].items():
+        assert np.array_equal(got[f"model.{k}"].numpy(), want), k
+    # the slices really are halves: [6, 8] -> [3, 8], [3] stays whole
+    shapes = ranks[0]["slice_shapes"]
+    assert shapes["0.weight.moment1"] == (3, 8)
+    assert shapes["2.bias.moment1"] == (3,)
+
+
+def test_two_process_zero1_save_loads_in_two_processes(zero1_ckpt):
+    _, ranks = zero1_ckpt
+    assert all(r["reloaded"] for r in ranks)
+
+
+def test_a_missing_marker_is_refused_as_incomplete(zero1_ckpt):
+    tmp, ranks = zero1_ckpt
+    assert ranks[0]["bad"] == "RuntimeError"  # the commit never came
+    assert ranks[1]["bad"] == "OSError"       # the injected write error
+    assert not os.path.exists(os.path.join(tmp, "step-3"))
+    stage = os.path.join(tmp, ckpt.STAGE_PREFIX + "shared-step-3")
+    assert os.path.exists(os.path.join(stage, "metadata.p0.json"))
+    assert not ckpt.is_complete(stage)
+    with pytest.raises(FileNotFoundError, match="incomplete"):
+        load_state_dict(stage)
+    assert ckpt.list_steps(str(tmp)) == [2]
