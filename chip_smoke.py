@@ -101,10 +101,11 @@ Phases, in order; any failure exits non-zero:
               check: loss, gradients and three AdamW steps of 2-layer
               GPT-medium and ``llama2_7b`` widths with the kernels against
               plain attention.
-8. tier     — ``llama2_7b`` at full width and depth, bf16, random weights
-              from a seed. (a) The host KV tier under churn: 16 templates
-              of 512 tokens (512 pages, 4 GiB) against a 256-page pool and
-              a 512-page pinned slab, 32-token tails, 32 new tokens, two
+8. tier     — ``llama2_7b`` widths at 16 of its 32 layers (cut to make
+              room for phase 18), bf16, random weights from a seed. (a)
+              The host KV tier under churn: 16 templates of 512 tokens
+              (512 pages, 2 GiB) against a 256-page pool and a 512-page
+              pinned slab, 32-token tails, 32 new tokens, two
               rounds whose requests arrive together; every promoted page
               is hashed on the card right after its restore and must equal
               its bytes at demotion; demotions, promotions, the worker's
@@ -192,6 +193,9 @@ Phases, in order; any failure exits non-zero:
               ``TrainingPreempted``) and its resume; stitched losses and
               state bitwise equal. (3) The six training and checkpoint
               fault points, each fired once in a child and recovered.
+              (2) and (3) need no kernel of ``csrc/``: a full run starts
+              their children beside the build and waits for them before
+              the kernels phase (``_ResnetChildren``).
 13. bert    — config 2 at one GPU through ``examples/train_bert_torch.py``'s
               functional step (``jit.functional_call`` + autograd +
               ``AdamW.apply_gradients_tree``) at BERT-base (12 layers,
@@ -208,7 +212,7 @@ Phases, in order; any failure exits non-zero:
               twice as often, the peak memory lower.
 14. export  — config 5: the example twin's ``TinyTransformer`` (#2 at
               head dim 16) and ``BertForMaskedLM`` at BERT-base width,
-              4 of its 12 layers (batch 8, seq 512), f32, through
+              2 of its 12 layers (batch 8, seq 512), f32, through
               ``jit.to_static``
               (``torch.compile(fullgraph=True)``), ``jit.save`` (the
               BERT with ``InputSpec([None, 512])``) -> ``jit.load`` and
@@ -275,6 +279,22 @@ Phases, in order; any failure exits non-zero:
               rank-local backward shown beyond the limit); the ``os``
               state saved by both ranks and loaded on rank 0 alone,
               bitwise (``phase_dp``).
+18. pp      — pipeline parallelism and config 4
+              (``examples/pretrain_gpt_hybrid_torch.py``'s path) as four
+              rank processes sharing the one card over gloo (pp 2 x mp
+              2, TF32 off; point-to-point sends through host buffers): #2
+              and the flash backward at a rank's shape (f32, 2 x 2048, 16
+              heads of 128) against their plain versions; config 4's
+              widths (hidden 4096, 32 heads, vocab 50304) at 4 of 32
+              layers, global batch 8 x 2048 in 4 microbatches, two steps
+              of ``train_batch`` (1F1B, recompute) through
+              ``fleet.distributed_model`` / ``distributed_optimizer(AdamW,
+              ClipGradByGlobalNorm)``, against one process on the same
+              weights and microbatches: losses equal on every rank and
+              within 1e-5, parameters by the dp phase's rule, the mp
+              ranks' replicated parameters hashed alike; ms a step,
+              tokens/s, the point-to-point and mp shares, peak memory a
+              rank, ``profiler.mfu`` (``phase_pp``).
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -367,7 +387,7 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
-          "export", "moe_train", "tp", "dp")
+          "export", "moe_train", "tp", "dp", "pp")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause", "ncclprobe")
 
@@ -3520,6 +3540,397 @@ def phase_dp(ident):
                                                     0)}
 
 
+# ------------------------------------------------------------ phase pp
+PP_DEADLINE_S = 600   # the rank world's wall clock, as a hang guard
+PP_LAYERS = 4         # config 4's blocks, of 32: two a stage
+PP_DIMS = (4096, 32, 50304)  # hidden, heads, vocab (config 4)
+PP_SEQ, PP_BATCH, PP_MICRO, PP_STEPS = 2048, 8, 4, 2
+PP_LR = 1e-4
+PP_LOSS_RTOL = 1e-5   # f32 sums in another order (the dp phase's limit)
+PP_PARAM_REL = 1e-3   # the dp phase's rule (see _dp_compare)
+PP_LABEL = "four ranks sharing one H100 over gloo: not a pipeline speed"
+
+
+class _PPWeights(dict):
+    """The weights of config 4's pipeline model by global name, drawn on
+    the card from a seed a name (so the one-process reference and every
+    rank draw the same values without a host copy): matrices N(0, 0.02),
+    LayerNorm scales 1 + N(0, 0.02), biases N(0, 0.02). ``shapes``: the
+    whole model's ``{name: shape}``."""
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.shapes = dict(shapes)
+
+    def __contains__(self, name):
+        return name in self.shapes
+
+    def __missing__(self, name):
+        import hashlib
+
+        import torch
+
+        seed = int(hashlib.sha256(name.encode()).hexdigest()[:12], 16)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        shape = tuple(self.shapes[name])
+        t = 0.02 * torch.randn(shape, generator=g, device="cuda")
+        if len(shape) == 1 and "ln" in name and name.endswith("weight"):
+            t += 1.0
+        return t
+
+
+def _pp_decay(named):
+    """The reference pipeline's weight-decay rule by name: matrices."""
+    decay = {n for n, p in named if p.dim() > 1}
+    return lambda name: name in decay
+
+
+def _pp_batches():
+    import numpy as np
+
+    ex = _example("pretrain_gpt_hybrid_torch")
+    rng = np.random.default_rng(0)
+    return [ex.global_batch(rng, PP_DIMS[2], PP_BATCH, PP_SEQ)
+            for _ in range(PP_STEPS)]
+
+
+def _pp_reference(out):
+    """Config 4's 4-layer model in this process, unpipelined (no world:
+    every stage, mp = 1), on the same weights and batches: each step the
+    four microbatches' gradients accumulated (each loss over 4), then
+    AdamW(1e-4) with ClipGradByGlobalNorm(1.0) and the pipeline's decay
+    rule. Saves the final parameters to ``out``; returns the losses, the
+    step times and the shapes."""
+    import torch
+
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.convert import pipeline_stage_from_numpy
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+
+    ex = _example("pretrain_gpt_hybrid_torch")
+    hidden, heads, vocab = PP_DIMS
+    model = PipelineLayer(ex.build_layers(hidden, heads, PP_LAYERS, vocab),
+                          num_stages=1, loss_fn=ex.ce_loss, device="cuda")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    pipeline_stage_from_numpy(model, _PPWeights(shapes))
+    named = list(model.named_parameters())
+    opt = optimizer.AdamW(learning_rate=PP_LR, parameters=named,
+                          apply_decay_param_fun=_pp_decay(named),
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    losses, host = [], []
+    for ids, labels in _pp_batches():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = torch.from_numpy(ids).cuda().split(PP_BATCH // PP_MICRO)
+        labels = torch.from_numpy(labels).cuda().split(PP_BATCH // PP_MICRO)
+        total = 0.0
+        for x, y in zip(ids, labels):
+            loss = ex.ce_loss(model(x), y)
+            (loss / PP_MICRO).backward()
+            total += float(loss.detach())
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(total / PP_MICRO)
+    torch.save({n: p.detach().cpu() for n, p in named},
+               os.path.join(out, "ref_params.pt"))
+    n_params = sum(p.numel() for _, p in named)
+    del model, opt, named
+    _dp_free()
+    return dict(losses=losses, host=host, shapes=shapes, n_params=n_params)
+
+
+def _pp_timed_mp(group):
+    """Time the collectives over ``group`` (the mp group): the device is
+    synchronised first, then the host wall of each gloo call. Returns (the
+    totals, a function that restores torch.distributed's calls)."""
+    import torch
+    import torch.distributed as dist
+
+    tot = {"s": 0.0, "calls": 0}
+    saved = {}
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        orig = getattr(dist, name)
+        saved[name] = orig
+
+        def timed(*a, _orig=orig, **k):
+            if k.get("group") is not group.process_group:
+                return _orig(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **k)
+            tot["s"] += time.perf_counter() - t0
+            tot["calls"] += 1
+            return out
+
+        setattr(dist, name, timed)
+    return tot, lambda: [setattr(dist, k, v) for k, v in saved.items()]
+
+
+def _pp_rank(rank, world, init_file, out_dir, shapes):
+    """One rank of the pp world: gloo over CUDA tensors on the one card,
+    TF32 off; config 4's stage through fleet, two steps of train_batch."""
+    import datetime
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import nn, optimizer, profiler
+    from paddle_tpu_torch.convert import pipeline_stage_from_numpy
+    from paddle_tpu_torch.distributed import (destroy_process_group, fleet,
+                                              init_parallel_env)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+
+    init_parallel_env(device="cuda", backend="gloo",
+                      init_method=f"file://{init_file}", rank=rank,
+                      world_size=world,
+                      timeout=datetime.timedelta(seconds=PP_DEADLINE_S))
+    ex = _example("pretrain_gpt_hybrid_torch")
+    hidden, heads, vocab = PP_DIMS
+    t0 = time.perf_counter()
+    fleet.init(is_collective=True,
+               strategy=ex.strategy_for(dict(mp=2, pp=2, sharding=1),
+                                        PP_MICRO, False), device="cuda")
+    hcg = fleet.get_hybrid_communicate_group()
+    model = PipelineLayer(ex.build_layers(hidden, heads, PP_LAYERS, vocab),
+                          num_stages=2, loss_fn=ex.ce_loss)
+    pipeline_stage_from_numpy(model, _PPWeights(shapes))
+    engine = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=PP_LR, parameters=model.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(1.0)))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = ex.model_params(model, hcg)
+    tot, restore = _pp_timed_mp(hcg.get_model_parallel_group())
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(losses=[], host=[], p2p=[], mp=[], stats=[])
+
+    def steps():
+        for ids, labels in _pp_batches():
+            torch.cuda.synchronize()
+            before = tot["s"]
+            t1 = time.perf_counter()
+            loss = engine.train_batch([torch.from_numpy(ids),
+                                       torch.from_numpy(labels)], opt)
+            torch.cuda.synchronize()
+            rec["host"].append(time.perf_counter() - t1)
+            rec["losses"].append(float(loss))
+            rec["p2p"].append(engine.last_stats["p2p_s"])
+            rec["mp"].append(tot["s"] - before)
+            rec["stats"].append(dict(engine.last_stats))
+
+    try:
+        _, counts = _counted(steps, needs=("flash_attention_fwd",
+                                           "flash_attention_bwd"))
+    finally:
+        restore()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["counts"] = counts
+    tps = PP_BATCH * PP_SEQ / statistics.mean(rec["host"][1:] or
+                                              rec["host"])
+    rec["mfu"] = profiler.mfu(n_params, tps,
+                              peak_flops_per_chip=F32_FLOPS_PER_S)
+    rec.update(n_params=n_params, build_s=build_s,
+               coords=dict(pp=hcg.get_stage_id(),
+                           mp=hcg.get_model_parallel_rank()))
+    # the replicated parameters' digest (the mp ranks of a stage must
+    # agree), and this rank's parameters against the reference's
+    h = hashlib.sha256()
+    for n, p in sorted(model.named_parameters()):
+        if getattr(p, "is_distributed", False) is not True:
+            h.update(p.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    rec["digest"] = h.hexdigest()
+    ref = torch.load(os.path.join(out_dir, "ref_params.pt"), mmap=True)
+    init = _PPWeights(shapes)
+    mp_group = hcg.get_model_parallel_group()
+    from paddle_tpu_torch.convert import shard_state_dict
+
+    worst, diff2, moved2 = ("", 0.0), 0.0, 0.0
+    for n, p in model.named_parameters():
+        if getattr(p, "is_distributed", False) is not True and \
+                mp_group.rank != 0:
+            continue  # a replicated parameter: counted on mp rank 0
+        want = shard_state_dict({n: ref[n]}, model=model,
+                                mp=mp_group.nranks,
+                                mp_rank=mp_group.rank)[n].cuda()
+        start = shard_state_dict({n: init[n]}, model=model,
+                                 mp=mp_group.nranks,
+                                 mp_rank=mp_group.rank)[n]
+        d = (p.detach() - want).abs()
+        e = float(d.max())
+        if e > worst[1]:
+            worst = (n, e)
+        diff2 += float(d.double().square().sum())
+        moved2 += float((want - start).double().square().sum())
+    rec.update(worst=worst, diff2=diff2, moved2=moved2)
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    destroy_process_group()
+
+
+def _pp_world(out, shapes):
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_pp_rank, args=(4, os.path.join(out, "init"),
+                                             out, shapes),
+                             nprocs=4, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() - t0 > PP_DEADLINE_S:
+                raise AssertionError(f"pp: the rank world outlived "
+                                     f"{PP_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(4)]
+
+
+def phase_pp(ident):
+    """Pipeline parallelism and config 4 (``examples/pretrain_gpt_hybrid
+    _torch.py``'s path) at pp 2 x mp 2, as four rank processes sharing the
+    one card over gloo (CUDA tensors; the point-to-point sends go through
+    host buffers). Every time here is labelled "four ranks sharing one H100
+    over gloo: not a pipeline speed". TF32 off throughout.
+
+    First #2 and the flash backward at a rank's shape of config 4 (f32,
+    a microbatch of 2 x 2048, 16 heads of 128, causal: the FMA bodies)
+    against their plain versions. Then the one-process reference
+    (``_pp_reference``): config 4's widths (hidden 4096, 32 heads, vocab
+    50304) at 4 of 32 layers, the same four microbatches accumulated, then
+    AdamW and the clip; its memory freed. Then one four-rank world, each
+    rank ``fleet.init`` (mp 2 x pp 2), its stage of ``build_layers`` (two
+    blocks, the embedding or the head) filled by
+    ``convert.pipeline_stage_from_numpy``, ``fleet.distributed_model`` (a
+    ``PipelineParallel``) and ``distributed_optimizer(AdamW(1e-4,
+    ClipGradByGlobalNorm(1.0)))``, two steps of ``train_batch`` on the
+    global batch of 8 x 2048 in 4 microbatches (1F1B, recompute).
+
+    Checks: every rank's loss of each step equal, and within
+    ``PP_LOSS_RTOL`` of the one process's; the parameters after step 2
+    within 2 lr a step elementwise and the difference's norm within
+    ``PP_PARAM_REL`` of the steps' movement (the dp phase's rule); the two
+    mp ranks of a stage hash their replicated parameters alike. Logs ms a
+    step, tokens/s, the point-to-point and mp-collective shares, peak
+    memory a rank, ``profiler.mfu`` against the f32 peak, and the flash
+    launches, which it returns (all four ranks summed)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = tempfile.mkdtemp(prefix="pp_phase_")
+    try:
+        f32 = torch.float32
+        rf = check_flash(torch, f32, 2, PP_SEQ, 16, 128, atol=1e-4,
+                         rtol=1e-4, timed=True)
+        log(_row(f"pp shard flash_attention_fwd f32 B=2 S={PP_SEQ} H=16 "
+                 f"D=128 causal (atol 1e-4 rtol 1e-4; library sdpa) "
+                 f"[{ident}]", rf))
+        rb = check_flash_bwd(torch, f32, 2, PP_SEQ, PP_SEQ, 16, 128,
+                             timed=True)
+        log(_row(f"pp shard flash_attention_bwd_fused f32 B=2 S={PP_SEQ} "
+                 f"H=16 D=128 causal (each gradient within 1e-4 of its "
+                 f"largest entry; library {rb['library']}) [{ident}]", rb))
+        t0 = time.perf_counter()
+        ref = _pp_reference(out)
+        ref_s = time.perf_counter() - t0
+        log(f"pp: this process holds "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card "
+            f"while the ranks run")
+        t0 = time.perf_counter()
+        ranks = _pp_world(out, ref["shapes"])
+        world_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(out, ignore_errors=True)
+    for step in range(PP_STEPS):
+        vals = {r["losses"][step] for r in ranks}
+        if len(vals) != 1:
+            raise AssertionError(f"pp: the ranks' step {step + 1} losses "
+                                 f"differ: {sorted(vals)}")
+    lerr = max(abs(a - b) / abs(b) for a, b in
+               zip(ranks[0]["losses"], ref["losses"]))
+    diff2 = sum(r["diff2"] for r in ranks)
+    moved2 = sum(r["moved2"] for r in ranks)
+    rel = (diff2 / moved2) ** 0.5
+    worst = max((r["worst"] for r in ranks), key=lambda w: w[1])
+    by = {(r["coords"]["pp"], r["coords"]["mp"]): r for r in ranks}
+    log(f"pp config 4 at pp 2 x mp 2 ({PP_LABEL}): hidden {PP_DIMS[0]}, "
+        f"{PP_DIMS[1]} heads, vocab {PP_DIMS[2]}, {PP_LAYERS} of 32 layers, "
+        f"{ranks[0]['n_params'] / 1e9:.3f} B parameters (one process "
+        f"{ref['n_params'] / 1e9:.3f} B), global batch {PP_BATCH} x "
+        f"{PP_SEQ} in {PP_MICRO} microbatches, 1F1B with recompute: losses "
+        f"{[round(v, 6) for v in ranks[0]['losses']]} on every rank against "
+        f"one process's {[round(v, 6) for v in ref['losses']]} (worst rel "
+        f"{lerr:.3g}, limit {PP_LOSS_RTOL}); parameters after step "
+        f"{PP_STEPS}: worst {worst[1]:.3g} ({worst[0]}), the difference's "
+        f"norm {rel:.3g} of the steps' movement (limit {PP_PARAM_REL}); the "
+        f"mp ranks' replicated parameters hash alike: "
+        f"{all(by[(s, 0)]['digest'] == by[(s, 1)]['digest'] for s in (0, 1))}"
+        f" [{ident}]")
+    for s in (0, 1):
+        if by[(s, 0)]["digest"] != by[(s, 1)]["digest"]:
+            raise AssertionError(f"pp: stage {s}'s mp ranks hold different "
+                                 f"replicated parameters")
+    if not lerr <= PP_LOSS_RTOL:
+        raise AssertionError(f"pp: losses off one process's by {lerr:.3g}")
+    if worst[1] > 2 * PP_LR * PP_STEPS or not rel <= PP_PARAM_REL:
+        raise AssertionError(f"pp: parameters off one process's by "
+                             f"{worst[1]:.3g} ({worst[0]}), relative norm "
+                             f"{rel:.3g}")
+    step_s = [statistics.mean(r["host"][1:]) for r in ranks]
+    tok = PP_BATCH * PP_SEQ
+    parts = []
+    for r in ranks:
+        h = sum(r["host"][1:])
+        parts.append(f"stage {r['coords']['pp']} mp {r['coords']['mp']}: "
+                     f"p2p {1e3 * statistics.mean(r['p2p'][1:]):.0f} ms "
+                     f"({sum(r['p2p'][1:]) / h:.1%}), mp collectives "
+                     f"{1e3 * statistics.mean(r['mp'][1:]):.0f} ms "
+                     f"({sum(r['mp'][1:]) / h:.1%}), peak "
+                     f"{r['peak_gib']:.2f} GiB")
+    counts = {}
+    for r in ranks:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"pp: a step {1e3 * max(step_s):.0f} ms host (step 2; step 1 "
+        f"{1e3 * max(r['host'][0] for r in ranks):.0f} ms, of it p2p "
+        f"{1e3 * max(r['p2p'][0] for r in ranks):.0f} and mp collectives "
+        f"{1e3 * max(r['mp'][0] for r in ranks):.0f}), "
+        f"{tok / max(step_s):.0f} tokens/s (one process on the card "
+        f"{tok / statistics.mean(ref['host'][1:]):.0f}); "
+        + "; ".join(parts)
+        + f"; profiler.mfu against the f32 peak {F32_FLOPS_PER_S / 1e12:.0f} "
+        f"TF/s: {ranks[0]['mfu']:.4f} (6 N a token, recomputation not "
+        f"counted; the card's tokens/s); flash launches forward "
+        f"{counts.get('flash_attention_fwd')} backward "
+        f"{counts.get('flash_attention_bwd')} (four ranks) [{ident}]")
+    log(f"pp: reference {ref_s:.1f} s; world {world_s:.1f} s (build "
+        f"{max(r['build_s'] for r in ranks):.1f} s a rank); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": counts.get("flash_attention_fwd", 0),
+            "flash_attention_bwd_fused": counts.get("flash_attention_bwd",
+                                                    0)}
+
+
 def phase_ncclprobe(ident):
     """Opt-in: two NCCL ranks on the one card (the tp phase's layout) do
     one all-reduce in a subprocess world, bounded to 120 s; logs what NCCL
@@ -3597,8 +4008,20 @@ def main(argv=None):
         return out
 
     t_run = time.perf_counter()
-    if "build" in phases:
-        timed("build", phase_build)
+    children = None
+    if "build" in phases and "resnet" in phases:
+        # the resnet phase's children (bitwise resume, the fault points)
+        # need no kernel of csrc/: they run beside nvcc, and the card is
+        # theirs alone until they end
+        children = _ResnetChildren(str(_resnet_root()))
+    try:
+        if "build" in phases:
+            timed("build", phase_build)
+        if children is not None:
+            timed("resnet children", children.result)
+    finally:
+        if children is not None:
+            children.stop()
     if "kernels" in phases:
         kernel_stats = timed("kernels", phase_kernels)
     if "context" in phases:
@@ -3611,11 +4034,12 @@ def main(argv=None):
                        ("fused", phase_fused), ("bert", phase_bert),
                        ("export", phase_export),
                        ("moe_train", phase_moe_train), ("tp", phase_tp),
-                       ("dp", phase_dp)):
+                       ("dp", phase_dp), ("pp", phase_pp)):
         if phase in phases:
             for name, n in timed(phase, run, ident).items():
                 launches[name] = launches.get(name, 0) + n
-    for phase, run in (("greedy", phase_greedy), ("resnet", phase_resnet),
+    for phase, run in (("greedy", phase_greedy),
+                       ("resnet", lambda i: phase_resnet(i, children)),
                        ("profile", phase_profile), ("drift", phase_drift),
                        ("anatomy", phase_anatomy), ("sched", phase_sched),
                        ("loadgen", phase_loadgen),
@@ -4207,10 +4631,10 @@ def phase_main(ident):
         verify)
     disagg = ("paged_decode_attention", "paged_verify_attention")
 
-    # the disaggregated pair at half depth (16 of 32 layers, the same
+    # the disaggregated pair at a quarter depth (8 of 32 layers, the same
     # seed): its graph and eager runs are held only to each other, and the
     # eager one, host-bound, was the phase's longest pass
-    half = init_llama(dataclasses.replace(cfg, num_layers=16), seed=0,
+    half = init_llama(dataclasses.replace(cfg, num_layers=8), seed=0,
                       device="cuda", dtype=torch.bfloat16)
 
     def disagg_engine(graphs=True):
@@ -6523,9 +6947,12 @@ def _two_waves(eng, shared, tails, new, tag, temp=0.0):
     return reqs
 
 
+TIER_LAYERS = 16
+
+
 def phase_tier(ident):
-    """``llama2_7b``, bf16, full width and depth, random weights from a
-    seed: the host KV tier under churn, the integrity sentinel (audit,
+    """``llama2_7b`` widths at ``TIER_LAYERS`` of its 32 layers, bf16,
+    random weights from a seed: the host KV tier under churn, the integrity sentinel (audit,
     faults, strict) and the KV handoff over ``/v1/kv``; then the f32
     identities at two layers (the module docstring, phase 8). Returns the
     launches by kernel row."""
@@ -6536,19 +6963,22 @@ def phase_tier(ident):
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.inference.integrity import (IntegritySentinel,
                                                       page_checksums)
-    from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.models.llama import LlamaConfig
     from paddle_tpu_torch.nn.quant import quantize_for_decode
     from paddle_tpu_torch.serving.replica import (decode_kv_payload,
                                                   encode_kv_payload)
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = llama2_7b()
+    # llama2_7b's widths at TIER_LAYERS of its 32 layers: the depth cut
+    # that makes room for the pp phase in the run's time limit (a page,
+    # the weight baseline and the handoff's payload scale with it)
+    cfg = LlamaConfig(num_layers=TIER_LAYERS)
     t0 = time.perf_counter()
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"tier: llama2_7b bf16 initialised in {time.perf_counter() - t0:.1f}"
-        " s")
+    log(f"tier: llama2_7b widths, {TIER_LAYERS} of 32 layers, bf16 "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
     vocab = cfg.vocab_size
     total = {name: 0 for name in KERNELS}
     vanilla = ("paged_decode_attention", "flash_attention_fwd")
@@ -6579,8 +7009,8 @@ def phase_tier(ident):
                 for k in now}
 
     # ---- (a) the tier under churn: 16 templates of 512 tokens (512
-    # pages, 4 GiB) against a 256-page pool (2 GiB) and a 512-page pinned
-    # slab (4 GiB); 32-token tails, 32 new tokens, greedy, two rounds
+    # pages, 2 GiB) against a 256-page pool (1 GiB) and a 512-page pinned
+    # slab (2 GiB); 32-token tails, 32 new tokens, greedy, two rounds
     NT, TLEN, TAIL, NEW, POOL, HOST, PS = 16, 512, 32, 32, 256, 512, 16
     page_bytes_ = (2 * cfg.num_layers * PS * cfg.num_kv_heads
                    * cfg.head_dim * 2)
@@ -9090,54 +9520,92 @@ def _resnet_child(spec):
     return 0
 
 
-def _resnet_children(root):
-    """Checks 2 and 3 of the resnet phase in child processes: clean, kill
-    (a real SIGTERM) and the fault points (training ones in ``faults``,
-    preempt-signal and the checkpoint ones in ``preempt``) run at once,
-    then resume, under a temporary directory of ``root``. Returns each
-    child's JSON, ``faults`` holding both fault children's."""
-    import os
-    import tempfile
+class _ResnetChildren:
+    """Checks 2 and 3 of the resnet phase in child processes, on a thread
+    of this process: clean, kill (a real SIGTERM) and the fault points
+    (training ones in ``faults``, preempt-signal and the checkpoint ones in
+    ``preempt``) start at once, the resume as soon as the kill child ends,
+    under a temporary directory of ``root``. The children need no kernel
+    of ``csrc/``, so a full run starts them beside the build
+    (``main``) and waits for them before any phase measures on the card.
+    ``result()`` returns each child's JSON, ``faults`` holding both fault
+    children's, and the seconds they took."""
 
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    res, procs = {}, {}
-    with tempfile.TemporaryDirectory(prefix="resnet_", dir=root) as tmp:
+    def __init__(self, root):
+        import tempfile
+        import threading
 
-        def start(mode, ckpt_dir):
-            spec = dict(mode=mode, root=os.path.join(tmp, ckpt_dir),
-                        out=os.path.join(tmp, f"{mode}.json"))
-            return subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--resnet-child", json.dumps(spec)], env=env)
+        self._tmp = tempfile.TemporaryDirectory(prefix="resnet_", dir=root)
+        self._env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        self._res, self._err, self.seconds = {}, None, None
+        self._procs = {}
+        self._t0 = time.perf_counter()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="resnet-children")
+        self._thread.start()
 
-        def finish():
-            for mode, p in procs.items():
-                try:
-                    rc = p.wait(timeout=600)
-                except subprocess.TimeoutExpired:
-                    raise AssertionError(f"resnet child {mode} timed out")
-                if rc != 0:
-                    raise AssertionError(f"resnet child {mode} exited {rc}")
-                with open(os.path.join(tmp, f"{mode}.json")) as f:
-                    res[mode] = json.load(f)
+    def _start(self, mode, ckpt_dir):
+        tmp = self._tmp.name
+        spec = dict(mode=mode, root=os.path.join(tmp, ckpt_dir),
+                    out=os.path.join(tmp, f"{mode}.json"))
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--resnet-child", json.dumps(spec)], env=self._env)
 
+    def _collect(self, mode, proc):
         try:
-            procs = {m: start(m, d) for m, d in
-                     (("clean", "a"), ("kill", "b"), ("faults", "c"),
-                      ("preempt", "d"))}
-            finish()
-            procs = {"resume": start("resume", "b")}
-            finish()
-            res["faults"].update(res.pop("preempt"))
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"resnet child {mode} timed out")
+        if rc != 0:
+            raise AssertionError(f"resnet child {mode} exited {rc}")
+        with open(os.path.join(self._tmp.name, f"{mode}.json")) as f:
+            self._res[mode] = json.load(f)
+
+    def _run(self):
+        procs = self._procs
+        try:
+            for m, d in (("clean", "a"), ("kill", "b"), ("faults", "c"),
+                         ("preempt", "d")):
+                procs[m] = self._start(m, d)
+            self._collect("kill", procs.pop("kill"))
+            procs["resume"] = self._start("resume", "b")
+            for mode in list(procs):
+                self._collect(mode, procs.pop(mode))
+            self._res["faults"].update(self._res.pop("preempt"))
+        except BaseException as e:  # noqa: BLE001 - raised by result()
+            self._err = e
         finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    return res
+            self.stop()
+            self.seconds = time.perf_counter() - self._t0
+
+    def stop(self):
+        """Kill the children that still run."""
+        for p in list(self._procs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def result(self):
+        self._thread.join(timeout=1200)
+        try:
+            if self._thread.is_alive():
+                self.stop()
+                raise AssertionError("resnet children outlived 1200 s")
+            if self._err is not None:
+                raise self._err
+            return self._res, self.seconds
+        finally:
+            self._tmp.cleanup()
 
 
-def phase_resnet(ident):
+def _resnet_root():
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return root
+
+
+def phase_resnet(ident, children=None):
     """Config 1 through ``paddle_tpu_torch.Model.fit`` on the card. (1)
     ``resnet50(num_classes=1000)`` f32 at torch's default cuDNN settings
     (TF32 convolutions on, TF32 matmuls off, no benchmark search): 1024
@@ -9151,7 +9619,9 @@ def phase_resnet(ident):
     SIGTERM at step 5 (committed, ``TrainingPreempted``) and its resume;
     the stitched losses and final state equal the clean run's bitwise.
     (3) Each training and checkpoint fault point fires once and recovers
-    as the reference says."""
+    as the reference says. (2) and (3) run in ``children``, the
+    ``_ResnetChildren`` that ``main`` started beside the build, or in
+    children started here."""
     import numpy as np
     import torch
 
@@ -9255,10 +9725,9 @@ def phase_resnet(ident):
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.benchmark) = flags
 
-    build_dir = Path(__file__).resolve().parent / "build"
-    build_dir.mkdir(exist_ok=True)
-    t0 = time.perf_counter()
-    res = _resnet_children(str(build_dir))
+    if children is None:
+        children = _ResnetChildren(str(_resnet_root()))
+    res, children_s = children.result()
     c = RESNET_CHILD
     clean, kill, resume = res["clean"], res["kill"], res["resume"]
     if kill["step"] != c["kill_at"] or not kill["committed"]:
@@ -9271,7 +9740,8 @@ def phase_resnet(ident):
             f"resnet (2): resume not bitwise: {stitched} vs "
             f"{clean['losses']}; digests {resume['digest'][:16]} vs "
             f"{clean['digest'][:16]}")
-    log(f"resnet (2): deterministic children, resnet50 224x224 batch "
+    log(f"resnet (2): deterministic children, resnet50 {c['size']}x"
+        f"{c['size']} batch "
         f"{c['batch']}, {c['images']} images, 2 x 4 steps: clean, SIGTERM "
         f"at step {c['kill_at']} (committed, TrainingPreempted), resumed: "
         f"stitched losses and state sha256 {clean['digest'][:16]} bitwise "
@@ -9302,8 +9772,9 @@ def phase_resnet(ident):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"resnet (3): {failed} did not recover: {f}")
-    log(f"resnet: children {time.perf_counter() - t0:.1f} s; phase took "
-        f"{time.perf_counter() - t_phase:.1f} s [{ident}]")
+    log(f"resnet: children {children_s:.1f} s (started beside the build "
+        f"in a full run); phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{ident}]")
 
 # ------------------------------------------------------------ bert, export
 def _example(name):
@@ -9595,7 +10066,7 @@ def phase_export(ident):
     """Config 5: #2 at the twin example's ``TinyTransformer`` shape against
     its plain version, timed; the ``TinyTransformer`` (d 64, 4 heads of
     16: #2 at D = 16, f32) at ``[2, 16]``, then ``BertForMaskedLM`` at
-    BERT-base width, 4 of its 12 layers, f32 with TF32 off, seq 512,
+    BERT-base width, 2 of its 12 layers, f32 with TF32 off, seq 512,
     through ``to_static``
     at batch 8 and a ``jit.save`` with ``InputSpec([None, 512])`` run at
     batches 8 and 4 by ``jit.load`` and the Predictor (``_export_case``).
@@ -9631,9 +10102,9 @@ def phase_export(ident):
                               InputSpec([2, 16], "int32"), [ids], ident,
                               tmp)
             cfg, _, seq = bert_ex.configs(True)
-            # 4 of BERT-base's 12 layers: the compile's time grows with
+            # 2 of BERT-base's 12 layers: the compile's time grows with
             # the layers, and the run's time limit holds every phase
-            cfg = dataclasses.replace(cfg, num_hidden_layers=4)
+            cfg = dataclasses.replace(cfg, num_hidden_layers=2)
             bert = init_bert(cfg, seed=0, device="cuda").eval()
             rng = np.random.default_rng(1)
             xs = [torch.from_numpy(rng.integers(

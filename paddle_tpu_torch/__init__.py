@@ -11,11 +11,12 @@ This package never imports JAX or ``paddle_tpu``.
 """
 from .framework.device import resolve_device, resolve_dtype
 from .framework.random import get_seed, seed
+from . import profiler  # noqa: F401
 from .hapi import Model
 from .serialization import load, save
 
 __all__ = ["resolve_device", "resolve_dtype", "seed", "get_seed", "Model",
-           "save", "load", "DataParallel"]
+           "save", "load", "DataParallel", "profiler"]
 
 
 def __getattr__(name):

@@ -47,6 +47,13 @@ nranks=)`` takes the full per-layer lists and builds this rank's layer
 from their shards. Shards are contiguous blocks, rank r taking block r, so
 concatenating the ranks' shards along the split dim gives the full tensor
 back.
+
+``pipeline_stage_from_numpy`` fills one rank's stage of a
+``PipelineLayer`` (or the ``PipelineParallel`` around it) from the
+reference pipeline model's parameters (``{"run_function.{i}.…": ndarray}``,
+the whole model): each local parameter and buffer takes the array of its
+global name, cut to this rank's ``mp`` shard by its ``dist_spec``
+(``shard_state_dict``).
 """
 from __future__ import annotations
 
@@ -68,7 +75,8 @@ __all__ = ["state_dict_from_numpy", "shard_state_dict", "init_llama",
            "llama_from_numpy",
            "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
            "init_fused_multi_transformer", "resnet_from_numpy",
-           "init_resnet", "bert_from_numpy", "init_bert"]
+           "init_resnet", "bert_from_numpy", "init_bert",
+           "pipeline_stage_from_numpy"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -317,4 +325,42 @@ def init_bert(cfg: BertConfig, seed: int = 0, device=None,
         else:
             p.fill_(1.0 if "norm" in name and name.endswith("weight")
                     else 0.0)
+    return model
+
+
+@torch.no_grad()
+def pipeline_stage_from_numpy(model, arrays: Dict[str, np.ndarray],
+                              mp: Optional[int] = None,
+                              mp_rank: Optional[int] = None):
+    """Copy ``arrays`` (the whole pipeline model's, by global name: a
+    mapping of ndarrays or tensors, read only at this rank's names) into
+    this rank's parameters and buffers of ``model``, each cut to rank
+    ``mp_rank`` of ``mp`` by its ``dist_spec`` (default: ``fleet``'s
+    model-parallel group). Every local parameter must have an array.
+    Returns ``model``."""
+    layer = getattr(model, "_layers", model)
+    if mp is None:
+        from .distributed.fleet.meta_parallel.mp_layers import mp_group_of
+        from .distributed.parallel import is_initialized
+
+        group = mp_group_of(None) if is_initialized() else None
+        mp = 1 if group is None else group.nranks
+        mp_rank = 0 if group is None else group.rank
+    own = dict(layer.named_parameters())
+    missing = [n for n in own if n not in arrays]
+    if missing:
+        raise KeyError(f"no array for the parameters {missing}")
+    def tensor(v):
+        return v if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v))
+
+    for n, p in own.items():
+        v = arrays[n]
+        v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+        shard = shard_state_dict({n: v}, model=layer, mp=mp,
+                                 mp_rank=int(mp_rank or 0))[n]
+        p.copy_(tensor(shard))
+    for n, b in layer.named_buffers():
+        if n in arrays:
+            b.copy_(tensor(arrays[n]))
     return model

@@ -18,10 +18,17 @@ as ``<name>.<hash>.p<i>.c0.npy`` and its own marker
 one staging directory named after the final path
 (``.tmp-shared-<name>``). A value that is a :class:`Shard` is this
 rank's block of a larger tensor (its offset and the global shape); a
-plain tensor is the same on every member and only member 0 writes it.
+plain tensor is the same on every member that holds it. Members may hold
+different names (the stages of a pipeline): the members' names and
+offsets are gathered first, and each tensor, or each block of a
+:class:`Shard`, is written by the first member that holds it, so the
+checkpoint holds every member's entries once and loads whole in one
+process.
 The member that sees all ``n`` markers and claims the commit (an
 exclusive create, so exactly one does) renames the directory into
-place. A synchronous save then waits for the whole group and raises on
+place, then removes the claim file. A member that dies between the two
+leaves the claim in the committed directory; the reader ignores it, as
+it reads only the markers and the files they name. A synchronous save then waits for the whole group and raises on
 every member unless the checkpoint committed, so a member that failed
 before its marker leaves a staging directory the reader refuses as
 incomplete.
@@ -256,7 +263,7 @@ def _claim_commit(stage: str) -> bool:
     try:
         fd = os.open(os.path.join(stage, _CLAIM),
                      os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-    except FileExistsError:
+    except (FileExistsError, FileNotFoundError):  # claimed, or committed
         return False
     os.close(fd)
     return True
@@ -293,13 +300,19 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     meta: Dict[str, Any] = {"tensors": {}, "objects": {},
                             "format": "paddle_tpu.dist_ckpt.v1",
                             "process_index": pidx, "process_count": pcount}
+    writer = _first_holders(state_dict, group) if pcount > 1 else None
     for name, v in state_dict.items():
         offset = gshape = None
         if isinstance(v, Shard):
             offset, gshape = list(v.offset), list(v.global_shape)
+            if writer is not None and \
+                    writer[(name, tuple(offset))] != pidx:
+                continue  # another member writes this block
             v = v.data
-        elif pidx and isinstance(v, (torch.Tensor, np.ndarray)):
-            continue  # a replicated tensor: member 0 writes it
+        elif (writer is not None and isinstance(v, (torch.Tensor,
+                                                     np.ndarray))
+              and writer[(name, None)] != pidx):
+            continue  # a replicated tensor: its first holder writes it
         if isinstance(v, torch.Tensor):
             data, dtype = _host_array(v)
         elif isinstance(v, np.ndarray):
@@ -338,10 +351,12 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
         if pcount > 1 and (_marker_count(stage) < pcount
                            or not _claim_commit(stage)):
             return  # another member commits
-        if pcount > 1:
-            os.remove(os.path.join(stage, _CLAIM))
         _fsync_dir(stage)
         _swap_into_place(stage, final)
+        if pcount > 1:
+            # the claim goes only after the rename: a member that also saw
+            # every marker then finds it (or no stage) and stands down
+            os.remove(os.path.join(final, _CLAIM))
         if on_commit is not None:
             on_commit(final)
 
@@ -366,6 +381,24 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
             f"checkpoint {final} did not commit: "
             f"{_marker_count(stage)}/{pcount} process markers in {stage}")
     return AsyncSaveHandle(None, path=final)
+
+
+def _first_holders(state_dict, group) -> Dict[tuple, int]:
+    """``{(name, offset or None): index of the first member holding it}``
+    over the members of ``group`` (each member's tensors and blocks)."""
+    from .collective import all_gather_object
+
+    held = []
+    for name, v in state_dict.items():
+        if isinstance(v, Shard):
+            held.append((name, tuple(int(o) for o in v.offset)))
+        elif isinstance(v, (torch.Tensor, np.ndarray)):
+            held.append((name, None))
+    first: Dict[tuple, int] = {}
+    for i, keys in enumerate(all_gather_object([], held, group)):
+        for k in keys:
+            first.setdefault(tuple(k), i)
+    return first
 
 
 def _read_chunk(path: str, chunk: Dict[str, Any], tensor: str):

@@ -13,7 +13,11 @@ tensors three are built from the ones it has: ``all_to_all`` from one
 slices), ``scatter`` from a ``broadcast`` of the stacked list, and (on any
 gloo group) ``reduce_scatter`` from an ``all_reduce`` and a slice. NCCL
 groups, and gloo groups on the CPU for ``all_to_all``, take the native
-call.
+call. Gloo's point-to-point calls (``send``, ``recv``, ``p2p_exchange``,
+``p2p_batch``) read and write host memory only, so on a gloo group a CUDA
+tensor travels through a host buffer: a copy to the host before the send,
+a host buffer for the receive and a copy onto the card after it. NCCL
+groups and CPU tensors send and receive in place.
 
 :class:`fcollectives` are the reference's in-program collectives with a
 group in place of a mesh axis name, as autograd functions: each backward
@@ -34,7 +38,7 @@ from .topology import Group
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_object",
            "all_to_all", "all_to_all_single", "broadcast", "reduce",
            "scatter", "reduce_scatter", "barrier", "send", "recv",
-           "p2p_exchange", "fcollectives"]
+           "p2p_exchange", "p2p_batch", "fcollectives"]
 
 
 class ReduceOp:
@@ -205,17 +209,92 @@ def barrier(group: Optional[Group] = None):
         dist.barrier(group=_pg(group))
 
 
+def _host_staged(tensor: torch.Tensor, group: Optional[Group]) -> bool:
+    """Whether a point-to-point transfer of ``tensor`` over ``group`` goes
+    through a host buffer: a CUDA tensor on a gloo group (see the module
+    doc)."""
+    return tensor.is_cuda and _gloo(group)
+
+
+def _send_buffer(tensor, group):
+    if _host_staged(tensor, group):
+        return tensor.detach().to("cpu")
+    return tensor.contiguous()
+
+
+def _recv_buffer(tensor, group):
+    if _host_staged(tensor, group):
+        return torch.empty(tuple(tensor.shape), dtype=tensor.dtype,
+                           device="cpu")
+    if not tensor.is_contiguous():
+        raise ValueError("recv: the tensor received into must be "
+                         "contiguous")
+    return tensor
+
+
 def send(tensor: torch.Tensor, dst: int, group: Optional[Group] = None,
          sync_op=True):
-    dist.send(tensor.contiguous(), dst, group=_pg(group))
+    dist.send(_send_buffer(tensor, group), dst, group=_pg(group))
     return tensor
 
 
 def recv(tensor: torch.Tensor, src: int, group: Optional[Group] = None,
          sync_op=True):
     """Receives into ``tensor`` (contiguous) in place."""
-    dist.recv(tensor, src, group=_pg(group))
+    buf = _recv_buffer(tensor, group)
+    dist.recv(buf, src, group=_pg(group))
+    if buf is not tensor:
+        tensor.copy_(buf)
     return tensor
+
+
+class P2PSends:
+    """The send half of a :func:`p2p_batch`: ``wait()`` blocks until every
+    send has left, and until then holds the buffers they read."""
+
+    def __init__(self, works, buffers):
+        self._works = works
+        self._buffers = buffers
+
+    def wait(self):
+        for w in self._works:
+            w.wait()
+        self._works, self._buffers = [], []
+
+
+def p2p_batch(sends=(), recvs=(), group: Optional[Group] = None,
+              wait_sends: bool = True):
+    """Post every ``(tensor, dst[, tag])`` of ``sends`` and every
+    ``(tensor, src[, tag])`` of ``recvs`` (global ranks) as ONE batched
+    point-to-point operation (``batch_isend_irecv``), so that ranks that
+    send to each other post their sends and receives together and no order
+    of ranks can deadlock. Waits for the receives (each tensor then holds
+    what arrived). With ``wait_sends`` it waits for the sends too and
+    returns None; otherwise it returns a :class:`P2PSends` to wait on
+    later, which keeps the send buffers alive."""
+    ops, send_bufs, landed = [], [], []
+    for item in sends:
+        t, peer, tag = (tuple(item) + (0,))[:3]
+        buf = _send_buffer(t, group)
+        send_bufs.append(buf)
+        ops.append(dist.P2POp(dist.isend, buf, peer, _pg(group), tag))
+    n_send = len(ops)
+    for item in recvs:
+        t, peer, tag = (tuple(item) + (0,))[:3]
+        buf = _recv_buffer(t, group)
+        landed.append((t, buf))
+        ops.append(dist.P2POp(dist.irecv, buf, peer, _pg(group), tag))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    for w in works[n_send:]:
+        w.wait()
+    for t, buf in landed:
+        if buf is not t:
+            t.copy_(buf)
+    pending = P2PSends(list(works[:n_send]), send_bufs)
+    if wait_sends:
+        pending.wait()
+        return None
+    return pending
 
 
 def p2p_exchange(send_tensor: torch.Tensor, dst: int,
@@ -223,13 +302,10 @@ def p2p_exchange(send_tensor: torch.Tensor, dst: int,
                  group: Optional[Group] = None):
     """Send ``send_tensor`` to global rank ``dst`` and receive
     ``recv_tensor`` from ``src`` as ONE batched P2P operation
-    (``batch_isend_irecv``), so that every rank of a ring posts its send
-    and its receive together and no order of ranks can deadlock. Waits for
+    (:func:`p2p_batch`), so that every rank of a ring posts its send and
+    its receive together and no order of ranks can deadlock. Waits for
     both; returns ``recv_tensor``."""
-    ops = [dist.P2POp(dist.isend, send_tensor.contiguous(), dst, _pg(group)),
-           dist.P2POp(dist.irecv, recv_tensor, src, _pg(group))]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    p2p_batch([(send_tensor, dst)], [(recv_tensor, src)], group)
     return recv_tensor
 
 

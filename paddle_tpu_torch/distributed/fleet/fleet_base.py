@@ -99,14 +99,28 @@ def distributed_model(model):
     replicas start equal (``distributed_optimizer``'s step averages the
     gradients over ``dp``; at ``sharding > 1`` alone the sharded optimizer
     broadcasts and reduces). A model whose parameters carry no
-    ``dist_spec`` (GPT's) stays replicated. Pipelines (``PipelineLayer``)
-    are not ported and raise ``TypeError``."""
+    ``dist_spec`` (GPT's) stays replicated. A ``PipelineLayer`` becomes a
+    ``PipelineParallel``, as the reference's (its blocks' mp layers keep
+    their shards; its replicated parameters are broadcast from the ``mp``
+    group's first rank, and from the ``dp`` group's first rank at
+    ``dp > 1``)."""
     if not fleet_state.initialized:
         raise RuntimeError("call fleet.init() first")
-    if any(c.__name__ == "PipelineLayer" for c in type(model).__mro__):
-        raise TypeError("fleet.distributed_model of a PipelineLayer: "
-                        "pipeline parallelism is not ported")
     topo = fleet_state.topology
+    if any(c.__name__ == "PipelineLayer" for c in type(model).__mro__):
+        from .meta_parallel.pipeline_engine import PipelineParallel
+        from .utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                                 broadcast_mp_parameters)
+
+        if topo.get_dim("mp") > 1:
+            from .meta_parallel.tensor_parallel import apply_dist_specs
+
+            apply_dist_specs(
+                model, fleet_state.hcg.get_model_parallel_group())
+            broadcast_mp_parameters(model, fleet_state.hcg)
+        if topo.get_dim("dp") > 1:
+            broadcast_dp_parameters(model, fleet_state.hcg)
+        return PipelineParallel(model, fleet_state.hcg, fleet_state.strategy)
     if topo.get_dim("mp") > 1:
         from .meta_parallel.tensor_parallel import TensorParallel
 

@@ -5,9 +5,15 @@ One process a rank, so what the reference gets from one SPMD program is
 communication here:
 
 - :class:`HybridParallelOptimizer` wraps the user's optimizer. Before the
-  inner step it sums the gradients of the parameters that every ``mp``
-  rank holds whole over the ``mp`` group (the reference's replicated-grad
-  sync) and averages every gradient over the ``dp`` group in buckets
+  inner step it sums over the ``mp`` group the gradients of the
+  sequence-parallel parameters (``mark_as_sequence_parallel_parameter``:
+  replicated, but each ``mp`` rank saw only its slice of the sequence, so
+  each holds a part of the gradient), as upstream Paddle's optimizer
+  does. The other replicated parameters' gradients are whole and equal on
+  every ``mp`` rank already (the mp layers' ``f`` / ``g`` conjugates
+  reduce the activations' gradients), so they are left as they are, as
+  the reference's one SPMD program leaves them. It then averages every
+  gradient over the ``dp`` group in buckets
   (``fused_allreduce_gradients``), since each rank's gradients are those
   of its own share of the batch. A sharded inner optimizer reduces its
   gradients itself, so then the ``dp`` average is left to it. Averaging
@@ -19,7 +25,8 @@ communication here:
   ``ClipGradByGlobalNorm``: each rank sums the squares of its gradients by
   kind, sums the ``mp``-split ones over ``mp``, the sharded slices over
   ``sharding``, and the total over ``pp``, so every rank scales by the
-  same global norm.
+  same global norm. A tied weight that several pipeline stages hold
+  counts once: its copies (``is_firstly_shared`` False) are left out.
 - :class:`HybridParallelGradScaler` takes ``found_inf`` as the maximum
   over the world, so every rank skips the same steps.
 - :class:`GradientMergeOptimizer`, :class:`LocalSGDOptimizer` and
@@ -81,7 +88,8 @@ class HybridParallelOptimizer:
         if mp.nranks <= 1:
             return
         for p in self._params():
-            if not _distributed(p) and p.grad is not None:
+            if (getattr(p, "sequence_parallel", False)
+                    and not _distributed(p) and p.grad is not None):
                 all_reduce(p.grad, op=ReduceOp.SUM, group=mp)
 
     def _sync_dp_grads(self):
@@ -115,8 +123,10 @@ class HybridParallelOptimizer:
 class HybridParallelClipGrad:
     """The global-norm clip across ranks (see the module doc). A gradient
     of a parameter with ``is_distributed`` counts once per ``mp`` rank, a
-    sharded optimizer's slice (``is_sharding_slice``) once per rank of the
-    sharding group (``sharding_group``, else ``hcg``'s), the rest once."""
+    pipeline copy of a tied weight (``is_firstly_shared`` False) not at
+    all, a sharded optimizer's slice (``is_sharding_slice``) once per rank
+    of the sharding group (``sharding_group``, else ``hcg``'s), the rest
+    once."""
 
     def __init__(self, clip: ClipGradByGlobalNorm, hcg=None,
                  sharding_group=None):
@@ -139,7 +149,7 @@ class HybridParallelClipGrad:
         None when there is no gradient."""
         parts = {}
         for p, g in params_grads:
-            if g is None:
+            if g is None or getattr(p, "is_firstly_shared", True) is False:
                 continue
             key = (_distributed(p),
                    bool(getattr(p, "is_sharding_slice", False)))

@@ -28,7 +28,7 @@ from .meta_parallel_base import MetaParallelBase
 from .mp_layers import mp_group_of
 
 __all__ = ["TensorParallel", "apply_dist_specs", "param_shardings",
-           "shard_slices", "shard_tensor"]
+           "shard_slices", "shard_tensor", "sharded_state_dict"]
 
 
 def shard_slices(shape: Sequence[int], spec,
@@ -102,6 +102,30 @@ def apply_dist_specs(model, group=None):
             p.data = p.data[idx].contiguous()
             p.is_sharded = True
     return model
+
+
+def sharded_state_dict(model, group=None) -> Dict[str, object]:
+    """``{name: parameter}`` of ``model`` for ``checkpoint.save_state_dict
+    (group=)``: a parameter that is this rank's shard (``is_sharded``) as
+    a ``Shard`` at its block's offset in the full tensor its
+    ``dist_spec`` splits over the ``mp`` group; the others whole."""
+    from ...checkpoint import Shard
+
+    g = mp_group_of(group)
+    n, r = (1, 0) if g is None else (g.nranks, g.rank)
+    out = {}
+    for name, p in model.named_parameters():
+        spec = getattr(p, "dist_spec", None)
+        if not getattr(p, "is_sharded", False) or spec is None or n <= 1:
+            out[name] = p
+            continue
+        offset, full = [], []
+        for d, size in enumerate(p.shape):
+            split = d < len(spec) and spec[d] == "mp"
+            offset.append(r * size if split else 0)
+            full.append(size * n if split else size)
+        out[name] = Shard(p, tuple(offset), tuple(full))
+    return out
 
 
 class TensorParallel(MetaParallelBase):

@@ -593,11 +593,22 @@ def test_tensor_parallel_matches_reference_full_layer(tp_world, case):
     r0, r1 = (r[case] for r in tp_world["ranks"])
     want = _tp_want(tp_world, case)
     tol = 1e-4 if case.startswith("fmt_") and case != "fmt_none" else 2e-5
+    assert len(r0) == len(r1) == len(want), \
+        (f"{case}: output counts rank 0 {len(r0)}, rank 1 {len(r1)}, "
+         f"reference {len(want)}")
     for i, (g, w) in enumerate(zip(r0, want)):
-        np.testing.assert_allclose(g, w, rtol=tol, atol=tol,
-                                   err_msg=f"{case} output {i}")
-    for a, b in zip(r0, r1):
-        np.testing.assert_array_equal(a, b)
+        err = float(np.max(np.abs(np.asarray(g, np.float64) - w)))
+        np.testing.assert_allclose(
+            g, w, rtol=tol, atol=tol,
+            err_msg=f"{case} output {i}: the tolerance check against the "
+                    f"reference's full layer (rtol = atol = {tol}) failed; "
+                    f"largest abs error {err:.3g}")
+    for i, (a, b) in enumerate(zip(r0, r1)):
+        err = float(np.max(np.abs(np.asarray(a, np.float64) - b)))
+        np.testing.assert_array_equal(
+            a, b, err_msg=f"{case} output {i}: the bitwise rank check "
+                          f"failed; largest difference between the ranks "
+                          f"{err:.3g}")
 
 
 def test_tensor_parallel_shards_concatenate_to_full(tp_world):
@@ -613,10 +624,25 @@ def test_tensor_parallel_shards_concatenate_to_full(tp_world):
         for i, p in enumerate(getattr(jm, name)):
             key = f"{name}_{i}"
             spec = _MP_SPECS.get(name)
+            want = _jnp(p)
             if spec is None:
-                np.testing.assert_array_equal(s0[key], _jnp(p))
-                np.testing.assert_array_equal(s1[key], _jnp(p))
+                for r, got in ((0, s0[key]), (1, s1[key])):
+                    np.testing.assert_array_equal(
+                        got, want, err_msg=_shard_msg(key, f"rank {r}'s "
+                                                      f"whole copy", got,
+                                                      want))
                 continue
             dim = spec.index("mp")
+            got = np.concatenate([s0[key], s1[key]], axis=dim)
             np.testing.assert_array_equal(
-                np.concatenate([s0[key], s1[key]], axis=dim), _jnp(p))
+                got, want, err_msg=_shard_msg(key, "the two shards, "
+                                              "concatenated", got, want))
+
+
+def _shard_msg(key, what, got, want):
+    if np.shape(got) != np.shape(want):
+        return (f"{key}: the bitwise shard check failed: {what} has shape "
+                f"{np.shape(got)}, the reference {np.shape(want)}")
+    err = float(np.max(np.abs(np.asarray(got, np.float64) - want)))
+    return (f"{key}: the bitwise shard check failed: {what} against the "
+            f"reference's parameter, largest difference {err:.3g}")

@@ -154,8 +154,8 @@ def test_config_surface():
 
 def test_no_module_imports_jax_or_the_reference():
     """Every module of the port, ``chip_smoke.py`` and the example twins
-    added with config 2 and 5 import in a fresh interpreter with neither
-    jax nor paddle_tpu loaded."""
+    added with configs 2, 4 and 5 import in a fresh interpreter with
+    neither jax nor paddle_tpu loaded."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         paddle_tpu_torch.__path__, "paddle_tpu_torch."))
     assert "paddle_tpu_torch.jit" in mods
@@ -163,7 +163,8 @@ def test_no_module_imports_jax_or_the_reference():
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
-            "for name in ('train_bert_torch', 'to_static_export_torch'):\n"
+            "for name in ('train_bert_torch', 'to_static_export_torch',\n"
+            "             'pretrain_gpt_hybrid_torch'):\n"
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'examples/{name}.py')\n"
             "    spec.loader.exec_module(\n"
