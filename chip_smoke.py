@@ -285,9 +285,10 @@ Phases, in order; any failure exits non-zero:
               2, TF32 off; point-to-point sends through host buffers): #2
               and the flash backward at a rank's shape (f32, 2 x 2048, 16
               heads of 128) against their plain versions; config 4's
-              widths (hidden 4096, 32 heads, vocab 50304) at 4 of 32
-              layers, global batch 8 x 2048 in 4 microbatches, two steps
-              of ``train_batch`` (1F1B, recompute) through
+              widths (hidden 4096, 32 heads, vocab 50304) at 2 of 32
+              layers (cut from 4 to make room for phase 19), global
+              batch 8 x 2048 in 4 microbatches, two steps of
+              ``train_batch`` (1F1B, recompute) through
               ``fleet.distributed_model`` / ``distributed_optimizer(AdamW,
               ClipGradByGlobalNorm)``, against one process on the same
               weights and microbatches: losses equal on every rank and
@@ -295,6 +296,24 @@ Phases, in order; any failure exits non-zero:
               ranks' replicated parameters hashed alike; ms a step,
               tokens/s, the point-to-point and mp shares, peak memory a
               rank, ``profiler.mfu`` (``phase_pp``).
+19. ep      — expert-parallel MoE training (``MoELayer`` at ep = 2)
+              through the port's launcher: ``python -m
+              paddle_tpu_torch.distributed.launch --nproc_per_node 2
+              --elastic 1 ... chip_smoke.py --ep-worker DIR`` starts two
+              rank processes sharing the card over gloo (this script in
+              its worker mode, which never prints the last line). #13 at
+              a rank's shape (4 experts x C = 1228 rows, bf16) against
+              its plain version; moe_train's model at 2 of 32 layers,
+              global batch 4 x 1024: (1) two f32 AdamW steps with the MoE
+              clip, TF32 and random routing off, against one process at
+              ep = 1 on the same weights (losses, parameters by the dp
+              phase's rule, the drops rank-major); (2) bf16 O2 steps (ms
+              a step, tokens/s, the all_to_all's and all_gather's shares,
+              #13 on ``wgmma`` only, peak memory a rank); (3) rank 1
+              exits after step 1's checkpoint of a 1-layer bf16 SGD job,
+              the launcher restarts the world, which resumes from the
+              two-process checkpoint and must end bitwise where the same
+              job ends uninterrupted (``phase_ep``).
 
 The flash kernels run bf16 at head dims 64 and 128 on their tensor-core
 bodies: the kernels, context and training passes log those kernels'
@@ -387,7 +406,7 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 PHASES = ("build", "kernels", "context", "main", "serve", "generate",
           "greedy", "tier", "cluster", "draft", "fused", "resnet", "bert",
-          "export", "moe_train", "tp", "dp", "pp")
+          "export", "moe_train", "ep", "tp", "dp", "pp")
 OPTIONAL_PHASES = ("profile", "drift", "anatomy", "sched", "loadgen",
                    "draftcause", "ncclprobe")
 
@@ -2887,16 +2906,16 @@ def _dp_bert_run(rows, steps, wrap, layers=None, on_step=None):
 
 
 def _dp_timed_reduce():
-    """Time the dp gradient all-reduce of ``fleet.utils``
-    (``allreduce_buckets``, which ``HybridParallelOptimizer`` calls): the
+    """Time the dp gradient all-reduce (``parallel.allreduce_buckets``,
+    which ``HybridParallelOptimizer`` reaches through
+    ``fused_allreduce_gradients`` and ``parallel.sync_gradients``): the
     device is synchronised first, then the host wall of the bucketed gloo
     calls. Returns (the totals, a function that restores the original)."""
     import torch
 
-    from paddle_tpu_torch.distributed.fleet.utils import \
-        hybrid_parallel_util as hpu
+    from paddle_tpu_torch.distributed import parallel
 
-    orig = hpu.allreduce_buckets
+    orig = parallel.allreduce_buckets
     tot = {"s": 0.0, "calls": 0}
 
     def timed(*a, **k):
@@ -2907,8 +2926,8 @@ def _dp_timed_reduce():
         tot["calls"] += n
         return n
 
-    hpu.allreduce_buckets = timed
-    return tot, lambda: setattr(hpu, "allreduce_buckets", orig)
+    parallel.allreduce_buckets = timed
+    return tot, lambda: setattr(parallel, "allreduce_buckets", orig)
 
 
 def _dp_free():
@@ -3542,7 +3561,8 @@ def phase_dp(ident):
 
 # ------------------------------------------------------------ phase pp
 PP_DEADLINE_S = 600   # the rank world's wall clock, as a hang guard
-PP_LAYERS = 4         # config 4's blocks, of 32: two a stage
+PP_LAYERS = 2         # config 4's blocks, of 32: one a stage (cut from 4
+#                       to make room for phase 19)
 PP_DIMS = (4096, 32, 50304)  # hidden, heads, vocab (config 4)
 PP_SEQ, PP_BATCH, PP_MICRO, PP_STEPS = 2048, 8, 4, 2
 PP_LR = 1e-4
@@ -3808,7 +3828,7 @@ def phase_pp(ident):
     a microbatch of 2 x 2048, 16 heads of 128, causal: the FMA bodies)
     against their plain versions. Then the one-process reference
     (``_pp_reference``): config 4's widths (hidden 4096, 32 heads, vocab
-    50304) at 4 of 32 layers, the same four microbatches accumulated, then
+    50304) at 2 of 32 layers, the same four microbatches accumulated, then
     AdamW and the clip; its memory freed. Then one four-rank world, each
     rank ``fleet.init`` (mp 2 x pp 2), its stage of ``build_layers`` (two
     blocks, the embedding or the head) filled by
@@ -3931,6 +3951,695 @@ def phase_pp(ident):
                                                     0)}
 
 
+# ------------------------------------------------------------ phase 19
+EP_DEADLINE_S = 600   # each launch's wall clock, as a hang guard
+EP_BLOCKS = 2         # moe_train's model: 2 of Mixtral's 32 layers
+EP_RESUME_BLOCKS = 1  # the elastic restart's model: 1 of 32 layers, SGD
+EP_BATCH, EP_SEQ = 4, 1024   # the global batch; 2 x 1024 a rank
+EP_LR = 5e-4
+EP_F32_STEPS, EP_BF16_STEPS, EP_RESUME_STEPS = 2, 3, 2
+EP_LOSS_RTOL = 1e-5   # f32 sums in another order (the dp phase's limit)
+EP_PARAM_REL = 1e-3   # the dp phase's rule (see _dp_compare)
+EP_LABEL = "two ranks sharing one H100 over gloo: not an ep speed"
+EP_DEVICE = "cuda"    # every tensor of the phase (a CPU rehearsal sets it)
+
+
+class _EPWeights(_PPWeights):
+    """The MoE blocks' weights by global name, drawn on the card from a
+    seed a name (as ``_PPWeights``): LayerNorm scales 1 + N(0, 0.02),
+    every other tensor N(0, 0.02)."""
+
+    def __missing__(self, name):
+        import hashlib
+
+        import torch
+
+        seed = int(hashlib.sha256(name.encode()).hexdigest()[:12], 16)
+        g = torch.Generator(device=EP_DEVICE).manual_seed(seed)
+        t = 0.02 * torch.randn(tuple(self.shapes[name]), generator=g,
+                               device=EP_DEVICE)
+        if name.endswith("norm.weight"):
+            t += 1.0
+        return t
+
+
+def _ep_blocks(n, random_routing):
+    """``n`` blocks of moe_train's model on the card, f32, in training
+    mode: LayerNorm(4096) -> MoELayer(8 x ExpertFFN(4096, 14336, silu),
+    GShardGate top-2) -> residual. Inside an ep = 2 world each rank keeps
+    its 4 experts of each layer."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    cfg = mixtral_8x7b()
+    H, FF, E = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm = nn.LayerNorm(H, device=EP_DEVICE)
+            self.moe = moe.MoELayer(
+                H, [moe.ExpertFFN(H, FF, "silu", device=EP_DEVICE)
+                    for _ in range(E)],
+                gate=moe.GShardGate(H, E, random_routing=random_routing,
+                                    device=EP_DEVICE))
+
+        def forward(self, x):
+            return x + self.moe(self.norm(x))
+
+    return nn.LayerList([Block() for _ in range(n)]).train()
+
+
+def _ep_batch():
+    """The global batch (inputs, targets), f32 on the card, from a seed."""
+    import torch
+
+    g = torch.Generator(device=EP_DEVICE).manual_seed(22)
+    shape = (EP_BATCH, EP_SEQ, mixtral_8x7b().hidden_size)
+    return (torch.randn(shape, generator=g, device=EP_DEVICE),
+            torch.randn(shape, generator=g, device=EP_DEVICE))
+
+
+def _ep_loss(blocks, x, target):
+    import torch
+
+    y = x.to(next(blocks.parameters()).dtype)
+    for b in blocks:
+        y = b(y)
+    aux = torch.stack([b.moe.gate.get_loss().float() for b in blocks])
+    return torch.mean((y.float() - target) ** 2) + 0.01 * aux.sum()
+
+
+def _ep_routing(blocks):
+    """Every gate forward's expert indices ``[T, 2]``, in order (on the
+    host)."""
+    got = []
+    for b in blocks:
+        b.moe.gate.register_forward_hook(
+            lambda mod, inp, out: got.append(out[1].detach().cpu()))
+    return got
+
+
+def _ep_drops(idx, num_expert, capacity):
+    """The pairs of ``idx [T, k]`` that the global capacity order drops:
+    every choice 0 before choice 1, each in token order (``gshard_dispatch``
+    at one rank); expert -1 pairs not counted."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        limit_by_capacity
+
+    flat = idx.t().reshape(-1)
+    masked, _ = limit_by_capacity(flat, num_expert, capacity)
+    return ((flat >= 0) & (masked < 0)).reshape(idx.shape[1], -1).t()
+
+
+def _ep_seed_gates(blocks, step):
+    """Random routing's draws of ``step``, the same on every rank and in
+    every run (a resumed run draws what an uninterrupted one drew)."""
+    import torch
+
+    for i, b in enumerate(blocks):
+        b.moe.gate.generator = torch.Generator(
+            device=EP_DEVICE).manual_seed(1000 * step + i)
+
+
+def _ep_adamw(params, fleet_opt):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    opt = optimizer.AdamW(learning_rate=EP_LR, parameters=params,
+                          weight_decay=0.01,
+                          grad_clip=moe.ClipGradForMOEByGlobalNorm(1.0))
+    return fleet.distributed_optimizer(opt) if fleet_opt else opt
+
+
+def _ep_reference(out):
+    """The f32 check's one process (ep = 1, every expert, the ragged path
+    on #13): ``EP_F32_STEPS`` AdamW steps with the MoE clip on the global
+    batch, random routing off, TF32 off, the weights of ``_EPWeights``.
+    Saves the final parameters to ``out``; returns the losses, each gate
+    forward's routing and drops, the step times and the shapes."""
+    import torch
+
+    from paddle_tpu_torch.convert import moe_from_numpy
+
+    blocks = _ep_blocks(EP_BLOCKS, False)
+    shapes = {n: tuple(p.shape) for n, p in blocks.named_parameters()}
+    moe_from_numpy(blocks, _EPWeights(shapes))
+    named = list(blocks.named_parameters())
+    for n, p in named:
+        p.is_expert = ".experts." in n
+    opt = _ep_adamw(named, False)
+    x, target = _ep_batch()
+    routed = _ep_routing(blocks)
+    losses, host = [], []
+    for _ in range(EP_F32_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _ep_loss(blocks, x, target)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+    cap = blocks[0].moe._capacity(EP_BATCH * EP_SEQ)
+    num_expert = blocks[0].moe.num_expert
+    torch.save({n: p.detach().cpu() for n, p in named},
+               os.path.join(out, "ref_params.pt"))
+    n_params = sum(p.numel() for _, p in named)
+    del blocks, opt, named, x, target
+    _dp_free()
+    return dict(losses=losses, host=host, shapes=shapes, routed=routed,
+                drops=[_ep_drops(i, num_expert, cap) for i in routed],
+                capacity=cap, num_expert=num_expert, n_params=n_params)
+
+
+def _ep_f32(rank, job):
+    """The f32 check's ep = 2 side: the same weights (``_EPWeights``,
+    through ``convert.moe_from_numpy``: this rank's experts), steps and
+    clip through ``fleet``, on this rank's rows; then this rank's
+    parameters against the one process's (replicated ones on rank 0)."""
+    import torch
+
+    from paddle_tpu_torch.convert import moe_from_numpy
+    from paddle_tpu_torch.distributed import fleet
+
+    t0 = time.perf_counter()
+    blocks = _ep_blocks(EP_BLOCKS, False)
+    init = _EPWeights({n: tuple(s) for n, s in job["shapes"]})
+    moe_from_numpy(blocks, init)
+    blocks = fleet.distributed_model(blocks)
+    opt = _ep_adamw(list(blocks.named_parameters()), True)
+    x, target = _ep_batch()
+    rows = slice(rank * EP_BATCH // 2, (rank + 1) * EP_BATCH // 2)
+    x, target = x[rows].contiguous(), target[rows].contiguous()
+    routed = _ep_routing(blocks)
+    torch.cuda.synchronize()
+    rec = dict(build_s=time.perf_counter() - t0, losses=[], host=[],
+               drops=[], routed=routed,
+               experts=sorted({n.split(".experts.")[1].split(".")[0]
+                               for n, _ in blocks.named_parameters()
+                               if ".experts." in n}, key=int))
+    for _ in range(EP_F32_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _ep_loss(blocks, x, target)
+        rec["drops"] += [b.moe.last_drops.cpu() for b in blocks]
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        rec["host"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(loss.detach()))
+    ref = torch.load(job["ref"], mmap=True)
+    worst, diff2, moved2 = ("", 0.0), 0.0, 0.0
+    for n, p in blocks.named_parameters():
+        if ".experts." not in n and rank != 0:
+            continue  # a replicated parameter: counted on rank 0
+        want = ref[n].to(EP_DEVICE)
+        d = (p.detach() - want).abs()
+        if float(d.max()) > worst[1]:
+            worst = (n, float(d.max()))
+        diff2 += float(d.double().square().sum())
+        moved2 += float((want - init[n]).double().square().sum())
+    rec.update(worst=worst, diff2=diff2, moved2=moved2)
+    del blocks, opt, ref
+    _dp_free()
+    return rec
+
+
+def _ep_timed_collectives():
+    """Time the MoE layer's dispatch (``collective.all_to_all_single``)
+    and return (``collective.all_gather``): the device synchronised
+    first, then the host wall of the call. Returns (the totals, a function
+    that puts the calls back)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective
+
+    tot = {"all_to_all": 0.0, "all_gather": 0.0, "calls": 0}
+    saved = {}
+    for attr, key in (("all_to_all_single", "all_to_all"),
+                      ("all_gather", "all_gather")):
+        orig = saved[attr] = getattr(collective, attr)
+
+        def timed(*a, _orig=orig, _key=key, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **k)
+            tot[_key] += time.perf_counter() - t0
+            tot["calls"] += 1
+            return out
+
+        setattr(collective, attr, timed)
+    return tot, lambda: [setattr(collective, k, v) for k, v in saved.items()]
+
+
+def _ep_bf16(rank):
+    """bf16 O2 steps at ep = 2 with random routing: ms a step, the
+    collectives' shares, #13's launches by body, peak memory."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    prandom.seed(18)
+    blocks = fleet.distributed_model(_ep_blocks(EP_BLOCKS, True))
+    amp.decorate(blocks, level="O2")
+    opt = _ep_adamw(list(blocks.named_parameters()), True)
+    x, target = _ep_batch()
+    rows = slice(rank * EP_BATCH // 2, (rank + 1) * EP_BATCH // 2)
+    x = x[rows].to(torch.bfloat16)
+    target = target[rows].contiguous()
+    tot, restore = _ep_timed_collectives()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(host=[], a2a=[], ag=[], losses=[])
+
+    def steps():
+        for step in range(EP_BF16_STEPS):
+            _ep_seed_gates(blocks, step)
+            a0, g0 = tot["all_to_all"], tot["all_gather"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = _ep_loss(blocks, x, target)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            rec["host"].append(time.perf_counter() - t0)
+            rec["a2a"].append(tot["all_to_all"] - a0)
+            rec["ag"].append(tot["all_gather"] - g0)
+            rec["losses"].append(float(loss.detach()))
+
+    try:
+        _, counts = _counted(steps, needs=("grouped_matmul",))
+    finally:
+        restore()
+    rec.update(counts=counts, wgmma=gm.grouped_matmul.wgmma_launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               n_params=sum(p.numel() for p in blocks.parameters()))
+    del blocks, opt
+    _dp_free()
+    return rec
+
+
+def _ep_resume_model():
+    """The elastic restart's model: ``EP_RESUME_BLOCKS`` block(s) from
+    ``_EPWeights``, bf16, random routing, and SGD with the MoE clip through
+    fleet, without f32 masters: its checkpoint is the bf16 experts alone
+    (0.94 GB a rank; with AdamW's masters and moments 6.6 GB, which took
+    34 s to save and 54 s to load a rank)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.convert import moe_from_numpy
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    blocks = _ep_blocks(EP_RESUME_BLOCKS, True)
+    shapes = {n: tuple(p.shape) for n, p in blocks.named_parameters()}
+    moe_from_numpy(blocks, _EPWeights(shapes))
+    blocks = blocks.to(torch.bfloat16)
+    opt = fleet.distributed_optimizer(optimizer.SGD(
+        learning_rate=EP_LR, parameters=list(blocks.named_parameters()),
+        grad_clip=moe.ClipGradForMOEByGlobalNorm(1.0),
+        multi_precision=False))
+    return blocks, opt
+
+
+def _ep_resume_steps(blocks, opt, x, target, first, on_step=None):
+    losses = {}
+    for step in range(first, EP_RESUME_STEPS + 1):
+        _ep_seed_gates(blocks, step)
+        loss = _ep_loss(blocks, x, target)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses[step] = float(loss.detach())
+        if on_step is not None:
+            on_step(step)
+    return losses
+
+
+def _ep_resume(rank, job):
+    """The elastic restart's job (``_ep_resume_model``), random routing
+    drawn per step: both ranks save the model (``save_state_dict(group=)``,
+    this rank's experts under their global names) after every step but the
+    last, and a started job resumes from the latest committed step. With
+    ``die_after`` rank 1 exits with code 17 once, right after that step's
+    checkpoint. At the end the same job runs again in memory, from the
+    start and uninterrupted, and the resumed run's parameters and last
+    loss are held against its, bitwise."""
+    import torch
+
+    from paddle_tpu_torch.convert import moe_from_numpy
+    from paddle_tpu_torch.distributed import (checkpoint, get_group,
+                                              load_state_dict,
+                                              save_state_dict)
+
+    blocks, opt = _ep_resume_model()
+    x, target = _ep_batch()
+    rows = slice(rank * EP_BATCH // 2, (rank + 1) * EP_BATCH // 2)
+    x, target = x[rows].contiguous(), target[rows].contiguous()
+    root = os.path.join(job["resume"], "ckpt")
+    marker = os.path.join(job["resume"], "died")
+    start = checkpoint.latest_step(root) or 0
+    rec = dict(start=start, save_s=[])
+    if start:
+        t0 = time.perf_counter()
+        state = load_state_dict(checkpoint.step_dir(root, start))
+        moe_from_numpy(blocks, {k[6:]: v for k, v in state.items()
+                                if k.startswith("model.")})
+        opt.set_state_dict({k[4:]: v for k, v in state.items()
+                            if k.startswith("opt.")})
+        del state
+        torch.cuda.synchronize()
+        rec.update(load_s=time.perf_counter() - t0, t_resumed=time.time())
+
+    def on_step(step):
+        if step < EP_RESUME_STEPS:
+            t0 = time.perf_counter()
+            state = {f"model.{k}": v
+                     for k, v in blocks.state_dict().items()}
+            state.update({f"opt.{k}": v
+                          for k, v in opt.state_dict().items()})
+            save_state_dict(state, checkpoint.step_dir(root, step),
+                            group=get_group())
+            rec["save_s"].append(time.perf_counter() - t0)
+        if step == job.get("die_after") and rank == 1 and \
+                not os.path.exists(marker):
+            with open(marker, "w") as f:
+                json.dump({"t": time.time(), "save_s": rec["save_s"]}, f)
+            os._exit(17)
+
+    rec["losses"] = _ep_resume_steps(blocks, opt, x, target, start + 1,
+                                     on_step)
+    got = {n: p.detach().clone() for n, p in blocks.named_parameters()}
+    del blocks, opt
+    _dp_free()
+    blocks, opt = _ep_resume_model()
+    rec["want_losses"] = _ep_resume_steps(blocks, opt, x, target, 1)
+    want = dict(blocks.named_parameters())
+    rec["same"] = sorted(got) == sorted(want) and all(
+        torch.equal(got[n], want[n]) for n in want)
+    rec["max_diff"] = max(float((got[n].float() - want[n].float())
+                                .abs().max()) for n in want)
+    del blocks, opt, got, want
+    _dp_free()
+    return rec
+
+
+def _ep_worker(out):
+    """One rank of the ep world (``chip_smoke.py --ep-worker DIR``, run by
+    the port's launcher, which sets the ``PADDLE_*`` environment): gloo
+    over CUDA tensors on the one card, TF32 off; runs each part of
+    ``DIR/job.json`` that an earlier life of the world did not finish and
+    saves its record as ``DIR/rank{r}.{part}.pt``. Never prints the
+    script's last line."""
+    import datetime
+
+    import torch
+
+    with open(os.path.join(out, "job.json")) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.distributed import (destroy_process_group, fleet,
+                                              get_rank, init_parallel_env)
+
+    t0 = time.perf_counter()
+    init_parallel_env(device=EP_DEVICE, backend="gloo",
+                      timeout=datetime.timedelta(seconds=EP_DEADLINE_S))
+    fleet.init(is_collective=True, device=EP_DEVICE)
+    rank = get_rank()
+    log(f"ep rank {rank}: the world and fleet in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for part, run in (("f32", lambda: _ep_f32(rank, job)),
+                      ("bf16", lambda: _ep_bf16(rank)),
+                      ("resume", lambda: _ep_resume(rank, job))):
+        path = os.path.join(out, f"rank{rank}.{part}.pt")
+        if part not in job["parts"] or os.path.exists(path):
+            continue  # a restarted world skips what an earlier one did
+        t0 = time.perf_counter()
+        rec = run()
+        rec["part_s"] = time.perf_counter() - t0
+        torch.save(rec, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        log(f"ep rank {rank}: {part} done in {rec['part_s']:.1f} s")
+    destroy_process_group()
+    return 0
+
+
+def _ep_launch(out, job, elastic=0):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    --log_dir OUT/log [--elastic N] chip_smoke.py --ep-worker OUT``; fails
+    with the workers' log tails unless it exits 0. Returns the ranks'
+    records by part, the launch's seconds and the launcher's stderr."""
+    import torch
+
+    root = Path(__file__).resolve().parent
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "job.json"), "w") as f:
+        json.dump(job, f)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--log_dir", os.path.join(out, "log")]
+    if elastic:
+        cmd += ["--elastic", str(elastic)]
+    cmd += [str(root / "chip_smoke.py"), "--ep-worker", out]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    # a session of its own: a hung launch is killed with its workers
+    proc = subprocess.Popen(cmd, cwd=str(root), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=EP_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"ep: the launch outlived {EP_DEADLINE_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    r = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+    took = time.perf_counter() - t0
+    if r.returncode != 0:
+        tails = []
+        for rank in range(2):
+            p = os.path.join(out, "log", f"workerlog.{rank}")
+            if os.path.exists(p):
+                tails.append(f"--- workerlog.{rank}:\n"
+                             + Path(p).read_text()[-3000:])
+        raise AssertionError(f"ep: the launch exited {r.returncode}:\n"
+                             f"{r.stderr[-2000:]}\n" + "\n".join(tails))
+    return [{part: torch.load(os.path.join(out, f"rank{rank}.{part}.pt"),
+                              weights_only=False) for part in job["parts"]}
+            for rank in range(2)], took, r.stderr
+
+
+def _ep_check_f32(ranks, ref, ident):
+    """The f32 check: losses, parameters, drops (see ``phase_ep``)."""
+    import torch
+
+    a, b = ranks[0]["f32"], ranks[1]["f32"]
+    if a["experts"] != ["0", "1", "2", "3"] or \
+            b["experts"] != ["4", "5", "6", "7"]:
+        raise AssertionError(f"ep: the ranks hold experts {a['experts']} "
+                             f"and {b['experts']}")
+    mean = [(x + y) / 2 for x, y in zip(a["losses"], b["losses"])]
+    lerr = max(abs(m - w) / abs(w) for m, w in zip(mean, ref["losses"]))
+    diff2 = a["diff2"] + b["diff2"]
+    moved2 = a["moved2"] + b["moved2"]
+    rel = (diff2 / moved2) ** 0.5
+    worst = max(a["worst"], b["worst"], key=lambda w: w[1])
+    # each gate forward, rank-major: routing and drops against ep = 1's
+    same_route, drops_ep1, drops_ep2, differ = 0, 0, 0, 0
+    for i, (ri, rd) in enumerate(zip(ref["routed"], ref["drops"])):
+        idx = torch.cat([a["routed"][i], b["routed"][i]])
+        got = torch.cat([a["drops"][i], b["drops"][i]])
+        want = _ep_drops(idx, ref["num_expert"], ref["capacity"])
+        if not torch.equal(got, want):
+            raise AssertionError(f"ep: gate forward {i}: the ranks' drops "
+                                 "are not the global capacity order's")
+        drops_ep1 += int(rd.sum())
+        drops_ep2 += int(got.sum())
+        if torch.equal(idx, ri):
+            same_route += 1
+            if not torch.equal(got, rd):
+                raise AssertionError(f"ep: gate forward {i}: the routing "
+                                     "equals ep = 1's, the drops do not")
+        differ += int((got != rd).sum())
+    log(f"ep f32 check ({EP_LABEL}; TF32 off, random routing off): "
+        f"{EP_BLOCKS} of 32 layers at Mixtral-8x7B widths, global batch "
+        f"{EP_BATCH} x {EP_SEQ}, {EP_F32_STEPS} AdamW steps with "
+        f"ClipGradForMOEByGlobalNorm(1.0): ep=2 losses (mean of the "
+        f"ranks') {[round(v, 7) for v in mean]} against one process's "
+        f"{[round(v, 7) for v in ref['losses']]} (worst rel {lerr:.3g}, "
+        f"limit {EP_LOSS_RTOL}); parameters after step {EP_F32_STEPS}: "
+        f"worst {worst[1]:.3g} ({worst[0]}), the difference's norm "
+        f"{rel:.3g} of the steps' movement (limit {EP_PARAM_REL}); "
+        f"capacity {ref['capacity']} (global), drops rank-major "
+        f"{drops_ep2} against ep=1's {drops_ep1} over "
+        f"{len(ref['routed'])} gate forwards, {same_route} of them routed "
+        f"as ep=1 (drops equal there), {differ} pair(s) apart [{ident}]")
+    if not lerr <= EP_LOSS_RTOL:
+        raise AssertionError(f"ep: losses off one process's by {lerr:.3g}")
+    if worst[1] > 2 * EP_LR * EP_F32_STEPS or not rel <= EP_PARAM_REL:
+        raise AssertionError(f"ep: parameters off one process's by "
+                             f"{worst[1]:.3g} ({worst[0]}), relative norm "
+                             f"{rel:.3g}")
+    if drops_ep1 <= 0:
+        raise AssertionError("ep: the f32 check dropped nothing at "
+                             "capacity")
+
+
+def phase_ep(ident):
+    """Expert-parallel MoE training (``MoELayer`` at ep = 2) through the
+    port's launcher: ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2 ... chip_smoke.py --ep-worker DIR`` (two rank
+    processes sharing the one card over gloo, CUDA tensors: NCCL refuses
+    two ranks on one device). Every time is labelled "two ranks sharing
+    one H100 over gloo: not an ep speed". moe_train's model: 2 of
+    Mixtral-8x7B's 32 layers, 4 experts a rank, global batch 4 x 1024.
+
+    First #13 (``ragged_dot``) at a rank's shape, 4 local experts of C
+    rows, bf16, against its plain version. Then (1) the f32 check, TF32
+    off, random routing off: ``EP_F32_STEPS`` AdamW steps with the MoE
+    clip in this process at ep = 1 (``_ep_reference``, its memory freed
+    before the world starts) and in the world at ep = 2 from the same
+    weights (``_EPWeights`` through ``convert.moe_from_numpy``): the mean
+    of the ranks' losses within ``EP_LOSS_RTOL``, parameters by the dp
+    phase's rule, each rank's drops the global capacity order's, and equal
+    to ep = 1's wherever the routing is. (2) bf16 O2 steps with random
+    routing in the same world: ms a step, tokens/s, the all_to_all's and
+    the all_gather's shares, #13's launches (every one on the ``wgmma``
+    body), peak memory a rank. (3) The elastic restart (``_ep_resume``,
+    1 of 32 layers, bf16 SGD): the launch has ``--elastic 1``, and rank 1
+    exits with code 17 after step 1's checkpoint; the launcher restarts the
+    world, which skips the parts done and resumes from the two-process
+    checkpoint, and must end at the parameters and the last loss of the
+    same job run from the start without a stop, bitwise. Returns #13's
+    launches of (2), both ranks summed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    t_phase = time.perf_counter()
+    cfg = mixtral_8x7b()
+    H, FF, E = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    cap = max(1, int(1.2 * 2 * EP_BATCH * EP_SEQ / E))
+    t0 = time.perf_counter()
+    r = check_ragged_dot(torch, torch.bfloat16, H, FF, E // 2,
+                         (E // 2) * cap, timed=True)
+    log(f"ep shard ragged_dot bf16 [{(E // 2) * cap}, {H}] x [{E // 2}, "
+        f"{H}, {FF}] (a rank's 4 experts of C={cap}): forward on the "
+        f"{r['body']} body {r['fwd_ms']:.4f} ms (bound "
+        f"{r['fwd_bound_ms']:.4f}, {r['fwd_bound_by']}; {r['library']} "
+        f"{r['fwd_library_ms']:.4f}; plain {r['fwd_plain_ms']:.3f}), dX on "
+        f"the {r['dx_body']} body {r['dx_ms']:.4f} ms (bound "
+        f"{r['dx_bound_ms']:.4f}; {r['library']} {r['dx_library_ms']:.4f};"
+        f" plain {r['dx_plain_ms']:.3f}); y, dX, dW within "
+        f"{r['err_y']:.3g}, {r['err_dx']:.3g}, {r['err_dw']:.3g} of the "
+        f"plain's largest entry (limit 2e-2) [{ident}]")
+    check_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="ep_phase_")
+    try:
+        t0 = time.perf_counter()
+        ref = _ep_reference(tmp)
+        ref_s = time.perf_counter() - t0
+        shapes = sorted((n, list(s)) for n, s in ref["shapes"].items())
+        world = os.path.join(tmp, "world")
+        ranks, launch_s, err = _ep_launch(world, dict(
+            parts=["f32", "bf16", "resume"], shapes=shapes,
+            ref=os.path.join(tmp, "ref_params.pt"),
+            resume=os.path.join(world, "job"), die_after=1), elastic=1)
+        marker = Path(world, "job", "died")
+        died = json.loads(marker.read_text()) if marker.exists() else None
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    _ep_check_f32(ranks, ref, ident)
+
+    # (2) bf16 O2
+    tok = EP_BATCH * EP_SEQ
+    parts = []
+    for rank, rr in enumerate(ranks):
+        b = rr["bf16"]
+        h = sum(b["host"][1:])
+        parts.append(f"rank {rank}: all_to_all "
+                     f"{1e3 * statistics.mean(b['a2a'][1:]):.0f} ms "
+                     f"({sum(b['a2a'][1:]) / h:.1%}), all_gather "
+                     f"{1e3 * statistics.mean(b['ag'][1:]):.0f} ms "
+                     f"({sum(b['ag'][1:]) / h:.1%}), peak "
+                     f"{b['peak_gib']:.2f} GiB")
+        if b["wgmma"] != b["counts"]["grouped_matmul"]:
+            raise AssertionError(f"ep rank {rank}: {b['wgmma']} of "
+                                 f"{b['counts']['grouped_matmul']} #13 "
+                                 "launches on the wgmma body")
+        if not all(math.isfinite(v) for v in b["losses"]):
+            raise AssertionError(f"ep bf16: losses {b['losses']}")
+    step_s = max(statistics.mean(rr["bf16"]["host"][1:]) for rr in ranks)
+    launches = sum(rr["bf16"]["counts"]["grouped_matmul"] for rr in ranks)
+    wgmma = sum(rr["bf16"]["wgmma"] for rr in ranks)
+    log(f"ep bf16 O2 ({EP_LABEL}): {EP_BLOCKS} of 32 layers, "
+        f"{ranks[0]['bf16']['n_params'] / 1e9:.3f} B parameters a rank, "
+        f"random routing; a step {1e3 * step_s:.0f} ms host (steps 2-"
+        f"{EP_BF16_STEPS}; step 1 "
+        f"{1e3 * max(rr['bf16']['host'][0] for rr in ranks):.0f} ms), "
+        f"{tok / step_s:.0f} tokens/s; " + "; ".join(parts)
+        + f"; #13 launches {launches}, wgmma_launches {wgmma} (both ranks,"
+        f" {EP_BF16_STEPS} steps); losses "
+        f"{[round(v, 5) for v in ranks[0]['bf16']['losses']]} [{ident}]")
+
+    # (3) the elastic restart
+    res = [rr["resume"] for rr in ranks]
+    if died is None or any(g["start"] != 1 for g in res) or \
+            "restarting world" not in err:
+        raise AssertionError(f"ep elastic: rank 1 died: {died is not None}"
+                             f"; the ranks resumed from steps "
+                             f"{[g['start'] for g in res]}; the launcher: "
+                             f"{err[-1000:]}")
+    last = EP_RESUME_STEPS
+    loss_same = all(g["losses"][last] == g["want_losses"][last]
+                    for g in res)
+    restart_s = max(g["t_resumed"] for g in res) - died["t"]
+    log(f"ep elastic restart ({EP_LABEL}; {EP_RESUME_BLOCKS} of 32 layers,"
+        f" bf16, SGD with the MoE clip): rank 1 exited 17 after step 1's "
+        f"checkpoint (saved in {died['save_s'][-1]:.1f} s on rank 1), "
+        f"the launcher restarted the world (--elastic 1) and the "
+        f"ranks resumed from step {res[0]['start']} "
+        f"{restart_s:.1f} s after the exit (the load "
+        f"{max(g['load_s'] for g in res):.1f} s); step {last}'s loss "
+        f"{[g['losses'][last] for g in res]} against the uninterrupted "
+        f"run's {[g['want_losses'][last] for g in res]}; parameters "
+        f"bitwise equal: {all(g['same'] for g in res)} (largest difference "
+        f"{max(g['max_diff'] for g in res):.3g}); the launch "
+        f"{launch_s:.1f} s [{ident}]")
+    if not (all(g["same"] for g in res) and loss_same):
+        raise AssertionError("ep elastic: the resumed run is not the "
+                             "uninterrupted one")
+    log(f"ep: #13 launches {launches} (wgmma {wgmma}); #13's check "
+        f"{check_s:.1f} s, reference {ref_s:.1f} s; f32 part "
+        f"{ranks[0]['f32']['part_s']:.1f} s, bf16 "
+        f"{ranks[0]['bf16']['part_s']:.1f} s, resume (after the restart) "
+        f"{ranks[0]['resume']['part_s']:.1f} s a rank; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"grouped_matmul": launches}
+
+
 def phase_ncclprobe(ident):
     """Opt-in: two NCCL ranks on the one card (the tp phase's layout) do
     one all-reduce in a subprocess world, bounded to 120 s; logs what NCCL
@@ -3978,6 +4687,7 @@ def main(argv=None):
                     help="comma-separated subset of "
                     + ",".join(PHASES + OPTIONAL_PHASES))
     ap.add_argument("--resnet-child", help=argparse.SUPPRESS)
+    ap.add_argument("--ep-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
@@ -3997,6 +4707,8 @@ def main(argv=None):
     sys.path.insert(0, str(root))
     if args.resnet_child:
         return _resnet_child(json.loads(args.resnet_child))
+    if args.ep_worker:
+        return _ep_worker(args.ep_worker)
     ident = gpu_identity()
     log(f"card: {ident}")
     kernel_stats, launches, took = {}, {}, {}
@@ -4033,7 +4745,8 @@ def main(argv=None):
                        ("cluster", phase_cluster), ("draft", phase_draft),
                        ("fused", phase_fused), ("bert", phase_bert),
                        ("export", phase_export),
-                       ("moe_train", phase_moe_train), ("tp", phase_tp),
+                       ("moe_train", phase_moe_train), ("ep", phase_ep),
+                       ("tp", phase_tp),
                        ("dp", phase_dp), ("pp", phase_pp)):
         if phase in phases:
             for name, n in timed(phase, run, ident).items():

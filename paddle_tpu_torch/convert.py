@@ -48,6 +48,11 @@ from their shards. Shards are contiguous blocks, rank r taking block r, so
 concatenating the ranks' shards along the split dim gives the full tensor
 back.
 
+``moe_from_numpy`` fills a model of ``MoELayer``s from the reference's
+parameters of the whole model (``{name: ndarray}``): at ep > 1 a rank
+holds only its experts, under their global names, and takes just their
+arrays (and every replicated parameter's).
+
 ``pipeline_stage_from_numpy`` fills one rank's stage of a
 ``PipelineLayer`` (or the ``PipelineParallel`` around it) from the
 reference pipeline model's parameters (``{"run_function.{i}.…": ndarray}``,
@@ -57,6 +62,7 @@ global name, cut to this rank's ``mp`` shard by its ``dist_spec``
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -76,7 +82,7 @@ __all__ = ["state_dict_from_numpy", "shard_state_dict", "init_llama",
            "init_gpt", "gpt_from_numpy", "fused_multi_transformer_from_numpy",
            "init_fused_multi_transformer", "resnet_from_numpy",
            "init_resnet", "bert_from_numpy", "init_bert",
-           "pipeline_stage_from_numpy"]
+           "pipeline_stage_from_numpy", "moe_from_numpy"]
 
 
 def _port_tensor(name: str, a: np.ndarray, dev, dt) -> torch.Tensor:
@@ -363,4 +369,30 @@ def pipeline_stage_from_numpy(model, arrays: Dict[str, np.ndarray],
     for n, b in layer.named_buffers():
         if n in arrays:
             b.copy_(tensor(arrays[n]))
+    return model
+
+
+_EXPERT_NAME = re.compile(r"(^|\.)experts\.\d+\.")
+
+
+@torch.no_grad()
+def moe_from_numpy(model, arrays: Dict[str, np.ndarray]):
+    """Copy ``arrays`` (the whole model's parameters by global name,
+    ndarrays or tensors) into ``model``'s own parameters, each cast to its
+    dtype and device. Every own parameter must have an array, and every
+    array an own parameter, except other ranks' experts
+    (``...experts.{e}....``), which an ep > 1 rank does not hold. Returns
+    ``model``."""
+    own = dict(model.named_parameters())
+    missing = [n for n in own if n not in arrays]
+    extra = [n for n in arrays
+             if n not in own and not _EXPERT_NAME.search(n)]
+    if missing or extra:
+        raise KeyError(f"moe_from_numpy: no array for {missing}; arrays "
+                       f"with no parameter {extra}")
+    for n, p in own.items():
+        v = arrays[n]
+        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        p.copy_(v.to(device=p.device, dtype=p.dtype))
     return model

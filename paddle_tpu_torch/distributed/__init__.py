@@ -3,8 +3,10 @@ process world and ``DataParallel``, the hybrid topology and mesh, the
 eager collectives, ``fleet`` (context-parallel attention, the
 tensor-parallel layers, ``distributed_model`` / ``distributed_optimizer``
 and the hybrid-parallel optimizers), ``sharding`` (ZeRO stages 1-3),
-checkpoints saved by one process or by every rank of a group, and the
-preemption machinery."""
+checkpoints saved by one process or by every rank of a group, the
+preemption machinery, and the process tail: ``launch`` (``python -m
+paddle_tpu_torch.distributed.launch``), ``spawn``, ``TCPStore``, ``rpc``
+and the parameter server ``ps``."""
 from .collective import (  # noqa: F401
     ReduceOp,
     all_gather,
@@ -60,6 +62,11 @@ from .ckpt_manager import (  # noqa: F401
     pack_train_state,
     unpack_train_state,
 )
+from .spawn import spawn  # noqa: F401
+from . import launch  # noqa: F401
+from . import rpc  # noqa: F401
+from . import ps  # noqa: F401
+from .store import TCPStore  # noqa: F401
 
 __all__ = [
     "ReduceOp", "all_reduce", "all_gather", "all_gather_object",
@@ -74,5 +81,5 @@ __all__ = [
     "fleet", "save_state_dict", "load_state_dict", "verify_contents",
     "AsyncSaveHandle", "AsyncCheckpointer", "CheckpointManager",
     "PreemptionGuard", "TrainingPreempted", "pack_train_state",
-    "unpack_train_state",
+    "unpack_train_state", "spawn", "launch", "rpc", "ps", "TCPStore",
 ]

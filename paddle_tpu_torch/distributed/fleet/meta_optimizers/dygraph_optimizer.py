@@ -15,7 +15,9 @@ communication here:
   the reference's one SPMD program leaves them. It then averages every
   gradient over the ``dp`` group in buckets
   (``fused_allreduce_gradients``), since each rank's gradients are those
-  of its own share of the batch. A sharded inner optimizer reduces its
+  of its own share of the batch; an expert-parallel ``MoELayer``'s expert
+  parameters are left out of that average and divided by ep (each rank
+  holds other experts, whose gradient is already the sum over ranks). A sharded inner optimizer reduces its
   gradients itself, so then the ``dp`` average is left to it. Averaging
   gradients that ``DataParallel.apply_collective_grads`` already averaged
   gives them back unchanged (equal values), at the cost of the calls;

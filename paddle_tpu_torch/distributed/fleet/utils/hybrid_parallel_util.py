@@ -3,16 +3,18 @@
 
 ``fused_allreduce_gradients`` averages the gradients over the data-parallel
 group in the buckets ``DataParallel`` uses (one all-reduce a bucket of
-about ``bucket_mb`` MB, not one a parameter). The ``broadcast_*``
-helpers copy every parameter from the first rank of a group to the
-others; the mp one skips the parameters split over ``mp``
-(``is_distributed``).
+about ``bucket_mb`` MB, not one a parameter); an expert-parallel
+``MoELayer``'s expert parameters are left out and divided by ep instead
+(``parallel.sync_gradients``). The ``broadcast_*`` helpers copy every
+parameter from the first rank of a group to the others; the mp one skips
+the parameters split over ``mp`` (``is_distributed``), the dp one the
+expert-parallel ones (each rank holds other experts).
 """
 from __future__ import annotations
 
 import torch
 
-from ...parallel import allreduce_buckets, get_world_size
+from ...parallel import get_world_size, is_expert_parallel, sync_gradients
 
 __all__ = ["fused_allreduce_gradients", "broadcast_dp_parameters",
            "broadcast_mp_parameters", "broadcast_sharding_parameters"]
@@ -21,14 +23,12 @@ __all__ = ["fused_allreduce_gradients", "broadcast_dp_parameters",
 def fused_allreduce_gradients(parameter_list, hcg=None,
                               bucket_mb: float = 25) -> int:
     """Average the gradients of ``parameter_list`` over ``hcg``'s
-    data-parallel group (the world without one). Returns the number of
-    all-reduce calls."""
+    data-parallel group (the world without one), the expert-parallel ones
+    divided by ep instead. Returns the number of all-reduce calls."""
     if get_world_size() <= 1:
         return 0
     group = hcg.get_data_parallel_group() if hcg is not None else None
-    grads = [p.grad for p in parameter_list
-             if getattr(p, "grad", None) is not None]
-    return allreduce_buckets(grads, group, "avg", bucket_mb)
+    return sync_gradients(parameter_list, group, bucket_mb)
 
 
 @torch.no_grad()
@@ -42,7 +42,8 @@ def _broadcast(params, group):
 
 
 def broadcast_dp_parameters(model, hcg):
-    _broadcast(model.parameters(), hcg.get_data_parallel_group())
+    _broadcast([p for p in model.parameters() if not is_expert_parallel(p)],
+               hcg.get_data_parallel_group())
 
 
 def broadcast_mp_parameters(model, hcg):

@@ -22,6 +22,12 @@ parameters flattened into one buffer of about ``comm_buffer_size`` MB and
 all-reduced in one call, where the reference reduces one parameter a
 call. Each element is still the sum of the same values, so the result is
 the per-parameter one.
+
+Expert parameters of an expert-parallel ``MoELayer`` (``expert_group`` set:
+each rank holds other experts under their own names) take no part in the
+dp average and are not broadcast at wrap: their gradient, the sum over the
+group's ranks of each rank's mean loss's, is divided by the group's size
+instead (:func:`sync_gradients`).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from ..framework.device import resolve_device
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "destroy_process_group", "new_group",
            "subgroup", "get_group", "set_mesh", "get_mesh", "current_mesh",
-           "get_device", "DataParallel", "allreduce_buckets", "buckets"]
+           "get_device", "DataParallel", "allreduce_buckets", "buckets",
+           "is_expert_parallel", "sync_gradients"]
 
 
 class ParallelEnv:
@@ -301,6 +308,30 @@ def allreduce_buckets(tensors, group=None, op="avg",
     return calls
 
 
+def is_expert_parallel(p) -> bool:
+    """Whether ``p`` is an expert parameter of an ep > 1 ``MoELayer``."""
+    group = getattr(p, "expert_group", None)
+    return group is not None and group.nranks > 1
+
+
+@torch.no_grad()
+def sync_gradients(params, group=None, bucket_mb: float = 25) -> int:
+    """Average the gradients of ``params`` over ``group`` (None: the world)
+    in buckets, leaving the expert-parallel ones out (see the module doc):
+    those are divided by their expert group's size. Returns the number of
+    all-reduce calls."""
+    grads = []
+    for p in params:
+        g = getattr(p, "grad", None)
+        if g is None:
+            continue
+        if is_expert_parallel(p):
+            g.div_(p.expert_group.nranks)
+        else:
+            grads.append(g)
+    return allreduce_buckets(grads, group, "avg", bucket_mb)
+
+
 class DataParallel(torch.nn.Module):
     """Data-parallel wrapper (after ``paddle_tpu/distributed/parallel.py``
     ``DataParallel``): ``model(x)`` runs the wrapped layers; after the
@@ -334,7 +365,8 @@ class DataParallel(torch.nn.Module):
         if (g.nranks if g is not None else get_world_size()) <= 1:
             return
         src = g.ranks[0] if g is not None else 0
-        for t in list(self._layers.parameters()) + list(
+        for t in [p for p in self._layers.parameters()
+                  if not is_expert_parallel(p)] + list(
                 self._layers.buffers()):
             broadcast(t.data, src, group=g)
 
@@ -351,13 +383,13 @@ class DataParallel(torch.nn.Module):
 
     def apply_collective_grads(self):
         """Average the gradients over the group (those that are None stay
-        None: every member must agree on which parameters have one)."""
+        None: every member must agree on which parameters have one); the
+        expert-parallel ones are divided by their group's size instead
+        (:func:`sync_gradients`)."""
         if not self._sync:
             return
-        grads = [p.grad for p in self._layers.parameters()
-                 if p.grad is not None]
-        self.last_buckets = allreduce_buckets(
-            grads, self._group, "avg", self.comm_buffer_size)
+        self.last_buckets = sync_gradients(
+            self._layers.parameters(), self._group, self.comm_buffer_size)
 
     def __getattr__(self, name):
         try:

@@ -13,11 +13,22 @@ token's second choice, writing expert ``-1``, where ``2 · val₂ < r`` for
 ``r`` uniform in ``[0, 1)`` drawn in f32, one a token; ``SwitchGate``
 scales its logits by a uniform jitter in ``[1 - eps, 1 + eps]`` drawn in
 f32. Both draw only in training.
+
+At ep > 1 (``MoELayer`` gives the gate its expert group, ``_ep_group``)
+the gate is the reference's global one over the group's tokens: the aux
+loss's two means are over the global tokens (the sums and the count
+all-reduced, the gate probabilities' through the autograd all-reduce, so
+the loss and its gradient are the global ones), and each random draw is
+made for ``ep`` times this rank's tokens, rank-major, of which the rank
+takes its own rows. With one generator state on every rank that is the
+draw of the global batch at ep = 1. The draws are held by rule, not by
+the reference's bits.
 """
 from __future__ import annotations
 
 import torch
 
+from ......distributed.collective import all_reduce, fcollectives
 from ......framework import random as _random
 from ......nn.common import Linear
 from ......nn.layer import Layer
@@ -34,6 +45,7 @@ class BaseGate(Layer):
         self.tot_expert = world_size * num_expert
         self.generator = generator
         self._loss = None
+        self._ep_group = None
 
     def set_loss(self, loss):
         self._loss = loss
@@ -50,6 +62,28 @@ class BaseGate(Layer):
 
     def _generator(self, device):
         return self.generator or _random.next_generator(device)
+
+    def _rows(self, draw, t):
+        """This rank's ``t`` rows of ``draw(n)``, a draw of ``n`` rows made
+        for the group's ``n = ep * t`` rows (``draw(t)`` at one rank)."""
+        grp = self._ep_group
+        if grp is None:
+            return draw(t)
+        return draw(grp.nranks * t)[grp.rank * t:(grp.rank + 1) * t]
+
+    def _aux_loss(self, gates, top1):
+        """The load-balance loss, over the group's tokens at ep > 1."""
+        grp = self._ep_group
+        if grp is None:
+            return _load_balance_loss(gates, top1)
+        e = gates.shape[-1]
+        mask = torch.nn.functional.one_hot(top1, e).to(gates.dtype).sum(0)
+        count = torch.full((1,), gates.shape[0], dtype=gates.dtype,
+                           device=gates.device)
+        stats = all_reduce(torch.cat([mask, count]), group=grp)
+        probs = fcollectives.all_reduce(gates.sum(0), grp)
+        n = stats[-1]
+        return torch.sum((stats[:-1] / n) * (probs / n)) * e
 
 
 class NaiveGate(BaseGate):
@@ -103,10 +137,11 @@ class GShardGate(BaseGate):
     def forward(self, inp):
         gates = torch.softmax(self.gate(inp), dim=-1)
         val, idx = torch.topk(gates, 2, dim=-1)
-        self.set_loss(_load_balance_loss(gates, idx[:, 0]))
+        self.set_loss(self._aux_loss(gates, idx[:, 0]))
         if self.random_routing and self.training:
-            r = torch.rand(idx.shape[0], generator=self._generator(
-                val.device), device=val.device)
+            gen = self._generator(val.device)
+            r = self._rows(lambda n: torch.rand(
+                n, generator=gen, device=val.device), idx.shape[0])
             second = torch.where(2.0 * val[:, 1].detach().float() < r,
                                  torch.full_like(idx[:, 1], -1), idx[:, 1])
             idx = torch.stack([idx[:, 0], second], dim=-1)
@@ -133,12 +168,18 @@ class SwitchGate(BaseGate):
     def forward(self, inp):
         logits = self.gate(inp)
         if self.training and self.switch_eps > 0:
-            noise = torch.empty(logits.shape, device=logits.device,
-                                dtype=torch.float32)
-            noise.uniform_(1.0 - self.switch_eps, 1.0 + self.switch_eps,
-                           generator=self._generator(logits.device))
+            gen = self._generator(logits.device)
+
+            def draw(n):
+                noise = torch.empty((n, logits.shape[-1]),
+                                    device=logits.device,
+                                    dtype=torch.float32)
+                return noise.uniform_(1.0 - self.switch_eps,
+                                      1.0 + self.switch_eps, generator=gen)
+
+            noise = self._rows(draw, logits.shape[0])
             logits = logits * noise.to(logits.dtype)
         gates = torch.softmax(logits, dim=-1)
         val, idx = torch.topk(gates, 1, dim=-1)
-        self.set_loss(_load_balance_loss(gates, idx[:, 0]))
+        self.set_loss(self._aux_loss(gates, idx[:, 0]))
         return val, idx

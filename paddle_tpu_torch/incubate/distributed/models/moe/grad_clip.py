@@ -6,9 +6,19 @@ Expert parameters live once per expert-parallel rank in the reference, so
 their squared norms are summed apart and divided by the moe group's
 ``nranks`` before they join the others' in the global norm. At one rank
 the factor is 1 unless the caller passes a ``moe_group``.
+
+At ep > 1 each rank holds only its experts (their parameters carry the
+``expert_group`` that ``MoELayer`` gave them), so the expert squares are
+first summed over that group: without a ``moe_group`` that is the
+reference's norm over every expert. Every rank of the group takes part in
+that sum, so each must hold expert parameters (every rank of an ep layer
+does).
 """
 from __future__ import annotations
 
+import torch
+
+from .....distributed.collective import all_reduce
 from .....nn.clip import ClipGradByGlobalNorm, _sq_sum
 
 __all__ = ["ClipGradForMOEByGlobalNorm"]
@@ -29,12 +39,22 @@ class ClipGradForMOEByGlobalNorm(ClipGradByGlobalNorm):
         self.moe_world = getattr(moe_group, "nranks", 1) if moe_group else 1
 
     def _global_sq_norm(self, params_grads):
-        normal, expert = [], []
+        normal, expert, holder = [], [], None
         for p, g in params_grads:
+            if self.is_expert(p) and holder is None:
+                holder = p
             if g is not None:
                 (expert if self.is_expert(p) else normal).append(g)
         sq = _sq_sum(normal) if normal else None
-        if expert:
-            sq_expert = _sq_sum(expert) / max(1, self.moe_world)
-            sq = sq_expert if sq is None else sq + sq_expert
-        return sq
+        group = getattr(holder, "expert_group", None)
+        if group is not None and group.nranks > 1:
+            part = _sq_sum(expert) if expert else torch.zeros(
+                (), device=holder.device)
+            sq_expert = all_reduce(part.reshape(1).clone(),
+                                   group=group)[0]
+        elif expert:
+            sq_expert = _sq_sum(expert)
+        else:
+            return sq
+        sq_expert = sq_expert / max(1, self.moe_world)
+        return sq_expert if sq is None else sq + sq_expert

@@ -11,6 +11,10 @@ PyTorch headers, so a build takes seconds. The file name carries a hash of
 the sources and flags, so an edited source rebuilds and a stale library is
 never loaded. :func:`build_all` starts one ``nvcc`` per source at once.
 
+Host libraries (``paddle_tpu_torch/native/<name>.cc``, the TCP store)
+build the same way with ``g++`` (:func:`build_host`), into the same
+directory under a hashed name.
+
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
 
@@ -44,7 +48,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "load",
            "build_all", "check", "stream_ptr", "build_seconds",
            "ptxas_report", "arrival_counters", "launch_counter",
            "LAUNCH_COUNTERS", "count_launch", "tally_launches",
-           "add_launches"]
+           "add_launches", "HOST_FLAGS", "build_host"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -73,6 +77,8 @@ _SIGNATURES = {
     "quant_matmul": [_P] * 7 + [_I] * 8 + [_P],
     "grouped_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }
+
+HOST_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
@@ -157,6 +163,38 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
+
+
+def build_host(source: Path) -> Optional[Path]:
+    """The shared library of the host C++ file ``source`` (g++
+    ``HOST_FLAGS``), built on first use into ``BUILD_DIR`` under a name
+    that carries a hash of the source and the flags; None when there is no
+    ``g++`` or the build fails (the caller falls back or raises). A build
+    writes a file of its own and renames it into place, so processes that
+    build at once never load half a library."""
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    out = BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+    with _LOCK:
+        if out.exists():
+            return out
+        gxx = shutil.which("g++")
+        if gxx is None:
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            r = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp),
+                                str(source)], capture_output=True,
+                               text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            return None
+        os.replace(tmp, out)
+        return out
 
 
 def ptxas_report(name: str) -> str:

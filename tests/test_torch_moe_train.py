@@ -48,6 +48,20 @@ D, F, E = 8, 16, 4
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def no_jax_mesh():
+    """Each test's JAX layers run on the JAX package's default mesh, as in
+    a fresh process: a mesh that an earlier test's ``fleet.init`` left in
+    this worker (the JAX pipeline tests leave dp = 2) would shard their
+    experts over ``dp`` and refuse the ragged and dropless paths."""
+    from paddle_tpu.distributed import parallel as jparallel
+
+    prev = jparallel._global_mesh
+    jparallel.set_mesh(None)
+    yield
+    jparallel.set_mesh(prev)
+
+
 def _j(a):
     return Tensor._wrap(jnp.asarray(a))
 

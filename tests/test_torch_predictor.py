@@ -153,13 +153,19 @@ def test_config_surface():
 
 
 def test_no_module_imports_jax_or_the_reference():
-    """Every module of the port, ``chip_smoke.py`` and the example twins
-    added with configs 2, 4 and 5 import in a fresh interpreter with
-    neither jax nor paddle_tpu loaded."""
+    """Every module of the port (the launcher, store, rpc and parameter
+    server included), ``chip_smoke.py`` and the example twins added with
+    configs 2, 4 and 5 import in a fresh interpreter with neither jax nor
+    paddle_tpu loaded."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         paddle_tpu_torch.__path__, "paddle_tpu_torch."))
     assert "paddle_tpu_torch.jit" in mods
     assert "paddle_tpu_torch.distributed.fleet.recompute" in mods
+    for m in ("distributed.launch.main", "distributed.launch.master",
+              "distributed.launch.controllers", "distributed.launch.__main__",
+              "distributed.spawn", "distributed.store", "distributed.rpc",
+              "distributed.ps", "native"):
+        assert f"paddle_tpu_torch.{m}" in mods, m
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
