@@ -101,10 +101,11 @@ Phases, in order; any failure exits non-zero:
               check: loss, gradients and three AdamW steps of 2-layer
               GPT-medium and ``llama2_7b`` widths with the kernels against
               plain attention.
-8. tier     — ``llama2_7b`` widths at 16 of its 32 layers (cut to make
-              room for phase 18), bf16, random weights from a seed. (a)
+8. tier     — ``llama2_7b`` widths at 8 of its 32 layers (cut to make
+              room for phase 18 and phase 16's serving options), bf16,
+              random weights from a seed. (a)
               The host KV tier under churn: 16 templates of 512 tokens
-              (512 pages, 2 GiB) against a 256-page pool and a 512-page
+              (512 pages, 1 GiB) against a 256-page pool and a 512-page
               pinned slab, 32-token tails, 32 new tokens, two
               rounds whose requests arrive together; every promoted page
               is hashed on the card right after its restore and must equal
@@ -249,19 +250,24 @@ Phases, in order; any failure exits non-zero:
               speed): the kernels of the path at shard shapes against
               their plain versions (#1, #3 at 16 heads, #2 on a 512-token
               wave, #13 over 4 local experts, #4, #14, #15 at 16 heads),
-              then ``Engine(tp=2)`` at ``llama2_7b()`` widths (f32, 8 of
+              then ``Engine(tp=2)`` at ``llama2_7b()`` widths (f32, 4 of
               32 layers, chunked prefill + prefix cache + n-gram spec:
               streams equal tp=None's, the ranks' command outputs hash
-              alike; bf16, 32 layers: tok/s, TTFT, peak memory a rank,
+              alike; bf16, 8 layers: tok/s, TTFT, peak memory a rank,
               the all-reduce's share, rows equal to tp=None),
               ``Engine(ep=2)`` at Mixtral-8x7B's widths (f32 2 layers:
-              streams and router stats equal ep=None's; bf16 8 layers:
+              streams and router stats equal ep=None's; bf16 4 layers:
               tok/s, #13's launches), ``FusedMultiTransformer`` at
               nranks=2 (GPT-3 6.7B widths, B=8, 5-D / slab /
               ``PagedKVCache``: f32 against nranks=1, bf16 ms a step) and
               ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small,
-              mp=2 (greedy tokens equal mp=1's). tp=2 x ep=2 would need
-              four processes on the card: the CPU tests hold it.
+              mp=2 (greedy tokens equal mp=1's), then the serving options
+              at tp=2 (``llama2_7b()`` widths, f32, 2 layers: the host
+              tier, integrity strict, ``spec="draft"``, each against
+              tp=None with the option; the KV handoff tp=2 -> tp=None ->
+              tp=2; a ``Router`` over two replicas of tp=2 engines, one
+              killed and restarted). tp=2 x ep=2 would need four
+              processes on the card: the CPU tests hold it.
 17. dp      — data-parallel and sharded training, as two rank processes
               sharing the one card over gloo, TF32 off: #2 and #5 at a
               rank's config 2 shape (B=16 S=512 H=12 D=64 f32) against
@@ -2284,13 +2290,19 @@ CONTEXT_ROWS = ("flash_attention_fwd_pos", "flash_attention_bwd_pos")
 
 # ------------------------------------------------------------ phase tp
 TP_DEADLINE_S = 900   # the rank world's wall clock, as a hang guard
-TP_F32_LAYERS = 8     # llama2_7b f32 identity, of 32
-TP_BF16_LAYERS = 32   # llama2_7b bf16 timing
+# the depths of (a) and (b) are cut (f32 8 -> 4, bf16 32 -> 8, Mixtral
+# bf16 8 -> 4 layers) to pay for (e) in the run's time limit; every path
+# is kept
+TP_F32_LAYERS = 4     # llama2_7b f32 identity, of 32
+TP_BF16_LAYERS = 8    # llama2_7b bf16 timing
 TP_MOE_F32_LAYERS = 2   # Mixtral widths, f32 identity
-TP_MOE_BF16_LAYERS = 8  # Mixtral widths, bf16 timing
+TP_MOE_BF16_LAYERS = 4  # Mixtral widths, bf16 timing
 TP_FUSED_F32_LAYERS = 2
 TP_FUSED_BF16_LAYERS = 8
 TP_LABEL = "two ranks sharing one H100 over gloo"
+TP_OPT_LAYERS = 2       # (e): llama2_7b widths, f32, the serving options
+TP_OPT_PAGES = 24       # (e): the device pool, against 4 templates of 6 pages
+TP_OPT_HOST_PAGES = 16  # (e): the host tier's slab, in pages
 
 
 def _tp_items(lens, new, sampled=(), seed=91, vocab=32000):
@@ -2320,7 +2332,10 @@ def _tp_hash(eng):
             () if out is None else (out,))
         for t in outs:
             if isinstance(t, torch.Tensor):
-                h.update(t.detach().cpu().contiguous().view(-1)
+                # a fresh row-major copy: a one-element view may keep a
+                # stride other than 1, which a byte view refuses
+                h.update(t.detach().cpu().reshape(-1)
+                         .clone(memory_format=torch.contiguous_format)
                          .view(torch.uint8).numpy().tobytes())
         n[0] += 1
         keep(seq, out)
@@ -2595,6 +2610,303 @@ def _tp_gpt(rank):
     return ex.generate_in_world(args, 2)
 
 
+def _tp_opt_items(vocab=32000):
+    """(e)'s one item set: 8 greedy prompts, each one of 4 templates of 96
+    tokens (6 pages of 16) with a 16-token tail, 16 new tokens; the second
+    four revisit the templates."""
+    import numpy as np
+
+    rng = np.random.default_rng(93)
+    tpls = [rng.integers(0, vocab, (96,)) for _ in range(4)]
+    return [(np.concatenate([tpls[i % 4], rng.integers(0, vocab, (16,))]),
+             16, 0.0, 200 + i) for i in range(8)]
+
+
+def _tp_churn(eng, items, tag):
+    """Rank 0: the items one at a time, two steps after each arrival, then
+    to completion (the host tier's churn: the pool holds fewer pages than
+    the templates, so idle cached pages demote, and the revisits promote
+    them). Returns (requests, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = []
+    for p, m, t, sd in items:
+        reqs.append(eng.add_request(p, m, temperature=t, seed=sd))
+        eng.step()
+        eng.step()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_done(reqs, items)
+    _no_caught_fault(eng, tag)
+    return reqs, wall
+
+
+def _tp_options(rank, counts):
+    """(e) The serving options at tp=2 (see ``phase_tp``): each on rank 0
+    against the tp=None engine with the same option on the same card and
+    weights; every follower's command outputs hashed against rank 0's."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.observability import metric_total
+
+    res = {}
+    cfg = llama2_7b()
+    cfg.num_layers = TP_OPT_LAYERS
+    items = _tp_opt_items(cfg.vocab_size)
+    kw = dict(max_slots=2, num_pages=TP_OPT_PAGES, page_size=16,
+              chunk_size=8, max_chain=1, device="cuda")
+    # a shadow every third step: an arrival's first step, whose row is
+    # still decoding
+    strict = dict(mode="strict", weight_audit_every=8, shadow_every=3)
+    draft_cfg = tinyllama_1b(num_layers=2)
+    # one model a rank for every tp=2 engine (the first shards it in
+    # place), one whole model on rank 0 for the tp=None engines
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = init_llama(cfg, seed=0, device="cuda", dtype=torch.float32)
+        whole = init_llama(cfg, seed=0, device="cuda",
+                           dtype=torch.float32) if rank == 0 else None
+        draft = init_llama(draft_cfg, seed=1, device="cuda",
+                           dtype=torch.float32)
+        options = {
+            "tier": dict(prefix_cache=True, kv_host_pages=TP_OPT_HOST_PAGES),
+            "strict": dict(prefix_cache=True, integrity=strict),
+            "draft": dict(spec="draft", spec_k=4, draft_model=draft),
+            # rank 0's whole target drafts for itself: at f32 every greedy
+            # draft lands at tp=None, so tp=2 must commit accepted drafts
+            # on both ranks (a follower passes its own model, never built)
+            "draft_self": dict(spec="draft", spec_k=4,
+                               draft_model=whole if rank == 0 else model),
+        }
+        for name, opt in options.items():
+            rec = {}
+            if rank == 0:
+                eng = _pin(Engine(whole, **kw, **opt))
+                checks0 = metric_total("paddle_tpu_integrity_checks_total")
+                reqs, wall = _tp_churn(eng, items, f"tp (e) {name} tp=None")
+                rec["base"] = [list(r.tokens) for r in reqs]
+                rec["base_checks"] = metric_total(
+                    "paddle_tpu_integrity_checks_total") - checks0
+                if eng._spec is not None:
+                    rec["base_accept"] = eng._spec.stats()["accept_rate"]
+                eng._cache.shutdown_tier()
+                del eng, reqs
+                _tp_free()
+            dist.barrier()
+            eng = _pin(Engine(model, tp=2, **kw, **opt))
+            digest = _tp_hash(eng)
+            if eng.is_leader:
+                checks0 = metric_total("paddle_tpu_integrity_checks_total")
+                (reqs, wall), got = _counted(
+                    lambda: _tp_churn(eng, items, f"tp (e) {name} tp=2"))
+                rec["tokens"] = [list(r.tokens) for r in reqs]
+                rec["wall"] = wall
+                rec["checks"] = metric_total(
+                    "paddle_tpu_integrity_checks_total") - checks0
+                if eng.kv_tier is not None:
+                    t = eng.kv_tier
+                    rec["tier"] = (t.demotions, t.promotions, t.drops)
+                    eng._cache.shutdown_tier()
+                if eng._integrity is not None:
+                    rec["shadows"] = eng._integrity.last_margin is not None
+                if eng._spec is not None:
+                    rec["accept"] = eng._spec.stats()["accept_rate"]
+                    rec["drafter"] = type(eng._spec.drafter).__name__
+                eng.close()
+                del reqs
+            else:
+                _, got = _counted(eng.run)
+                if eng._spec is not None:
+                    rec["drafter"] = type(eng._spec.drafter).__name__
+            rec["digest"] = digest()
+            rec["launches"] = {k: v for k, v in got.items() if v}
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            del eng
+            _tp_free()
+            res[name] = rec
+        res["handoff"] = _tp_handoff(rank, model, whole, kw, items[0],
+                                     counts)
+        res["router"] = _tp_router(rank, model, whole, cfg, kw, items,
+                                   counts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
+def _tp_handoff(rank, model, whole, kw, item, counts):
+    """(e) The KV handoff: item's prompt served at tp=2 and exported, the
+    payload adopted by a tp=None engine (which serves it and exports it
+    again) and that one adopted by a second tp=2 engine; the streams, the
+    payload's bytes and each export's and adoption's ms (host clock)."""
+    import torch
+
+    from paddle_tpu_torch.inference.engine import Engine
+
+    prompt, new = item[0], item[1]
+    pkw = dict(kw, prefix_cache=True)
+    rec = {}
+
+    def serve(eng):
+        req = eng.add_request(prompt, new)
+        eng.run()
+        return list(req.tokens)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    a = _pin(Engine(model, tp=2, **pkw))
+    digest_a = _tp_hash(a)
+    if a.is_leader:
+        (rec["direct"], got) = _counted(lambda: serve(a))
+        pay, rec["export_tp2_ms"] = timed(
+            lambda: a._cache.export_handoff(prompt))
+        rec["bytes"], rec["pages"] = pay["nbytes"], len(pay["pages"])
+        a.close()
+        u = _pin(Engine(whole, **pkw))
+        rec["adopt_tp1"], rec["adopt_tp1_ms"] = timed(
+            lambda: u.adopt_kv_pages(pay))
+        rec["via_tp1"] = serve(u)
+        pay_u, rec["export_tp1_ms"] = timed(
+            lambda: u._cache.export_handoff(prompt))
+        rec["same_bytes"] = pay_u["digests"] == pay["digests"]
+        del u
+        _tp_free()
+    else:
+        _, got = _counted(a.run)
+    rec["digest_a"] = digest_a()
+    del a
+    _tp_free()
+    b = _pin(Engine(model, tp=2, **pkw))
+    digest_b = _tp_hash(b)
+    if b.is_leader:
+        def back():
+            n, ms = timed(lambda: b.adopt_kv_pages(pay_u))
+            return n, ms, serve(b), b._pcache.hits
+        (rec["adopt_tp2"], rec["adopt_tp2_ms"], rec["round_trip"],
+         rec["hits"]), got_b = _counted(back)
+        b.close()
+    else:
+        _, got_b = _counted(b.run)
+    rec["digest_b"] = digest_b()
+    for g in (got, got_b):
+        for k, v in g.items():
+            counts[k] = counts.get(k, 0) + v
+    rec["launches"] = {k: got.get(k, 0) + got_b.get(k, 0)
+                       for k in set(got) | set(got_b)
+                       if got.get(k, 0) + got_b.get(k, 0)}
+    del b
+    _tp_free()
+    return rec
+
+
+def _tp_router(rank, model, whole, cfg, kw, items, counts):
+    """(e) A ``Router`` over two ``InProcReplica``s of tp=2 engines, each
+    on a process group and a model of its own; rank 1 follows both
+    (``serving.follow_replica``, a thread each). The replica holding a
+    live stream is killed once and restarted by the supervisor. The
+    streams against the tp=None engine's plain ones."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.convert import init_llama
+    from paddle_tpu_torch.distributed.topology import Group
+    from paddle_tpu_torch.inference.engine import Engine
+
+    rec = {}
+    if rank == 0:
+        reqs, _ = _serve_items(_pin(Engine(whole, **kw)), items,
+                               "tp (e) router tp=None")
+        rec["base"] = [list(r.tokens) for r in reqs]
+        del reqs
+        _tp_free()
+    groups = [Group([0, 1], rank=rank, process_group=dist.new_group([0, 1]))
+              for _ in range(2)]
+    models = [model, init_llama(cfg, seed=0, device="cuda",
+                                dtype=torch.float32)]
+    slow = "slow-step:every=1,delay_ms=20"
+
+    def factory_of(i):
+        def factory():
+            return serving.ServingFrontend(_pin(Engine(
+                models[i], tp=2, group=groups[i], fault_plan=slow, **kw)))
+        return factory
+
+    factories = [factory_of(i) for i in range(2)]
+    if rank != 0:
+        followed = [None, None]
+
+        def loop(i):
+            followed[i] = serving.follow_replica(factories[i])
+
+        def run():
+            ts = [threading.Thread(target=loop, args=(i,)) for i in (0, 1)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        _, got = _counted(run)
+        rec["followed"] = followed
+    else:
+        reps = [serving.InProcReplica(f, name=f"tp-r{i}", index=i)
+                for i, f in enumerate(factories)]
+        router = serving.Router(reps, heartbeat_s=0.05, stall_s=None,
+                                restart_dead=True, restart_backoff_s=0.05)
+
+        def run():
+            router.start()
+            try:
+                t0 = time.perf_counter()
+                tickets = [router.submit(p, m) for p, m, _, _ in items]
+                live = None
+                while live is None and time.perf_counter() - t0 < 120:
+                    live = next((t for t in tickets
+                                 if t.tokens and not t.done), None)
+                    time.sleep(0.005)
+                if live is None:
+                    raise AssertionError("tp (e) router: no stream was "
+                                         "live to kill")
+                victim = next(r for r in reps if r.name == live.replica)
+                victim.kill()
+                out = [t.result(timeout=300) for t in tickets]
+                rec["wall"] = time.perf_counter() - t0
+                rec["reasons"] = [t.failure_reason for t in tickets]
+                rec["migrations"] = sum(t.migrations for t in tickets)
+                dl = time.perf_counter() + 120
+                while not (victim.alive() and victim.restarts >= 1) \
+                        and time.perf_counter() < dl:
+                    time.sleep(0.02)
+                rec["restarted"] = victim.restarts
+                # the restarted incarnation serves (its follower built it)
+                again = router.submit(items[0][0], items[0][1])
+                rec["again"] = again.result(timeout=300)
+                return out
+            finally:
+                router.shutdown()
+        rec["tokens"], got = _counted(run)
+    rec["launches"] = {k: v for k, v in got.items() if v}
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    del models
+    _tp_free()
+    return rec
+
+
 def _tp_rank(rank, world, init_file, out_dir):
     """One rank of the tp phase's world: gloo over CUDA tensors on the
     one card."""
@@ -2622,6 +2934,9 @@ def _tp_rank(rank, world, init_file, out_dir):
     res["d"] = _tp_fused(rank, counts)
     res["gpt"] = _tp_gpt(rank)
     res["d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["e"] = _tp_options(rank, counts)
+    res["e_s"] = time.perf_counter() - t0
     res["counts"] = counts
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     destroy_process_group()
@@ -2670,6 +2985,104 @@ def _tp_shard_kernels(torch, ident):
              f"ps=16 lengths={big_lens} [{ident}]", r))
 
 
+def _tp_options_report(e0, e1, ident):
+    """(e)'s checks and lines (``e0`` rank 0's record, ``e1`` rank 1's)."""
+    def per_rank(r0, r1):
+        return (f"#1 / #3 launches rank 0 "
+                f"{r0.get('paged_decode_attention', 0)} / "
+                f"{r0.get('paged_verify_attention', 0)}, rank 1 "
+                f"{r1.get('paged_decode_attention', 0)} / "
+                f"{r1.get('paged_verify_attention', 0)}")
+
+    for name in ("tier", "strict", "draft", "draft_self"):
+        r0, r1 = e0[name], e1[name]
+        if r0["tokens"] != r0["base"]:
+            raise AssertionError(f"tp (e) {name}: tp=2 streams differ from "
+                                 "tp=None's with the same option")
+        if r0["digest"] != r1["digest"]:
+            raise AssertionError(f"tp (e) {name}: the ranks' command "
+                                 "outputs differ")
+    tier = e0["tier"]
+    demoted, promoted, dropped = tier["tier"]
+    if not (demoted > 0 and promoted > 0):
+        raise AssertionError(f"tp (e) tier: demoted {demoted}, promoted "
+                             f"{promoted}: the churn did not tier")
+    log(f"tp (e) tier f32 llama2_7b widths {TP_OPT_LAYERS} layers, pool "
+        f"{TP_OPT_PAGES} pages, slab {TP_OPT_HOST_PAGES} ({TP_LABEL}): "
+        f"8 streams equal tp=None's with the tier; demotions {demoted}, "
+        f"promotions {promoted}, drops {dropped}; both ranks' "
+        f"{tier['digest'][1]} command outputs hash alike; "
+        + per_rank(tier["launches"], e1["tier"]["launches"])
+        + f" [{ident}]")
+    st = e0["strict"]
+    if not (st["checks"] > 0 and st["shadows"]):
+        raise AssertionError(f"tp (e) strict: {st['checks']} checks, "
+                             f"shadow ran {st['shadows']}")
+    log(f"tp (e) integrity strict (weight audit every 8, shadow every 3) "
+        f"({TP_LABEL}): streams equal tp=None's; sentinel checks tp=2 "
+        f"{st['checks']:.0f} (tp=None {st['base_checks']:.0f}), the shadow "
+        f"ran on both ranks; "
+        + per_rank(st["launches"], e1["strict"]["launches"])
+        + f" [{ident}]")
+    for name, what in (("draft", "TinyLlama widths, 2 layers, random "
+                         "weights of another seed: acceptance near zero by "
+                         "construction"),
+                       ("draft_self", "the target's whole weights on rank "
+                        "0: every greedy draft lands at tp=None")):
+        dr = e0[name]
+        if dr["drafter"] != "DraftModelDrafter" \
+                or e1[name]["drafter"] != "FollowerDrafter":
+            raise AssertionError(f"tp (e) {name}: drafters {dr['drafter']}"
+                                 f" / {e1[name]['drafter']}")
+        if dr["accept"] != dr["base_accept"]:
+            raise AssertionError(f"tp (e) {name}: acceptance {dr['accept']}"
+                                 f" at tp=2, {dr['base_accept']} at tp=None")
+        if name == "draft_self" and dr["base_accept"] != 1.0:
+            raise AssertionError(f"tp (e) {name}: acceptance "
+                                 f"{dr['base_accept']} at tp=None, not 1")
+        log(f"tp (e) spec={name} ({what}; the draft on rank 0 alone) "
+            f"({TP_LABEL}): streams equal tp=None's; draft acceptance "
+            f"{dr['accept']:.4f} (tp=None {dr['base_accept']:.4f}); the "
+            f"follower built no drafter; "
+            + per_rank(dr["launches"], e1[name]["launches"])
+            + f" [{ident}]")
+    h, h1 = e0["handoff"], e1["handoff"]
+    if not (h["direct"] == h["via_tp1"] == h["round_trip"]
+            and h["same_bytes"] and h["adopt_tp1"] == h["adopt_tp2"]
+            == h["pages"] > 0 and h["hits"] == 1):
+        raise AssertionError(f"tp (e) handoff: {h}")
+    if (h["digest_a"], h["digest_b"]) != (h1["digest_a"], h1["digest_b"]):
+        raise AssertionError("tp (e) handoff: the ranks' command outputs "
+                             "differ")
+    log(f"tp (e) KV handoff tp=2 -> tp=None -> tp=2 ({TP_LABEL}): "
+        f"{h['pages']} pages, {h['bytes']} bytes; export at tp=2 "
+        f"{h['export_tp2_ms']:.2f} ms, adopt at tp=None "
+        f"{h['adopt_tp1_ms']:.2f} ms, export at tp=None "
+        f"{h['export_tp1_ms']:.2f} ms, adopt at tp=2 "
+        f"{h['adopt_tp2_ms']:.2f} ms (host clock); the tp=None engine "
+        f"re-exports the tp=2 bytes exactly; all three streams equal; "
+        + per_rank(h["launches"], h1["launches"])
+        + f" [{ident}]")
+    ro, r1 = e0["router"], e1["router"]
+    if ro["tokens"] != ro["base"] or any(ro["reasons"]):
+        raise AssertionError(f"tp (e) router: streams differ from tp=None's"
+                             f" or failed ({ro['reasons']})")
+    if not (ro["migrations"] >= 1 and ro["restarted"] >= 1
+            and ro["again"] == ro["base"][0]
+            and sorted(r1["followed"]) == [1, 2]):
+        raise AssertionError(f"tp (e) router: migrations "
+                             f"{ro['migrations']}, restarts "
+                             f"{ro['restarted']}, followed "
+                             f"{r1['followed']}")
+    log(f"tp (e) Router over two InProcReplicas of tp=2 engines, one killed"
+        f" mid-stream ({TP_LABEL}): 8 streams equal tp=None's in "
+        f"{ro['wall']:.3f} s, {ro['migrations']} migrations, the victim "
+        f"restarted and served again; rank 1 followed {r1['followed']} "
+        f"incarnations; "
+        + per_rank(ro["launches"], r1["launches"])
+        + f" [{ident}]")
+
+
 def phase_tp(ident):
     """Tensor- and expert-parallel serving and config 3 at nranks=2, as two
     rank processes sharing the one card over gloo (CUDA tensors: NCCL
@@ -2680,16 +3093,16 @@ def phase_tp(ident):
     two-rank world (``torch.multiprocessing``, a ``file://`` rendezvous):
 
     (a) ``Engine(tp=2)`` at ``llama2_7b()`` widths (32 heads, 16 a rank;
-        FF 11008, 5504 a rank): f32, TF32 off, 8 of 32 layers, 8 requests
+        FF 11008, 5504 a rank): f32, TF32 off, 4 of 32 layers, 8 requests
         (prompts 16-512, two sampled) with chunked prefill 256, the prefix
         cache and n-gram k=4: rank 0's streams must equal the tp=None
         engine's on the same card and weights, and both ranks' command
-        outputs must hash alike; then bf16 at 32 layers, 8 requests of 32
+        outputs must hash alike; then bf16 at 8 layers, 8 requests of 32
         tokens in chains of 16: tok/s, TTFT, each rank's peak memory, the
         all-reduce's share of the pass, and how many rows agree with
         tp=None.
     (b) ``Engine(ep=2)`` at Mixtral-8x7B's widths: f32, 2 of 32 layers,
-        streams and router stats equal to ep=None; bf16, 8 layers: tok/s
+        streams and router stats equal to ep=None; bf16, 4 layers: tok/s
         and #13's launches over the 4 local experts.
     (c) tp=2 x ep=2 needs four processes on the one card: it runs in the
         CPU tests only (``tests/test_torch_ep_serving.py``).
@@ -2699,6 +3112,19 @@ def phase_tp(ident):
         of the largest entry; bf16 (8 layers) ms a decode step. Then
         ``examples/generate_gpt_tp_torch.py``'s path at GPT-2 small, mp=2:
         greedy tokens equal to mp=1.
+    (e) The serving options at tp=2 (``_tp_options``): ``llama2_7b()``
+        widths, f32, TF32 off, 2 of 32 layers, one item set of 8 greedy
+        prompts from 4 templates, served as a churn through a 24-page
+        pool: the host tier, ``integrity`` strict and ``spec="draft"``
+        on rank 0 alone (a TinyLlama-width draft, 2 layers, whose random
+        weights land almost no draft, and the target's own whole weights,
+        whose every greedy draft lands at tp=None), each
+        against the tp=None engine with the same option on the same
+        card and weights, both ranks' command outputs hashed alike; the
+        KV handoff tp=2 -> tp=None -> tp=2 (bytes, ms); a ``Router`` over
+        two ``InProcReplica``s of tp=2 engines, the replica of a live
+        stream killed and restarted, rank 1 in
+        ``serving.follow_replica``.
 
     The launches of every pass, both ranks', are returned."""
     import shutil
@@ -2798,12 +3224,14 @@ def phase_tp(ident):
         raise AssertionError(f"tp (d) generate_gpt_tp: {gpt}")
     log(f"tp (d) generate_gpt_tp_torch path GPT-2 small mp=2: greedy tokens "
         f"equal mp=1's and across the ranks; {json.dumps(gpt)} [{ident}]")
+    _tp_options_report(lead["e"], ranks[1]["e"], ident)
     counts = {}
     for r in ranks:
         for k, v in r["counts"].items():
             counts[k] = counts.get(k, 0) + v
     log(f"tp: world parts (a) {lead['a_s']:.1f} s (b) {lead['b_s']:.1f} s "
-        f"(d) {lead['d_s']:.1f} s; launches both ranks "
+        f"(d) {lead['d_s']:.1f} s (e) {lead['e_s']:.1f} s; launches both "
+        f"ranks "
         f"{({k: v for k, v in counts.items() if v})}; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {name: counts.get(name, 0) for name in KERNELS}
@@ -7660,7 +8088,7 @@ def _two_waves(eng, shared, tails, new, tag, temp=0.0):
     return reqs
 
 
-TIER_LAYERS = 16
+TIER_LAYERS = 8
 
 
 def phase_tier(ident):
@@ -7684,8 +8112,9 @@ def phase_tier(ident):
     gc.collect()
     torch.cuda.empty_cache()
     # llama2_7b's widths at TIER_LAYERS of its 32 layers: the depth cut
-    # that makes room for the pp phase in the run's time limit (a page,
-    # the weight baseline and the handoff's payload scale with it)
+    # that makes room for the pp phase and the tp phase's serving options
+    # in the run's time limit (a page, the weight baseline and the
+    # handoff's payload scale with it)
     cfg = LlamaConfig(num_layers=TIER_LAYERS)
     t0 = time.perf_counter()
     model = init_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -7722,8 +8151,8 @@ def phase_tier(ident):
                 for k in now}
 
     # ---- (a) the tier under churn: 16 templates of 512 tokens (512
-    # pages, 2 GiB) against a 256-page pool (1 GiB) and a 512-page pinned
-    # slab (2 GiB); 32-token tails, 32 new tokens, greedy, two rounds
+    # pages, 1 GiB at 8 layers) against a 256-page pool and a 512-page
+    # pinned slab; 32-token tails, 32 new tokens, greedy, two rounds
     NT, TLEN, TAIL, NEW, POOL, HOST, PS = 16, 512, 32, 32, 256, 512, 16
     page_bytes_ = (2 * cfg.num_layers * PS * cfg.num_kv_heads
                    * cfg.head_dim * 2)

@@ -28,6 +28,13 @@ ranks sharing one card take ``--backend gloo``:
     python examples/serve_llama_paged_torch.py --tiny --device cpu --tp 2
     python examples/serve_llama_paged_torch.py --tiny --device cpu --tp 2 --ep 2
     python examples/serve_llama_paged_torch.py --tp 2 --backend gloo
+Every serving option takes ``--tp`` / ``--ep`` (the host KV tier, the
+integrity sentinel, ``--spec draft``, the ``--pools`` cluster smoke over
+sharded replicas, at ``--tp`` or ``--ep`` alone); weight-only quantized
+weights do not (the engine refuses them there, as the reference cannot
+serve them sharded):
+    python examples/serve_llama_paged_torch.py --tiny --device cpu --tp 2 \
+        --pools prefill=1,decode=1
 """
 import argparse
 import os as _os
@@ -72,23 +79,61 @@ def run_cluster_smoke(model, cfg, args):
     behind one Router. Prompts prefill on the prefill pool, their KV ships
     to a decode replica (digest-verified; recompute on any failure), and
     shared-prefix streams converge on warm decode replicas. Prints the
-    handoff and fallback counters."""
+    handoff and fallback counters.
+
+    With ``--tp`` / ``--ep`` every replica is a sharded engine over a
+    process group of its own (made in one order on every rank) and a
+    model of its own (an engine shards its model in place): rank 0 holds
+    the router, every other rank runs ``serving.follow_replica`` for each
+    replica, on a thread each."""
     import time
 
     from paddle_tpu_torch.inference.engine import Engine
     from paddle_tpu_torch.observability import metric_total
     from paddle_tpu_torch.serving import (InProcReplica, Router,
-                                          ServingFrontend, parse_pools)
+                                          ServingFrontend, follow_replica,
+                                          parse_pools)
 
+    if (args.tp or 1) > 1 and (args.ep or 1) > 1:
+        raise SystemExit("--pools runs replicas at --tp or --ep alone: a "
+                         "replica's engine at tp > 1 and ep > 1 shares its "
+                         "tp and ep groups with every engine over the same "
+                         "ranks (InProcReplica refuses it)")
     pools = parse_pools(args.pools)
     n = sum(pools.values())
+    groups, models = [None] * n, [model] * n
+    if (args.tp or 1) * (args.ep or 1) > 1:
+        import torch.distributed as dist
 
-    def factory():
-        eng = Engine(model, max_slots=4, num_pages=96, page_size=16,
-                     chunk_size=8, prefix_cache=True, device=args.device)
-        return ServingFrontend(eng)
+        from paddle_tpu_torch.distributed.topology import Group
 
-    reps = [InProcReplica(factory, name=f"pool-r{i}", index=i)
+        world = list(range(dist.get_world_size()))
+        groups = [Group(world, rank=dist.get_rank(),
+                        process_group=dist.new_group(world))
+                  for _ in range(n)]
+        models = [model] + [_model(args)[1] for _ in range(n - 1)]
+
+    def make_factory(i):
+        def factory():
+            eng = Engine(models[i], max_slots=4, num_pages=96,
+                         page_size=16, chunk_size=8, prefix_cache=True,
+                         device=args.device, tp=args.tp, ep=args.ep,
+                         group=groups[i])
+            return ServingFrontend(eng)
+        return factory
+
+    factories = [make_factory(i) for i in range(n)]
+    if groups[0] is not None and groups[0].rank != 0:
+        import threading
+
+        loops = [threading.Thread(target=follow_replica, args=(f,))
+                 for f in factories]
+        for t in loops:
+            t.start()
+        for t in loops:
+            t.join()
+        return
+    reps = [InProcReplica(factories[i], name=f"pool-r{i}", index=i)
             for i in range(n)]
     router = Router(reps, heartbeat_s=0.05, stall_s=None,
                     pools=pools, fault_plan=args.fault_inject)

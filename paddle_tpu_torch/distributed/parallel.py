@@ -12,7 +12,11 @@ the world size and the rendezvous (``init_method``) instead. A world of one
 needs no rendezvous: it runs on an in-process store. A world that
 ``torch.distributed`` already holds is adopted as it is;
 :func:`destroy_process_group` ends the world and this module's state with
-it.
+it, and a process that started a world here runs it at exit, before the
+interpreter finalizes: groups that outlived ``torch.distributed``'s own
+teardown would keep gloo's worker threads into finalization, where one
+that drops the last reference to a tensor aborts the process ("terminate
+called without an active exception").
 
 :class:`DataParallel` keeps the reference's explicit contract: after the
 backward, ``apply_collective_grads()`` averages the gradients over the dp
@@ -31,7 +35,9 @@ instead (:func:`sync_gradients`).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
+import gc
 import os
 from typing import List, Optional
 
@@ -82,6 +88,7 @@ _default_group = None
 _subgroups: dict = {}
 _global_mesh = None
 _device: Optional[torch.device] = None
+_exit_hook = False
 
 
 def init_parallel_env(strategy=None, *, device=None, init_method=None,
@@ -97,7 +104,7 @@ def init_parallel_env(strategy=None, *, device=None, init_method=None,
     ``tcp://`` + ``PADDLE_MASTER`` when the world has more than one rank.
     ``timeout`` (a ``datetime.timedelta``) bounds every collective's wait,
     as ``init_process_group``'s."""
-    global _default_group, _device
+    global _default_group, _device, _exit_hook
     if is_initialized():
         return _default_group
     if _env.initialized:  # the world was torn down under this module
@@ -148,7 +155,18 @@ def init_parallel_env(strategy=None, *, device=None, init_method=None,
 
     _default_group = Group(list(range(world_size)), axis_name=None,
                            rank=rank, process_group=dist.group.WORLD)
+    if not _exit_hook:
+        atexit.register(_release_at_exit)
+        _exit_hook = True
     return _default_group
+
+
+def _release_at_exit():
+    """End the world and free its groups while gloo's threads can still
+    take the interpreter lock (see the module doc); a cycle that holds a
+    group goes with the collection."""
+    destroy_process_group()
+    gc.collect()
 
 
 def get_device() -> torch.device:

@@ -6,9 +6,10 @@ The device page buffers (``k_pages`` / ``v_pages`` per layer, plus bf16
 device and written in place by every forward. The allocator state (block
 tables, lengths, per-page refcounts, free lists) lives on the host in
 numpy. At tp > 1 each rank's pool holds the lanes of its ``Hkv/tp`` KV
-heads of every page (``ModelRunner.page_shape``); the tables and
-refcounts live on rank 0, and the page operations (copy-on-write, the
-corruption fault points) go to every rank's shard as commands. A pool
+heads of every page (``ModelRunner.page_shape``); the tables, refcounts,
+prefix cache and host tier live on rank 0, and the page operations
+(copy-on-write, the corruption fault points, the tier's gathers and
+restores, the handoff's) go to every rank's shard as commands. A pool
 reset after a step fault empties rank 0's allocator and has every rank
 forget the outputs of earlier commands (``ModelRunner.reset``): the
 buffers are written in place and never donated, so each shard stays. Physical page 0 is the trash page: never allocated, the target of
@@ -81,7 +82,11 @@ class CacheCoordinator:
                     "the cache there is nothing to demote)")
             from .kv_tier import HostTier
 
-            self.tier = HostTier(self, kv_host_pages)
+            # a sharded engine's tier lives on rank 0, which owns the
+            # prefix cache; the followers' lanes reach it by command
+            runner = getattr(engine, "runner", None)
+            if runner is None or runner.is_leader:
+                self.tier = HostTier(self, kv_host_pages)
         self.reset()
 
     def _allocate(self):
@@ -260,10 +265,9 @@ class CacheCoordinator:
         """The prompt's cached KV pages as a handoff payload
         (``kv_tier.capture_handoff_spill``) for another engine's
         ``adopt_kv_pages``. Engine thread; waits for the device-to-host
-        copy. None when nothing is cached."""
-        if self.engine.runner.sharded:
-            raise TypeError("export_handoff: the KV handoff at tp/ep > 1 "
-                            "is not ported")
+        copy. None when nothing is cached. On a sharded engine (rank 0)
+        the payload is the same: whole pages in the global layout, every
+        rank's lanes gathered (``ModelRunner.gather_pages``)."""
         if self.pcache is None:
             return None
         from .kv_tier import capture_handoff_spill

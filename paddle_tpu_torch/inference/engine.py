@@ -140,12 +140,21 @@ with any of them.
   takes the requests (``add_request``, ``step``, ``cancel``, ``run``, the
   front end); every device operation it performs goes to the other ranks
   as a command. A follower's ``run()`` (or ``serve_forever()``) runs those
-  commands until rank 0 calls :meth:`Engine.close`. ``tp=1`` is the
+  commands until rank 0 calls :meth:`Engine.close`; behind an in-process
+  replica, whose restarts build new engines, a follower runs
+  ``serving.follow_replica`` instead. ``tp=1`` is the
   single-device engine, as in the reference. At tp/ep > 1,
-  ``quantized_cache=True`` raises the reference's ``NotImplementedError``,
-  and what this port does not shard yet raises ``TypeError``: the host KV
-  tier (``kv_host_pages``), ``integrity``, the KV handoff, ``spec="draft"``
-  and weight-only quantized layers (``ROADMAP.md`` queue A).
+  ``quantized_cache=True`` raises the reference's ``NotImplementedError``.
+  The serving options take the same arguments as at tp=1 and keep the
+  reference's global view: the host KV tier and the prefix cache live on
+  rank 0 (its slab holds whole pages, every rank's lanes gathered), the
+  KV handoff's payload is whole pages in the global layout (a tp=2 engine
+  hands to a tp=1 engine and back), the integrity sentinel's page sums
+  and weight audit span every rank's shard, and ``spec="draft"``'s draft
+  model runs on rank 0 alone, its drafts reaching the followers inside
+  the verify command (``runner.py`` gives the commands). Weight-only
+  quantized layers raise ``TypeError``: the reference cannot serve them
+  sharded (its int8 weights replicate whole, and every step faults).
 """
 from __future__ import annotations
 
@@ -554,20 +563,18 @@ class _EngineMetrics:
                              rid=req.rid, tenant=req.tenant)
 
 
-def _refuse_unsharded(model, tp, ep, **opts):
-    """``TypeError`` for what a tp/ep > 1 engine does not shard yet."""
-    missing = []
-    if opts["kv_host_pages"]:
-        missing.append("the host KV tier (kv_host_pages)")
-    if opts["integrity"] is not None:
-        missing.append("integrity")
-    if opts["spec"] == "draft":
-        missing.append('spec="draft"')
+def _refuse_unsharded(model, tp, ep):
+    """``TypeError`` for weight-only quantized layers at tp/ep > 1. The
+    reference cannot serve them there: its runner replicates every buffer
+    (``ModelRunner._infer_param_specs``), so the whole int8 weight meets
+    the local head count and every request ends ``RetriesExhausted``."""
     if any(type(m).__name__ == "WeightOnlyLinear" for m in model.modules()):
-        missing.append("weight-only quantized layers")
-    if missing:
-        raise TypeError(f"Engine(tp={tp}, ep={ep}): {', '.join(missing)} "
-                        "at tp/ep > 1 is not ported")
+        raise TypeError(
+            f"Engine(tp={tp}, ep={ep}): weight-only quantized layers at "
+            "tp/ep > 1 are not served: the reference replicates their int8 "
+            "weight buffers whole, so its sharded programs fault on every "
+            "step (each request ends RetriesExhausted) — serve the "
+            "quantized model at tp=ep=1, or the unquantized one sharded")
 
 
 class Engine:
@@ -597,8 +604,7 @@ class Engine:
                  group=None):
         cfg = model.config
         if int(tp or 1) > 1 or int(ep or 1) > 1:
-            _refuse_unsharded(model, tp, ep, kv_host_pages=kv_host_pages,
-                              integrity=integrity, spec=spec)
+            _refuse_unsharded(model, tp, ep)
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -1067,10 +1073,9 @@ class Engine:
         in the host tier re-binds to the restored page. With the integrity
         sentinel, each adopted page is checksummed from its restored bytes
         (the shipped ``dev_sums`` are the exporter's, and the reference's
-        f32 sums are not this sentinel's)."""
-        if self.runner.sharded:
-            raise TypeError("adopt_kv_pages: the KV handoff at tp/ep > 1 "
-                            "is not ported")
+        f32 sums are not this sentinel's). On a sharded engine (rank 0)
+        the payload is the same, whole pages in the global layout: every
+        rank writes its lanes of them (``ModelRunner.restore_rows``)."""
         from .integrity import count_integrity_check
         from .kv_tier import page_bytes
 
@@ -1112,22 +1117,29 @@ class Engine:
             return a if isinstance(a, torch.Tensor) \
                 else torch.from_numpy(np.array(a))
 
+        runner = self.runner
         if any(len(rows_per_page[j]) != len(pages_flat)
                or row(j, i).dtype != b.dtype
-               or tuple(row(j, i).shape) != tuple(b.shape[1:])
+               or tuple(row(j, i).shape) != runner.global_page_shape(b)
                for j, _ in fresh[:1] for i, b in enumerate(pages_flat)):
             # another pool's layout (dtype, width, int8 pages): no restore
             for _, p in fresh:
                 self._cache.release_page(p)
             return 0
+        def stacked(chunk, i):
+            # one buffer's pages in one upload on one device (its host
+            # stack goes at once, so the next one reuses the memory)
+            s = torch.stack([row(j, i) for j, _ in chunk])
+            return s if runner.sharded else s.to(self.device)
+
         for off in range(0, len(fresh), 32):
+            # whole-page byte rows (joined on the card on one device), of
+            # which a sharded engine's ranks each write their lanes
             chunk = fresh[off:off + 32]
-            payload_dev = [torch.stack([row(j, i) for j, _ in chunk])
-                           .to(self.device)
-                           for i in range(len(pages_flat))]
-            idx = torch.as_tensor([p for _, p in chunk], dtype=torch.int64,
-                                  device=self.device)
-            self.runner.restore_pages(pages_flat, idx, payload_dev)
+            rows = torch.cat([stacked(chunk, i).reshape(len(chunk), -1)
+                              .view(torch.uint8)
+                              for i in range(len(pages_flat))], dim=1)
+            runner.restore_rows([p for _, p in chunk], rows)
         end = fresh[-1][0] + 1
         table = [0] * end
         for j, p in fresh:

@@ -42,6 +42,16 @@ wrapping: addition modulo 2^64 has no order, so no reduction order can
 change the sum, and a single flipped bit still changes it (the weight of a
 word is 1..911 times the buffer's index, far below 2^32).
 
+**A sharded engine** (tp/ep > 1) keeps the reference's global view,
+each probe one command that every rank runs (``runner.py``): a page sum
+is the wrapping sum of every rank's lane shard, each word weighted at its
+position in the whole page, so one all-reduce gives rank 0 the tp=None
+sum of the same bytes; a weight block is the reference's range of the
+global flat parameter, each rank digests the part it holds (at load, on
+its own) and rank 0 learns every rank's verdict; ``bit-flip-weight``
+flips its global element on the ranks that hold it; the shadow forward,
+which enters the tp all-reduce, runs on every rank.
+
 All of this is host code between dispatches; ``Engine(integrity=None)``
 (the default) builds nothing.
 """
@@ -128,18 +138,29 @@ class IntegrityConfig:
             "an IntegrityConfig, or a dict of its fields")
 
 
-def page_checksums(pages_flat: List[torch.Tensor],
-                   idx: torch.Tensor) -> torch.Tensor:
+def page_checksums(pages_flat: List[torch.Tensor], idx: torch.Tensor,
+                   lane0: int = 0,
+                   lanes: Optional[int] = None) -> torch.Tensor:
     """The exact checksum of every page in ``idx`` (int64, on the pool's
     device): over every buffer ``j`` of ``pages_flat`` (k, v, scale per
     layer), ``(j + 1) * sum(word * (1 + position % 911))`` of the page's
-    integer words (``int_words``), wrapping in int64."""
+    integer words (``int_words``), wrapping in int64.
+
+    ``lane0`` / ``lanes``: the buffers hold lanes ``[lane0, lane0 + w)``
+    of pages ``lanes`` wide (a tp rank's shard); each word is weighted at
+    its position in the whole page, so the wrapping sum of every shard's
+    checksum is the whole page's."""
     out = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
     for j, b in enumerate(pages_flat):
-        sel = int_words(b.index_select(0, idx)).reshape(idx.shape[0], -1)
-        w = 1 + torch.arange(sel.shape[1], dtype=torch.int64,
-                             device=idx.device) % 911
-        out += (j + 1) * (sel.to(torch.int64) * w).sum(dim=1)
+        sel = int_words(b.index_select(0, idx))
+        w = sel.shape[-1]
+        rows = torch.arange(sel[0].numel() // w, dtype=torch.int64,
+                            device=idx.device)
+        pos = rows[:, None] * (w if lanes is None else lanes) + lane0 \
+            + torch.arange(w, dtype=torch.int64, device=idx.device)
+        weight = 1 + pos.reshape(-1) % 911
+        out += (j + 1) * (sel.reshape(idx.shape[0], -1).to(torch.int64)
+                          * weight).sum(dim=1)
     return out
 
 
@@ -171,47 +192,71 @@ class IntegritySentinel:
 
     # ------------------------------------------------------- weight audit
     def _param_blocks(self, i: int) -> Tuple[int, List[Tuple[int, int, str]]]:
-        host = self.engine.runner.fetch_param_slice(i, 0, None)
-        n = int(host.size)
+        """Parameter ``i``'s global element count and its blocks: the
+        reference's ranges ``[a, e)`` of the GLOBAL flat parameter, each
+        with the digest of the part this rank holds (on a sharded engine
+        the part of its shard, ``ModelRunner.local_span``; the whole block
+        elsewhere)."""
+        runner = self.engine.runner
+        host = runner.fetch_param_slice(i, 0, None)
+        n = runner.param_numel(i)
         raw = memoryview(host).cast("B")
         item = host.dtype.itemsize
         per = max(1, -(-n // self.cfg.weight_blocks))
-        return n, [(a, min(n, a + per), hashlib.blake2b(
-            raw[a * item:min(n, a + per) * item],
-            digest_size=16).hexdigest()) for a in range(0, n, per)]
+        blocks = []
+        for a in range(0, n, per):
+            e = min(n, a + per)
+            lo, hi = runner.local_span(i, a, e)
+            blocks.append((a, e, hashlib.blake2b(
+                raw[lo * item:hi * item], digest_size=16).hexdigest()))
+        return n, blocks
 
     def _snapshot_weights(self):
         """Digest every parameter block by block (``_param_blocks``). The
         fetches and hashes run on a few threads: both release the
-        interpreter lock, and at 7B the baseline is 13.5 GB."""
+        interpreter lock, and at 7B the baseline is 13.5 GB. Every rank of
+        a sharded engine digests its own shard."""
         n = len(self.engine._params)
         with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as ex:
             self._weight_base = list(ex.map(self._param_blocks, range(n)))
         for i, (_, bl) in enumerate(self._weight_base):
             self._probe_targets += [(i, b) for b in range(len(bl))]
 
+    def block_ok(self, i: int, b: int) -> bool:
+        """Whether this rank's part of block ``b`` of parameter ``i`` still
+        matches its load-time digest."""
+        a, e, want = self._weight_base[i][1][b]
+        lo, hi = self.engine.runner.local_span(i, a, e)
+        got = hashlib.blake2b(
+            memoryview(self.engine.runner.fetch_param_slice(i, lo, hi))
+            .cast("B"), digest_size=16).hexdigest()
+        return got == want
+
     def audit_weights_once(self) -> bool:
         """Probe ONE (param, block) against the load-time digest. A
-        mismatch quarantines the engine and returns False."""
+        mismatch quarantines the engine and returns False. On a sharded
+        engine every rank probes its part of the block (one command) and
+        a failure on any rank is this probe's."""
         if not self._probe_targets:
             return True
         i, b = self._probe_targets[
             self._probe_cursor % len(self._probe_targets)]
         self._probe_cursor += 1
-        a, e, want = self._weight_base[i][1][b]
+        a, e, _ = self._weight_base[i][1][b]
         fi = self.engine._fi
         if fi is not None and fi.fire("bit-flip-weight"):
             self._flip_weight_bit(i, a, e, fi)
-        got = hashlib.blake2b(
-            memoryview(self.engine.runner.fetch_param_slice(i, a, e))
-            .cast("B"), digest_size=16).hexdigest()
-        ok = got == want
+        runner = self.engine.runner
+        bad = runner.audit_weight(i, b)
+        ok = not bad
         _count_check("weights", ok)
         if not ok:
+            where = f" (rank {', '.join(map(str, bad))}'s shard)" \
+                if runner.sharded else ""
             err = IntegrityError(
                 f"weight audit digest mismatch: param {i} elements "
-                f"[{a}, {e}) no longer match the load-time baseline — "
-                "silent weight corruption; quarantining the engine")
+                f"[{a}, {e}) no longer match the load-time baseline{where}"
+                " — silent weight corruption; quarantining the engine")
             self.last_error = err
             self.engine._watchdog.quarantine(err)
         return ok
@@ -220,21 +265,17 @@ class IntegritySentinel:
         """``bit-flip-weight``'s damage: XOR one seed-chosen bit of one
         seed-chosen element inside the block the probe fetches next,
         written IN PLACE into the tensor the captured graphs read (the
-        same draws as the reference, so one seed flips the same bit)."""
-        words = int_words(self.engine._params[i].detach()).view(-1)
+        same draws as the reference, so one seed flips the same bit). The
+        element is a global index: on a sharded engine every rank that
+        holds it flips it (``ModelRunner.flip_weight``)."""
         flat = a + fi.draw("bit-flip-weight", max(1, e - a))
-        elem = words[flat:flat + 1].cpu().numpy()
-        raw = bytearray(elem.tobytes())
-        bit = fi.draw("bit-flip-weight", 8 * len(raw))
-        raw[bit // 8] ^= 1 << (bit % 8)
-        new = np.frombuffer(raw, dtype=elem.dtype)
-        words[flat:flat + 1].copy_(torch.from_numpy(new))
+        bit = fi.draw("bit-flip-weight",
+                      8 * self.engine._params[i].element_size())
+        self.engine.runner.flip_weight(i, flat, bit)
 
     # -------------------------------------------------- KV page checksums
     def _page_sums(self, pages: List[int]) -> List[int]:
-        eng = self.engine
-        idx = torch.as_tensor(pages, dtype=torch.int64, device=eng.device)
-        return page_checksums(eng._cache.pages_flat(), idx).cpu().tolist()
+        return self.engine.runner.page_sums(pages)
 
     def note_registered(self, pages: List[int]) -> List[int]:
         """Checksum freshly registered pages; a page that already carries
@@ -316,9 +357,8 @@ class IntegritySentinel:
         hist = req.tokens[:-1]
         ids = (np.concatenate([req.prompt, np.asarray(hist, np.int32)])
                if hist else np.asarray(req.prompt, np.int32))
-        logits = eng.model(torch.as_tensor(ids[None, :], dtype=torch.int64,
-                                           device=eng.device))
-        row = logits[0, -1].float().cpu().numpy()
+        # a sharded forward enters the tp all-reduce: every rank runs it
+        row = eng.runner.shadow(ids).cpu().numpy()
         delivered = int(req.tokens[-1])
         top = float(row.max())
         margin = top - float(row[delivered])

@@ -34,7 +34,7 @@ survives; a later hash-chain hit PROMOTES them back, digest-verified.
   recompute) and posts the verdict. At the next drain the engine thread
   allocates device pages and restores the verified rows: pinned rows to
   the device with ``non_blocking=True``, then ``index_copy_`` into the
-  pool (``ModelRunner.restore_page_rows``), all on the engine's stream, so a
+  pool (``ModelRunner.restore_rows``), all on the engine's stream, so a
   promotion lands before the splice's suffix prefill reads it. A slab row
   returns to the free list only once its copy's event has fired. With the
   integrity sentinel on, the page's checksum travels with its bytes and
@@ -54,6 +54,19 @@ is no stream to order.
 
 ``reset()`` (pool reset after a step fault) drops the whole tier;
 ``stop()`` (front-end drain or shutdown, quarantine) ends the worker.
+
+**A sharded engine** (tp/ep > 1) keeps its tier on rank 0, beside the
+prefix cache it serves. The slab holds whole pages in the global layout,
+so a page's digest covers every rank's lanes: at tp > 1 a demotion's
+gather is one command in which every rank gathers its lanes of the page
+and an ``all_gather`` joins them (``ModelRunner.gather_page_rows``), and a
+promotion's restore is one command a batch in which every rank writes its
+lanes (``ModelRunner.restore_rows``); an ep-only engine gathers from rank
+0's whole pool and restores into every rank's. The command channel is one
+ordered stream from the engine thread, so every operation that touches a
+follower's pool goes out from there, in order (``demote`` from the
+allocator, the restores at ``drain``); the worker thread keeps rank 0's
+host work: the slab copies, the digests and their verdicts.
 
 On the card every spill wave and every restore batch is timed by a pair of
 CUDA events around its copies, on the stream that runs them
@@ -109,9 +122,7 @@ def capture_handoff_spill(engine, tokens) -> Optional[dict]:
     rows_per_page: List[List[torch.Tensor]] = []
     for off in range(0, len(pages), _HANDOFF_COPY_WIDTH):
         chunk = pages[off:off + _HANDOFF_COPY_WIDTH]
-        idx = torch.as_tensor(chunk, dtype=torch.int64, device=engine.device)
-        host = [h.cpu() for h in engine.runner.capture_pages(
-            coord.pages_flat(), idx)]
+        host = [h.cpu() for h in engine.runner.gather_pages(chunk)]
         rows_per_page += [[h[j] for h in host] for j in range(len(chunk))]
     digests, nbytes = [], 0
     for rows in rows_per_page:
@@ -160,11 +171,13 @@ class HostTier:
         # allocation per job would be slow, and a driver call during a
         # graph capture); a row holds every pool buffer's page in
         # pages_flat order, the first buffer's bytes first
-        flat = coord.pages_flat()
-        self._first_bytes = flat[0][0].numel() * flat[0].element_size()
+        # whole pages: on a sharded engine every rank's lanes, in the
+        # global layout (``ModelRunner.gather_page_rows``)
+        self._runner = self.engine.runner
+        row_bytes = self._runner.page_row_bytes(coord.pages_flat())
+        self._first_bytes = row_bytes[0]
         self._slab = torch.empty(
-            (self.host_pages, sum(b[0].numel() * b.element_size()
-                                  for b in flat)),
+            (self.host_pages, sum(row_bytes)),
             dtype=torch.uint8, pin_memory=self._cuda)
         # a wave's digests run on a few threads (blake2b lets go of the
         # interpreter lock): at 8 MiB a page one thread is the tier's limit
@@ -236,8 +249,7 @@ class HostTier:
         self.demotions += 1
         if self._m is not None:
             self._m.kv_demotions.inc()
-        self._wave_rows.append(self.engine.runner.capture_page_row(
-            self.coord.pages_flat(), page))
+        self._wave_rows.append(self._runner.gather_page_rows([page])[0])
         self._wave.append((ent, ent.job, hslot, dev_sum))
         if len(self._wave) >= self.COPY_WIDTH:
             self.flush_captures()
@@ -328,9 +340,11 @@ class HostTier:
 
     def _land_promotions(self, promotes) -> None:
         """Restore a drain's verified promotions into fresh pool pages, on
-        the engine's stream: the rows go to the device from the pinned
-        slab, then into the pool in place."""
-        pc = self.coord.pcache
+        the engine's stream (``ModelRunner.restore_rows``): the rows go to
+        the device from the pinned slab, then into the pool in place. A
+        sharded engine's go out as one command a batch, each rank writing
+        its lanes; the rows are copied into the command, so their slots
+        return at once."""
         landed = []
         for ent, hslot, dev_sum, dt in promotes:
             page = self.coord.alloc_page()
@@ -340,25 +354,32 @@ class HostTier:
             landed.append((ent, int(page), hslot, dev_sum, dt))
         if not landed:
             return
-        pages_flat = self.coord.pages_flat()
-        start = self._record(timing=True)
+        sharded = self._runner.sharded
+        start = None if sharded else self._record(timing=True)
+        t0 = time.perf_counter()
         w = self.COPY_WIDTH
         for off in range(0, len(landed), w):
             chunk = landed[off:off + w]
-            rows = torch.empty((len(chunk), self._slab.shape[1]),
-                               dtype=torch.uint8, device=self.device)
-            for j, lan in enumerate(chunk):
-                rows[j].copy_(self._slab[lan[2]], non_blocking=True)
-            idx = torch.as_tensor([lan[1] for lan in chunk],
-                                  dtype=torch.int64, device=self.device)
-            self.engine.runner.restore_page_rows(pages_flat, idx, rows)
-        # the rows are read by copies still in flight: their slots return
-        # once the event after them has fired
-        end = self._record(timing=True)
+            if sharded:
+                rows = torch.stack([self._slab[lan[2]] for lan in chunk])
+            else:
+                rows = torch.empty((len(chunk), self._slab.shape[1]),
+                                   dtype=torch.uint8, device=self.device)
+                for j, lan in enumerate(chunk):
+                    rows[j].copy_(self._slab[lan[2]], non_blocking=True)
+            self._runner.restore_rows([lan[1] for lan in chunk], rows)
+        # on one device the rows are read by copies still in flight: their
+        # slots return once the event after them has fired
+        end = None if sharded else self._record(timing=True)
         self._held.append((end, [lan[2] for lan in landed]))
+        nbytes = len(landed) * self._slab.shape[1]
         if end is not None:
-            self._timed.append((start, end, len(landed),
-                                len(landed) * self._slab.shape[1]))
+            self._timed.append((start, end, len(landed), nbytes))
+        elif sharded and self._cuda:
+            # host clock: the command waits for every rank's copy
+            self.copy_log.append(("h2d", len(landed), nbytes,
+                                  (time.perf_counter() - t0) * 1e3))
+        pc = self.coord.pcache
         ig = getattr(self.engine, "_integrity", None)
         for ent, page, hslot, dev_sum, dt in landed:
             self.coord.page_ref[page] = 0  # the entry owns it, idle
@@ -528,7 +549,7 @@ class HostTier:
     def _spill(self, job):
         _, gen, items, rows, gathered = job
         hslots = [hslot for _, _, hslot, _ in items]
-        if self._cuda:
+        if self._cuda and rows[0].is_cuda:
             # the copy stream starts after the gathers; the worker waits
             # for its own copies only, then lets the staging go
             self._copy_stream.wait_event(gathered)

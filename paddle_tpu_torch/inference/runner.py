@@ -56,10 +56,35 @@ collectives capture); over gloo (two ranks sharing one card) they run
 eagerly, and the runner logs so.
 
 The host KV tier, the KV handoff and the integrity sentinel reach the
-pool and the weights through three helpers: :meth:`ModelRunner.capture_pages`
-(a gather of whole pages), :meth:`ModelRunner.restore_pages` (an in-place
-``index_copy_`` into the pool's tensors, which the captured graphs hold)
-and :meth:`ModelRunner.fetch_param_slice` (the bytes a program consumes).
+pool and the weights through these helpers, and
+:meth:`ModelRunner.fetch_param_slice` (the bytes a program consumes). On
+one device they read and write the engine's own pool; on a sharded engine
+they keep the reference's global view, each as one command that every
+rank runs on its shard:
+
+* :meth:`ModelRunner.gather_pages` / :meth:`ModelRunner.gather_page_rows`
+  give rank 0 whole pages in the global layout (``[page_size, Hkv*D]``
+  rows, as the reference's assembled ``device_get``): at tp > 1 every rank
+  gathers its lanes and one ``all_gather`` joins them; an ep-only engine
+  holds the whole pool on every rank, so rank 0 reads its own.
+* :meth:`ModelRunner.restore_rows` writes whole-page byte rows into the
+  pool in place (an ``index_copy_`` into the tensors the captured graphs
+  hold), each rank taking its lanes.
+* :meth:`ModelRunner.page_sums`: the sentinel's exact page checksums. Each
+  rank sums its lanes weighted at their positions in the whole page; the
+  wrapping int64 sum has no order, so one all-reduce of the ranks' sums
+  over the tp group (in two exact 32-bit halves) is the ``tp=None`` sum.
+* :meth:`ModelRunner.audit_weight` / :meth:`ModelRunner.flip_weight`: the
+  weight audit's blocks are the reference's ranges of the GLOBAL flat
+  parameter; each rank digests the part of a block it holds
+  (:meth:`ModelRunner.local_span`), and rank 0 learns every rank's verdict
+  through one ``all_gather``. The ``bit-flip-weight`` point's element, a
+  global index, is flipped by whichever ranks hold it.
+* :meth:`ModelRunner.shadow`: the sentinel's contiguous forward, which
+  enters the tp all-reduce, runs on every rank.
+
+Commands run on the engine thread only, in order: the host tier's worker
+thread never sends one (``kv_tier.py``).
 
 :class:`GraphSet` and :class:`CapturedStep` carry the capture and the
 replay; ``GenerationMixin.generate`` captures its decode step with them
@@ -83,8 +108,8 @@ import torch
 from ..kernels import build
 
 __all__ = ["ModelRunner", "GraphSet", "CapturedStep", "ShardedEngineError",
-           "serving_spec",
-           "int_words", "host_words", "gc_paused", "collect_garbage"]
+           "serving_spec", "int_words", "host_words", "gc_paused",
+           "collect_garbage"]
 
 # the integer word of each element size: a tensor viewed as these words
 # keeps its bytes, and numpy holds every one of them (it has no bf16)
@@ -105,6 +130,17 @@ def host_words(t: torch.Tensor) -> np.ndarray:
     are the tensor's bytes, in the layout the reference's host copy of the
     same values has."""
     return int_words(t.detach()).contiguous().cpu().numpy()
+
+
+def flip_bit(t: torch.Tensor, elem: int, bit: int):
+    """XOR bit ``bit`` of flat element ``elem`` of ``t``, in place (the
+    captured graphs read ``t`` by address)."""
+    words = int_words(t.detach()).view(-1)
+    one = words[elem:elem + 1].cpu().numpy()
+    raw = bytearray(one.tobytes())
+    raw[bit // 8] ^= 1 << (bit % 8)
+    words[elem:elem + 1].copy_(torch.from_numpy(
+        np.frombuffer(raw, dtype=one.dtype).copy()))
 
 
 class _CudaGraph:
@@ -317,12 +353,47 @@ _EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
 
 # the commands rank 0 sends its followers, by header code
 _KINDS = ("stop", "prefill", "decode", "mixed", "verify", "handoff",
-          "last_token", "copy_pages", "corrupt_page", "reset")
+          "last_token", "copy_pages", "corrupt_page", "reset",
+          "gather_pages", "restore_rows", "page_sums", "audit_weight",
+          "flip_weight", "shadow")
 _HEADER = 8   # code, key length, up to 5 key ints, payload bytes
 _KEPT = 16    # commands whose outputs a later command may name
 
 _log = logging.getLogger(__name__)
-_engines = itertools.count()
+# sharded engines made so far, per process group: every member of a group
+# makes that group's engines in one order, so the counts agree
+_engines: Dict[str, "itertools.count"] = {}
+_engines_lock = threading.Lock()
+
+
+def _engine_id(group) -> str:
+    import torch.distributed.distributed_c10d as c10d
+
+    try:
+        name = c10d._get_process_group_name(group.process_group)
+    except Exception:  # noqa: BLE001 - an older torch: the ranks name it
+        name = "-".join(map(str, group.ranks))
+    with _engines_lock:
+        n = next(_engines.setdefault(name, itertools.count()))
+    return f"{name}/{n}"
+
+
+def _local_count(shape, dim, start, length, g: int) -> int:
+    """How many elements of a shard (``length`` entries from ``start`` of
+    dim ``dim``, whole along every other dim) come before global flat
+    index ``g`` of a ``shape`` tensor. The shard's flat order follows the
+    global one, so a global range is a local range."""
+    if dim is None:
+        return g
+    inner = int(np.prod(shape[dim + 1:], dtype=np.int64))
+    outer, rem = divmod(int(g), shape[dim] * inner)
+    x, r = divmod(rem, inner)
+    n = outer * length * inner
+    if x < start:
+        return n
+    if x >= start + length:
+        return n + length * inner
+    return n + (x - start) * inner + r
 
 
 def serving_spec(name: str, shape, tp: int, ep: int) -> tuple:
@@ -375,7 +446,11 @@ def serving_spec(name: str, shape, tp: int, ep: int) -> tuple:
 class ShardedEngineError(RuntimeError):
     """A sharded engine's ranks can no longer agree: a command failed after
     it went out (the ranks may be apart inside a collective), or a follower
-    raised. Not recoverable by a step: the run fails."""
+    raised. Not recoverable by a step: the run fails. ``leader_stopped``:
+    raised on a follower because rank 0 stopped the engine on a fault (the
+    follower itself is sound)."""
+
+    leader_stopped = False
 
 
 class _Ref:
@@ -487,7 +562,12 @@ class ModelRunner:
         self._host: "OrderedDict[int, tuple]" = OrderedDict()
         self._ops = {name: _Program(self, name, (), getattr(self, "_" + name))
                      for name in ("handoff", "last_token", "copy_pages",
-                                  "corrupt_page", "reset")}
+                                  "corrupt_page", "reset", "gather_pages",
+                                  "restore_rows", "page_sums",
+                                  "audit_weight", "flip_weight", "shadow")}
+        # per parameter of Engine._params: (global shape, split dim or
+        # None, this rank's first index and length along it)
+        self._layout: Optional[List[tuple]] = None
         if self.tp > 1 or self.ep > 1:
             self._validate_and_build_groups(group)
 
@@ -558,7 +638,13 @@ class ModelRunner:
                      for j in range(ep)]
         ep_groups = [[ranks[i * ep + j] for j in range(ep)]
                      for i in range(tp)]
-        made = {tuple(rs): subgroup(rs) for rs in tp_groups + ep_groups
+        # an axis spanning the engine's whole group rides that group
+        # itself: two engines over the same ranks (in-process replicas on
+        # groups of their own) keep their collectives apart. The others
+        # are the process's, one a rank set (so a replica at tp > 1 and
+        # ep > 1 is refused: serving/replica.py)
+        made = {tuple(rs): group if list(rs) == list(ranks)
+                else subgroup(rs) for rs in tp_groups + ep_groups
                 if len(rs) > 1}
         if tp > 1:
             self.tp_group = made[tuple(tp_groups[self.ep_rank])]
@@ -567,7 +653,7 @@ class ModelRunner:
         backend = dist.get_backend(group.process_group)
         dev = eng.device if backend == "nccl" else torch.device("cpu")
         self.channel = _Channel(group, dev)
-        self._engine_id = next(_engines)
+        self._engine_id = _engine_id(group)
         if backend != "nccl" and eng.device.type == "cuda":
             # gloo's collectives cannot be captured into a CUDA graph
             self._graphs.enabled = False
@@ -771,8 +857,10 @@ class ModelRunner:
             if kind == "stop":
                 self._kept.clear()
                 if ops and ops[0] is not None:
-                    raise ShardedEngineError(
+                    err = ShardedEngineError(
                         f"rank 0 stopped on a fault: {ops[0]}")
+                    err.leader_stopped = True
+                    raise err
                 return
             try:
                 prog = self._resolve(kind, key)
@@ -855,6 +943,203 @@ class ModelRunner:
 
     def _reset(self):
         self._kept.clear()
+
+    # ------------------------------------- the pool and weights, globally
+    def _all_gather(self, t: torch.Tensor, group=None) -> List[torch.Tensor]:
+        """Every member's ``t`` (one shape on every rank) in group-rank
+        order, through the channel's device (a gloo group moves host
+        tensors)."""
+        from ..distributed.collective import all_gather
+
+        return all_gather([], t.to(self.channel.dev),
+                          group=self.group if group is None else group)
+
+    def _lanes(self, width: int) -> Tuple[int, int]:
+        """This rank's first lane and lane count of a pool buffer whose
+        pages are ``width`` lanes wide here (all of them off tp)."""
+        return self.tp_rank * width, width * self.tp
+
+    def global_page_shape(self, buf: torch.Tensor) -> Tuple[int, ...]:
+        """One page of pool buffer ``buf`` as the global pool holds it
+        (``[page_size, Hkv * D]``; this rank holds ``1/tp`` of the
+        lanes)."""
+        return tuple(buf.shape[1:-1]) + (buf.shape[-1] * self.tp,)
+
+    def page_row_bytes(self, pages_flat: List[torch.Tensor]) -> List[int]:
+        """The bytes of one whole page of each buffer, ``pages_flat``
+        order."""
+        return [int(np.prod(self.global_page_shape(b))) * b.element_size()
+                for b in pages_flat]
+
+    def gather_pages(self, pages) -> List[torch.Tensor]:
+        """Whole pages ``pages`` of every pool buffer (``pages_flat``
+        order), each ``[len(pages), page_size, Hkv * D]`` in the global
+        layout. At tp > 1 one command: every rank gathers its lanes and
+        one ``all_gather`` joins them (rank 0 assembles them; the tensors
+        lie on the channel's device); elsewhere rank 0's own pool, on the
+        engine's device."""
+        eng = self.engine
+        if self.tp == 1:
+            idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                                  device=eng.device)
+            return self.capture_pages(eng._cache.pages_flat(), idx)
+        parts = self._ops["gather_pages"](np.asarray(pages, np.int64))
+        # the lanes of tp rank i lie with the ranks of ep index 0
+        parts = [parts[i * self.ep] for i in range(self.tp)]
+        out, off = [], 0
+        n = len(pages)
+        for b in eng._cache.pages_flat():
+            size = b[0].numel() * b.element_size()
+            lanes = [p[:, off:off + size].view(b.dtype)
+                     .view((n,) + tuple(b.shape[1:])) for p in parts]
+            out.append(torch.cat(lanes, dim=-1))
+            off += size
+        return out
+
+    def _gather_pages(self, idx):
+        """Every rank: its lanes of pages ``idx``, one byte row a page
+        (``capture_page_row``'s layout), gathered from every rank."""
+        flat = self.engine._cache.pages_flat()
+        rows = torch.cat([b.index_select(0, idx).reshape(idx.shape[0], -1)
+                          .view(torch.uint8) for b in flat], dim=1)
+        return tuple(self._all_gather(rows))
+
+    def gather_page_rows(self, pages) -> torch.Tensor:
+        """Whole pages as byte rows (``uint8 [len(pages), bytes]``, every
+        buffer's global page in ``pages_flat`` order: the host tier's slab
+        row). See :meth:`gather_pages`."""
+        if self.tp == 1:
+            flat = self.engine._cache.pages_flat()
+            rows = [self.capture_page_row(flat, p) for p in pages]
+            return rows[0][None] if len(rows) == 1 else torch.stack(rows)
+        n = len(pages)
+        return torch.cat([t.reshape(n, -1).view(torch.uint8)
+                          for t in self.gather_pages(pages)], dim=1)
+
+    def restore_rows(self, pages, rows):
+        """Write whole-page byte rows (``uint8 [len(pages), bytes]``, the
+        layout of :meth:`gather_page_rows`) into pages ``pages`` of the
+        pool, in place (the captured graphs read the pool by address). On
+        one device ``rows`` is host data or a tensor on the engine's
+        device; on a sharded engine it is one command, each rank taking
+        its lanes of the host rows."""
+        if isinstance(rows, torch.Tensor) and self.sharded:
+            rows = rows.cpu().numpy()
+        return self._ops["restore_rows"](np.asarray(pages, np.int64), rows)
+
+    @torch.no_grad()
+    def _restore_rows(self, idx, rows):
+        flat = self.engine._cache.pages_flat()
+        n, off = idx.shape[0], 0
+        for b, size in zip(flat, self.page_row_bytes(flat)):
+            whole = rows[:, off:off + size].view(b.dtype) \
+                .view((n,) + self.global_page_shape(b))
+            if self.tp > 1:
+                lo, _ = self._lanes(b.shape[-1])
+                whole = whole[..., lo:lo + b.shape[-1]]
+            b.index_copy_(0, idx, whole)
+            off += size
+
+    def page_sums(self, pages) -> List[int]:
+        """Rank 0: the integrity sentinel's exact checksums of whole pages
+        ``pages`` (``integrity.page_checksums``), as Python ints."""
+        from .integrity import page_checksums
+
+        eng = self.engine
+        if self.tp == 1:
+            idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                                  device=eng.device)
+            return page_checksums(eng._cache.pages_flat(), idx) \
+                .cpu().tolist()
+        halves = self._ops["page_sums"](np.asarray(pages, np.int64))
+        lo, hi = halves.cpu().tolist()
+        # the wrapping int64 sum, from the exact sums of its halves
+        out = []
+        for a, b in zip(lo, hi):
+            v = (b * (1 << 32) + a) % (1 << 64)
+            out.append(v - (1 << 64) if v >= 1 << 63 else v)
+        return out
+
+    @torch.no_grad()
+    def _page_sums(self, idx):
+        """Every rank: its lanes' share of each page's checksum, split into
+        a low (unsigned) and a high (signed) 32-bit half so the tp group's
+        sum of them is exact, summed over that group."""
+        from .integrity import page_checksums
+
+        flat = self.engine._cache.pages_flat()
+        lane0, lanes = self._lanes(flat[0].shape[-1])
+        s = page_checksums(flat, idx, lane0=lane0, lanes=lanes)
+        halves = torch.stack([s & 0xFFFFFFFF, s >> 32])
+        from ..distributed.collective import all_reduce
+
+        return all_reduce(halves.to(self.channel.dev), group=self.tp_group)
+
+    # weights ------------------------------------------------------------
+    def _param_layout(self) -> List[tuple]:
+        if self._layout is None:
+            model = self.engine.model
+            names = [n for n, _ in model.named_parameters()]
+            names += [n for n, b in model.named_buffers() if b is not None]
+            out = []
+            for name, t in zip(names, self.engine._params):
+                shape, dim, start, length = list(t.shape), None, 0, None
+                for d, axis in enumerate((self.param_specs or {})
+                                         .get(name, ())):
+                    if axis:
+                        r, n = self.coords[axis]
+                        dim, start, length = d, r * shape[d], shape[d]
+                        shape[d] *= n
+                out.append((tuple(shape), dim, start, length))
+            self._layout = out
+        return self._layout
+
+    def param_numel(self, i: int) -> int:
+        """The GLOBAL element count of parameter ``i`` of
+        ``Engine._params``."""
+        return int(np.prod(self._param_layout()[i][0], dtype=np.int64))
+
+    def local_span(self, i: int, start: int, stop: int) -> Tuple[int, int]:
+        """The elements of global flat range ``[start, stop)`` of parameter
+        ``i`` that this rank holds, as a range of its shard's flat order."""
+        shape, dim, first, length = self._param_layout()[i]
+        return (_local_count(shape, dim, first, length, start),
+                _local_count(shape, dim, first, length, stop))
+
+    def audit_weight(self, i: int, b: int) -> List[int]:
+        """Rank 0: the ranks whose shard of weight-audit block ``b`` of
+        parameter ``i`` no longer matches its load-time digest (on a
+        sharded engine one command and one ``all_gather``)."""
+        ok = self._ops["audit_weight"](np.asarray([i, b], np.int64))
+        return [r for r, flag in enumerate(ok.cpu().tolist()) if not flag]
+
+    def _audit_weight(self, ib):
+        i, b = (int(x) for x in ib.cpu())
+        ok = self.engine._integrity.block_ok(i, b)
+        flag = torch.tensor([int(ok)], dtype=torch.int64)
+        return flag if self.channel is None \
+            else torch.cat(self._all_gather(flag))
+
+    def flip_weight(self, i: int, flat: int, bit: int):
+        """``bit-flip-weight``: XOR bit ``bit`` of global element ``flat``
+        of parameter ``i`` in place, on every rank that holds it."""
+        return self._ops["flip_weight"](np.asarray([i, flat, bit], np.int64))
+
+    @torch.no_grad()
+    def _flip_weight(self, args):
+        i, flat, bit = (int(x) for x in args.cpu())
+        lo, hi = self.local_span(i, flat, flat + 1)
+        if hi > lo:
+            flip_bit(self.engine._params[i], lo, bit)
+
+    def shadow(self, ids: np.ndarray) -> torch.Tensor:
+        """The integrity sentinel's contiguous forward of ``ids`` [S] on
+        every rank: the last position's f32 logits [V]."""
+        return self._ops["shadow"](np.asarray(ids, np.int64)[None, :])
+
+    @torch.no_grad()
+    def _shadow(self, ids):
+        return self.engine.model(ids)[0, -1].float()
 
     # ---------------------------------------------------------- programs
     def _count(self, kind: str):
@@ -964,15 +1249,6 @@ class ModelRunner:
         return [b.index_select(0, idx) for b in pages_flat]
 
     @staticmethod
-    def restore_pages(pages_flat: List[torch.Tensor], idx: torch.Tensor,
-                      payload: List[torch.Tensor]):
-        """Write ``payload`` (one ``[len(idx), ...]`` tensor per buffer, on
-        the pool's device) into pages ``idx`` of every pool buffer, in
-        place: the captured graphs read these buffers by address."""
-        for b, x in zip(pages_flat, payload):
-            b.index_copy_(0, idx, x)
-
-    @staticmethod
     def capture_page_row(pages_flat: List[torch.Tensor],
                          page: int) -> torch.Tensor:
         """One page of every pool buffer as one contiguous byte row
@@ -981,26 +1257,14 @@ class ModelRunner:
         return torch.cat([b[int(page)].reshape(-1).view(torch.uint8)
                           for b in pages_flat])
 
-    @classmethod
-    def restore_page_rows(cls, pages_flat: List[torch.Tensor],
-                          idx: torch.Tensor, rows: torch.Tensor):
-        """Inverse of :meth:`capture_page_row` for ``len(idx)`` pages:
-        ``rows`` (``uint8 [n, page bytes]``, on the pool's device) split
-        into each buffer's views and written by :meth:`restore_pages`."""
-        payload, off = [], 0
-        for b in pages_flat:
-            size = b[0].numel() * b.element_size()
-            payload.append(rows[:, off:off + size].view(b.dtype)
-                           .view((rows.shape[0],) + tuple(b.shape[1:])))
-            off += size
-        cls.restore_pages(pages_flat, idx, payload)
-
     def fetch_param_slice(self, i: int, start: int,
                           stop: Optional[int]) -> np.ndarray:
         """Host copy of elements ``[start, stop)`` (row-major flat order;
         ``stop=None``: to the end) of parameter ``i`` of
         ``Engine._params``, as raw words (``host_words``): the bytes the
-        programs consume, in the reference's byte order."""
+        programs consume, in the reference's byte order. On a sharded
+        engine: of this rank's shard (:meth:`local_span` maps a global
+        range onto it)."""
         flat = self.engine._params[i].detach().reshape(-1)
         return host_words(flat[int(start):None if stop is None
                                else int(stop)])

@@ -12,16 +12,20 @@ the usable prefix: token-exact argmax matching for greedy requests
 ``Engine(model, spec="ngram", spec_k=4)``, or ``Engine(model,
 spec="draft", spec_k=4, draft_model=small_lm)``: a small causal LM sharing
 the target's vocabulary drafts over its own paged pool
-(``DraftModelDrafter``).
+(``DraftModelDrafter``). On a sharded engine (tp/ep > 1) the draft model
+runs on rank 0 alone, whole, over its own pool, as the reference's does;
+only the verify step rides the sharded weights. A follower rank never
+builds the drafter (``FollowerDrafter`` holds its place).
 """
 from __future__ import annotations
 
 from .acceptance import accept_tokens
 from .controller import AdaptiveDraftController
-from .drafter import DraftModelDrafter, NgramDrafter
+from .drafter import DraftModelDrafter, FollowerDrafter, NgramDrafter
 from .verifier import make_verify_fn
 
 __all__ = ["SpecDecoder", "NgramDrafter", "DraftModelDrafter",
+           "FollowerDrafter",
            "AdaptiveDraftController", "accept_tokens", "make_verify_fn"]
 
 
@@ -69,7 +73,12 @@ class SpecDecoder:
                 raise ValueError(
                     'spec="draft" needs draft_model=<small causal LM '
                     "sharing the target's vocab>")
-            self.drafter = DraftModelDrafter(draft_model, engine)
+            DraftModelDrafter.check(draft_model, engine)
+            # a sharded engine's draft runs on rank 0 alone, unsharded (as
+            # the reference's drafter does): its drafts reach the
+            # followers inside the verify command
+            self.drafter = DraftModelDrafter(draft_model, engine) \
+                if engine.is_leader else FollowerDrafter()
         else:
             raise ValueError(
                 f"spec={mode!r}: expected 'ngram' or 'draft' (or "

@@ -37,7 +37,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-__all__ = ["NgramDrafter", "DraftModelDrafter"]
+__all__ = ["NgramDrafter", "DraftModelDrafter", "FollowerDrafter"]
 
 
 def _pow2ceil(n: int) -> int:
@@ -112,7 +112,10 @@ class DraftModelDrafter:
 
     name = "draft"
 
-    def __init__(self, model, engine):
+    @staticmethod
+    def check(model, engine):
+        """The draft model's agreement with the target engine (every rank
+        of a sharded engine checks, so each raises alike)."""
         cfg = model.config
         if cfg.vocab_size != engine.cfg.vocab_size:
             raise ValueError(
@@ -124,6 +127,10 @@ class DraftModelDrafter:
         if model.dtype != engine.dtype:
             raise ValueError(f"draft model dtype {model.dtype} must match "
                              f"the engine's {engine.dtype}")
+
+    def __init__(self, model, engine):
+        self.check(model, engine)
+        cfg = model.config
         from ..cache_coord import CacheCoordinator
         from ..runner import GraphSet
 
@@ -154,8 +161,11 @@ class DraftModelDrafter:
         self._slot_rid = np.full((engine.max_slots,), -1, np.int64)
         self._last = np.zeros((engine.max_slots,), np.int64)
         # the propose steps, one per (nb, k); ``enabled = False`` runs
-        # them eagerly (chip_smoke.py's eager twin)
+        # them eagerly (chip_smoke.py's eager twin). A sharded engine's
+        # draft follows its target's chains: graphs over NCCL, eager over
+        # gloo
         self._graphs = GraphSet(self.device)
+        self._graphs.enabled = engine.runner._graphs.enabled
 
     # ------------------------------------------------------- allocator
     def _pages_needed(self, length):
@@ -337,3 +347,21 @@ class DraftModelDrafter:
             if s in degraded:
                 dlen[i] = 0
         return self._run_propose(slots, nb, k), dlen
+
+
+class FollowerDrafter:
+    """The drafter's place on a follower rank of a sharded engine: the
+    draft model runs on rank 0 alone, so a follower builds no draft pool
+    and never proposes."""
+
+    name = "draft"
+
+    def propose(self, engine, slots, reqs, want, k):
+        raise RuntimeError("a follower rank does not draft: rank 0's "
+                           "drafts arrive inside the verify command")
+
+    def release(self, slot):
+        pass
+
+    def reset(self):
+        pass

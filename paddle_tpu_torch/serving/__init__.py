@@ -16,7 +16,9 @@ multi-replica layer, after ``paddle_tpu/serving``.
   or worker processes behind the ApiServer protocol) with split liveness
   and readiness, health-gated routing, and KV-free mid-stream migration: a
   dead replica's streams re-admit elsewhere as prompt‖emitted and the
-  client sees one uninterrupted, bit-identical token sequence.
+  client sees one uninterrupted, bit-identical token sequence. An
+  in-process replica over a sharded engine (tp/ep > 1) lives on rank 0;
+  every other rank of its group runs ``follow_replica(factory)``.
 * :mod:`cluster`: ``Router(pools={"prefill": k, "decode": m})`` splits the
   replicas into role pools, ships a prompt's KV from its prefill replica
   to its decode replica (digest-verified; every failure degrades to
@@ -26,13 +28,15 @@ multi-replica layer, after ``paddle_tpu/serving``.
 from .cluster import ClusterCoordinator, parse_pools
 from .fairness import DEFAULT_TENANT, FairQueue, parse_tenant_weights
 from .frontend import ServingFrontend, StreamTicket
-from .replica import InProcReplica, Replica, StreamSpec, SubprocessReplica
+from .replica import (InProcReplica, Replica, StreamSpec, SubprocessReplica,
+                      follow_replica)
 from .router import Router, RouterTicket
 
 __all__ = [
     "DEFAULT_TENANT", "FairQueue", "parse_tenant_weights",
     "ServingFrontend", "StreamTicket",
     "Replica", "InProcReplica", "SubprocessReplica", "StreamSpec",
+    "follow_replica",
     "Router", "RouterTicket",
     "ClusterCoordinator", "parse_pools",
 ]

@@ -12,6 +12,13 @@ surface that :mod:`router <paddle_tpu_torch.serving.router>` supervises:
   restart shuts the dead incarnation's host KV tier down and collects it
   before the factory builds the next, so device memory comes back. The KV
   handoff passes the payload's host tensors in-process, with no JSON.
+  Over a sharded engine (tp/ep > 1) the replica lives on rank 0, and each
+  other rank of its group runs :func:`follow_replica` with the same
+  factory, beside the follower's ``Engine.run()`` / ``serve_forever()``
+  for a lone engine: it follows each incarnation's commands and builds
+  the next one when rank 0 restarts the replica, until rank 0 stops it.
+  A replica rides one parallel axis: at tp > 1 and ep > 1 both sides
+  refuse it with ``TypeError``.
 * :class:`SubprocessReplica`: a worker process speaking the
   :class:`~paddle_tpu_torch.serving.server.ApiServer` protocol (for example
   ``examples/serve_llama_paged_torch.py --api-port 0``). Liveness is the
@@ -60,7 +67,7 @@ import numpy as np
 import torch
 
 __all__ = ["Replica", "InProcReplica", "SubprocessReplica",
-           "StreamSpec", "ReplicaStream",
+           "StreamSpec", "ReplicaStream", "follow_replica",
            "encode_kv_payload", "decode_kv_payload"]
 
 
@@ -260,27 +267,104 @@ class Replica:
         return 0
 
 
-def _unsharded(frontend):
-    """``frontend``, unless its engine is sharded (tp/ep > 1): a router or
-    a cluster coordinator over sharded engines is not ported."""
+# the word rank 0 sends a sharded replica's followers once an engine has
+# stopped: build the next incarnation, or leave
+_NEXT, _DONE = 1, 0
+
+
+def _sharded_runner(frontend):
+    """The runner of ``frontend``'s engine when it is sharded (tp/ep > 1),
+    else None."""
     runner = getattr(getattr(frontend, "engine", None), "runner", None)
-    if runner is not None and runner.sharded:
-        raise TypeError("a Router / ClusterCoordinator replica over a "
-                        "tp/ep > 1 engine is not ported")
-    return frontend
+    return runner if runner is not None and runner.sharded else None
+
+
+def _refusal(runner) -> Optional[str]:
+    """Why an :class:`InProcReplica` cannot ride ``runner``'s sharded
+    engine, or None. Every rank decides it alike, from the layout."""
+    if runner is None or runner.tp == 1 or runner.ep == 1:
+        return None
+    return (f"InProcReplica over an engine at tp={runner.tp} x "
+            f"ep={runner.ep}: its tp and ep groups (the ranks of one ep or "
+            "one tp index) are the process's own, one a rank set "
+            "(torch.distributed names such a group by its ranks), so two "
+            "replicas over the same ranks would share them and mix their "
+            "collectives; serve replicas at tp or ep alone, whose one axis "
+            "rides the group the factory passes")
+
+
+def _replica_word(runner, word: int = 0) -> int:
+    """One word over the engine's group, after its last command: rank 0
+    sends ``word``, a follower returns what rank 0 sent."""
+    from ..distributed.collective import broadcast
+
+    t = torch.tensor([int(word)], dtype=torch.int64,
+                     device=runner.channel.dev)
+    broadcast(t, runner.channel.src, group=runner.group)
+    return int(t.item())
+
+
+def follow_replica(factory: Callable) -> int:
+    """A follower rank's side of an :class:`InProcReplica` over a sharded
+    engine (tp/ep > 1): build the engine from ``factory`` (the same factory
+    as rank 0's: a ``ServingFrontend``, which is not started here, or an
+    ``Engine``), run rank 0's commands on this rank's shard until rank 0
+    stops that engine, then build the next incarnation for a restart, until
+    rank 0 stops the replica (:meth:`InProcReplica.stop`). Returns the
+    engines followed. A follower whose own command raised raises
+    ``ShardedEngineError``; one that rank 0 stopped on a fault waits for
+    the restart. Run one such loop a replica (a thread each, when one
+    process follows several replicas over groups of their own)."""
+    from ..inference.runner import ShardedEngineError, collect_garbage
+
+    n = 0
+    while True:
+        built = factory()
+        runner = getattr(built, "engine", built).runner
+        n += 1
+        try:
+            runner.follow()
+        except ShardedEngineError as e:
+            if not e.leader_stopped:
+                raise
+        word = _replica_word(runner)
+        why = _refusal(runner)
+        if why is not None:
+            raise TypeError(why)
+        if word != _NEXT:
+            return n
+        # the engine, its pool and its graphs go before the next is built
+        del built
+        collect_garbage()
 
 
 class InProcReplica(Replica):
     """An Engine + ServingFrontend replica in this process. ``factory()``
     returns a :class:`~paddle_tpu_torch.serving.frontend.ServingFrontend`
     (started or not); restarts call it again, so each incarnation gets a
-    fresh engine and page pool."""
+    fresh engine and page pool.
+
+    Over a sharded engine (tp/ep > 1) this object lives on rank 0 and
+    every other rank of the engine's group runs :func:`follow_replica`
+    with the same factory. A restart waits for the dead incarnation's
+    engine thread, stops its followers' loop (``Engine.close``) and tells
+    them to build the next one; :meth:`stop` tells them to leave. Two
+    replicas over the same ranks need groups of their own (the factory
+    passes ``group=``), made in one order on every rank. An engine at
+    tp > 1 and ep > 1 is refused with ``TypeError`` on every rank: its
+    tp and ep groups are the process's, shared by every engine over the
+    same ranks."""
+
+    # the longest a sharded incarnation's engine thread may take to leave
+    # before its followers are told anything (a step in flight finishes)
+    JOIN_S = 120.0
 
     def __init__(self, factory: Callable, name: str = "inproc",
                  index: int = 0):
         super().__init__(name, index)
         self._factory = factory
         self._fe = None
+        self._ended = False  # a sharded replica's followers have left
 
     @property
     def frontend(self):
@@ -288,9 +372,20 @@ class InProcReplica(Replica):
 
     def start(self):
         if self._fe is None:
-            self._fe = _unsharded(self._factory())
-            self._fe.start()
+            self._build()
         return self
+
+    def _build(self):
+        """The next incarnation from the factory, started. One whose
+        sharded engine no replica can ride (:func:`_refusal`) is stopped,
+        its followers told to leave, and refused with ``TypeError``."""
+        fe = self._factory()
+        why = _refusal(_sharded_runner(fe))
+        if why is not None:
+            self._end_sharded(fe, _DONE)
+            raise TypeError(why)
+        self._fe = fe
+        self._fe.start()
 
     def alive(self) -> bool:
         return self._fe is not None and self._fe.alive
@@ -307,10 +402,33 @@ class InProcReplica(Replica):
     def stop(self):
         if self._fe is not None:
             self._fe.shutdown()
+            if not self._ended:
+                self._end_sharded(self._fe, _DONE)
+
+    def _end_sharded(self, fe, word: int):
+        """Rank 0, a sharded incarnation going: once its engine thread has
+        left (no command in flight), stop its followers' loop and send them
+        ``word``. A no-op for an unsharded engine."""
+        runner = _sharded_runner(fe)
+        if runner is None:
+            return
+        t = fe._thread
+        if t is not None:
+            t.join(self.JOIN_S)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"replica {self.name!r}: the engine thread is still "
+                    "running; its followers cannot be stopped safely")
+        runner.stop()
+        _replica_word(runner, word)
+        self._ended = word == _DONE
 
     def restart(self):
         from ..inference.runner import collect_garbage
 
+        if self._ended:
+            raise RuntimeError(f"replica {self.name!r} was stopped: its "
+                               "followers have left")
         dead, self._fe = self._fe, None
         if dead is not None:
             # the dead incarnation's host KV tier dies with it: its worker
@@ -322,13 +440,13 @@ class InProcReplica(Replica):
             except Exception:  # pragma: no cover - teardown best-effort
                 pass
             dead.shutdown()
+            self._end_sharded(dead, _NEXT)
             # the dead engine, its pool and its graphs are held in
             # reference cycles (an engine and its runner hold each other):
             # collect them before the factory allocates the next pool
             del dead
             collect_garbage()
-        self._fe = _unsharded(self._factory())
-        self._fe.start()
+        self._build()
         self.restarts += 1
         return self
 

@@ -100,7 +100,27 @@ def body_templated(eng, vocab):
     return reqs
 
 
-BODIES = {"serve": body_serve, "templated": body_templated}
+def body_churn(eng, vocab, rounds=2, budget=4, n_tpl=6, tlen=48, tail=5):
+    """The host tier's workload (the reference's ``tests/test_kv_tier.py``
+    churn): round-robin visits of ``n_tpl`` templates of ``tlen`` tokens
+    with distinct tails, two steps after each arrival; a pool of about two
+    templates demotes and promotes the rest every round."""
+    r = np.random.default_rng(3)
+    tpls = [r.integers(0, vocab, (tlen,)) for _ in range(n_tpl)]
+    reqs, n = [], 0
+    for _ in range(rounds):
+        for tpl in tpls:
+            n += 1
+            tl = np.random.default_rng(1000 + n).integers(0, vocab, (tail,))
+            reqs.append(eng.add_request(np.concatenate([tpl, tl]), budget))
+            eng.step()
+            eng.step()
+    eng.run()
+    return reqs
+
+
+BODIES = {"serve": body_serve, "templated": body_templated,
+          "churn": body_churn}
 
 
 def outcome(eng, reqs):

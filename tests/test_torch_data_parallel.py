@@ -456,6 +456,25 @@ def test_strategy_knobs_and_data_parallel_surface():
         destroy_process_group()
 
 
+def test_exit_hook_frees_the_worlds_groups():
+    """A world started through ``init_parallel_env`` arms the exit hook.
+    After ``torch.distributed``'s own teardown the port still holds the
+    world's group, the state in which a gloo thread outlived the world
+    into the interpreter's finalization; the hook lets it go."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env, parallel
+
+    group = init_parallel_env(device="cpu")
+    assert parallel._exit_hook
+    dist.destroy_process_group()
+    assert parallel._default_group is group
+    parallel._release_at_exit()
+    assert parallel._default_group is None
+    assert not parallel._env.initialized and not parallel._subgroups
+    assert not dist.is_initialized()
+
+
 def test_new_modules_import_without_jax_or_the_reference():
     """A fresh interpreter imports every module of this slice and the
     example, and finds neither jax nor paddle_tpu loaded."""

@@ -182,23 +182,27 @@ def test_sampled_resume_continues_the_stream(models):
                                                          integrity="audit"),
     dict(tp=2, ep=2, spec="draft"), dict(tp=2, quant="weight_only_int8")])
 def test_unported_knobs_raise_type_error(models, knob):
-    """What a tp/ep > 1 engine does not shard yet raises ``TypeError``
-    naming it, before any rank is needed: the host KV tier, the integrity
-    sentinel, draft-model spec decoding, weight-only quantized layers."""
+    """The one knob a tp/ep > 1 engine refuses, weight-only quantized
+    layers, raises ``TypeError`` naming why, before any rank is needed
+    (the reference cannot serve them sharded). The host KV tier, the
+    integrity sentinel and draft-model spec decoding are served sharded:
+    without a process world they reach the reference's rank check
+    (``ValueError``), as a plain tp/ep > 1 engine does."""
     _, tm = models
     knob = dict(knob)
-    names = {"kv_host_pages": "kv_host_pages", "integrity": "integrity",
-             "spec": "draft", "quant": "weight-only"}
-    key = next(v for k, v in names.items() if k in knob)
     model = tm
     if "quant" in knob:
         from paddle_tpu_torch.nn.quant import quantize_for_decode
 
         model = copy.deepcopy(tm)
         quantize_for_decode(model, algo=knob.pop("quant"))
+        with pytest.raises(TypeError, match="weight-only quantized.*"
+                                            "RetriesExhausted"):
+            Engine(model, num_pages=32, device="cpu", **GEOM, **knob)
+        return
     if knob.get("spec") == "draft":
         knob["draft_model"] = tm
-    with pytest.raises(TypeError, match=key):
+    with pytest.raises(ValueError, match="ranks"):
         Engine(model, num_pages=32, device="cpu", **GEOM, **knob)
 
 

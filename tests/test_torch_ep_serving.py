@@ -75,10 +75,31 @@ def _worker(rank, world, init_file, out_dir, arrays_file):
             case["kw"] = dict(case.get("kw", {}), **kw)
             res[(layout, name)] = W.port_serve(
                 rank, list(range(world)), model_fn, cfg.vocab_size, case)
+    res["replica_tp2ep2"] = _replica_refusal(rank, model_fn)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     import torch.distributed as dist
 
     dist.destroy_process_group()
+
+
+def _replica_refusal(rank, model_fn):
+    """An ``InProcReplica`` over a tp=2 x ep=2 engine of the whole world:
+    rank 0 starts it, the others follow it; what each raised."""
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.serving import (InProcReplica, ServingFrontend,
+                                          follow_replica)
+
+    def factory():
+        return ServingFrontend(Engine(model_fn(), tp=2, ep=2,
+                                      **dict(W.GEOM, device="cpu")))
+    try:
+        if rank == 0:
+            InProcReplica(factory).start()
+        else:
+            follow_replica(factory)
+    except Exception as e:  # noqa: BLE001 - the class is what is held
+        return type(e).__name__, str(e)
+    return None
 
 
 @pytest.fixture(scope="module")
@@ -169,3 +190,14 @@ def test_expert_stacks_sharded_router_replicated(port, layout):
     lanes = cfg.num_kv_heads * cfg.head_dim // tp
     for rec in [lead] + followers:
         assert rec["pool"][-1] == lanes
+
+
+def test_replica_refused_at_tp2_ep2(port):
+    """A replica rides tp or ep alone: over a tp=2 x ep=2 engine rank 0's
+    ``start()`` and every follower's ``follow_replica`` raise TypeError
+    naming the shared tp and ep groups (two replicas over the same ranks
+    would mix their collectives), and every rank leaves the engine."""
+    for r in range(WORLD):
+        cls, msg = port[r]["replica_tp2ep2"]
+        assert cls == "TypeError", (r, cls, msg)
+        assert "tp=2 x ep=2" in msg and "share" in msg, msg

@@ -98,6 +98,21 @@ def assert_grads_close(got, want, rel=1e-5):
                                    err_msg=name)
 
 
+@pytest.fixture(autouse=True)
+def no_jax_mesh():
+    """Each test's JAX model runs on the JAX package's default mesh, as in
+    a fresh process. A mesh with an ``mp`` axis that an earlier test's
+    ``fleet.init`` left in this xdist worker makes the JAX GPT's ``loss``
+    take the vocab-parallel cross entropy under ``shard_map``, whose bf16
+    compile aborted the worker (ROADMAP C5)."""
+    from paddle_tpu.distributed import parallel as jparallel
+
+    prev = jparallel._global_mesh
+    jparallel.set_mesh(None)
+    yield
+    jparallel.set_mesh(prev)
+
+
 @pytest.fixture
 def route_flags():
     """Sets ``FLAGS_use_packed_attention`` in both packages; restores."""

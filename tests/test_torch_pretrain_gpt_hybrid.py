@@ -112,6 +112,20 @@ def _jax_setup(arrays):
     return model, engine, opt
 
 
+@pytest.fixture(scope="module", autouse=True)
+def restore_jax_mesh():
+    """``_jax_setup``'s ``fleet.init`` sets the JAX package's global mesh
+    (dp 2 x pp 2 x mp 2); it is put back after the module, so no later
+    test in this xdist worker runs its JAX model under an ``mp`` axis (the
+    JAX GPT's ``loss`` would take the vocab-parallel cross entropy, whose
+    bf16 compile aborted a worker: ROADMAP C5)."""
+    from paddle_tpu.distributed import parallel as jparallel
+
+    prev = jparallel._global_mesh
+    yield
+    jparallel.set_mesh(prev)
+
+
 @pytest.fixture(scope="module")
 def arrays():
     """Random f32 arrays for every parameter of the reference's tiny

@@ -36,8 +36,8 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import gpt_from_numpy
 from paddle_tpu_torch.models.gpt import GPTConfig
 
-from test_torch_gpt import (TINY, batch, load_jax, route_flags,  # noqa: F401
-                            tiny_gpt_arrays)
+from test_torch_gpt import (TINY, batch, load_jax,  # noqa: F401
+                            no_jax_mesh, route_flags, tiny_gpt_arrays)
 from _torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 4
